@@ -1,7 +1,14 @@
-// style_blend_dot for Hopper: group style dot + o-branch conv adds + bias.
+// Group style dots for Hopper.
 //
-// Replaces endosr/kernels/style_dot.py::style_blend_dot (pallas_call at
-// :284). For one group of SEAN instances:
+// style_dot_hwbm replaces endosr/kernels/style_dot.py::style_dot_hwbm
+// (pallas_call at :111): the dot below alone, rounded once to T, written
+// in [H, W, B, M] index order over a BHWC tensor. It runs where the masked
+// (bucketed) forward cannot take the blend. Bound on the H100 in bf16:
+// bytes, the [B,H,W,M] map written once (~470 MB at M=1792, ≈0.15 ms at
+// 3.35 TB/s) against 42 GFLOP (0.04 ms at the tensor-core peak).
+//
+// style_blend_dot replaces endosr/kernels/style_dot.py::style_blend_dot
+// (pallas_call at :284). For one group of SEAN instances:
 //   out[h, w, b, m] = (dot[b,h,w,m] + conv_{m/c2}[h, w, b, m mod c2]) + bias[m]
 //   dot[b,h,w,m]    = Σ_j shifted[b,h,w,j] · v[b,j,m]      (J = 9K = 90)
 // with the dot rounded to T before the adds, as the twin does. The N conv
@@ -21,9 +28,11 @@
 #define SD_BN 64
 #define SD_BK 16
 
-template <typename T>
+// BLEND: add the conv slice and the bias in the epilogue (style_blend_dot);
+// otherwise store the rounded dot (style_dot_hwbm; convs and bias unused).
+template <typename T, bool BLEND>
 __global__ void __launch_bounds__(256)
-style_blend_kernel(const T* __restrict__ sh, const T* __restrict__ v,
+style_dot_kernel(const T* __restrict__ sh, const T* __restrict__ v,
                    const i64* __restrict__ convs, i64 ch, i64 cw, i64 cb,
                    int c2, const float* __restrict__ bias, T* __restrict__ out,
                    i64 oh, i64 ow, i64 ob, int H, int W, int J, int M) {
@@ -85,11 +94,14 @@ style_blend_kernel(const T* __restrict__ sh, const T* __restrict__ v,
     for (int j = 0; j < 4; ++j) {
       int m = n0 + tx * 4 + j;
       if (m >= M) continue;
-      int ci = m / c2, cm = m - ci * c2;
-      const T* cp = reinterpret_cast<const T*>(convs[ci]);
-      float y = rnd<T>(acc[i][j]);
-      y = rnd<T>(y + to_f<T>(cp[hh * ch + ww * cw + b * cb + cm]));
-      y = y + rnd<T>(bias[m]);
+      float y = acc[i][j];
+      if (BLEND) {
+        int ci = m / c2, cm = m - ci * c2;
+        const T* cp = reinterpret_cast<const T*>(convs[ci]);
+        y = rnd<T>(y);
+        y = rnd<T>(y + to_f<T>(cp[hh * ch + ww * cw + b * cb + cm]));
+        y = y + rnd<T>(bias[m]);
+      }
       out[hh * oh + ww * ow + b * ob + m] = from_f<T>(y);
     }
   }
@@ -108,14 +120,32 @@ int style_blend_dot(int dtype, const void* shifted, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((H * W + SD_BM - 1) / SD_BM, (M + SD_BN - 1) / SD_BN, B);
   if (dtype == 0)
-    style_blend_kernel<float><<<grid, 256, 0, s>>>(
+    style_dot_kernel<float, true><<<grid, 256, 0, s>>>(
         (const float*)shifted, (const float*)v, (const i64*)convs, ch, cw, cb,
         c2, (const float*)bias, (float*)out, oh, ow, ob, H, W, J, M);
   else
-    style_blend_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+    style_dot_kernel<__nv_bfloat16, true><<<grid, 256, 0, s>>>(
         (const __nv_bfloat16*)shifted, (const __nv_bfloat16*)v,
         (const i64*)convs, ch, cw, cb, c2, (const float*)bias,
         (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
+  return (int)cudaGetLastError();
+}
+
+// shifted: contiguous [B, H, W, J]; v: contiguous [B, J, M]; out [H, W, B, M]
+// with strides oh, ow, ob (channel stride 1). dtype: 0 float32, 1 bfloat16.
+int style_dot_hwbm(int dtype, const void* shifted, const void* v, void* out,
+                   i64 oh, i64 ow, i64 ob, int B, int H, int W, int J, int M,
+                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((H * W + SD_BM - 1) / SD_BM, (M + SD_BN - 1) / SD_BN, B);
+  if (dtype == 0)
+    style_dot_kernel<float, false><<<grid, 256, 0, s>>>(
+        (const float*)shifted, (const float*)v, nullptr, 0, 0, 0, 1, nullptr,
+        (float*)out, oh, ow, ob, H, W, J, M);
+  else
+    style_dot_kernel<__nv_bfloat16, false><<<grid, 256, 0, s>>>(
+        (const __nv_bfloat16*)shifted, (const __nv_bfloat16*)v, nullptr, 0, 0,
+        0, 1, nullptr, (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
   return (int)cudaGetLastError();
 }
 

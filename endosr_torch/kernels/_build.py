@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels.
 
-Each ``endosr_torch/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a``
+Each ``endosr_torch/csrc/<name>.cu`` (it may export several functions;
+``*.cuh`` files are shared headers) compiles with ``nvcc`` for ``sm_90a``
 into ``build/endosr_torch/lib<name>.so`` (a plain C interface, no PyTorch
 headers, so a build takes seconds) and is loaded with ``ctypes``. Builds
 happen at first use, from the repository's sources only; a library newer
@@ -30,18 +31,26 @@ BUILD = REPO / "build" / "endosr_torch"
 
 P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-# library → (exported function, its argument types)
+# library → {exported function: its argument types}; the first function
+# of a library also names its ``<function>_error`` message export
 SOURCES = {
-    "output_stage": ("output_stage_x8",
-                     [I, P, I64, I64, I64, I, I, I, F32, F32, P, P]),
-    "head_dot": ("head_dot",
-                 [I, P, I64, I64, I64, I, I, I, I, P, P, P, P, I, P]),
-    "packed_chain": ("packed_stage",
-                     [I, P, I64, I64, I64, I, I, I, I, I, I, I, P, I, P, P,
-                      I, I, P, I64, I64, I64, I, P, I64, I64, I64, I, I, P]),
-    "style_dot": ("style_blend_dot",
-                  [I, P, P, P, I64, I64, I64, I, P, P, I64, I64, I64, I, I,
-                   I, I, I, P]),
+    "output_stage": {
+        "output_stage_x8": [I, P, I64, I64, I64, I, I, I, F32, F32, P, P],
+        "output_stage": [I, P, I64, I64, I64, I, I, I, I, I, F32, F32, P, P]},
+    "head_dot": {
+        "head_dot": [I, P, I64, I64, I64, I, I, I, I, P, P, P, P, I, P]},
+    "packed_chain": {
+        "packed_stage": [I, P, I64, I64, I64, I, I, I, I, I, I, I, P, I, P, P,
+                         I, I, P, I64, I64, I64, I, P, I64, I64, I64, I, I, P]},
+    "style_dot": {
+        "style_blend_dot": [I, P, P, P, I64, I64, I64, I, P, P, I64, I64, I64,
+                            I, I, I, I, I, P],
+        "style_dot_hwbm": [I, P, P, P, I64, I64, I64, I, I, I, I, I, P]},
+    "in_stats": {
+        "in_stats": [I, P, I64, I64, I64, I, I, I, I, I, P, P, P]},
+    "fused_in_mod": {
+        "fused_in_mod": [I, P, I64, I64, I64, P, I64, I64, I64, P, I64, I64,
+                         I64, I, I, I, I, I, F32, P, P, P, P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -105,28 +114,30 @@ def build_all(names=None) -> dict[str, float]:
     return times
 
 
-def load(name: str):
-    """The bound C function of kernel library ``name`` (built if needed)."""
+def load(name: str, fn: str | None = None):
+    """The bound C function ``fn`` (default: the first) of kernel library
+    ``name``, which is built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn_name, argtypes = SOURCES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, fn_name + "_error")
+        for fn_name, argtypes in SOURCES[name].items():
+            f = getattr(lib, fn_name)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        err = getattr(lib, next(iter(SOURCES[name])) + "_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _LIBS[name] = lib
-    return getattr(lib, SOURCES[name][0])
+    return getattr(lib, fn or next(iter(SOURCES[name])))
 
 
-def check(name: str, code: int) -> None:
-    """Raise if a launch returned a CUDA error."""
+def check(name: str, code: int, fn: str | None = None) -> None:
+    """Raise if a launch of library ``name`` returned a CUDA error."""
     if code != 0:
-        msg = getattr(_LIBS[name], SOURCES[name][0] + "_error")(code)
-        raise RuntimeError(f"{SOURCES[name][0]} launch failed: "
+        first = next(iter(SOURCES[name]))
+        msg = getattr(_LIBS[name], first + "_error")(code)
+        raise RuntimeError(f"{fn or first} launch failed: "
                            f"{msg.decode()} ({code})")
 
 

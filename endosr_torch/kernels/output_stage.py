@@ -1,13 +1,17 @@
-"""×8 output stage: clamp → un-embed 64→48 → PixelShuffle(4) → fp32 rows.
+"""Output stages: clamp → PixelShuffle(r) → fp32 rows.
 
-Port of ``endosr/kernels/output_stage.py::output_stage_x8`` (TPU kernel
-``pallas_call`` at ``:275``, twin ``:186``) and ``embed_head_channels``
-(``:166``). The CUDA kernel is ``endosr_torch/csrc/output_stage.cu``: a
-pure gather, clamp and cast, bound by memory (~67 MB in + ~101 MB out at
-the flagship shape, ≈50 µs at 3.35 TB/s); one thread moves one run of
-twelve contiguous channels into twelve contiguous output floats. It does
-not copy the TPU kernel's one-hot scatter matmuls: the 64-slot embedding
-is kept only as the tensor order the head conv hands over.
+Port of ``endosr/kernels/output_stage.py``: ``output_stage_x8`` (TPU kernel
+``pallas_call`` at ``:275``, twin ``:186``) with ``embed_head_channels``
+(``:166``), and the general ``output_stage`` for any r and C (``pallas_call``
+at ``:316`` and ``:351``, twin ``:37``). The CUDA kernels are in
+``endosr_torch/csrc/output_stage.cu``: pure gathers with a clamp and a
+cast, bound by memory (~67 MB in + ~101 MB out at the ×8 flagship shape,
+≈50 µs at 3.35 TB/s). ``output_stage_x8`` moves one run of twelve
+contiguous channels into twelve contiguous output floats per thread;
+``output_stage`` writes one output float per thread, a block walking the r
+output rows one input row segment feeds. Neither copies the TPU kernels'
+one-hot selection and scatter matmuls: the 64-slot embedding is kept only
+as the tensor order the head conv hands over.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from endosr_torch.kernels import _build
 from endosr_torch.nn.layers import pixel_shuffle
 from endosr_torch.utils.device import device_constant
 
-__all__ = ["output_stage_x8", "output_stage_x8_plain", "embed_head_channels"]
+__all__ = ["output_stage", "output_stage_plain", "output_stage_x8",
+           "output_stage_x8_plain", "embed_head_channels"]
 
 _CP = 16  # padded per-phase channel group of the 64-slot embedding
 
@@ -92,3 +97,41 @@ def output_stage_x8(pre64, clamp_min=0.0, clamp_max=1.0, order="bhwc"):
 
 
 output_stage_x8.launches = 0
+
+
+def output_stage_plain(pre, r, clamp_min=0.0, clamp_max=1.0):
+    """Plain PyTorch version: clamp → PixelShuffle(r) → fp32, flattened to
+    [B, H·r, W·r·C]."""
+    out = pixel_shuffle(torch.clamp(pre, clamp_min, clamp_max), r)
+    b, hh, ww, c = out.shape
+    return out.float().reshape(b, hh, ww * c)
+
+
+def output_stage(pre, r, clamp_min=0.0, clamp_max=1.0):
+    """clip → PS(r) → fp32 of ``pre`` [B,H,W,C·r²] → [B, H·r, W·r·C].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (and raises if it cannot)."""
+    b, h, w, crr = pre.shape
+    c = crr // (r * r)
+    if c * r * r != crr:
+        raise ValueError(f"{crr} channels are not C·r² for r = {r}")
+    if pre.device.type == "cpu":
+        return output_stage_plain(pre, r, clamp_min, clamp_max)
+    fn = _build.load("output_stage", "output_stage")
+    if pre.stride(-1) != 1:
+        raise ValueError(f"pre must have contiguous channels, got strides "
+                         f"{pre.stride()}")
+    if h > 65535 or b > 65535:
+        raise ValueError(f"output_stage takes H, B ≤ 65535, got {h}, {b}")
+    out = torch.empty((b, h * r, w * r * c), dtype=torch.float32,
+                      device=pre.device)
+    code = fn(_build.dtype_code(pre.dtype), pre.data_ptr(), pre.stride(0),
+              pre.stride(1), pre.stride(2), b, h, w, r, c, float(clamp_min),
+              float(clamp_max), out.data_ptr(), _build.stream_ptr(pre.device))
+    _build.check("output_stage", code, "output_stage")
+    output_stage.launches += 1
+    return out
+
+
+output_stage.launches = 0

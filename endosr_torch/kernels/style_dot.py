@@ -1,6 +1,14 @@
-"""Fused style + o-branch blend for one group of SEAN instances.
+"""Group style dots of the SEAN depth-matrix branch.
 
-Port of ``endosr/kernels/style_dot.py::style_blend_dot`` (TPU kernel
+``style_dot_hwbm`` ports ``endosr/kernels/style_dot.py::style_dot_hwbm``
+(TPU kernel ``pallas_call`` at ``:111``, twin ``style_dot_reference`` at
+``:48``): out[h,w,b,m] = Σ_j shifted[b,h,w,j]·v[b,j,m], fp32 accumulation,
+one rounding to the storage type. It serves the masked (bucketed) forward,
+where the blend below cannot run. [H,W,B,M] is only the index order of the
+returned view: the bytes are a BHWC tensor, so per-instance channel slices
+are BHWC views.
+
+``style_blend_dot`` ports ``style_blend_dot`` of the same file (TPU kernel
 ``pallas_call`` at ``:284``, twin ``style_blend_reference`` at ``:197``):
 
     out[h,w,b,m] = (Σ_j shifted[b,h,w,j]·v[b,j,m]) + concat(convs)[h,w,b,m] + bias[m]
@@ -11,8 +19,8 @@ the storage type and adds the conv slice and the bias in its epilogue. The
 N conv outputs are read in place through a device table of pointers, so
 no concatenated copy (≈470 MB per flagship launch) is made. It is bound by
 memory (≈0.96 GB per M=1792 launch, ≈0.29 ms at 3.35 TB/s). The
-``hwbc`` variant of the TPU kernel is off by default there and not ported;
-``style_dot_hwbm`` is a separate kernel still to be ported.
+``hwbc`` variant of the TPU kernel is off by default there and not ported.
+Both functions share the kernel's dot loop; they differ in its epilogue.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ import torch
 
 from endosr_torch.kernels import _build
 
-__all__ = ["style_blend_dot", "style_blend_plain"]
+__all__ = ["style_blend_dot", "style_blend_plain", "style_dot_hwbm",
+           "style_dot_plain"]
 
 
 def style_blend_plain(shifted, v, convs, bias):
@@ -71,3 +80,38 @@ def style_blend_dot(shifted, v, convs, bias):
 
 
 style_blend_dot.launches = 0
+
+
+def style_dot_plain(shifted, v):
+    """Plain PyTorch version: [B,H,W,J] × [B,J,M] → [H,W,B,M]."""
+    return torch.einsum("bhwj,bjm->bhwm", shifted, v).permute(1, 2, 0, 3)
+
+
+def style_dot_hwbm(shifted, v):
+    """Group style dot [B,H,W,J] × [B,J,M] → [H, W, B, M] (the HWNC view
+    of a BHWC tensor), any B and M.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (and raises if it cannot)."""
+    if shifted.device.type == "cpu":
+        return style_dot_plain(shifted, v)
+    fn = _build.load("style_dot", "style_dot_hwbm")
+    b, h, w, j = shifted.shape
+    if v.shape[:2] != (b, j):
+        raise ValueError(f"v must be [{b},{j},M], got {tuple(v.shape)}")
+    if v.dtype != shifted.dtype:
+        raise TypeError("shifted and v must share one dtype")
+    m = v.shape[2]
+    dt, dev = shifted.dtype, shifted.device
+    sh = shifted.contiguous()
+    vv = v.contiguous()
+    out = torch.empty((b, h, w, m), dtype=dt, device=dev)
+    code = fn(_build.dtype_code(dt), sh.data_ptr(), vv.data_ptr(),
+              out.data_ptr(), out.stride(1), out.stride(2), out.stride(0),
+              b, h, w, j, m, _build.stream_ptr(dev))
+    _build.check("style_dot", code, "style_dot_hwbm")
+    style_dot_hwbm.launches += 1
+    return out.permute(1, 2, 0, 3)
+
+
+style_dot_hwbm.launches = 0

@@ -28,7 +28,9 @@ from endosr_torch.utils.device import device_constant
 __all__ = [
     "Conv", "WNConv", "WNConvTranspose", "torch_conv_init_",
     "wn_effective_kernel", "conv2d_nhwc", "hwio", "instance_norm",
-    "chained_instance_norm", "pixel_shuffle", "leaky_relu",
+    "chained_instance_norm", "masked_instance_norm",
+    "masked_chained_instance_norm", "valid_mask", "pixel_shuffle",
+    "leaky_relu",
     "fold_kernel_through_pixel_shuffle", "packed_stage_kernel",
     "packed_gate", "compose_pixel_shuffle_perm",
 ]
@@ -171,13 +173,22 @@ class WNConvTranspose(nn.Module):
         return y.permute(0, 2, 3, 1) + self.bias.to(dtype)
 
 
-def instance_norm(x, eps: float = 1e-5):
+def instance_norm(x, eps: float = 1e-5, stats: str = "default"):
     """Parameter-free InstanceNorm (NHWC), one-pass fp32 sum/sum-of-squares,
-    variance clamped at 0; output in x's dtype."""
+    variance clamped at 0; output in x's dtype. ``stats="kernel"`` takes
+    the two sums from :func:`endosr_torch.kernels.in_stats.in_stats` (the
+    JAX package's ``ENDOSR_IN_STATS=pallas``)."""
     x32 = x.float()
     n = x.shape[1] * x.shape[2]
-    s = x32.sum(dim=(1, 2), keepdim=True)
-    sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    if stats == "kernel":
+        from endosr_torch.kernels.in_stats import in_stats
+
+        s, sq = (t[:, None, None, :] for t in in_stats(x))
+    elif stats == "default":
+        s = x32.sum(dim=(1, 2), keepdim=True)
+        sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    else:
+        raise ValueError(f"stats must be 'default' or 'kernel', got {stats!r}")
     mean = s / n
     var = torch.clamp(sq / n - mean * mean, min=0.0)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -194,6 +205,41 @@ def chained_instance_norm(x, eps: float = 1e-5):
     var = torch.clamp(sq / n - mean * mean, min=0.0)
     scale = torch.rsqrt(var + eps) * torch.rsqrt(var / (var + eps) + eps)
     return ((x32 - mean) * scale).to(x.dtype)
+
+
+def masked_instance_norm(x, vmask, eps: float = 1e-5):
+    """:func:`instance_norm` over the valid region only (exact bucketed
+    eval): ``vmask`` is a [B|1,H,W,1] float 0/1 mask, the statistics divide
+    by its count instead of H·W, and the output is zero outside it."""
+    x32 = x.float() * vmask
+    n = vmask.sum(dim=(1, 2), keepdim=True)
+    s = x32.sum(dim=(1, 2), keepdim=True)
+    sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    mean = s / n
+    var = torch.clamp(sq / n - mean * mean, min=0.0)
+    return ((x32 - mean) * torch.rsqrt(var + eps) * vmask).to(x.dtype)
+
+
+def masked_chained_instance_norm(x, vmask, eps: float = 1e-5):
+    """:func:`chained_instance_norm` with valid-region statistics (see
+    :func:`masked_instance_norm`); output zero outside the valid region."""
+    x32 = x.float() * vmask
+    n = vmask.sum(dim=(1, 2), keepdim=True)
+    s = x32.sum(dim=(1, 2), keepdim=True)
+    sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    mean = s / n
+    var = torch.clamp(sq / n - mean * mean, min=0.0)
+    scale = torch.rsqrt(var + eps) * torch.rsqrt(var / (var + eps) + eps)
+    return ((x32 - mean) * scale * vmask).to(x.dtype)
+
+
+def valid_mask(shape_hw, hv: int, wv: int, dtype=torch.float32, device=None):
+    """[1, H, W, 1] mask that is 1 on rows < ``hv`` and columns < ``wv``,
+    built on ``device`` (no host-to-device copy)."""
+    h, w = shape_hw
+    r = torch.arange(h, device=device)[:, None] < hv
+    c = torch.arange(w, device=device)[None, :] < wv
+    return (r & c).to(dtype)[None, :, :, None]
 
 
 def pixel_shuffle(x, r: int):

@@ -37,6 +37,9 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
             raise NotImplementedError(f"DepthNet {knob} is not ported")
     if opt_net.get("net_kw"):
         raise NotImplementedError("DepthNet net_kw overrides are not ported")
+    # fused_epilogue: the fused InstanceNorm+modulation kernel (a DepthNet
+    # field in the JAX package); in_stats: "default" | "kernel", the port's
+    # form of the JAX package's ENDOSR_IN_STATS=pallas switch
     scale = opt.get("scale") or opt_net.get("scale") or opt_net.get("upscale", 4)
     ds = _dataset_block(opt)
     return DepthNet(
@@ -48,4 +51,6 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
         use_trainable_params=bool(opt_net.get("use_trainable_params", True)),
         norm_gamma=float(opt_net.get("norm_gamma") or 0.0),
         norm_beta=float(opt_net.get("norm_beta") or 0.0),
+        fused_epilogue=bool(opt_net.get("fused_epilogue", False)),
+        in_stats=opt_net.get("in_stats") or "default",
         dtype=dtype, device=device, **_PORTED_PRESETS[preset])

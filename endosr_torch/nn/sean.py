@@ -1,13 +1,18 @@
 """SEAN depth-conditioned normalization — the serving subset of the port.
 
-Counterpart of ``endosr/nn/sean.py``. The flagship forward never runs a
-SEAN's own branches: DepthNet evaluates every trunk instance's depth-map
-branch (o) and depth-matrix branch (s) up front in the lazy, grouped form
-(``precompute_o_actv``, ``precompute_style_v``, ``shifted_mask_stack``,
-then per group ``o_branch_raw_hwnc`` + ``style_blend_chunk``), and the
-SEAN module applies the finished (γ, β) to an already normalized input.
-Only that path is ported; the module's parameters are complete, so a
-reference checkpoint loads.
+Counterpart of ``endosr/nn/sean.py``. For the trunk, DepthNet evaluates
+every instance's depth-map branch (o) and depth-matrix branch (s) up
+front in the lazy, grouped form (``precompute_o_actv``,
+``precompute_style_v``, ``shifted_mask_stack``), then per group either
+``o_branch_raw_hwnc`` + ``style_blend_chunk`` (one ``style_blend_dot``
+giving the finished (γ, β)) or, on the masked path of exact bucketed eval,
+``style_chunk_dot`` (one ``style_dot_hwbm``) + per-block
+``o_branch_from_actv``. A SEAN outside the trunk (blocks nb-2 / nb-1 of
+the ×2/×3 configurations) runs its own two branches. The module then
+blends and applies the modulation with one of three epilogues:
+pre-normalized input, the fused InstanceNorm+modulation kernel
+(``fused_epilogue``), or masked statistics. The ablation variants are not
+ported.
 
 Weights travel as plain tuples of HWIO fp32 tensors:
 ``depth_branch_weights()`` → (w_mask, b_mask, w_ob, b_ob) with w_ob the
@@ -21,12 +26,16 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from endosr_torch.kernels.style_dot import style_blend_dot
-from endosr_torch.nn.layers import Conv, conv2d_nhwc, hwio
+from endosr_torch.kernels.fused_in_mod import fused_in_mod
+from endosr_torch.kernels.style_dot import style_blend_dot, style_dot_hwbm
+from endosr_torch.nn.layers import (Conv, conv2d_nhwc, hwio, instance_norm,
+                                    masked_instance_norm)
+from endosr_torch.ops.resize import interpolate_nearest
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["SEAN", "precompute_o_actv", "alpha_vec", "o_branch_raw_hwnc",
-           "style_blend_chunk", "precompute_style_v", "shifted_mask_stack"]
+           "o_branch_from_actv", "style_blend_chunk", "style_chunk_dot",
+           "precompute_style_v", "shifted_mask_stack"]
 
 
 def _split_channels(x, n, c):
@@ -39,15 +48,19 @@ def _mask_conv_relu(d, w_mask, b_mask, dtype):
     return torch.relu(conv2d_nhwc(d, w_mask, 1, dtype) + b_mask.to(dtype))
 
 
-def precompute_o_actv(weights, depth_map, dtype):
+def precompute_o_actv(weights, depth_map, dtype, vmask=None):
     """Shared first o-branch stage of N instances: one 1→N·2C conv + ReLU,
-    returned as per-instance [B,h,w,2C] chunks."""
+    returned as per-instance [B,h,w,2C] chunks. ``vmask`` re-zeroes the
+    activation outside the valid region (the branch is a conv chain, and
+    relu(bias) in the padding would leak one pixel into the image)."""
     if not weights:
         return ()
     c2 = weights[0][2].shape[-1]
     w_mask = torch.cat([w[0].to(dtype) for w in weights], dim=-1)
     b_mask = torch.cat([w[1].to(dtype) for w in weights])
     actv = _mask_conv_relu(depth_map.to(dtype), w_mask, b_mask, dtype)
+    if vmask is not None:
+        actv = actv * vmask.to(actv.dtype)
     return _split_channels(actv, len(weights), c2)
 
 
@@ -56,6 +69,14 @@ def alpha_vec(alphas, c, dtype):
     ag, ab = alphas
     return torch.cat([ag.reshape(()).to(dtype).expand(c),
                       ab.reshape(()).to(dtype).expand(c)])
+
+
+def o_branch_from_actv(actv_i, weight, dtype):
+    """Per-instance second o-branch conv: [B,h,w,2C] → (γ_o, β_o)."""
+    w_ob, b_ob = weight[2], weight[3]
+    c = w_ob.shape[-1] // 2
+    ob = conv2d_nhwc(actv_i, w_ob, 1, dtype) + b_ob.to(dtype)
+    return ob[..., :c], ob[..., c:]
 
 
 def o_branch_raw_hwnc(actv_i, weight, dtype, alphas):
@@ -82,6 +103,18 @@ def style_blend_chunk(shifted, v_list, weights, alphas, o_biases, convs_raw,
     y = style_blend_dot(shifted, v, tuple(convs_raw), bias).permute(2, 0, 1, 3)
     halves = _split_channels(y, 2 * len(weights), c)
     return [(halves[2 * i], halves[2 * i + 1]) for i in range(len(weights))]
+
+
+def style_chunk_dot(shifted, v_list, weights, dtype):
+    """One ``style_dot_hwbm`` for a group of SEAN instances: per-instance
+    [B,9K,2C] kernels ``v_list`` against the shifted mask stack, plus each
+    instance's style biases. Returns [(γ_s, β_s), ...] as [B,H,W,C] views."""
+    c = weights[0][2].shape[-1]
+    v = torch.cat(list(v_list), dim=-1)                       # [B, 9K, G·2C]
+    y = style_dot_hwbm(shifted, v).permute(2, 0, 1, 3)
+    halves = _split_channels(y, 2 * len(weights), c)
+    return [(halves[2 * i] + w[3].to(dtype), halves[2 * i + 1] + w[5].to(dtype))
+            for i, w in enumerate(weights)]
 
 
 def precompute_style_v(weights, st, dtype):
@@ -172,8 +205,48 @@ class SEAN(nn.Module):
         return tuple(device_constant(np.full, ((1,), v), torch.float32, dev)
                      for v in (self.norm_gamma, self.norm_beta))
 
-    def forward(self, x, mod):
-        """x·(1+γ) + β for an x whose normalization the caller already ran
-        (``chained_instance_norm``) and a finished ``mod`` = (γ, β)."""
+    def forward(self, x, depth_map, depth_mask, st, dtype, ob=None, sb=None,
+                mod=None, pre_normalized=False, vmask=None,
+                fused_epilogue=False):
+        """x [B,h,w,C]; depth_map [B,H,W,1]; depth_mask [B,H,W,K]; st
+        [B,K,L]. ``mod``: finished (γ, β). ``ob``/``sb``: precomputed
+        (γ_o, β_o) / (γ_s, β_s) at x's resolution; a missing one is computed
+        here from the depth inputs. ``pre_normalized``: the caller already
+        ran this SEAN's parameter-free norm (``chained_instance_norm``).
+        ``vmask``: valid-region mask of exact bucketed eval (masked
+        statistics, output re-zeroed outside it). ``fused_epilogue``:
+        normalize and modulate in the ``fused_in_mod`` kernel."""
+        if mod is None:
+            mod = self._modulation(x, depth_map, depth_mask, st, dtype, ob, sb,
+                                   vmask)
         gamma, beta = mod
-        return x * (1 + gamma) + beta
+        if pre_normalized:
+            y = x * (1 + gamma) + beta
+            return y if vmask is None else y * vmask.to(y.dtype)
+        if fused_epilogue and vmask is None:
+            return fused_in_mod(x, gamma, beta)
+        if vmask is not None:
+            y = masked_instance_norm(x, vmask) * (1 + gamma) + beta
+            return y * vmask.to(y.dtype)
+        return instance_norm(x) * (1 + gamma) + beta
+
+    def _modulation(self, x, depth_map, depth_mask, st, dtype, ob, sb, vmask):
+        """Blended (γ, β) = α·(γ_s, β_s) + (1−α)·(γ_o, β_o)."""
+        size = (x.shape[1], x.shape[2])
+        if ob is None:
+            w_mask, b_mask, w_ob, b_ob = self.depth_branch_weights()
+            d = interpolate_nearest(depth_map, size)
+            actv, = precompute_o_actv([(w_mask, b_mask, w_ob, b_ob)], d, dtype,
+                                      vmask)
+            ob = o_branch_from_actv(actv, (w_mask, b_mask, w_ob, b_ob), dtype)
+        if sb is None:
+            sw = self.style_branch_weights()
+            mask = interpolate_nearest(depth_mask, size).to(dtype)
+            v, = precompute_style_v([sw], st, dtype)
+            # outside the trunk groups: a plain product, no kernel
+            y = torch.einsum("bhwj,bjm->bhwm", shifted_mask_stack(mask, dtype), v)
+            c = sw[2].shape[-1]
+            sb = (y[..., :c] + sw[3].to(dtype), y[..., c:] + sw[5].to(dtype))
+        ag, ab = (a.to(dtype) for a in self.blend_alphas())
+        return (ag * sb[0] + (1.0 - ag) * ob[0],
+                ab * sb[1] + (1.0 - ab) * ob[1])

@@ -4,6 +4,7 @@ A depth map becomes K binary masks, one per equal-width bin; bin i covers
 [min + i·Δ, min + (i+1)·Δ) with Δ = (max − min)/K. ``fixed_range=True``
 uses [0, 1], ``False`` the image's own min/max (values ≥ max fall in no
 bin). Bin edges are float32, as in the reference data loader.
+:func:`pool_mask_np` is the host-side mask resize of exact bucketed eval.
 """
 
 from __future__ import annotations
@@ -13,7 +14,49 @@ import torch
 
 from endosr_torch.utils.device import device_constant
 
-__all__ = ["depth_masks_np", "depth_masks"]
+__all__ = ["depth_masks_np", "depth_masks", "pool_mask_np"]
+
+
+def _lerp_resize_axis(m: np.ndarray, out_len: int, axis: int) -> np.ndarray:
+    """One axis of a bilinear (align_corners) resize as an explicit two-term
+    fp32 lerp, arithmetic-identical to the interpolation-matrix product of
+    ``ops.resize.interpolate_bilinear`` (a two-nonzero row dot does not
+    depend on summation order)."""
+    in_len = m.shape[axis]
+    if in_len == out_len:
+        return m
+    if out_len == 1:
+        return np.take(m, [0], axis=axis)
+    src = np.arange(out_len, dtype=np.float64) * (in_len - 1) / (out_len - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_len - 1)
+    f = (src - lo).astype(np.float32)
+    shape = [1] * m.ndim
+    shape[axis] = out_len
+    f = f.reshape(shape)
+    return ((np.float32(1.0) - f) * np.take(m, lo, axis=axis)
+            + f * np.take(m, hi, axis=axis))
+
+
+def pool_mask_np(masks: np.ndarray, out_hw, pad_hw=None) -> np.ndarray:
+    """Host twin of the mask resize inside ``region_wise_avg_pooling``.
+
+    ``masks`` [B,h,w,K] (binary, unpadded input resolution) are resized to
+    ``out_hw``, the VALID size of the encoder latent, with the same bilinear
+    align_corners interpolation and ≥ 0.5 binarization the device applies,
+    then zero-padded to ``pad_hw`` (the padded latent shape), so the padded
+    pooling excludes every latent pixel outside the image and its
+    denominator equals the unpadded run's."""
+    m = masks.astype(np.float32)
+    if (m.shape[1], m.shape[2]) != tuple(out_hw):
+        m = _lerp_resize_axis(m, out_hw[0], 1)
+        m = _lerp_resize_axis(m, out_hw[1], 2)
+        m = (m >= 0.5).astype(np.float32)
+    if pad_hw is not None:
+        ph, pw = pad_hw[0] - m.shape[1], pad_hw[1] - m.shape[2]
+        if ph or pw:
+            m = np.pad(m, ((0, 0), (0, ph), (0, pw), (0, 0)))
+    return m
 
 
 def depth_masks_np(depth: np.ndarray, fixed_range: bool = True,

@@ -134,3 +134,123 @@ def test_packed_chain_g3_matches_jax(runs, chain):
     k = 0 if chain == "up1" else 1
     assert len(rec_j["g3"]) == len(rec_t["g3"]) == 2
     _close(rec_j["g3"][k], rec_t["g3"][k].numpy(), f"{chain} g3")
+
+
+# ---------------------------------------------------------------------------
+# Every scale, the masked (exact bucketed) forward and the fused epilogue:
+# whole forwards on carried-across weights.
+# ---------------------------------------------------------------------------
+
+from endosr.ops.masks import pool_mask_np as jax_pool_mask_np  # noqa: E402
+from endosr_torch.ops.masks import pool_mask_np  # noqa: E402
+
+SMALL = dict(nb=5, depth_latent_ch=16, depth_range_num=4, style_chunk=2)
+# nb = 5: trunk blocks 0 and 1, then blocks 3 (nb-2) and 4 (nb-1); index 2 is
+# never built, as in the JAX module
+SCALE_CASES = {
+    "x2_all_depth": dict(scale=2, which_resblk_depth=(0, 1, 2, 3, 4)),
+    "x3": dict(scale=3, which_resblk_depth=(0, 1)),
+    "x3_all_depth": dict(scale=3, which_resblk_depth=(0, 1, 2, 3, 4)),
+    "x4": dict(scale=4, which_resblk_depth=(0, 1)),
+    "x4_depth_at_nb2": dict(scale=4, which_resblk_depth=(0, 1, 3)),
+    "x4_classic_in_trunk": dict(scale=4, which_resblk_depth=(1,)),
+    "x8_depth_at_nb2": dict(scale=8, which_resblk_depth=(0, 1, 3)),
+    "x4_fused_epilogue": dict(scale=4, which_resblk_depth=(0, 1),
+                              fused_epilogue=True),
+    "x2_fused_epilogue": dict(scale=2, which_resblk_depth=(0, 1, 2, 3, 4),
+                              fused_epilogue=True),
+}
+
+
+def _rand_inputs(h, w, seed=3, b=2, k=4):
+    rng = np.random.default_rng(seed)
+    return (rng.random((b, h, w, 3), dtype=np.float32),
+            rng.random((b, h, w, 1), dtype=np.float32),
+            (rng.random((b, h, w, k)) > 0.6).astype(np.float32))
+
+
+def _pair(kw, lq, dep, mk):
+    """(JAX module, its params, the port's module with the same weights)."""
+    jnet = JaxDepthNet(**SMALL, **kw)
+    params = jnet.init(jax.random.PRNGKey(1), lq, dep, mk)["params"]
+    tkw = dict(kw)
+    if tkw.get("fused_epilogue"):
+        tkw["in_stats"] = "kernel"     # on the CPU: the kernel's plain version
+    net = torch_dn.DepthNet(**SMALL, **tkw, device="cpu")
+    net.load_state_dict(
+        from_flax(jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    return jnet, params, net
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@pytest.mark.parametrize("case", list(SCALE_CASES))
+def test_scales_match_jax(case):
+    kw = SCALE_CASES[case]
+    lq, dep, mk = _rand_inputs(16, 20)
+    jnet, params, net = _pair(kw, lq, dep, mk)
+    want = np.asarray(jnet.apply({"params": params}, lq, dep, mk))
+    got = net(*_t(lq, dep, mk)).numpy()
+    s = kw["scale"]
+    assert got.shape == (2, 16 * s, 20 * s, 3)
+    _close(want, got, case)
+
+
+MASKED_CASES = {
+    "x8": dict(scale=8, which_resblk_depth=(0, 1)),
+    "x4": dict(scale=4, which_resblk_depth=(0, 1)),
+    "x3_all_depth": dict(scale=3, which_resblk_depth=(0, 1, 2, 3, 4)),
+    "x2_all_depth": dict(scale=2, which_resblk_depth=(0, 1, 2, 3, 4)),
+    "x8_depth_at_nb2": dict(scale=8, which_resblk_depth=(0, 1, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(MASKED_CASES))
+def test_valid_hw_matches_jax_and_unpadded(case):
+    """An odd-sized input zero-padded to a multiple of 4: the masked forward
+    equals the JAX masked forward on the crop (2e-4) and the port's own
+    forward of the unpadded input (1e-4, fp32 summation order only)."""
+    kw = MASKED_CASES[case]
+    h, w, hb, wb = 13, 18, 16, 20
+    s = kw["scale"]
+    lq, dep, mk = _rand_inputs(h, w, seed=5)
+    pad = ((0, 0), (0, hb - h), (0, wb - w), (0, 0))
+    lqp, depp, mkp = (np.pad(a, pad) for a in (lq, dep, mk))
+    v3 = (((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2)
+    pm = pool_mask_np(mk, v3, (hb // 4, wb // 4))
+    np.testing.assert_array_equal(
+        pm, jax_pool_mask_np(mk, v3, (hb // 4, wb // 4)))
+
+    jnet, params, net = _pair(kw, lqp, depp, mkp)
+    want = np.asarray(jnet.apply(
+        {"params": params}, lqp, depp, mkp,
+        valid_hw=(np.int32(h), np.int32(w)), pool_mask=pm))
+    got = net(*_t(lqp, depp, mkp), valid_hw=(h, w),
+              pool_mask=torch.from_numpy(pm)).numpy()
+    assert got.shape == (2, hb * s, wb * s, 3)
+    _close(want[:, :h * s, :w * s], got[:, :h * s, :w * s], f"{case} crop")
+
+    plain = net(*_t(lq, dep, mk)).numpy()
+    err = float(np.abs(plain - got[:, :h * s, :w * s]).max())
+    assert err <= 1e-4, f"{case}: masked vs unpadded max |Δ| {err:.3g}"
+
+
+def test_valid_hw_with_fused_epilogue_raises():
+    net = torch_dn.DepthNet(**SMALL, scale=4, which_resblk_depth=(0, 1),
+                            fused_epilogue=True, device="cpu")
+    lq, dep, mk = _t(*_rand_inputs(16, 16))
+    with pytest.raises(ValueError, match="fused epilogue"):
+        net(lq, dep, mk, valid_hw=(13, 14), pool_mask=mk[:, :4, :4])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scale=4, which_resblk_depth=(0, 1, 4)),
+    dict(scale=8, which_resblk_depth=(0, 4)),
+    dict(scale=4, which_resblk_depth=()),
+    dict(scale=16, which_resblk_depth=(0,)),
+], ids=["x4_depth_at_nb1", "x8_depth_at_nb1", "baseline", "x16"])
+def test_unported_depthnet_configurations_raise(kw):
+    with pytest.raises(NotImplementedError):
+        torch_dn.DepthNet(**SMALL, **kw, device="cpu")

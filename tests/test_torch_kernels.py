@@ -1,10 +1,12 @@
-"""The port's four kernel modules against the JAX package's twins (CPU, fp32).
+"""The port's kernel modules against the JAX package's twins (CPU, fp32).
 
 On the CPU each wrapper runs its plain PyTorch version, and so does the
 JAX function (its Pallas kernel falls back to the jnp twin off the TPU).
 Same numpy inputs into both; tolerance 1e-5 max abs, and exact for the
-pure data movement of ``output_stage_x8``. The CUDA kernels themselves are
-held against these plain versions on the card by ``chip_smoke.py``.
+pure data movement of ``output_stage_x8`` and ``output_stage``;
+``style_dot_hwbm`` and ``fused_in_mod`` are also held against their Pallas
+kernels in interpret mode. The CUDA kernels themselves are held against
+these plain versions on the card by ``chip_smoke.py``.
 
 Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
@@ -21,11 +23,14 @@ import pytest
 import torch
 
 # modules by name: a package may export a function under a module's name
+jax_fim = importlib.import_module("endosr.kernels.fused_in_mod")
 jax_hd = importlib.import_module("endosr.kernels.head_dot")
 jax_os = importlib.import_module("endosr.kernels.output_stage")
 jax_pc = importlib.import_module("endosr.kernels.packed_chain")
 jax_sd = importlib.import_module("endosr.kernels.style_dot")
+t_fim = importlib.import_module("endosr_torch.kernels.fused_in_mod")
 t_hd = importlib.import_module("endosr_torch.kernels.head_dot")
+t_is = importlib.import_module("endosr_torch.kernels.in_stats")
 t_os = importlib.import_module("endosr_torch.kernels.output_stage")
 t_pc = importlib.import_module("endosr_torch.kernels.packed_chain")
 t_sd = importlib.import_module("endosr_torch.kernels.style_dot")
@@ -151,6 +156,88 @@ def test_embed_head_channels_matches_jax_exactly():
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
 
 
+# -------------------------------------------------------------- output_stage
+
+@pytest.mark.parametrize("r,c", [(2, 3), (3, 3), (4, 3), (2, 1)],
+                         ids=["r2", "r3", "r4", "r2_gray"])
+def test_output_stage_matches_jax_twin_exactly(r, c):
+    pre = (_rng(10 + r).standard_normal((2, 4, 6, c * r * r)) * 0.7
+           + 0.5).astype(np.float32)
+    want = jax_os.output_stage_reference(jnp.asarray(pre), r, 0.0, 1.0)
+    got = t_os.output_stage(_t(pre), r, 0.0, 1.0)
+    assert got.dtype == torch.float32 and got.shape == (2, 4 * r, 6 * r * c)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_output_stage_refuses_channels_that_are_not_c_r2():
+    with pytest.raises(ValueError, match="C·r²"):
+        t_os.output_stage(torch.zeros(1, 4, 4, 13), 2)
+
+
+# ------------------------------------------------------------ style_dot_hwbm
+
+@pytest.mark.parametrize("b,m,against", [
+    (2, 128, "pallas_interpret"), (1, 128, "pallas_interpret"),
+    (3, 128, "pallas_interpret"), (2, 128, "reference"), (3, 40, "reference"),
+], ids=["b2_kernel", "b1_kernel", "b3_kernel", "b2_twin", "b3_m40_twin"])
+def test_style_dot_hwbm_matches_jax(b, m, against):
+    """Odd batches and an M that is no multiple of 128 included: the port
+    takes what the twin takes."""
+    rng = _rng(11 + b)
+    h, w, j = 8, 8, 36
+    sh = (rng.random((b, h, w, j)) > 0.7).astype(np.float32)
+    v = _f32(rng, b, j, m, s=0.3)
+    if against == "reference":
+        want = jax_sd.style_dot_reference(jnp.asarray(sh), jnp.asarray(v))
+    else:
+        want = jax_sd._forward(jnp.asarray(sh), jnp.asarray(v), interpret=True)
+    got = t_sd.style_dot_hwbm(_t(sh), _t(v))
+    assert got.shape == (h, w, b, m)
+    _cmp(got.numpy(), want)
+
+
+# ------------------------------------------------------------------ in_stats
+
+@pytest.mark.parametrize("shape", [(2, 16, 12, 8), (1, 5, 7, 3)],
+                         ids=["even", "ragged"])
+def test_in_stats_matches_jnp_sums(shape):
+    x = _f32(_rng(13), *shape) + 0.5
+    x32 = jnp.asarray(x)
+    want = (jnp.sum(x32, axis=(1, 2)), jnp.sum(x32 * x32, axis=(1, 2)))
+    got = t_is.in_stats(_t(x))
+    for g, w_ in zip(got, want):
+        w_ = np.asarray(w_)
+        assert g.shape == w_.shape and g.dtype == torch.float32
+        rel = float(np.abs(g.numpy() - w_).max() / np.abs(w_).max())
+        assert rel <= 1e-6, f"rel {rel:.3g}"
+
+
+def test_instance_norm_kernel_stats_equal_default():
+    lay = importlib.import_module("endosr_torch.nn.layers")
+    x = _t(_f32(_rng(14), 2, 8, 8, 16) * 2.0 + 1.0)
+    _cmp(lay.instance_norm(x, stats="kernel").numpy(),
+         lay.instance_norm(x).numpy(), 1e-6)
+    with pytest.raises(ValueError):
+        lay.instance_norm(x, stats="variadic")
+
+
+# -------------------------------------------------------------- fused_in_mod
+
+@pytest.mark.parametrize("against", ["pallas_interpret", "reference"])
+def test_fused_in_mod_matches_jax(against):
+    rng = _rng(15)
+    x = _f32(rng, 2, 16, 16, 32) * 3.0 + 1.5
+    g, b = _f32(rng, 2, 16, 16, 32), _f32(rng, 2, 16, 16, 32)
+    if against == "reference":
+        want = jax_fim.instance_norm_modulate_reference(
+            jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
+    else:
+        want = jax_fim.fused_instance_norm_modulate(
+            jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), interpret=True)
+    got = t_fim.fused_in_mod(_t(x), _t(g), _t(b))
+    _cmp(got.numpy(), want)
+
+
 # ------------------------------------------------------ no silent CPU fallback
 
 class _CudaClaim:
@@ -180,11 +267,18 @@ def _wrapper_calls():
         "style_blend_dot": lambda: t_sd.style_blend_dot(
             c((2, 4, 4, 9)), c((2, 9, 32)), (c((4, 4, 2, 16)),) * 2,
             torch.zeros(32)),
+        "output_stage": lambda: t_os.output_stage(c((2, 4, 8, 12)), 2),
+        "style_dot_hwbm": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 9)),
+                                                      c((2, 9, 32))),
+        "in_stats": lambda: t_is.in_stats(c((2, 4, 4, 8))),
+        "fused_in_mod": lambda: t_fim.fused_in_mod(*(c((2, 4, 4, 8)),) * 3),
     }
 
 
 @pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
-                                  "packed_g123", "style_blend_dot"])
+                                  "packed_g123", "style_blend_dot",
+                                  "output_stage", "style_dot_hwbm",
+                                  "in_stats", "fused_in_mod"])
 def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr("endosr_torch.kernels._build.os.path.exists",
@@ -196,7 +290,8 @@ def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
 
 def test_cpu_calls_leave_launch_counters_at_zero():
     fns = (t_os.output_stage_x8, t_hd.head_dot, t_pc.packed_g123,
-           t_sd.style_blend_dot)
+           t_sd.style_blend_dot, t_os.output_stage, t_sd.style_dot_hwbm,
+           t_is.in_stats, t_fim.fused_in_mod)
     before = [f.launches for f in fns]
     t_os.output_stage_x8(torch.zeros(1, 8, 8, 64))
     t_hd.head_dot(torch.zeros(9, 9, 1, 16), torch.zeros(3, 3, 16, 64),
@@ -205,7 +300,11 @@ def test_cpu_calls_leave_launch_counters_at_zero():
                      *(torch.zeros(2, 2, 16, 16), torch.zeros(16)) * 3)
     t_sd.style_blend_dot(torch.zeros(1, 4, 4, 9), torch.zeros(1, 9, 32),
                          (torch.zeros(4, 4, 1, 16),) * 2, torch.zeros(32))
-    assert [f.launches for f in fns] == before == [0, 0, 0, 0]
+    t_os.output_stage(torch.zeros(1, 4, 4, 12), 2)
+    t_sd.style_dot_hwbm(torch.zeros(1, 4, 4, 9), torch.zeros(1, 9, 32))
+    t_is.in_stats(torch.zeros(1, 4, 4, 8))
+    t_fim.fused_in_mod(*(torch.zeros(1, 4, 4, 8),) * 3)
+    assert [f.launches for f in fns] == before == [0] * 8
 
 
 # -------------------------------------------------------------- import rule

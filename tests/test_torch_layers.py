@@ -236,3 +236,108 @@ def test_style_blend_chunk_matches_jax():
     for (gt, bt), (gj, bj) in zip(got, want):
         _cmp(gt, gj)
         _cmp(bt, bj)
+
+
+# ------------------------------------------------- exact bucketed eval helpers
+
+@pytest.mark.parametrize("hv,wv", [(5, 7), (8, 9), (1, 1)])
+def test_valid_mask_matches_jax(hv, wv):
+    _cmp(tl.valid_mask((8, 9), hv, wv), jl.valid_mask((8, 9), hv, wv), 0.0)
+
+
+@pytest.mark.parametrize("fn", ["masked_instance_norm",
+                                "masked_chained_instance_norm"])
+def test_masked_instance_norms_match_jax(fn):
+    x = _f32(30, 2, 8, 9, 6) * 2.0 + 0.7
+    vm = np.asarray(jl.valid_mask((8, 9), 5, 7))
+    got = getattr(tl, fn)(_t(x), _t(vm))
+    _cmp(got, getattr(jl, fn)(jnp.asarray(x), jnp.asarray(vm)))
+    assert float(got[:, 5:].abs().max()) == 0.0 == float(got[:, :, 7:].abs().max())
+    # the statistics divide by the valid count: the crop's norm is the same
+    plain = getattr(tl, fn.replace("masked_", ""))(_t(x[:, :5, :7]))
+    _cmp(got[:, :5, :7], plain.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("hw,out", [((13, 18), (4, 5)), ((16, 16), (4, 4)),
+                                    ((9, 7), (3, 2))])
+def test_pool_mask_np_matches_jax_exactly(hw, out):
+    m = (np.random.default_rng(31).random((2, *hw, 3)) > 0.5).astype(np.float32)
+    pad = (out[0] + 2, out[1] + 3)
+    np.testing.assert_array_equal(t_masks.pool_mask_np(m, out, pad),
+                                  j_masks.pool_mask_np(m, out, pad))
+
+
+def test_pool_mask_np_equals_device_resize():
+    """The host resize feeds the pooling of the masked forward; the device
+    resize feeds the unpadded forward: they must agree bit for bit."""
+    m = (np.random.default_rng(32).random((2, 13, 18, 3)) > 0.5).astype(np.float32)
+    dev = t_resize.interpolate_bilinear(_t(m), (4, 5), align_corners=True)
+    np.testing.assert_array_equal(t_masks.pool_mask_np(m, (4, 5)),
+                                  (dev >= 0.5).float().numpy())
+
+
+@pytest.mark.parametrize("r,s", [(1, 3), (2, 2), (1, 2), (2, 3)])
+def test_compose_pixel_shuffle_perm_scales_match_jax(r, s):
+    ch = 32 * s * s * r * r
+    np.testing.assert_array_equal(tl.compose_pixel_shuffle_perm(r, s, ch),
+                                  jl.compose_pixel_shuffle_perm(r, s, ch))
+
+
+def test_masked_o_actv_and_o_branch_from_actv_match_jax():
+    jd, _, td, _ = _sean_weights(2)
+    d = np.random.default_rng(33).random((2, 8, 8, 1)).astype(np.float32)
+    vm = np.asarray(jl.valid_mask((8, 8), 6, 5))
+    aj = j_sean.precompute_o_actv(jd, jnp.asarray(d), jnp.float32,
+                                  vmask=jnp.asarray(vm))
+    at = t_sean.precompute_o_actv(td, _t(d), torch.float32, _t(vm))
+    for i in range(2):
+        _cmp(at[i], aj[i])
+        for g, w_ in zip(t_sean.o_branch_from_actv(at[i], td[i], torch.float32),
+                         j_sean.o_branch_from_actv(aj[i], jd[i], jnp.float32)):
+            _cmp(g, w_)
+
+
+def test_style_chunk_dot_matches_jax():
+    _, js, _, ts = _sean_weights(3)
+    st = _f32(34, 2, 3, 5)
+    m = (np.random.default_rng(35).random((2, 8, 8, 3)) > 0.5).astype(np.float32)
+    shj = j_sean.shifted_mask_stack(jnp.asarray(m), jnp.float32, stack_conv=True)
+    vj = j_sean.precompute_style_v(js, jnp.asarray(st), jnp.float32)
+    want = j_sean.style_chunk_dot(shj, list(vj), js, jnp.float32,
+                                  use_pallas=True)
+    sht = t_sean.shifted_mask_stack(_t(m), torch.float32)
+    vt = t_sean.precompute_style_v(ts, _t(st), torch.float32)
+    got = t_sean.style_chunk_dot(sht, list(vt), ts, torch.float32)
+    assert len(got) == len(want) == 3
+    for (gt, bt), (gj, bj) in zip(got, want):
+        _cmp(gt, gj)
+        _cmp(bt, bj)
+
+
+@pytest.mark.parametrize("fused,masked", [(False, True), (True, True),
+                                          (True, False), (False, False)],
+                         ids=["chained_masked", "fused_masked", "fused",
+                              "chained"])
+def test_depth_residual_block_own_branches_match_jax(fused, masked):
+    """A block outside the trunk runs both SEANs' own branches; with and
+    without the valid-region mask and the fused epilogue."""
+    c, k, l = 8, 3, 5
+    x = _f32(40, 2, 8, 8, c)
+    rng = np.random.default_rng(41)
+    d = rng.random((2, 16, 16, 1)).astype(np.float32)
+    m = (rng.random((2, 16, 16, k)) > 0.5).astype(np.float32)
+    st = _f32(42, 2, k, l)
+    vm = np.asarray(jl.valid_mask((8, 8), 6, 7)) if masked else None
+    jb = j_dn.DepthResidualBlock(nf=c, depth_latent_ch=l, depth_range_num=k,
+                                 fused_epilogue=fused)
+    args = (x * vm if masked else x, d, m, st)
+    p = jb.init(jax.random.PRNGKey(2), *args)["params"]
+    want = jb.apply({"params": p}, *args,
+                    vmask=None if vm is None else jnp.asarray(vm))
+    tb = _load_module(
+        t_dn.DepthResidualBlock(c, l, k, fused_epilogue=fused,
+                                in_stats="kernel" if fused else "default"),
+        jax.tree_util.tree_map(np.asarray, p))
+    got = tb(_t(args[0]), torch.float32, (_t(d), _t(m), _t(st)),
+             vmask=None if vm is None else _t(vm))
+    _cmp(got, want, 2e-5)

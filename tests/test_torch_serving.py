@@ -1,10 +1,13 @@
 """The port's FModelDepthCond serving against the JAX FModelDepthCond.
 
-Both serve the same batch of 10 (chunked as 8 + 2) on the unbucketed path
-(``eval_bucket_multiple: 0``) with the JAX model's parameters carried
-across by ``from_flax``; CPU, fp32, ≤ 2e-4 max abs (the repo's parity
-bar). Also: without CUDA, building the serving model with no device raises,
-and the options the port does not serve yet raise.
+With the JAX model's parameters carried across by ``from_flax``, on the
+CPU in fp32 at ≤ 2e-4 max abs (the repo's parity bar): a batch of 10
+(chunked as 8 + 2) on the unbucketed path (``eval_bucket_multiple: 0``);
+an odd-sized batch at every scale with the key unset (exact bucketed eval,
+bucket 32), which must also equal the port's own unbucketed output on the
+crop to 1e-4; and the 8-view self-ensemble ``test_x8``. Also: without
+CUDA, building the serving model with no device raises, and the options
+the port does not serve yet raise.
 """
 
 import copy
@@ -54,22 +57,148 @@ def test_serving_batch_of_10_matches_jax():
     assert err <= 2e-4, f"max |Δ| {err:.3g}"
 
 
+SCALES = {
+    "x2": dict(scale=2, which=[0, 1, 2, 3, 4, 5]),
+    "x3": dict(scale=3, which=[0, 1, 2, 3, 4, 5]),
+    "x4": dict(scale=4, which=[0, 1, 2]),
+    "x8": dict(scale=8, which=[0, 1, 2]),
+}
+
+
+def _opt(scale, which, **changes):
+    opt = copy.deepcopy(OPT)
+    opt["scale"] = scale
+    opt["network_G"]["which_ResBlk_depth"] = list(which)
+    del opt["eval_bucket_multiple"]             # unset: bucket 32
+    opt.update(changes)
+    return opt
+
+
+def _hw_batch(b, h, w, seed=22):
+    rng = np.random.default_rng(seed)
+    return {"LQ": rng.random((b, h, w, 3), dtype=np.float32),
+            "Depth": rng.random((b, h, w, 1), dtype=np.float32),
+            "DepthMaskList": (rng.random((b, h, w, 4)) > 0.6).astype(np.float32)}
+
+
+def _models(opt):
+    jm = JaxModel(copy.deepcopy(opt))
+    tm = FModelDepthCond(copy.deepcopy(opt), device="cpu")
+    params = jax.tree_util.tree_map(np.asarray, jm.state.params["netG"])
+    tm.netG.load_state_dict(from_flax(params))
+    return jm, tm
+
+
+@pytest.mark.parametrize("case", list(SCALES))
+def test_bucketed_default_matches_jax_and_unbucketed(case):
+    """``eval_bucket_multiple`` unset: a 13×18 batch pads to 32×32, and the
+    crop equals the JAX model's ``fake_SR`` and the port's unpadded serve."""
+    c = SCALES[case]
+    opt = _opt(c["scale"], c["which"])
+    batch = _hw_batch(2, 13, 18)
+    jm, tm = _models(opt)
+    jm.feed_data(batch)
+    jm.test()
+    want = np.asarray(jm.fake_SR)
+    tm.feed_data(batch)
+    got = tm.test().numpy()
+    s = c["scale"]
+    assert got.shape == want.shape == (2, 13 * s, 18 * s, 3)
+    err = float(np.abs(got - want).max())
+    assert err <= 2e-4, f"vs JAX: max |Δ| {err:.3g}"
+
+    un = FModelDepthCond({**copy.deepcopy(opt), "eval_bucket_multiple": 0},
+                         device="cpu")
+    un.netG.load_state_dict(tm.netG.state_dict())
+    un.feed_data(batch)
+    err = float(np.abs(un.test().numpy() - got).max())
+    assert err <= 1e-4, f"bucketed vs unbucketed: max |Δ| {err:.3g}"
+
+
+def test_test_x8_matches_jax():
+    """8 views of a non-square batch, each through the bucketed ``test``."""
+    opt = _opt(2, [0, 1, 2, 3, 4, 5])
+    batch = _hw_batch(1, 10, 14, seed=23)
+    jm, tm = _models(opt)
+    jm.feed_data(batch)
+    jm.test_x8()
+    want = np.asarray(jm.fake_SR)
+    tm.feed_data(batch)
+    got = tm.test_x8().numpy()
+    assert got.shape == want.shape == (1, 20, 28, 3)
+    err = float(np.abs(got - want).max())
+    assert err <= 2e-4, f"max |Δ| {err:.3g}"
+    tm.test()
+    assert float(np.abs(tm.fake_SR.numpy() - got).max()) > 0   # an ensemble
+    assert set(tm.batch) == {"LQ", "Depth", "DepthMaskList"}
+    assert tuple(tm.batch["LQ"].shape) == (1, 10, 14, 3)
+
+
+def test_test_x8_reads_device_masks_back_once(monkeypatch):
+    """Masks fed as tensors: the host copy ``pool_mask_np`` needs is made
+    once per batch and transformed with the views, not made per view."""
+    tm = FModelDepthCond(_opt(2, [0, 1, 2, 3, 4, 5]), device="cpu")
+    batch = _hw_batch(1, 10, 14, seed=23)
+    tm.feed_data(batch)
+    want = tm.test_x8()
+    reads = []
+    real = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: (
+        reads.append(tuple(t.shape)), real(t, *a, **k))[1])
+    tm.feed_data({k: torch.from_numpy(v) for k, v in batch.items()})
+    got = tm.test_x8()
+    assert reads == [(1, 10, 14, 4)]
+    assert torch.equal(got, want)
+
+
+def test_fused_epilogue_serves_unbucketed():
+    """``network_G.fused_epilogue`` switches bucketing off (the masked
+    forward does not support it) and reaches the fused kernels' path."""
+    opt = _opt(4, [0, 1, 2])
+    opt["network_G"].update(fused_epilogue=True, in_stats="kernel")
+    tm = FModelDepthCond(opt, device="cpu")
+    assert tm.netG.fused_epilogue and tm._bucket() == 0
+    batch = _hw_batch(1, 12, 12)
+    tm.feed_data(batch)
+    ref = FModelDepthCond(_opt(4, [0, 1, 2], eval_bucket_multiple=0),
+                          device="cpu")
+    ref.netG.load_state_dict(tm.netG.state_dict())
+    ref.feed_data(batch)
+    err = float((tm.test() - ref.test()).abs().max())
+    assert err <= 2e-4, f"fused vs chained epilogue: max |Δ| {err:.3g}"
+
+
 def test_no_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         FModelDepthCond(copy.deepcopy(OPT))
 
 
+def _net(**kw):
+    return {"network_G": {**OPT["network_G"], **kw}}
+
+
 @pytest.mark.parametrize("change", [
-    {"eval_bucket_multiple": 32}, {"eval_bucket_multiple": None},
-    {"precision": "bf16c3"}, {"scale": 4}, {"is_train": True},
-], ids=["bucketed", "bucketed_default", "bf16c3", "x4", "train"])
+    {"eval_bucket_multiple": 32, "spatial_shard": 2},
+    {"eval_bucket_multiple": None, "spatial_shard": 4},
+    {"precision": "bf16c3"},
+    {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5])},
+    {"is_train": True}, {"precision": "mixed"}, {"precision": "bf16c"},
+    _net(preset="plain"), _net(net_kw={"packed_tail": False}),
+    _net(ablate_depth_block=True), _net(remat_blocks=True),
+], ids=["bucketed", "bucketed_default", "bf16c3", "x4", "train", "mixed",
+        "bf16c", "preset_plain", "net_kw", "ablation", "remat_blocks"])
 def test_unported_options_raise(change):
+    """What still waits: sharded bucketed eval (``spatial_shard``, with the
+    bucket set or left at its default), the centered and mixed precisions,
+    a ×4 depth block after upscale2 (the unfolded tail), training,
+    ``preset: plain``, ``net_kw``, the ablations and ``remat_blocks``."""
     opt = {**copy.deepcopy(OPT), **change}
     with pytest.raises(NotImplementedError):
         FModelDepthCond(opt, device="cpu")
 
 
 def test_test_x8_raises():
-    with pytest.raises(NotImplementedError):
+    """Without a fed batch there is nothing to serve."""
+    with pytest.raises(RuntimeError, match="feed_data"):
         FModelDepthCond(copy.deepcopy(OPT), device="cpu").test_x8()
