@@ -3,31 +3,48 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+Takes no arguments and runs every phase (any failure raises and the script
+exits non-zero):
 
 1. device — the card's name and power limit; TF32 off for fp32 checks.
 2. build — every kernel under ``endosr_torch/csrc`` with one ``nvcc`` per
    source, all started together, into ``build/endosr_torch/``.
-3. kernels — each of the eight kernels against its plain PyTorch version
+3. kernels — each of the twelve kernels against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
    float64 sums in both; ``output_stage_x8`` (the ×8 HBWC and the ×4 BHWC
-   shape) and ``output_stage`` (r = 2, 3, 4) must be bit-identical. Times
-   are CUDA-event medians of 20 runs, beside the plain version's, the bound
-   (larger of bytes over 3.35 TB/s and operations over the bf16 tensor-core
-   peak), and one PyTorch call computing the same function where there is
-   one.
+   shape), ``output_stage`` (r = 2, 3, 4) and ``mid_shuffle`` (forward,
+   and its backward against the plain un-shuffle and ``torch.autograd`` of
+   the plain version) must be bit-identical; ``fused_o_branch`` and
+   ``fused_modulation`` are also checked at a ragged small shape (tiles cut
+   by both edges, 2C < 128, K < 16). Times are CUDA-event medians
+   of 20 runs (5 for a call above 20 ms), beside the plain version's, the
+   bound (larger of bytes over 3.35 TB/s and operations over the bf16
+   tensor-core peak), and one PyTorch call computing the same function
+   where there is one.
 4. small forwards — reduced DepthNets through the kernels in fp32 against
    the same weights on the CPU (plain versions), ≤ 2e-4 max abs: ×8, ×2,
-   ×3, ×4, ×4 with the fused epilogue, and ×8 with ``valid_hw`` on a
-   zero-padded odd-sized input.
-5. serving, three full-width paths through ``FModelDepthCond`` (seeded
+   ×3, ×4, ×4 with the fused epilogue, ×8 with ``valid_hw`` on a
+   zero-padded odd-sized input, and ×8 with ``pallas_obranch``,
+   ``fused_modulation``, ``pallas_tail``, the dense tail
+   (``packed_tail: false``), and ``preset: plain`` (also ×4 with a depth
+   block at nb-1).
+5. serving, seven full-width paths through ``FModelDepthCond`` (seeded
    weights, batch 8, bf16), the launch counts set to 0 before each and read
    after it; every output finite, of the right shape, in [0,1]; bf16 vs
    fp32 PSNR ≥ 40 dB on the same weights:
    - ×8 flagship, unbucketed, LQ 128² → SR 1024²: ``packed_g123`` 2,
      ``style_blend_dot`` 2, ``head_dot`` 1, ``output_stage_x8`` 1 per
-     forward;
+     forward; the fp32 output equals that of ``preset: plain`` to ≤ 2e-4,
+     and so does that of each of the next three;
+   - the same with ``net_kw: {pallas_obranch: true}`` (hoisted trunk):
+     ``fused_o_branch`` 1, ``style_blend_dot`` 0, the tail as above;
+   - with ``net_kw: {fused_modulation: true}``: ``fused_modulation`` 1,
+     ``style_blend_dot`` 0, the tail as above;
+   - with ``net_kw: {pallas_tail: true}`` (lazy trunk): ``style_blend_dot``
+     2, ``packed_g123`` 2, ``fused_tail`` 1, ``head_dot`` 0,
+     ``output_stage_x8`` 0;
+   - ``preset: plain``: no kernel launch at all;
    - ×8 flagship with ``eval_bucket_multiple`` unset (bucket 32), LQ
      120×112 → SR 960×896 through the masked forward: ``style_dot_hwbm`` 2,
      ``output_stage`` 1, none of the packed kernels; the fp32 output equals
@@ -37,8 +54,9 @@ Phases (any failure raises and the script exits non-zero):
      2, ``output_stage_x8`` 1; the fp32 output equals that of the chained
      epilogue (``fused_epilogue: false``) to ≤ 2e-4.
 
-Prints the kernels JSON line (``launches`` summed over the three paths),
-then the ``nvidia-smi`` name/power line, then ``{"ok": true, "device":
+Prints the kernels JSON line (``launches`` summed over the paths;
+``mid_shuffle`` is a kernel no forward calls, in the JAX package as here, so
+its count is 0 and it is held to its plain version in phase 3 only), then the ``nvidia-smi`` name/power line, then ``{"ok": true, "device":
 {...}}`` as the last line. Exits non-zero without a result when no CUDA
 device is present or when run outside the repository.
 """
@@ -74,6 +92,11 @@ def cuda_ms(fn, n=N_TIMED):
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if time.perf_counter() - t0 > 0.02:
+        n = min(n, 5)
     times = []
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
@@ -114,22 +137,29 @@ class KernelCase:
     shapes are checked and logged only. ``exact``: must equal the plain
     version bit for bit. ``ref64``: the float64 reference where the plain
     version cannot be fed float64. ``tol``: overrides the per-dtype
-    tolerance."""
+    tolerance. ``extra``: a further check of the case, run once per type."""
 
     def __init__(self, name, kernel, plain, library, bytes_, flops, main=True,
-                 exact=False, ref64=None, tol=None):
+                 exact=False, ref64=None, tol=None, extra=None):
         self.name, self.kernel, self.plain = name, kernel, plain
         self.library, self.bytes, self.flops = library, bytes_, flops
         self.main, self.exact, self.ref64, self.tol = main, exact, ref64, tol
+        self.extra = extra
 
 
 def make_cases(torch, dt, gen):
-    """The eight kernels at the shapes the full-width forwards give them
+    """The twelve kernels at the shapes the full-width forwards give them
     (B=8, LR 128; packed_g123, style_blend_dot and style_dot_hwbm twice)."""
     import torch.nn.functional as F
 
     from endosr_torch.kernels.fused_in_mod import (fused_in_mod,
                                                    fused_in_mod_plain)
+    from endosr_torch.kernels.fused_mod import (fused_modulation,
+                                                fused_modulation_plain)
+    from endosr_torch.kernels.fused_obranch import (fused_o_branch,
+                                                    fused_o_branch_plain,
+                                                    grouped_w2)
+    from endosr_torch.kernels.fused_tail import fused_tail, fused_tail_plain
     from endosr_torch.kernels.head_dot import head_dot, head_dot_plain
     from endosr_torch.kernels.in_stats import in_stats, in_stats_plain
     from endosr_torch.kernels.output_stage import (output_stage,
@@ -137,6 +167,9 @@ def make_cases(torch, dt, gen):
                                                    output_stage_x8,
                                                    output_stage_x8_plain)
     from endosr_torch.kernels.packed_chain import packed_g123, packed_g123_plain
+    from endosr_torch.kernels.shuffle_mid import (mid_shuffle,
+                                                  mid_shuffle_plain,
+                                                  mid_unshuffle_plain)
     from endosr_torch.kernels.style_dot import (style_blend_dot,
                                                 style_blend_plain,
                                                 style_dot_hwbm, style_dot_plain)
@@ -284,6 +317,88 @@ def make_cases(torch, dt, gen):
             nbytes(masks, v) + 128 * 128 * B * m * masks.element_size(),
             2 * B * 128 * 128 * 90 * m))
     cases["style_dot_hwbm"] = hcs
+
+    # fused_o_branch and fused_modulation: the 13 trunk blocks' 26 SEANs on
+    # one depth map [8,128,128,1] (hoist_chunk 0), K = 10 bins; and a ragged
+    # small shape (tiles cut by both edges, 2C < 128, K < 16), checked only
+    ocs, mcs = [], []
+    for label, (nb_, hh, ww), N, C2, K, main in (
+            ("", (B, 128, 128), 26, 128, 10, True),
+            ("[ragged 13×21]", (2, 13, 21), 3, 32, 4, False)):
+        d = torch.rand((nb_, hh, ww, 1), generator=gen, device=dev).to(dt)
+        wm, bm = rn(N, 9, C2, s=0.3), rn(N, C2, s=0.1)
+        w2 = rn(N, 9, C2, C2, s=1.0 / math.sqrt(9 * C2))
+        b2 = rn(N, C2, s=0.1)
+        out_bytes = nb_ * hh * ww * N * C2 * d.element_size()
+        wm_oihw = wm.permute(0, 2, 1).reshape(N * C2, 1, 3, 3).contiguous()
+        w2_oihw = grouped_w2(w2, N, C2).contiguous()
+        d_nchw = d.permute(0, 3, 1, 2)
+
+        def obranch_lib(d_nchw=d_nchw, wm_oihw=wm_oihw, bm=bm, w2_oihw=w2_oihw,
+                        b2=b2, N=N):
+            a = F.relu(F.conv2d(d_nchw, wm_oihw, bm.reshape(-1), padding=1))
+            return F.conv2d(a, w2_oihw, b2.reshape(-1), padding=1, groups=N)
+        ocs.append(KernelCase(
+            "fused_o_branch" + label,
+            lambda a=(d, wm, bm, w2, b2): fused_o_branch(*a),
+            lambda a=(d, wm, bm, w2, b2): fused_o_branch_plain(*a),
+            obranch_lib, nbytes(d, wm, bm, w2, b2) + out_bytes,
+            2 * nb_ * hh * ww * N * (9 * C2 + 9 * C2 * C2), main=main))
+        dmask = (torch.rand((nb_, hh, ww, K), generator=gen, device=dev)
+                 > 0.8).to(dt)
+        vmod = rn(nb_, N, 9 * K, C2, s=0.05)
+        w2f = w2.reshape(N, 9 * C2, C2)
+        mcs.append(KernelCase(
+            "fused_modulation" + label,
+            lambda a=(d, dmask, wm, bm, w2f, vmod, b2): fused_modulation(*a),
+            lambda a=(d, dmask, wm, bm, w2f, vmod, b2): fused_modulation_plain(*a),
+            None, nbytes(d, dmask, wm, bm, w2f, vmod, b2) + out_bytes,
+            2 * nb_ * hh * ww * N * (9 * C2 + (9 * C2 + 9 * K) * C2),
+            main=main))
+    cases["fused_o_branch"], cases["fused_modulation"] = ocs, mcs
+
+    # fused_tail: g4 [257, 257, 8, 512] (HWBC view of the producer's BHWC),
+    # activated, its dead last row and column zero
+    t4 = torch.relu(rn(B, 257, 257, 512, s=0.5))
+    t4[:, 256] = 0
+    t4[:, :, 256] = 0
+    t4 = t4.permute(1, 2, 0, 3)
+    wh = rn(3, 3, 512, 48, s=0.01)
+    bh = rn(48, s=0.1, mean=0.5, dtype=torch.float32)
+    t4_padded = F.pad(t4.permute(2, 3, 0, 1), (1, 0, 1, 0))
+    wh_oihw, bh_dt = wh.permute(3, 2, 0, 1).contiguous(), bh.to(dt)
+
+    def tail_lib():
+        pre = F.conv2d(t4_padded, wh_oihw, bh_dt)[..., :256]
+        return F.pixel_shuffle(torch.clamp(pre, 0.0, 1.0), 4).float()
+    cases["fused_tail"] = [KernelCase(
+        "fused_tail",
+        lambda a=(t4, wh, bh): fused_tail(*a, 0.0, 1.0, "hwbc", 256),
+        lambda g=t4, w=wh, b=bh: fused_tail_plain(g, w, b, 0.0, 1.0, "hwbc", 256),
+        tail_lib, nbytes(t4, wh, bh) + B * 1024 * 3072 * 4,
+        2 * B * 256 * 256 * 9 * 512 * 48)]
+
+    # mid_shuffle: the ×8 tail's [8,128,128,512] → [8,256,256,128], and its
+    # backward against the plain un-shuffle and autograd of the plain version
+    zs = rn(B, 128, 128, 512)
+
+    def shuffle_backward(z=zs):
+        g = torch.randn((B, 256, 256, 128), generator=gen, device=dev).to(dt)
+        with torch.enable_grad():
+            za = z.clone().requires_grad_(True)
+            mid_shuffle(za, 2).backward(g)
+            zb = z.clone().requires_grad_(True)
+            mid_shuffle_plain(zb, 2).backward(g)
+        if not (torch.equal(za.grad, mid_unshuffle_plain(g, 2))
+                and torch.equal(za.grad, zb.grad)):
+            raise AssertionError(f"mid_shuffle backward {dt}: not bit-identical")
+        log(f"mid_shuffle backward {str(dt)[6:]}: bit-identical to the plain "
+            "un-shuffle and to autograd of the plain version")
+    cases["mid_shuffle"] = [KernelCase(
+        "mid_shuffle", lambda z=zs: mid_shuffle(z, 2),
+        lambda z=zs: mid_shuffle_plain(z, 2),
+        lambda z=zs: mid_shuffle_plain(z, 2), 2 * nbytes(zs), 0, exact=True,
+        extra=shuffle_backward)]
     return cases
 
 
@@ -304,6 +419,14 @@ SOURCES = {
                      "endosr/kernels/fused_in_mod.py:95"),
     "in_stats": ("endosr_torch/csrc/in_stats.cu",
                  "endosr/kernels/in_stats.py:47"),
+    "fused_o_branch": ("endosr_torch/csrc/fused_mod.cu",
+                       "endosr/kernels/fused_obranch.py:146"),
+    "fused_modulation": ("endosr_torch/csrc/fused_mod.cu",
+                         "endosr/kernels/fused_mod.py:152"),
+    "fused_tail": ("endosr_torch/csrc/fused_tail.cu",
+                   "endosr/kernels/fused_tail.py:238"),
+    "mid_shuffle": ("endosr_torch/csrc/shuffle_mid.cu",
+                    "endosr/kernels/shuffle_mid.py:94"),
 }
 
 
@@ -342,6 +465,8 @@ def check_kernels(torch):
                     raise AssertionError(f"{c.name} {dt}: rel err {err_rel} > {ctol}")
                 worst_abs = max(worst_abs, err_abs)
                 del got, ref
+                if c.extra:
+                    c.extra()
                 if dt == torch.bfloat16:
                     ms = cuda_ms(c.kernel)
                     pms = cuda_ms(c.plain)
@@ -410,9 +535,11 @@ def small_forwards(torch):
     import torch.nn.functional as F
 
     from endosr_torch.nn.depthnet import DepthNet
+    from endosr_torch.nn.networks import DEPTHNET_PRESETS
     from endosr_torch.ops.masks import pool_mask_np
     from endosr_torch.utils.port_params import seeded_init
 
+    plain = DEPTHNET_PRESETS["plain"]
     base = dict(nb=6, depth_latent_ch=16, depth_range_num=4, style_chunk=2)
     every = (0, 1, 2, 3, 4, 5)
     cases = [
@@ -423,13 +550,30 @@ def small_forwards(torch):
         ("x4 fused_epilogue", dict(scale=4, which_resblk_depth=(0, 1, 2),
                                    fused_epilogue=True, in_stats="kernel"), None),
         ("x8 valid_hw", dict(scale=8, which_resblk_depth=(0, 1, 2)), (29, 26)),
+        ("x8 pallas_obranch", dict(scale=8, which_resblk_depth=(0, 1, 2),
+                                   pallas_obranch=True), None),
+        ("x8 pallas_obranch valid_hw (the masked hoisted route)",
+         dict(scale=8, which_resblk_depth=(0, 1, 2), pallas_obranch=True),
+         (29, 26)),
+        ("x8 fused_modulation", dict(scale=8, which_resblk_depth=(0, 1, 2),
+                                     fused_modulation=True, hoist_chunk=2),
+         None, (28, 20)),
+        ("x8 pallas_tail", dict(scale=8, which_resblk_depth=(0, 1, 2),
+                                pallas_tail=True), None, (32, 24)),
+        ("x8 dense tail", dict(scale=8, which_resblk_depth=(0, 1, 2),
+                               packed_tail=False), None),
+        ("x8 preset plain", dict(scale=8, which_resblk_depth=(0, 1, 2),
+                                 **plain), None),
+        ("x4 preset plain, depth block at nb-1", dict(
+            scale=4, which_resblk_depth=(0, 1, 5), **plain), None),
     ]
     g = torch.Generator().manual_seed(1)
-    for label, kw, valid in cases:
-        cpu = seeded_init(DepthNet(**base, **kw, device="cpu"), 0)
-        gpu = DepthNet(**base, **kw, device="cuda")
+    for label, kw, valid, *size in cases:   # size: an unpadded (h, w)
+        kw = {**base, **kw}
+        cpu = seeded_init(DepthNet(**kw, device="cpu"), 0)
+        gpu = DepthNet(**kw, device="cuda")
         gpu.load_state_dict(cpu.state_dict())
-        h, w = valid or (32, 32)
+        h, w = valid or (size[0] if size else (32, 32))
         x = torch.rand((2, h, w, 3), generator=g)
         d = torch.rand((2, h, w, 1), generator=g)
         m = (torch.rand((2, h, w, 4), generator=g) > 0.6).float()
@@ -563,14 +707,28 @@ def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
 
 
 def serving_paths(torch, counters):
-    """The three full-width paths; returns {label: launches}."""
+    """The full-width paths; returns {label: launches}."""
     fused = dict(fused_epilogue=True, in_stats="kernel")
+    plain32 = ("preset: plain", flagship_opt("fp32", preset="plain"), 2e-4)
+    tail = {"packed_g123": 2, "head_dot": 1, "output_stage_x8": 1}
+
+    def x8(label, want, **net):
+        return dict(label=label, opt16=flagship_opt("bf16", **net),
+                    opt32=flagship_opt("fp32", **net), lr_hw=(128, 128),
+                    on_host=False, want=want, also32=plain32)
     paths = [
-        dict(label="x8 unbucketed", opt16=flagship_opt("bf16"),
-             opt32=flagship_opt("fp32"), lr_hw=(128, 128), on_host=False,
-             n_requests=3,
-             want={"packed_g123": 2, "style_blend_dot": 2, "head_dot": 1,
-                   "output_stage_x8": 1}),
+        dict(x8("x8 unbucketed", {"style_blend_dot": 2, **tail}), n_requests=3),
+        x8("x8 pallas_obranch", {"fused_o_branch": 1, **tail},
+           net_kw={"pallas_obranch": True}),
+        x8("x8 fused_modulation", {"fused_modulation": 1, **tail},
+           net_kw={"fused_modulation": True}),
+        x8("x8 pallas_tail",
+           {"style_blend_dot": 2, "packed_g123": 2, "fused_tail": 1},
+           net_kw={"pallas_tail": True}),
+        dict(label="x8 preset plain",
+             opt16=flagship_opt("bf16", preset="plain"),
+             opt32=flagship_opt("fp32", preset="plain"), lr_hw=(128, 128),
+             on_host=False, want={}),
         dict(label="x8 bucketed", opt16=flagship_opt("bf16", bucket=None),
              opt32=flagship_opt("fp32", bucket=None), lr_hw=(120, 112),
              on_host=True, want={"style_dot_hwbm": 2, "output_stage": 1},
@@ -594,10 +752,14 @@ def main() -> int:
         return 2
     from endosr_torch.kernels import _build
     from endosr_torch.kernels.fused_in_mod import fused_in_mod
+    from endosr_torch.kernels.fused_mod import fused_modulation
+    from endosr_torch.kernels.fused_obranch import fused_o_branch
+    from endosr_torch.kernels.fused_tail import fused_tail
     from endosr_torch.kernels.head_dot import head_dot
     from endosr_torch.kernels.in_stats import in_stats
     from endosr_torch.kernels.output_stage import output_stage, output_stage_x8
     from endosr_torch.kernels.packed_chain import packed_g123
+    from endosr_torch.kernels.shuffle_mid import mid_shuffle
     from endosr_torch.kernels.style_dot import style_blend_dot, style_dot_hwbm
 
     t_start = time.perf_counter()
@@ -621,9 +783,9 @@ def main() -> int:
     rows = check_kernels(torch)
     small_forwards(torch)
     counters = [packed_g123, style_blend_dot, head_dot, output_stage_x8,
-                output_stage, style_dot_hwbm, fused_in_mod, in_stats]
+                output_stage, style_dot_hwbm, fused_in_mod, in_stats,
+                fused_o_branch, fused_modulation, fused_tail, mid_shuffle]
     by_path = serving_paths(torch, counters)
-    log(f"served on {gpu}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

@@ -51,6 +51,13 @@ SOURCES = {
     "fused_in_mod": {
         "fused_in_mod": [I, P, I64, I64, I64, P, I64, I64, I64, P, I64, I64,
                          I64, I, I, I, I, I, F32, P, P, P, P]},
+    "fused_mod": {
+        "fused_modulation": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+        "fused_o_branch": [I, P, P, P, P, P, P, I, I, I, I, I, P]},
+    "fused_tail": {
+        "fused_tail": [I, P, I64, I64, I64, I, I, I, I, P, P, F32, F32, P, P]},
+    "shuffle_mid": {
+        "mid_shuffle": [I, P, P, I, I, I, I, I, I, P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

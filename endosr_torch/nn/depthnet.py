@@ -1,34 +1,38 @@
 """DepthNet — the flagship generator's serving forward in the port.
 
-Counterpart of ``endosr/nn/depthnet.py`` with its default fields, at every
-scale (×2, ×3, ×4, ×8):
+Counterpart of ``endosr/nn/depthnet.py``, at every scale (×2, ×3, ×4, ×8):
 
   Encoder (5 weight-norm convs) → region-wise masked pooling into the
-  [B,K,L] style matrix → two head convs → the trunk's residual blocks,
-  whose SEAN modulations come from the lazy hoisted branches, one group of
-  ``style_chunk`` blocks at a time → global skip → the scale's tail →
-  9×9 head → clamp → fp32.
+  [B,K,L] style matrix → two head convs → the trunk's residual blocks with
+  their SEAN modulations → global skip → the scale's tail → 9×9 head →
+  clamp → fp32.
 
-Unmasked, a style group is one ``style_blend_dot`` and the ×8 tail is the
-phase-packed one: up1 chain (``packed_g123``) → tail chain
-(``packed_g123`` with ``phases``/``pre_act``/``pre_bias``) → folded head
-(``head_dot``) → ``output_stage_x8``. With ``valid_hw`` (exact bucketed
-eval: inputs zero-padded to a bucket shape, every stream re-zeroed outside
-the valid region before each conv, InstanceNorm statistics over the valid
-region, styles pooled with ``pool_mask``) a style group is one
-``style_dot_hwbm``, the ×8 tail runs as dense folds, and every scale ends
-in ``output_stage``. ×2/×3/×4 always run the folded tail (``_folded_head``,
-at ×4 phase-split and ending in ``output_stage_x8`` when unmasked).
-``fused_epilogue`` normalizes and modulates in the ``fused_in_mod`` kernel
-and ``in_stats="kernel"`` takes the block InstanceNorm's sums from the
-``in_stats`` kernel.
+With the default fields the trunk's modulations come from the lazy hoisted
+branches, one group of ``style_chunk`` blocks at a time. Unmasked, a style
+group is one ``style_blend_dot`` and the ×8 tail is the phase-packed one:
+up1 chain (``packed_g123``) → tail chain (``packed_g123`` with
+``phases``/``pre_act``/``pre_bias``) → folded head (``head_dot``) →
+``output_stage_x8``. With ``valid_hw`` (exact bucketed eval: inputs
+zero-padded to a bucket shape, every stream re-zeroed outside the valid
+region before each conv, InstanceNorm statistics over the valid region,
+styles pooled with ``pool_mask``) a style group is one ``style_dot_hwbm``,
+the ×8 tail runs as dense folds, and every scale ends in ``output_stage``.
+×2/×3/×4 run the folded tail (``_folded_head``, at ×4 phase-split and ending
+in ``output_stage_x8`` when unmasked). ``fused_epilogue`` normalizes and
+modulates in the ``fused_in_mod`` kernel and ``in_stats="kernel"`` takes the
+block InstanceNorm's sums from the ``in_stats`` kernel.
+
+The JAX module's other graph fields (see :class:`DepthNet`) select the
+hoisted trunk (``fused_o_branch``, ``fused_modulation``), the fused ×8 head
+(``fused_tail``), the dense and the unfolded tails, and turn single kernels
+off; ``preset: plain`` turns them all off and launches no kernel.
 
 Activations are NHWC; depth masks [B,H,W,K]; the style matrix [B,K,L].
 Parameter names follow the reference PyTorch checkpoint
-(``depth-residual3.norm1.mlp_mask.0.weight``, ``head.0.weight_v``, ...).
-The baseline without depth blocks, a depth block at nb-1 for scale ≥ 4
-(the unfolded tail), the ablations and precisions other than fp32/bf16 are
-still to be ported and raise ``NotImplementedError``.
+(``depth-residual3.norm1.mlp_mask.0.weight``, ``head.0.weight_v``, ...), and
+every configuration shares the one parameter tree. The baseline without
+depth blocks, the ablations, ``remat_blocks`` and precisions other than
+fp32/bf16 are still to be ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from endosr_torch.kernels.fused_tail import fused_tail
 from endosr_torch.kernels.head_dot import head_dot
 from endosr_torch.kernels.output_stage import (embed_head_channels,
                                                output_stage, output_stage_x8)
@@ -64,8 +69,12 @@ from endosr_torch.nn.layers import (
 )
 from endosr_torch.nn.sean import (
     SEAN,
+    hoisted_blended_mods,
+    hoisted_o_branch,
+    hoisted_style_branch,
     o_branch_from_actv,
     o_branch_raw_hwnc,
+    pallas_o_branch,
     precompute_o_actv,
     precompute_style_v,
     shifted_mask_stack,
@@ -118,7 +127,37 @@ def _mul(t, m):
 
 def _conv_b(x, w, b, dtype):
     """SAME conv of NHWC ``x`` with an fp32 (HWIO kernel, bias) in ``dtype``."""
-    return conv2d_nhwc(x, w, w.shape[0] // 2, dtype) + b.to(dtype)
+    return _conv_b_pad(x, w, b, w.shape[0] // 2, dtype)
+
+
+def _conv_b_pad(x, w, b, pad, dtype):
+    """Conv of NHWC ``x`` with padding ``pad`` and bias, in ``dtype``."""
+    return conv2d_nhwc(x, w, pad, dtype) + b.to(dtype)
+
+
+def _on(flag) -> bool:
+    """A kernel switch of the JAX module: a bool forces, "auto" means on."""
+    return flag if isinstance(flag, bool) else True
+
+
+def _edge_gate(hp: int, wc: int) -> np.ndarray:
+    """[1, hp, wc, 1] 0/1 gate of an unshifted packed tensor: its last row
+    and last column are the dead slots."""
+    g = np.ones((1, hp, wc, 1), np.float32)
+    g[:, hp - 1] = 0.0
+    g[:, :, wc - 1] = 0.0
+    return g
+
+
+# DepthNet fields of the JAX module that the port serves at one value only;
+# another value raises NotImplementedError by name
+_JAX_ONLY = {
+    "ablate_depth_matrix": False, "ablate_depth_block": False,
+    "remat_blocks": False, "modulation_dtype": None, "centered_convs": 0,
+    "chain_in": True, "blend_fold": False, "lazy_o_chunk": 0,
+    "pallas_packed_chain": "auto", "obranch_body": "conv",
+    "tail_defer_act": True, "mask_stack_conv": True,
+}
 
 
 class _ValidRegion:
@@ -281,27 +320,51 @@ class ClassicResidualBlock(nn.Module):
 
 
 class DepthNet(nn.Module):
-    """The DepthNet serving forward with the JAX module's default fields
-    (lazy branches, blend-fused or masked style groups, folded tails, the
-    packed ×8 tail when unmasked, kernel output stages)."""
+    """The DepthNet serving forward. The fields below the model's own are
+    the JAX module's graph switches with its defaults (lazy branches,
+    blend-fused or masked style groups, folded tails, the packed ×8 tail
+    when unmasked, kernel output stages):
+
+    ``lazy_branches`` off, ``pallas_obranch`` or ``fused_modulation`` take
+    the trunk's SEAN branches off the lazy path onto the hoisted one: the
+    modulation maps of a whole group of ``hoist_chunk`` blocks (0: all) are
+    made before its first block, by ``hoisted_o_branch`` (or, unmasked,
+    the ``fused_o_branch`` kernel) and, with ``hoist_style``,
+    ``hoisted_style_branch``, or both at once by the ``fused_modulation``
+    kernel. ``pallas_style`` / ``pallas_style_blend`` off replace the lazy
+    path's two style kernels by plain matmuls and per-block blends.
+    ``packed_tail`` / ``packed_up1`` off run the ×8 tail's halves as dense
+    PS(2) folds; ``pallas_tail`` ends the packed tail in ``fused_tail``
+    instead of ``head_dot`` + ``output_stage_x8``; ``pallas_head`` /
+    ``pallas_output`` off replace those two by plain convs and shuffles.
+    ``fold_tail`` / ``fold_output_conv`` off run the tail with real
+    PixelShuffles (the only tail for a depth block at nb-1 when scale ≥ 4)."""
 
     def __init__(self, which_resblk_depth=tuple(range(14)), in_nc=3, out_nc=3,
                  nf=64, nb=16, scale=4, clamp_min=0.0, clamp_max=1.0,
                  depth_latent_ch=256, depth_range_num=10,
                  use_trainable_params=True, norm_gamma=0.1, norm_beta=0.1,
                  fused_epilogue=False, in_stats="default", style_chunk=7,
-                 dtype=torch.float32, device=None):
+                 lazy_branches=True, hoist_style=True, hoist_chunk=0,
+                 pallas_obranch=False, fused_modulation=False,
+                 pallas_style="auto", pallas_style_blend="auto",
+                 packed_tail=True, packed_up1=True, pallas_tail=False,
+                 pallas_head="auto", pallas_output="auto", fold_tail=True,
+                 fold_output_conv=True, dtype=torch.float32, device=None,
+                 **jax_only):
         super().__init__()
         which = set(which_resblk_depth)
+        for name, value in jax_only.items():
+            if name not in _JAX_ONLY:
+                raise TypeError(f"DepthNet has no field {name!r}")
+            if value != _JAX_ONLY[name]:
+                raise NotImplementedError(
+                    f"DepthNet {name}={value!r} is not ported")
         if scale not in (2, 3, 4, 8):
             raise NotImplementedError(f"scale {scale} is not ported")
         if not which:
             raise NotImplementedError("the baseline (no depth blocks) path "
                                       "is not ported")
-        if scale >= 4 and (nb - 1) in which:
-            raise NotImplementedError(
-                "a depth block after upscale2 needs the unfolded tail, which "
-                "is not ported")
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"precision {dtype} is not ported")
         if in_stats not in ("default", "kernel"):
@@ -312,6 +375,17 @@ class DepthNet(nn.Module):
         self.clamp_min, self.clamp_max = clamp_min, clamp_max
         self.fused_epilogue = bool(fused_epilogue)
         self.style_chunk = max(1, int(style_chunk))
+        self.lazy_branches = bool(lazy_branches)
+        self.hoist_style, self.hoist_chunk = bool(hoist_style), int(hoist_chunk)
+        self.pallas_obranch = bool(pallas_obranch)
+        self.fused_modulation = bool(fused_modulation)
+        self.pallas_style = _on(pallas_style)
+        self.pallas_style_blend = _on(pallas_style_blend)
+        self.packed_tail, self.packed_up1 = bool(packed_tail), bool(packed_up1)
+        self.pallas_tail, self.pallas_head = _on(pallas_tail), _on(pallas_head)
+        self.pallas_output = _on(pallas_output)
+        self.fold_tail = bool(fold_tail)
+        self.fold_output_conv = bool(fold_output_conv)
         self.dtype = dtype
         # ×8: the trailing 2 blocks at 32 ch; ×4: 1; ×2/×3: all at nf
         num_last_block = 1 if scale == 3 else int(math.log2(scale))
@@ -385,33 +459,47 @@ class DepthNet(nn.Module):
         depth = (depth_map, depth_mask, depth_vec)
 
         trunk_depth = [i for i in range(nb - 3) if i in self.which]
-        groups, slot = {}, {}
+        # the fused modulation cannot re-zero its activation: unmasked only
+        can_fuse = self.fused_modulation and not vr.on
+        want_style = self.hoist_style or can_fuse
+        lazy = bool(trunk_depth and self.lazy_branches and not can_fuse
+                    and not self.pallas_obranch)
+        style_groups, hoist_groups, slot = {}, {}, {}
         if trunk_depth:
             size = (feat.shape[1], feat.shape[2])
             dmap = interpolate_nearest(depth_map, size)
-            dmask = interpolate_nearest(depth_mask, size)
-            o_w, s_w = [], []
-            for i in trunk_depth:
-                blk = self.block(i)
-                o_w += [blk.norm1.depth_branch_weights(),
-                        blk.norm2.depth_branch_weights()]
-                s_w += [blk.norm1.style_branch_weights(),
-                        blk.norm2.style_branch_weights()]
+            dmask = interpolate_nearest(depth_mask, size) if want_style else None
+
+            def by(g):
+                return {grp[0]: grp for grp in (
+                    trunk_depth[j:j + g] for j in range(0, len(trunk_depth), g))}
+        if lazy:
+            norms = [n for i in trunk_depth
+                     for n in (self.block(i).norm1, self.block(i).norm2)]
+            o_w = [n.depth_branch_weights() for n in norms]
             actv = precompute_o_actv(o_w, dmap, dt, vr.mask_for(dmap))
-            shifted = shifted_mask_stack(dmask, dt)
-            v_chunks = precompute_style_v(s_w, depth_vec, dt)
-            g = self.style_chunk
-            groups = {grp[0]: grp for grp in (
-                trunk_depth[j:j + g] for j in range(0, len(trunk_depth), g))}
             slot = {i: k for k, i in enumerate(trunk_depth)}
+            if want_style:
+                s_w = [n.style_branch_weights() for n in norms]
+                shifted = shifted_mask_stack(dmask, dt)
+                v_chunks = precompute_style_v(s_w, depth_vec, dt)
+                style_groups = by(self.style_chunk)
+        elif trunk_depth:
+            hoist_groups = by(self.hoist_chunk if self.hoist_chunk > 0
+                              else len(trunk_depth))
         mods = {}
 
         for i in range(nb - 3):
-            if i in groups:
-                mods.update(self._group_mods(groups[i], slot, actv, o_w, s_w,
-                                             v_chunks, shifted, vr.on))
+            if i in hoist_groups:
+                mods.update(self._hoist_group(hoist_groups[i], dmap, dmask,
+                                              depth_vec, vr, can_fuse,
+                                              want_style))
+            if i in style_groups:
+                mods.update(self._group_mods(style_groups[i], slot, actv, o_w,
+                                             s_w, v_chunks, shifted, vr.on))
             kw = mods.pop(i, {})
-            if "sb" in kw:   # masked path: the o-branch conv2 runs per block
+            if i in slot and "mod" not in kw:
+                # lazy without the blend kernel: conv2 runs per block
                 kw["ob"] = tuple(
                     o_branch_from_actv(actv[2 * slot[i] + half],
                                        o_w[2 * slot[i] + half], dt)
@@ -419,11 +507,16 @@ class DepthNet(nn.Module):
             fea_in = self._run_block(i, fea_in, depth, vr, **kw)
         feat_add1 = fea_in + fea_bef                         # global skip
 
-        if (self.scale == 8 and (nb - 2) not in self.which
-                and (nb - 1) not in self.which):
-            if not vr.on:
-                return self._packed_up1_and_tail(feat_add1)
-            return self._dense_fold1_tail(feat_add1, vr)
+        if (self.scale == 8 and self.fold_tail and self.fold_output_conv
+                and (nb - 2) not in self.which and (nb - 1) not in self.which):
+            packed = self.packed_tail and not vr.on
+            if packed and self.packed_up1:
+                z_g4, pre_bias = self._packed_up1(feat_add1)
+                return self._packed_tail(z_g4=z_g4, pre_bias=pre_bias)
+            z = self._dense_fold1(feat_add1, vr)
+            if packed:
+                return self._packed_tail(z)
+            return self._dense_fold2_tail(z, vr)
         return self._tail(feat_add1, depth, vr)
 
     def _run_block(self, i, feat, depth, vr, **kw):
@@ -432,17 +525,54 @@ class DepthNet(nn.Module):
             return blk(feat, self.dtype, depth, vmask=vr.mask_for(feat), **kw)
         return blk(feat, self.dtype, vmask=vr.mask_for(feat))
 
+    def _hoist_group(self, ids, dmap, dmask, depth_vec, vr, can_fuse,
+                     want_style):
+        """The hoisted (non-lazy) trunk: the modulation maps of both SEANs
+        of every block in ``ids``, made whole before the group's first
+        block. One ``fused_modulation`` launch gives the finished (γ, β)
+        ({"mod": ...}); otherwise the o-branch comes from ``fused_o_branch``
+        (``pallas_obranch``, unmasked) or ``hoisted_o_branch`` ({"ob": ...})
+        and, with ``want_style``, the style branch from
+        ``hoisted_style_branch`` ({"sb": ...}); a SEAN computes a missing
+        branch itself and blends."""
+        dt = self.dtype
+        norms = [n for i in ids
+                 for n in (self.block(i).norm1, self.block(i).norm2)]
+        o_w = [n.depth_branch_weights() for n in norms]
+        s_w = [n.style_branch_weights() for n in norms] if want_style else []
+
+        def per_block(pairs):
+            return [(pairs[2 * k], pairs[2 * k + 1]) for k in range(len(ids))]
+
+        if can_fuse:
+            mods = hoisted_blended_mods(o_w, s_w,
+                                        [n.blend_alphas() for n in norms],
+                                        dmap, dmask, depth_vec, dt)
+            return {i: {"mod": m} for i, m in zip(ids, per_block(mods))}
+        if self.pallas_obranch and not vr.on:
+            obs = pallas_o_branch(o_w, dmap, dt)
+        else:
+            obs = hoisted_o_branch(o_w, dmap, dt, vmask=vr.mask_for(dmap))
+        out = {i: {"ob": ob} for i, ob in zip(ids, per_block(obs))}
+        if want_style:
+            sbs = hoisted_style_branch(s_w, dmask, depth_vec, dt)
+            for i, sb in zip(ids, per_block(sbs)):
+                out[i]["sb"] = sb
+        return out
+
     def _group_mods(self, ids, slot, actv, o_w, s_w, v_chunks, shifted,
                     masked):
-        """Modulations of both SEANs of every block in ``ids`` from one
-        kernel launch: unmasked, the finished (γ, β) through
-        ``style_blend_dot`` ({"mod": ...}); masked, where the blend cannot
-        run, the style halves through ``style_dot_hwbm`` ({"sb": ...})."""
+        """The lazy trunk: modulations of both SEANs of every block in
+        ``ids`` from one launch: unmasked, the finished (γ, β) through
+        ``style_blend_dot`` ({"mod": ...}); masked or with
+        ``pallas_style_blend`` off, where the blend cannot run, the style
+        halves ({"sb": ...}) through ``style_dot_hwbm`` (a plain matmul
+        with ``pallas_style`` off)."""
         dt = self.dtype
         ks = [2 * slot[i] + half for i in ids for half in (0, 1)]
-        if masked:
+        if masked or not self.pallas_style_blend:
             outs = style_chunk_dot(shifted, [v_chunks[k] for k in ks],
-                                   [s_w[k] for k in ks], dt)
+                                   [s_w[k] for k in ks], dt, self.pallas_style)
             return {i: {"sb": (outs[2 * n], outs[2 * n + 1])}
                     for n, i in enumerate(ids)}
         norms = [n for i in ids
@@ -456,6 +586,15 @@ class DepthNet(nn.Module):
         return {i: {"mod": (outs[2 * n], outs[2 * n + 1])}
                 for n, i in enumerate(ids)}
 
+    def _emit(self, pre, r):
+        """clamp → PixelShuffle(r) → fp32 [B, H·r, W·r, out_nc]: the
+        ``output_stage`` kernel, or plain ops with ``pallas_output`` off."""
+        if self.pallas_output:
+            flat = output_stage(pre, r, self.clamp_min, self.clamp_max)
+            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        return pixel_shuffle(torch.clamp(pre, self.clamp_min, self.clamp_max),
+                             r).float()
+
     def _folded_classic(self, blk, z, r, vr):
         """A classic block on a PS(r)-pending tensor: both convs folded."""
         dt = self.dtype
@@ -463,10 +602,11 @@ class DepthNet(nn.Module):
         t = torch.relu(_conv_b(vr.zero(z), *_fold_wb(w0, b0, r), dt))
         return torch.relu(z + _conv_b(vr.zero(t), *_fold_wb(w2, b2, r), dt))
 
-    def _dense_fold1_tail(self, feat_add1, vr):
-        """The ×8 tail of the masked forward: upscale1_3, block nb-2 and
-        upscale2_0 as dense PS(2) folds at LR², one real PixelShuffle(2),
-        then upscale2_3 and block nb-1 folded by 2 and the folded head."""
+    def _dense_fold1(self, feat_add1, vr):
+        """The first half of the dense ×8 tail (the masked forward, or
+        ``packed_up1`` / ``packed_tail`` off): upscale1_3, block nb-2 and
+        upscale2_0 as dense PS(2) folds at LR², then the one real
+        PixelShuffle(2)."""
         dt, nb = self.dtype, self.nb
         wn = wn_effective_kernel
         h = leaky_relu(self.upscale1["0"](feat_add1, dt))
@@ -475,33 +615,60 @@ class DepthNet(nn.Module):
         z = self._folded_classic(self.block(nb - 2), z, 2, vr)
         z = leaky_relu(_conv_b(vr.zero(z), *_fold_wb(*wn(self.upscale2["0"]), 2),
                                dt))
-        z = pixel_shuffle(z, 2)
-        z = leaky_relu(_conv_b(vr.zero(z), *_fold_wb(*wn(self.upscale2["3"]), 2),
-                               dt))
-        z = self._folded_classic(self.block(nb - 1), z, 2, vr)
+        return pixel_shuffle(z, 2)
+
+    def _dense_fold2_tail(self, z, vr):
+        """The second half of the dense ×8 tail: upscale2_3 and block nb-1
+        folded by 2, and the folded head."""
+        dt = self.dtype
+        w23, b23 = _fold_wb(*wn_effective_kernel(self.upscale2["3"]), 2)
+        z = leaky_relu(_conv_b(vr.zero(z), w23, b23, dt))
+        z = self._folded_classic(self.block(self.nb - 1), z, 2, vr)
         return self._folded_head(z, 2, vr)
 
     def _tail(self, feat_add1, depth, vr):
-        """The tail of ×2/×3/×4 (and of ×8 with a depth block at nb-2):
-        upscale1 at real resolution (×8 only), block nb-2, then every
-        later PixelShuffle deferred into folded kernels."""
-        dt, nb = self.dtype, self.nb
+        """The tail of ×2/×3/×4, and of ×8 with a depth block at nb-2 or
+        nb-1 or with ``fold_tail`` / ``fold_output_conv`` off: upscale1 at
+        real resolution (×8 only), block nb-2, then, folded, every later
+        PixelShuffle deferred into folded kernels; unfolded (the switches
+        off, or a depth block at nb-1 for scale ≥ 4, whose InstanceNorm
+        does not commute with a pending shuffle), real shuffles and the
+        plain upscale3 and 9×9 head."""
+        dt, nb, fs = self.dtype, self.nb, self.final_scale
         z = feat_add1
         if self.scale == 8:
             h = pixel_shuffle(leaky_relu(self.upscale1["0"](z, dt)), 2)
             z = vr.zero(leaky_relu(self.upscale1["3"](vr.zero(h), dt)))
         z = self._run_block(nb - 2, z, depth, vr)
+        fold = (self.fold_tail and self.fold_output_conv
+                and (self.scale < 4 or (nb - 1) not in self.which))
         r = 1
         if self.scale >= 4:
             # the conv's output channels are already in canonical PS(2) order
             z = leaky_relu(self.upscale2["0"](z, dt))
-            r = 2
+            if fold:
+                r = 2
+            else:
+                z = pixel_shuffle(z, 2)
             w23, b23 = _fold_wb(*wn_effective_kernel(self.upscale2["3"]), r)
             z = leaky_relu(_conv_b(vr.zero(z), w23, b23, dt))
-            z = self._folded_classic(self.block(nb - 1), z, r, vr)
+            if fold:
+                z = self._folded_classic(self.block(nb - 1), z, r, vr)
+            else:
+                z = self._run_block(nb - 1, vr.zero(z), depth, vr)
         else:
             z = self._run_block(nb - 1, z, depth, vr)
-        return self._folded_head(z, r, vr)
+        if fold:
+            return self._folded_head(z, r, vr)
+        h = self.upscale3["0"](z, dt)
+        if self.fold_output_conv:
+            # only the head is folded through the final shuffle
+            wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
+                              self.conv_output.bias.float(), fs)
+            out = pixel_shuffle(_conv_b(vr.zero(leaky_relu(h)), wh, bh, dt), fs)
+        else:
+            out = self.conv_output(vr.zero(leaky_relu(pixel_shuffle(h, fs))), dt)
+        return torch.clamp(out.float(), self.clamp_min, self.clamp_max)
 
     def _folded_head(self, z, r, vr):
         """upscale3 + the 9×9 head with every pending shuffle deferred: ``z``
@@ -523,9 +690,7 @@ class DepthNet(nn.Module):
         rt = r * fs
         wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
                           self.conv_output.bias.float(), rt)
-        pre = _conv_b(_mul(leaky_relu(z), vmask), wh, bh, dt)
-        flat = output_stage(pre, rt, self.clamp_min, self.clamp_max)
-        return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        return self._emit(_conv_b(_mul(leaky_relu(z), vmask), wh, bh, dt), rt)
 
     def _phase_split_head(self, z, w30, b30, vmask):
         """The r = 2 folded head: a 3×3 conv folded through PS(2) is 75 %
@@ -543,7 +708,8 @@ class DepthNet(nn.Module):
         phases = [(a, b) for a in (0, 1) for b in (0, 1)]
         idxs = device_constant(_phase_channels, (fs,), torch.int64, z.device)
         m_per = 32 * fs * fs
-        v3 = vmask is None and rt == 4 and self.out_nc == 3
+        v3 = (self.pallas_output and vmask is None and rt == 4
+              and self.out_nc == 3)
 
         def head_w(idx):
             w_ab = wh[:, :, idx, :]
@@ -572,14 +738,14 @@ class DepthNet(nn.Module):
         if v3:
             pre = pre + embed_head_channels(wh[:, :, idxs[0], :], bh)[1].to(dt)
             flat = output_stage_x8(pre, self.clamp_min, self.clamp_max)
-        else:
-            flat = output_stage(pre + bh.to(dt), rt, self.clamp_min,
-                                self.clamp_max)
-        return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        return self._emit(pre + bh.to(dt), rt)
 
-    def _packed_up1_and_tail(self, feat_add1):
+    def _packed_up1(self, feat_add1):
         """upscale1 → block nb-2 → upscale2_0 as the packed up1 chain on the
-        (LR+1)² grid, then the packed tail, head and output stage."""
+        (LR+1)² grid. Returns (the packed stage-4 output, its deferred
+        bias): stage 4 runs raw, its bias and leaky_relu are applied by the
+        tail chain's load (pre_bias / pre_act)."""
         dt, nb = self.dtype, self.nb
         psk = packed_stage_kernel
         h_pre = self.upscale1["0"](feat_add1, dt)
@@ -591,29 +757,33 @@ class DepthNet(nn.Module):
             psk(w13, 0, 1, in_interleaved=True), b13.repeat(4),
             psk(w50, 1, 0), b50.repeat(4), psk(w52, 0, 1), b52.repeat(4),
             pre_act=True).permute(2, 0, 1, 3)
-        # stage 4 runs raw: its bias and leaky_relu are deferred into the
-        # tail chain's load (pre_bias / pre_act)
         g4 = conv2d_nhwc(g3, psk(w20, 1, 0), ((0, 1), (0, 1)), dt)
-        return self._packed_tail(g4, b20)
+        return g4, b20
 
-    def _packed_tail(self, z_g4, pre_bias):
-        """upscale2_3, block nb-1 and upscale3_0 on the phase-packed grid of
-        the packed up1 output ``z_g4`` [B, N+1, N+1, 512] (fine grid 2N²),
-        then the folded 9×9 head and the output stage."""
+    def _packed_tail(self, z=None, z_g4=None, pre_bias=None):
+        """upscale2_3, block nb-1 and upscale3_0 on the phase-packed grid,
+        from the mid-tail tensor ``z`` [B, 2N, 2N, 128] or, in its place,
+        the packed up1 output ``z_g4`` [B, N+1, N+1, 512] (raw, with its
+        deferred ``pre_bias``; the chain interleaves it while it loads);
+        then the folded 9×9 head and the output stage: ``fused_tail``
+        (``pallas_tail``), ``head_dot`` + ``output_stage_x8``
+        (``pallas_head``), or a plain conv and :meth:`_emit`."""
         dt = self.dtype
         psk = packed_stage_kernel
-        nw = 2 * (z_g4.shape[2] - 1)
+        lo, hi = self.clamp_min, self.clamp_max
         fs, rt = 2, 4
         w23, b23 = wn_effective_kernel(self.upscale2["3"])
         (wc0, bc0), (wc2, bc2) = self.block(self.nb - 1).effective_weights()
+        src = z if z_g4 is None else z_g4
+        nw = src.shape[2] if z_g4 is None else 2 * (src.shape[2] - 1)
         g3 = packed_g123(
-            z_g4.permute(1, 2, 0, 3),
+            src.to(dt).permute(1, 2, 0, 3),
             psk(w23, 0, 1, in_interleaved=True), b23.repeat(4),
             psk(wc0, 1, 0), bc0.repeat(4), psk(wc2, 0, 1), bc2.repeat(4),
-            pre_act=True, pre_bias=pre_bias.to(dt),
-            phases=True).permute(2, 0, 1, 3)
+            pre_act=z_g4 is not None,
+            pre_bias=None if pre_bias is None else pre_bias.to(dt),
+            phases=z_g4 is not None).permute(2, 0, 1, 3)
         w30, b30 = wn_effective_kernel(self.upscale3["0"])
-        # raw conv: its bias + leaky_relu and the s=0 gate run inside head_dot
         g4 = conv2d_nhwc(g3, psk(w30, 1, 0), ((0, 1), (0, 1)), dt)
         # head folded by rt, input channels permuted from canonical PS(rt)
         # order to g4's group-major packed order
@@ -621,9 +791,27 @@ class DepthNet(nn.Module):
                           self.conv_output.bias.float(), rt)
         perm = device_constant(_phase_channels, (fs,), torch.int64,
                                wh.device).reshape(-1)
-        w64, b64 = embed_head_channels(wh[:, :, perm, :], bh)
-        pre64 = head_dot(g4.permute(1, 2, 0, 3), w64.to(dt), b64, nw,
-                         b30.repeat(4).to(dt))                 # [H, B, W, 64]
-        flat = output_stage_x8(pre64, self.clamp_min, self.clamp_max,
-                               order="hbwc")
-        return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        wh = wh[:, :, perm, :]
+        rgb = self.out_nc == 3
+        if self.pallas_head and rgb and not self.pallas_tail:
+            # g4 stays raw: its bias + leaky_relu and the s=0 gate run
+            # inside head_dot
+            w64, b64 = embed_head_channels(wh, bh)
+            pre64 = head_dot(g4.permute(1, 2, 0, 3), w64.to(dt), b64, nw,
+                             b30.repeat(4).to(dt))             # [H, B, W, 64]
+            flat = output_stage_x8(pre64, lo, hi, order="hbwc")
+            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        # the other heads take g4 activated and gated (dead last row/column)
+        gate = device_constant(_edge_gate, (g4.shape[1], g4.shape[2]), dt,
+                               g4.device)
+        g4 = leaky_relu(g4 + b30.repeat(4).to(dt)) * gate
+        if self.pallas_tail and rgb:
+            flat = fused_tail(g4.permute(1, 2, 0, 3), wh.to(dt), bh, lo, hi,
+                              "hwbc", nw)
+            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        if self.pallas_output and rgb:
+            w64, b64 = embed_head_channels(wh, bh)
+            pre64 = conv2d_nhwc(g4, w64, ((1, 0), (1, 0)), dt) + b64.to(dt)
+            flat = output_stage_x8(pre64, lo, hi)
+            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        return self._emit(_conv_b_pad(g4, wh, bh, ((1, 0), (1, 0)), dt), rt)

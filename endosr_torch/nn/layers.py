@@ -57,18 +57,20 @@ def _pads(pad):
     return tuple(pad[0]), tuple(pad[1])
 
 
-def conv2d_nhwc(x, w_hwio, pad=1, dtype=None, stride=1):
+def conv2d_nhwc(x, w_hwio, pad=1, dtype=None, stride=1, groups=1):
     """Conv of NHWC ``x`` with an HWIO kernel in ``dtype`` (default
-    ``x.dtype``); ``pad`` is an int or ((top, bottom), (left, right)).
-    No bias. Returns NHWC."""
+    ``x.dtype``); ``pad`` is an int or ((top, bottom), (left, right));
+    ``groups``: the kernel is [kh,kw,C_in/groups,C_out], output channels
+    group-major. No bias. Returns NHWC."""
     dtype = dtype or x.dtype
     (pt, pb), (pl, pr) = _pads(pad)
     xn = x.to(dtype).permute(0, 3, 1, 2)
     w = w_hwio.to(dtype).permute(3, 2, 0, 1)
     if pt == pb and pl == pr:
-        y = F.conv2d(xn, w, stride=stride, padding=(pt, pl))
+        y = F.conv2d(xn, w, stride=stride, padding=(pt, pl), groups=groups)
     else:
-        y = F.conv2d(F.pad(xn, (pl, pr, pt, pb)), w, stride=stride)
+        y = F.conv2d(F.pad(xn, (pl, pr, pt, pb)), w, stride=stride,
+                     groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

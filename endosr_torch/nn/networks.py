@@ -7,11 +7,25 @@ import torch
 
 from endosr_torch.nn.depthnet import DepthNet
 
-__all__ = ["define_G"]
+__all__ = ["define_G", "DEPTHNET_PRESETS"]
 
-# Presets whose graph is the ported fast path; each only sets style_chunk
-# here (the other knobs of ``DEPTHNET_PRESETS`` are that path's defaults).
-_PORTED_PRESETS = {None: {}, "serve": {"style_chunk": 5}}
+# ``network_G.preset``: the JAX package's named knob combinations
+# (``endosr/nn/depthnet.py::DEPTHNET_PRESETS``), field for field. A field
+# the port serves at one value only is checked by ``DepthNet`` itself.
+_SERVE = dict(packed_tail=True, packed_up1=True, pallas_tail=False,
+              pallas_head="auto", pallas_output="auto", pallas_style="auto",
+              lazy_branches=True, style_chunk=5, blend_fold=False,
+              remat_blocks=False)
+DEPTHNET_PRESETS = {
+    "serve": _SERVE,
+    "serve_bf16c3": _SERVE,   # its centered convs come from ``precision``
+    "train": _SERVE,
+    # every fast path off: hoisted branches, dense real-resolution tail
+    "plain": dict(packed_tail=False, packed_up1=False, pallas_tail=False,
+                  pallas_head=False, pallas_output=False, pallas_style=False,
+                  lazy_branches=False, style_chunk=1, blend_fold=False,
+                  remat_blocks=False, fold_tail=False, fold_output_conv=False),
+}
 
 
 def _dataset_block(opt):
@@ -25,24 +39,20 @@ def _dataset_block(opt):
 
 
 def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
+    """The generator of ``opt["network_G"]``. ``preset`` sets a named knob
+    combination and ``net_kw`` (raw DepthNet fields) is applied last, over
+    it, as in the JAX package. A field or value the port does not serve
+    raises ``NotImplementedError`` by name; an unknown field ``TypeError``."""
     opt_net = opt["network_G"]
     which_model = opt_net["which_model_G"]
     if which_model != "DepthNet":
         raise NotImplementedError(f"Generator [{which_model}] is not ported")
-    preset = opt_net.get("preset")
-    if preset not in _PORTED_PRESETS:
-        raise NotImplementedError(f"DepthNet preset [{preset}] is not ported")
-    for knob in ("ablate_depth_matrix", "ablate_depth_block", "remat_blocks"):
-        if opt_net.get(knob):
-            raise NotImplementedError(f"DepthNet {knob} is not ported")
-    if opt_net.get("net_kw"):
-        raise NotImplementedError("DepthNet net_kw overrides are not ported")
-    # fused_epilogue: the fused InstanceNorm+modulation kernel (a DepthNet
-    # field in the JAX package); in_stats: "default" | "kernel", the port's
-    # form of the JAX package's ENDOSR_IN_STATS=pallas switch
     scale = opt.get("scale") or opt_net.get("scale") or opt_net.get("upscale", 4)
     ds = _dataset_block(opt)
-    return DepthNet(
+    # fused_epilogue: a DepthNet field in the JAX package, also read from
+    # network_G here; in_stats: "default" | "kernel", the port's form of
+    # the JAX package's ENDOSR_IN_STATS=pallas switch
+    kwargs = dict(
         which_resblk_depth=tuple(opt_net.get("which_ResBlk_depth") or ()),
         in_nc=opt_net.get("in_nc", 3), out_nc=opt_net.get("out_nc", 3),
         nf=opt_net.get("nf", 64), nb=opt_net.get("nb", 16), scale=int(scale),
@@ -51,6 +61,16 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
         use_trainable_params=bool(opt_net.get("use_trainable_params", True)),
         norm_gamma=float(opt_net.get("norm_gamma") or 0.0),
         norm_beta=float(opt_net.get("norm_beta") or 0.0),
+        ablate_depth_matrix=bool(opt_net.get("ablate_depth_matrix", False)),
+        ablate_depth_block=bool(opt_net.get("ablate_depth_block", False)),
+        remat_blocks=bool(opt_net.get("remat_blocks", False)),
         fused_epilogue=bool(opt_net.get("fused_epilogue", False)),
-        in_stats=opt_net.get("in_stats") or "default",
-        dtype=dtype, device=device, **_PORTED_PRESETS[preset])
+        in_stats=opt_net.get("in_stats") or "default")
+    preset = opt_net.get("preset")
+    if preset:
+        if preset not in DEPTHNET_PRESETS:
+            raise ValueError(f"Unknown DepthNet preset [{preset}]; available: "
+                             f"{sorted(DEPTHNET_PRESETS)}")
+        kwargs.update(DEPTHNET_PRESETS[preset])
+    kwargs.update(opt_net.get("net_kw") or {})
+    return DepthNet(dtype=dtype, device=device, **kwargs)

@@ -1,18 +1,21 @@
 """SEAN depth-conditioned normalization — the serving subset of the port.
 
 Counterpart of ``endosr/nn/sean.py``. For the trunk, DepthNet evaluates
-every instance's depth-map branch (o) and depth-matrix branch (s) up
-front in the lazy, grouped form (``precompute_o_actv``,
-``precompute_style_v``, ``shifted_mask_stack``), then per group either
-``o_branch_raw_hwnc`` + ``style_blend_chunk`` (one ``style_blend_dot``
-giving the finished (γ, β)) or, on the masked path of exact bucketed eval,
-``style_chunk_dot`` (one ``style_dot_hwbm``) + per-block
-``o_branch_from_actv``. A SEAN outside the trunk (blocks nb-2 / nb-1 of
-the ×2/×3 configurations) runs its own two branches. The module then
-blends and applies the modulation with one of three epilogues:
-pre-normalized input, the fused InstanceNorm+modulation kernel
-(``fused_epilogue``), or masked statistics. The ablation variants are not
-ported.
+every instance's depth-map branch (o) and depth-matrix branch (s) ahead of
+the blocks, in one of two forms. Lazy (the default): the shared prefixes
+(``precompute_o_actv``, ``precompute_style_v``, ``shifted_mask_stack``),
+then per group either ``o_branch_raw_hwnc`` + ``style_blend_chunk`` (one
+``style_blend_dot`` giving the finished (γ, β)) or, on the masked path of
+exact bucketed eval, ``style_chunk_dot`` (one ``style_dot_hwbm``) +
+per-block ``o_branch_from_actv``. Hoisted: whole [B,H,W,N·2C] maps per
+group, from ``hoisted_o_branch`` (two convs) or ``pallas_o_branch`` (the
+``fused_o_branch`` kernel) and ``hoisted_style_branch`` (one matmul), or
+the finished blend from ``hoisted_blended_mods`` (the ``fused_modulation``
+kernel). A SEAN outside the trunk (blocks nb-2 / nb-1) runs its own two
+branches. The module then blends and applies the modulation with one of
+three epilogues: pre-normalized input, the fused InstanceNorm+modulation
+kernel (``fused_epilogue``), or masked statistics. The ablation variants
+are not ported.
 
 Weights travel as plain tuples of HWIO fp32 tensors:
 ``depth_branch_weights()`` → (w_mask, b_mask, w_ob, b_ob) with w_ob the
@@ -27,6 +30,8 @@ import torch
 import torch.nn as nn
 
 from endosr_torch.kernels.fused_in_mod import fused_in_mod
+from endosr_torch.kernels.fused_mod import fused_modulation
+from endosr_torch.kernels.fused_obranch import fused_o_branch
 from endosr_torch.kernels.style_dot import style_blend_dot, style_dot_hwbm
 from endosr_torch.nn.layers import (Conv, conv2d_nhwc, hwio, instance_norm,
                                     masked_instance_norm)
@@ -35,7 +40,8 @@ from endosr_torch.utils.device import device_constant
 
 __all__ = ["SEAN", "precompute_o_actv", "alpha_vec", "o_branch_raw_hwnc",
            "o_branch_from_actv", "style_blend_chunk", "style_chunk_dot",
-           "precompute_style_v", "shifted_mask_stack"]
+           "precompute_style_v", "shifted_mask_stack", "hoisted_o_branch",
+           "hoisted_style_branch", "pallas_o_branch", "hoisted_blended_mods"]
 
 
 def _split_channels(x, n, c):
@@ -48,6 +54,15 @@ def _mask_conv_relu(d, w_mask, b_mask, dtype):
     return torch.relu(conv2d_nhwc(d, w_mask, 1, dtype) + b_mask.to(dtype))
 
 
+def _o_actv(weights, depth_map, dtype, vmask):
+    """relu(conv1(d)) of N instances as one 1→N·2C conv: [B,h,w,N·2C],
+    instance-major, re-zeroed outside the valid region under ``vmask``."""
+    w_mask = torch.cat([w[0].to(dtype) for w in weights], dim=-1)
+    b_mask = torch.cat([w[1].to(dtype) for w in weights])
+    actv = _mask_conv_relu(depth_map.to(dtype), w_mask, b_mask, dtype)
+    return actv if vmask is None else actv * vmask.to(actv.dtype)
+
+
 def precompute_o_actv(weights, depth_map, dtype, vmask=None):
     """Shared first o-branch stage of N instances: one 1→N·2C conv + ReLU,
     returned as per-instance [B,h,w,2C] chunks. ``vmask`` re-zeroes the
@@ -56,12 +71,44 @@ def precompute_o_actv(weights, depth_map, dtype, vmask=None):
     if not weights:
         return ()
     c2 = weights[0][2].shape[-1]
-    w_mask = torch.cat([w[0].to(dtype) for w in weights], dim=-1)
-    b_mask = torch.cat([w[1].to(dtype) for w in weights])
-    actv = _mask_conv_relu(depth_map.to(dtype), w_mask, b_mask, dtype)
-    if vmask is not None:
-        actv = actv * vmask.to(actv.dtype)
-    return _split_channels(actv, len(weights), c2)
+    return _split_channels(_o_actv(weights, depth_map, dtype, vmask),
+                           len(weights), c2)
+
+
+def _pairs(x, n, c):
+    """[(γ_i, β_i)] views of an instance-major [..., N·2C] map."""
+    halves = _split_channels(x, 2 * n, c)
+    return [(halves[2 * i], halves[2 * i + 1]) for i in range(n)]
+
+
+def hoisted_o_branch(weights, depth_map, dtype, vmask=None):
+    """Every instance's depth-map branch in two convs: the 1→N·2C conv +
+    ReLU, then one N-group 2C→2C conv + bias. Returns [(γ_o, β_o), ...] as
+    views of the one [B,h,w,N·2C] map."""
+    n = len(weights)
+    if n == 0:
+        return []
+    c2 = weights[0][2].shape[-1]
+    actv = _o_actv(weights, depth_map, dtype, vmask)
+    w_ob = torch.cat([w[2].to(dtype) for w in weights], dim=-1)
+    b_ob = torch.cat([w[3].to(dtype) for w in weights])
+    ob = conv2d_nhwc(actv, w_ob, 1, dtype, groups=n) + b_ob
+    return _pairs(ob, n, c2 // 2)
+
+
+def pallas_o_branch(weights, depth_map, dtype):
+    """:func:`hoisted_o_branch` (unmasked) through the ``fused_o_branch``
+    kernel: same operands, stacked per instance, same return contract."""
+    n = len(weights)
+    if n == 0:
+        return []
+    c2 = weights[0][2].shape[-1]
+    wm = torch.stack([w[0].reshape(9, c2).to(dtype) for w in weights])
+    bm = torch.stack([w[1].to(dtype) for w in weights])
+    w2 = torch.stack([w[2].reshape(9, c2, c2).to(dtype) for w in weights])
+    b2 = torch.stack([w[3].to(dtype) for w in weights])
+    ob = fused_o_branch(depth_map, wm, bm, w2, b2, dtype)
+    return _pairs(ob, n, c2 // 2)
 
 
 def alpha_vec(alphas, c, dtype):
@@ -105,13 +152,18 @@ def style_blend_chunk(shifted, v_list, weights, alphas, o_biases, convs_raw,
     return [(halves[2 * i], halves[2 * i + 1]) for i in range(len(weights))]
 
 
-def style_chunk_dot(shifted, v_list, weights, dtype):
-    """One ``style_dot_hwbm`` for a group of SEAN instances: per-instance
-    [B,9K,2C] kernels ``v_list`` against the shifted mask stack, plus each
-    instance's style biases. Returns [(γ_s, β_s), ...] as [B,H,W,C] views."""
+def style_chunk_dot(shifted, v_list, weights, dtype, use_kernel=True):
+    """One style dot for a group of SEAN instances: per-instance [B,9K,2C]
+    kernels ``v_list`` against the shifted mask stack, plus each
+    instance's style biases; through ``style_dot_hwbm`` or, with
+    ``use_kernel`` off, a plain matmul. Returns [(γ_s, β_s), ...] as
+    [B,H,W,C] views."""
     c = weights[0][2].shape[-1]
     v = torch.cat(list(v_list), dim=-1)                       # [B, 9K, G·2C]
-    y = style_dot_hwbm(shifted, v).permute(2, 0, 1, 3)
+    if use_kernel:
+        y = style_dot_hwbm(shifted, v).permute(2, 0, 1, 3)
+    else:
+        y = torch.einsum("bhwj,bjm->bhwm", shifted, v)
     halves = _split_channels(y, 2 * len(weights), c)
     return [(halves[2 * i] + w[3].to(dtype), halves[2 * i + 1] + w[5].to(dtype))
             for i, w in enumerate(weights)]
@@ -123,9 +175,14 @@ def precompute_style_v(weights, st, dtype):
     modulation)."""
     if not weights:
         return ()
-    b, k, _ = st.shape
-    n = len(weights)
-    c = weights[0][2].shape[-1]
+    n, c2 = len(weights), 2 * weights[0][2].shape[-1]
+    v = _style_v(weights, st, dtype, "bxyknc")
+    return _split_channels(v.reshape(v.shape[0], -1, n * c2), n, c2)
+
+
+def _style_v(weights, st, dtype, out):
+    """The style kernels of N instances from st [B,K,L], in the einsum
+    index order ``out`` over (b, x, y: taps, k: bin, n: instance, c: 2C)."""
     st = st.to(dtype)
     a_w = torch.stack([w[0].to(dtype) for w in weights])          # [N,K,K]
     a_b = torch.stack([w[1].to(dtype) for w in weights])          # [N,K]
@@ -133,9 +190,50 @@ def precompute_style_v(weights, st, dtype):
                 + a_b[:, None, :, None])                          # [N,B,K,L]
     w_cat = torch.stack([torch.cat([w[2].to(dtype), w[4].to(dtype)], dim=-1)
                          for w in weights])                       # [N,3,3,L,2C]
-    v = torch.einsum("nbkl,nxylc->bxyknc", st_mixed, w_cat)
-    v = v.reshape(b, 9 * k, n * 2 * c)
-    return _split_channels(v, n, 2 * c)
+    return torch.einsum(f"nbkl,nxylc->{out}", st_mixed, w_cat)
+
+
+def hoisted_style_branch(weights, depth_mask, st, dtype):
+    """Every instance's depth-matrix branch as one [B,HW,9K]×[B,9K,N·2C]
+    product (a plain matmul, outside any kernel, as in the JAX package).
+    Returns [(γ_s, β_s), ...]; the per-instance biases are added to the
+    slices, so the whole map is not written a second time."""
+    n = len(weights)
+    if n == 0:
+        return []
+    c = weights[0][2].shape[-1]
+    v = _style_v(weights, st, dtype, "bxyknc")
+    v = v.reshape(v.shape[0], -1, n * 2 * c)
+    y = torch.einsum("bhwj,bjm->bhwm", shifted_mask_stack(depth_mask, dtype), v)
+    return [(g + w[3].to(dtype), b + w[5].to(dtype))
+            for (g, b), w in zip(_pairs(y, n, c), weights)]
+
+
+def hoisted_blended_mods(o_weights, s_weights, alphas, depth_map, depth_mask,
+                         st, dtype):
+    """The finished blended (γ, β) of every instance from one
+    ``fused_modulation`` launch. The α blend and the four biases are folded
+    into the operands: out = shifted@(α·v) + conv2(relu(conv1(d));
+    (1−α)·w2) + [α·b_s + (1−α)·b_o]."""
+    n = len(o_weights)
+    if n == 0:
+        return []
+    c2 = o_weights[0][2].shape[-1]
+    c = c2 // 2
+    av = torch.stack([alpha_vec(a, c, dtype) for a in alphas])    # [N, 2C]
+    wm = torch.stack([w[0].reshape(9, c2).to(dtype) for w in o_weights])
+    bm = torch.stack([w[1].to(dtype) for w in o_weights])
+    w2 = (torch.stack([w[2].reshape(9 * c2, c2).to(dtype) for w in o_weights])
+          * (1.0 - av)[:, None, :])
+    v = _style_v(s_weights, st, dtype, "bnxykc")
+    v = v.reshape(v.shape[0], n, -1, c2) * av[None, :, None, :]
+    b_s = torch.stack([torch.cat([w[3].to(dtype), w[5].to(dtype)])
+                       for w in s_weights])
+    b_o = torch.stack([w[3].to(dtype) for w in o_weights])
+    bias = av * b_s + (1.0 - av) * b_o
+    out = fused_modulation(depth_map.to(dtype), depth_mask.to(dtype), wm, bm,
+                           w2, v, bias, dtype)
+    return _pairs(out, n, c)
 
 
 def shifted_mask_stack(depth_mask, dtype):

@@ -3,7 +3,7 @@
     python -m endosr_torch.tools.profile_serving [--config x8] [--requests 2] [--top 25]
 
 Builds the port's FModelDepthCond (bf16, seeded weights, full flagship
-width) in one of three configurations, serves one warm-up batch-8 request,
+width) in one of its configurations, serves one warm-up batch-8 request,
 then serves ``--requests`` more under ``torch.profiler`` and prints: the
 host wall time per request, the summed device time per request, the
 device's idle share of the window, and the kernels with the most device
@@ -12,7 +12,12 @@ time (name, calls, ms per request, share). Needs a CUDA device.
 ``--config``: ``x8`` — ×8, ``eval_bucket_multiple: 0``, LQ 128² → SR 1024²;
 ``x8_bucketed`` — ×8 with the key unset (bucket 32), LQ 120×112 fed from
 the host → SR 960×896 through the masked forward; ``x4_fused`` — ×4 with
-``fused_epilogue`` and ``in_stats: kernel``, LQ 128² → SR 512².
+``fused_epilogue`` and ``in_stats: kernel``, LQ 128² → SR 512²; and the ×8
+request of ``x8`` through ``net_kw``: ``x8_obranch`` (``pallas_obranch``, the
+hoisted trunk through ``fused_o_branch``), ``x8_fused_mod``
+(``fused_modulation``), ``x8_fused_tail`` (``pallas_tail``), ``x8_hoisted``
+(``lazy_branches: false``, the hoisted trunk in plain PyTorch),
+and ``x8_plain`` (``preset: plain``).
 """
 
 from __future__ import annotations
@@ -23,8 +28,14 @@ import time
 
 # name → (scale, LQ height and width, requests fed from the host, top-level
 # options, network_G options)
+_X8 = (8, (128, 128), False, {"eval_bucket_multiple": 0})
 _CONFIGS = {
-    "x8": (8, (128, 128), False, {"eval_bucket_multiple": 0}, {}),
+    "x8": (*_X8, {}),
+    "x8_obranch": (*_X8, {"net_kw": {"pallas_obranch": True}}),
+    "x8_fused_mod": (*_X8, {"net_kw": {"fused_modulation": True}}),
+    "x8_fused_tail": (*_X8, {"net_kw": {"pallas_tail": True}}),
+    "x8_hoisted": (*_X8, {"net_kw": {"lazy_branches": False}}),
+    "x8_plain": (*_X8, {"preset": "plain"}),
     "x8_bucketed": (8, (120, 112), True, {}, {}),
     "x4_fused": (4, (128, 128), False, {},
                  {"fused_epilogue": True, "in_stats": "kernel"}),

@@ -246,8 +246,8 @@ def test_valid_hw_with_fused_epilogue_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scale=4, which_resblk_depth=(0, 1, 4)),
-    dict(scale=8, which_resblk_depth=(0, 4)),
+    dict(scale=4, which_resblk_depth=(0, 1, 4), centered_convs=1),
+    dict(scale=8, which_resblk_depth=(0, 4), blend_fold=True),
     dict(scale=4, which_resblk_depth=()),
     dict(scale=16, which_resblk_depth=(0,)),
 ], ids=["x4_depth_at_nb1", "x8_depth_at_nb1", "baseline", "x16"])

@@ -4,9 +4,11 @@ On the CPU each wrapper runs its plain PyTorch version, and so does the
 JAX function (its Pallas kernel falls back to the jnp twin off the TPU).
 Same numpy inputs into both; tolerance 1e-5 max abs, and exact for the
 pure data movement of ``output_stage_x8`` and ``output_stage``;
-``style_dot_hwbm`` and ``fused_in_mod`` are also held against their Pallas
-kernels in interpret mode. The CUDA kernels themselves are held against
-these plain versions on the card by ``chip_smoke.py``.
+``style_dot_hwbm``, ``fused_in_mod``, ``fused_o_branch`` (bf16),
+``fused_modulation`` and ``fused_tail`` are also held against their Pallas
+kernels in interpret mode, and ``mid_shuffle`` with its gradient exactly.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``chip_smoke.py``.
 
 Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
@@ -24,11 +26,19 @@ import torch
 
 # modules by name: a package may export a function under a module's name
 jax_fim = importlib.import_module("endosr.kernels.fused_in_mod")
+jax_fm = importlib.import_module("endosr.kernels.fused_mod")
+jax_fo = importlib.import_module("endosr.kernels.fused_obranch")
+jax_ft = importlib.import_module("endosr.kernels.fused_tail")
+jax_sm = importlib.import_module("endosr.kernels.shuffle_mid")
 jax_hd = importlib.import_module("endosr.kernels.head_dot")
 jax_os = importlib.import_module("endosr.kernels.output_stage")
 jax_pc = importlib.import_module("endosr.kernels.packed_chain")
 jax_sd = importlib.import_module("endosr.kernels.style_dot")
 t_fim = importlib.import_module("endosr_torch.kernels.fused_in_mod")
+t_fm = importlib.import_module("endosr_torch.kernels.fused_mod")
+t_fo = importlib.import_module("endosr_torch.kernels.fused_obranch")
+t_ft = importlib.import_module("endosr_torch.kernels.fused_tail")
+t_sm = importlib.import_module("endosr_torch.kernels.shuffle_mid")
 t_hd = importlib.import_module("endosr_torch.kernels.head_dot")
 t_is = importlib.import_module("endosr_torch.kernels.in_stats")
 t_os = importlib.import_module("endosr_torch.kernels.output_stage")
@@ -238,6 +248,141 @@ def test_fused_in_mod_matches_jax(against):
     _cmp(got.numpy(), want)
 
 
+# ------------------------------------------------------------ fused_o_branch
+
+def _o_operands(rng, b, h, w, n, c2):
+    d = rng.random((b, h, w, 1), dtype=np.float32)
+    return (d, _f32(rng, n, 9, c2, s=0.3), _f32(rng, n, c2, s=0.3),
+            _f32(rng, n, 9, c2, c2, s=0.2), _f32(rng, n, c2, s=0.3))
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 10, 3, 16), (1, 5, 7, 2, 8)],
+                         ids=["n3_c16", "ragged_n2_c8"])
+def test_fused_o_branch_matches_jax_twin(shape):
+    args = _o_operands(_rng(16), *shape)
+    want = jax_fo.fused_o_branch_reference(*map(jnp.asarray, args))
+    got = t_fo.fused_o_branch(*map(_t, args))
+    _cmp(got.numpy(), want)
+
+
+def test_fused_o_branch_bf16_matches_pallas_interpret():
+    """bf16 at [1,32,128,1], the smallest shape the TPU kernel takes, in
+    interpret mode. Both round the activation once after the ReLU; they
+    differ in fp32 summation order and in the last rounding (the TPU kernel
+    adds b2 before it, the twin and the port after), so ≤ 2 bf16 ulps of
+    the largest value: 2⁻⁶ of it."""
+    args = _o_operands(_rng(17), 1, 32, 128, 2, 16)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in args]
+    want = np.asarray(jax_fo.fused_o_branch(*bf), np.float32)
+    got = t_fo.fused_o_branch(*(_t(a).bfloat16() for a in args))
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 32, 128, 32)
+    err = float(np.abs(got.float().numpy() - want).max())
+    assert err <= np.abs(want).max() * 2.0 ** -6, err
+
+
+def test_fused_o_branch_padding_ring_is_zero_not_relu_bias():
+    """With a large positive bm, relu(bm) in conv2's padding ring would
+    change every border pixel; the plain version pads after the ReLU."""
+    d, wm, bm, w2, b2 = _o_operands(_rng(18), 1, 6, 6, 1, 8)
+    bm = np.abs(bm) + 5.0
+    got = t_fo.fused_o_branch(*map(_t, (d, wm, bm, w2, b2))).numpy()
+    want = np.asarray(jax_fo.fused_o_branch_reference(
+        *map(jnp.asarray, (d, wm, bm, w2, b2))))
+    _cmp(got, want, 2e-5)
+    actv = t_fo.o_actv_plain(_t(d), _t(wm), _t(bm), torch.float32)
+    assert float(actv.min()) > 4.0       # so a wrong ring would show
+
+
+# ---------------------------------------------------------- fused_modulation
+
+def _mod_operands(rng, b, h, w, k, n, c2):
+    d, wm, bm, w2, bias = _o_operands(rng, b, h, w, n, c2)
+    mask = (rng.random((b, h, w, k)) > 0.7).astype(np.float32)
+    return (d, mask, wm, bm, w2.reshape(n, 9 * c2, c2),
+            _f32(rng, b, n, 9 * k, c2, s=0.3), bias)
+
+
+@pytest.mark.parametrize("against,shape", [
+    ("pallas_interpret", (2, 16, 16, 10, 3, 32)),
+    ("reference", (2, 16, 16, 10, 3, 32)),
+    ("reference", (1, 7, 9, 4, 2, 16)),
+], ids=["kernel_16x16", "twin_16x16", "twin_ragged"])
+def test_fused_modulation_matches_jax(against, shape):
+    args = _mod_operands(_rng(19), *shape)
+    fn = (jax_fm.fused_modulation if against == "pallas_interpret"
+          else jax_fm.fused_modulation_reference)
+    want = fn(*map(jnp.asarray, args))
+    got = t_fm.fused_modulation(*map(_t, args))
+    _cmp(got.numpy(), want, 2e-5)      # sums of 9·2C + 9K products of O(1)
+
+
+# ---------------------------------------------------------------- fused_tail
+
+def _tail_operands(rng, b, hp, wc, wout, c4):
+    g4 = _f32(rng, b, hp, wc, c4, s=0.1)
+    g4[:, hp - 1] = 0.0                  # the gated dead row and columns
+    g4[:, :, wout:] = 0.0
+    return g4, _f32(rng, 3, 3, c4, 48, s=0.02), _f32(rng, 48, s=0.1) + 0.5
+
+
+@pytest.mark.parametrize("layout", ["bhwc", "hwbc"])
+def test_fused_tail_matches_jax_twin(layout):
+    g4, wh, bh = _tail_operands(_rng(20), 2, 9, 16, 8, 32)
+    want = jax_ft.fused_tail_reference(jnp.asarray(g4), jnp.asarray(wh),
+                                       jnp.asarray(bh), 0.0, 1.0)
+    gt = _t(g4).permute(1, 2, 0, 3) if layout == "hwbc" else _t(g4)
+    got = t_ft.fused_tail(gt, _t(wh), _t(bh), 0.0, 1.0, layout)
+    assert got.dtype == torch.float32 and got.shape == (2, 32, 96)
+    _cmp(got.numpy(), want)
+
+
+def test_fused_tail_matches_pallas_interpret():
+    g4, wh, bh = _tail_operands(_rng(21), 1, 33, 40, 32, 128)
+    want = jax_ft._forward(jnp.asarray(g4), jnp.asarray(wh), jnp.asarray(bh),
+                           0.0, 1.0, interpret=True)
+    got = t_ft.fused_tail(_t(g4), _t(wh), _t(bh), 0.0, 1.0)
+    _cmp(got.numpy(), want)
+
+
+def test_fused_tail_takes_a_non_square_grid():
+    """``wout`` ≠ Hp−1, which the TPU kernel refuses: equal to the head conv
+    of the BHWC tensor, cropped, through ``output_stage``."""
+    g4, wh, bh = _tail_operands(_rng(22), 2, 7, 12, 10, 16)
+    pre = jax_hd.head_dot_reference(
+        jnp.asarray(g4.transpose(1, 2, 0, 3)), jnp.asarray(wh),
+        jnp.asarray(bh), 10)                                   # [h, B, 10, 48]
+    want = jax_os.output_stage_reference(jnp.transpose(pre, (1, 0, 2, 3)), 4,
+                                         0.0, 1.0)
+    got = t_ft.fused_tail(_t(g4), _t(wh), _t(bh), 0.0, 1.0, "bhwc", 10)
+    assert got.shape == (2, 24, 120)
+    _cmp(got.numpy(), want)
+
+
+# --------------------------------------------------------------- mid_shuffle
+
+@pytest.mark.parametrize("r,c", [(2, 128), (2, 3), (3, 4)],
+                         ids=["r2_c128", "r2_c3", "r3_c4"])
+def test_mid_shuffle_and_gradient_match_jax_exactly(r, c):
+    import jax
+
+    z = _f32(_rng(23), 2, 4, 6, c * r * r)
+    lay = importlib.import_module("endosr.nn.layers")
+    want = lay.pixel_shuffle(jnp.asarray(z), r)
+    np.testing.assert_array_equal(
+        np.asarray(jax_sm.mid_shuffle(jnp.asarray(z), r)), np.asarray(want))
+    zt = _t(z).requires_grad_(True)
+    got = t_sm.mid_shuffle(zt, r)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    wgt = _f32(_rng(24), *got.shape)
+    (got * _t(wgt)).sum().backward()
+    gj = jax.grad(lambda a: jnp.sum(jax_sm.mid_shuffle(a, r)
+                                    * jnp.asarray(wgt)))(jnp.asarray(z))
+    np.testing.assert_array_equal(zt.grad.numpy(), np.asarray(gj))
+    np.testing.assert_array_equal(
+        t_sm.mid_unshuffle_plain(_t(wgt), r).numpy(), np.asarray(gj))
+
+
 # ------------------------------------------------------ no silent CPU fallback
 
 class _CudaClaim:
@@ -272,13 +417,29 @@ def _wrapper_calls():
                                                       c((2, 9, 32))),
         "in_stats": lambda: t_is.in_stats(c((2, 4, 4, 8))),
         "fused_in_mod": lambda: t_fim.fused_in_mod(*(c((2, 4, 4, 8)),) * 3),
+        "fused_o_branch": lambda: t_fo.fused_o_branch(
+            c((2, 4, 4, 1)), *_zero_o_weights()),
+        "fused_modulation": lambda: t_fm.fused_modulation(
+            c((2, 4, 4, 1)), c((2, 4, 4, 3)), *_zero_o_weights()[:2],
+            torch.zeros(2, 144, 16), torch.zeros(2, 2, 27, 16),
+            torch.zeros(2, 16)),
+        "fused_tail": lambda: t_ft.fused_tail(
+            c((2, 9, 16, 32)), torch.zeros(3, 3, 32, 48), torch.zeros(48)),
+        "mid_shuffle": lambda: t_sm.mid_shuffle(c((2, 4, 4, 16)), 2),
     }
+
+
+def _zero_o_weights():
+    return (torch.zeros(2, 9, 16), torch.zeros(2, 16),
+            torch.zeros(2, 9, 16, 16), torch.zeros(2, 16))
 
 
 @pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
                                   "packed_g123", "style_blend_dot",
                                   "output_stage", "style_dot_hwbm",
-                                  "in_stats", "fused_in_mod"])
+                                  "in_stats", "fused_in_mod",
+                                  "fused_o_branch", "fused_modulation",
+                                  "fused_tail", "mid_shuffle"])
 def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr("endosr_torch.kernels._build.os.path.exists",
@@ -291,7 +452,8 @@ def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
 def test_cpu_calls_leave_launch_counters_at_zero():
     fns = (t_os.output_stage_x8, t_hd.head_dot, t_pc.packed_g123,
            t_sd.style_blend_dot, t_os.output_stage, t_sd.style_dot_hwbm,
-           t_is.in_stats, t_fim.fused_in_mod)
+           t_is.in_stats, t_fim.fused_in_mod, t_fo.fused_o_branch,
+           t_fm.fused_modulation, t_ft.fused_tail, t_sm.mid_shuffle)
     before = [f.launches for f in fns]
     t_os.output_stage_x8(torch.zeros(1, 8, 8, 64))
     t_hd.head_dot(torch.zeros(9, 9, 1, 16), torch.zeros(3, 3, 16, 64),
@@ -304,7 +466,14 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     t_sd.style_dot_hwbm(torch.zeros(1, 4, 4, 9), torch.zeros(1, 9, 32))
     t_is.in_stats(torch.zeros(1, 4, 4, 8))
     t_fim.fused_in_mod(*(torch.zeros(1, 4, 4, 8),) * 3)
-    assert [f.launches for f in fns] == before == [0] * 8
+    t_fo.fused_o_branch(torch.zeros(2, 4, 4, 1), *_zero_o_weights())
+    t_fm.fused_modulation(torch.zeros(2, 4, 4, 1), torch.zeros(2, 4, 4, 3),
+                          *_zero_o_weights()[:2], torch.zeros(2, 144, 16),
+                          torch.zeros(2, 2, 27, 16), torch.zeros(2, 16))
+    t_ft.fused_tail(torch.zeros(2, 9, 16, 32), torch.zeros(3, 3, 32, 48),
+                    torch.zeros(48))
+    t_sm.mid_shuffle(torch.zeros(2, 4, 4, 16), 2)
+    assert [f.launches for f in fns] == before == [0] * 12
 
 
 # -------------------------------------------------------------- import rule

@@ -182,17 +182,20 @@ def _net(**kw):
     {"eval_bucket_multiple": 32, "spatial_shard": 2},
     {"eval_bucket_multiple": None, "spatial_shard": 4},
     {"precision": "bf16c3"},
-    {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5])},
+    {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
+                        ablate_depth_matrix=True)},
     {"is_train": True}, {"precision": "mixed"}, {"precision": "bf16c"},
-    _net(preset="plain"), _net(net_kw={"packed_tail": False}),
+    _net(preset="plain", net_kw={"remat_blocks": True}),
+    _net(net_kw={"blend_fold": True}),
     _net(ablate_depth_block=True), _net(remat_blocks=True),
 ], ids=["bucketed", "bucketed_default", "bf16c3", "x4", "train", "mixed",
         "bf16c", "preset_plain", "net_kw", "ablation", "remat_blocks"])
 def test_unported_options_raise(change):
     """What still waits: sharded bucketed eval (``spatial_shard``, with the
     bucket set or left at its default), the centered and mixed precisions,
-    a ×4 depth block after upscale2 (the unfolded tail), training,
-    ``preset: plain``, ``net_kw``, the ablations and ``remat_blocks``."""
+    training, the ablations (also on a ×4 network with a depth block after
+    upscale2, which is served now), ``remat_blocks`` (also over
+    ``preset: plain``) and the ``net_kw`` fields the port lacks."""
     opt = {**copy.deepcopy(OPT), **change}
     with pytest.raises(NotImplementedError):
         FModelDepthCond(opt, device="cpu")
