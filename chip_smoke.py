@@ -8,7 +8,9 @@ exits non-zero):
 
 1. device — the card's name and power limit; TF32 off for fp32 checks.
 2. build — every kernel under ``endosr_torch/csrc`` with one ``nvcc`` per
-   source, all started together, into ``build/endosr_torch/``.
+   source, all started together, into ``build/endosr_torch/``; ``ptxas``'s
+   registers, spills and static shared memory of every kernel are logged,
+   those of ``head_dot_wgmma`` and ``style_dot_tc`` on lines of their own.
 3. kernels — each of the twelve kernels against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
@@ -17,7 +19,15 @@ exits non-zero):
    and its backward against the plain un-shuffle and ``torch.autograd`` of
    the plain version) must be bit-identical; ``fused_o_branch`` and
    ``fused_modulation`` are also checked at a ragged small shape (tiles cut
-   by both edges, 2C < 128, K < 16). Times are CUDA-event medians
+   by both edges, 2C < 128, K < 16), ``head_dot`` at B = 3, 13×21 of 24
+   columns, C4 = 128 with and without ``pre_bias``, ``style_dot_hwbm`` at
+   B = 2, 13×21, M = 264. In bf16 ``head_dot`` and ``style_dot_hwbm`` take
+   their tensor-core routes (``wgmma``; ``tc``), which sum in another order
+   than the plain versions (16-deep ``mma`` steps, 64-channel slices
+   outermost), hence the same 1e-2 as every bf16 kernel; in fp32 they take
+   the exact CUDA-core routes. The route each took is asserted, and the
+   earlier route of each (``launch_igemm``; ``launch_cuda_core``) is timed
+   beside it as ``previous_ms``. Times are CUDA-event medians
    of 20 runs (5 for a call above 20 ms), beside the plain version's, the
    bound (larger of bytes over 3.35 TB/s and operations over the bf16
    tensor-core peak), and one PyTorch call computing the same function
@@ -34,7 +44,8 @@ exits non-zero):
    after it; every output finite, of the right shape, in [0,1]; bf16 vs
    fp32 PSNR ≥ 40 dB on the same weights:
    - ×8 flagship, unbucketed, LQ 128² → SR 1024²: ``packed_g123`` 2,
-     ``style_blend_dot`` 2, ``head_dot`` 1, ``output_stage_x8`` 1 per
+     ``style_blend_dot`` 2, ``head_dot`` 1 (bf16: route ``wgmma``; the fp32
+     request: ``fp32``), ``output_stage_x8`` 1 per
      forward; the fp32 output equals that of ``preset: plain`` to ≤ 2e-4,
      and so does that of each of the next three;
    - the same with ``net_kw: {pallas_obranch: true}`` (hoisted trunk):
@@ -46,9 +57,10 @@ exits non-zero):
      ``output_stage_x8`` 0;
    - ``preset: plain``: no kernel launch at all;
    - ×8 flagship with ``eval_bucket_multiple`` unset (bucket 32), LQ
-     120×112 → SR 960×896 through the masked forward: ``style_dot_hwbm`` 2,
-     ``output_stage`` 1, none of the packed kernels; the fp32 output equals
-     the fp32 unbucketed output of the same request to ≤ 1e-4;
+     120×112 → SR 960×896 through the masked forward: ``style_dot_hwbm`` 2
+     (bf16: route ``tc``; fp32: ``cuda_core``), ``output_stage`` 1, none of
+     the packed kernels; the fp32 output equals the fp32 unbucketed output of
+     the same request to ≤ 1e-4;
    - ×4 flagship with ``fused_epilogue`` and ``in_stats: kernel``, LQ 128²
      → SR 512²: ``fused_in_mod`` 26, ``in_stats`` 26, ``style_blend_dot``
      2, ``output_stage_x8`` 1; the fp32 output equals that of the chained
@@ -137,14 +149,19 @@ class KernelCase:
     shapes are checked and logged only. ``exact``: must equal the plain
     version bit for bit. ``ref64``: the float64 reference where the plain
     version cannot be fed float64. ``tol``: overrides the per-dtype
-    tolerance. ``extra``: a further check of the case, run once per type."""
+    tolerance. ``extra``: a further check of the case, run once per type.
+    ``previous``: the kernel's earlier route on the same inputs, timed in
+    bf16. ``route``: (wrapper, {dtype: route name}), the route the call must
+    take. ``timed=False``: checked only."""
 
     def __init__(self, name, kernel, plain, library, bytes_, flops, main=True,
-                 exact=False, ref64=None, tol=None, extra=None):
+                 exact=False, ref64=None, tol=None, extra=None, previous=None,
+                 route=None, timed=True):
         self.name, self.kernel, self.plain = name, kernel, plain
         self.library, self.bytes, self.flops = library, bytes_, flops
         self.main, self.exact, self.ref64, self.tol = main, exact, ref64, tol
-        self.extra = extra
+        self.extra, self.previous, self.route = extra, previous, route
+        self.timed = timed
 
 
 def make_cases(torch, dt, gen):
@@ -160,7 +177,8 @@ def make_cases(torch, dt, gen):
                                                     fused_o_branch_plain,
                                                     grouped_w2)
     from endosr_torch.kernels.fused_tail import fused_tail, fused_tail_plain
-    from endosr_torch.kernels.head_dot import head_dot, head_dot_plain
+    from endosr_torch.kernels.head_dot import (head_dot, head_dot_plain,
+                                               launch_igemm)
     from endosr_torch.kernels.in_stats import in_stats, in_stats_plain
     from endosr_torch.kernels.output_stage import (output_stage,
                                                    output_stage_plain,
@@ -170,7 +188,8 @@ def make_cases(torch, dt, gen):
     from endosr_torch.kernels.shuffle_mid import (mid_shuffle,
                                                   mid_shuffle_plain,
                                                   mid_unshuffle_plain)
-    from endosr_torch.kernels.style_dot import (style_blend_dot,
+    from endosr_torch.kernels.style_dot import (launch_cuda_core,
+                                                style_blend_dot,
                                                 style_blend_plain,
                                                 style_dot_hwbm, style_dot_plain)
 
@@ -245,13 +264,26 @@ def make_cases(torch, dt, gen):
 
     def head_lib():
         return F.conv2d(g4_act, w64_oihw, padding=1)
+    head_route = (head_dot, {torch.bfloat16: "wgmma", torch.float32: "fp32"})
     cases["head_dot"] = [KernelCase(
         "head_dot",
         lambda: head_dot(g4, w64, b64, 256, pb),
         lambda g=g4, w=w64, b=b64, p=pb: head_dot_plain(g, w, b, 256, p),
         head_lib,
         nbytes(g4, w64, b64, pb) + 256 * B * 256 * 64 * g4.element_size(),
-        2 * B * 256 * 256 * 9 * 512 * 64)]
+        2 * B * 256 * 256 * 9 * 512 * 64,
+        previous=lambda: launch_igemm(g4, w64, b64, 256, pb),
+        route=head_route)]
+    # ragged: tiles cut by both edges, dead columns in memory, two slices
+    for label, with_pb in (("pre_bias", True), ("raw", False)):
+        rg4 = rn(3, 14, 24, 128, s=0.5).permute(1, 2, 0, 3)
+        rw, rb = rn(3, 3, 128, 64, s=0.03), rn(64, s=0.1, dtype=torch.float32)
+        rpb = rn(128, s=0.1) if with_pb else None
+        cases["head_dot"].append(KernelCase(
+            f"head_dot[ragged 13×21 of 24, C4=128, {label}]",
+            lambda a=(rg4, rw, rb, 21, rpb): head_dot(*a),
+            lambda g=rg4, w=rw, b=rb, p=rpb: head_dot_plain(g, w, b, 21, p),
+            None, 0, 0, main=False, route=head_route, timed=False))
 
     # packed_g123: up1 chain (x [128,128,8,256], pre_act) and tail chain
     # (packed producer [129,129,8,512], phases + pre_act + pre_bias)
@@ -305,6 +337,8 @@ def make_cases(torch, dt, gen):
 
     # style_dot_hwbm: the same two groups on the masked path
     hcs = []
+    style_route = (style_dot_hwbm, {torch.bfloat16: "tc",
+                                    torch.float32: "cuda_core"})
     for nblk in (7, 6):
         m = nblk * 2 * 128
         v = rn(B, 90, m, s=0.05)
@@ -315,7 +349,17 @@ def make_cases(torch, dt, gen):
             lambda s=masks, vv=v: style_dot_plain(s, vv),
             lambda s=sflat, vv=v: torch.bmm(s, vv),
             nbytes(masks, v) + 128 * 128 * B * m * masks.element_size(),
-            2 * B * 128 * 128 * 90 * m))
+            2 * B * 128 * 128 * 90 * m,
+            previous=lambda s=masks, vv=v: launch_cuda_core(s, vv),
+            route=style_route))
+    # ragged: a last pixel tile of 17 rows, an image base that is no multiple
+    # of 16 bytes, the third N tile cut to 8 channels; dense values
+    rsh, rv = rn(2, 13, 21, 90, s=0.5), rn(2, 90, 264, s=0.05)
+    hcs.append(KernelCase(
+        "style_dot_hwbm[ragged 13×21, M=264]",
+        lambda s=rsh, vv=rv: style_dot_hwbm(s, vv),
+        lambda s=rsh, vv=rv: style_dot_plain(s, vv),
+        None, 0, 0, main=False, route=style_route, timed=False))
     cases["style_dot_hwbm"] = hcs
 
     # fused_o_branch and fused_modulation: the 13 trunk blocks' 26 SEANs on
@@ -441,9 +485,18 @@ def check_kernels(torch):
             worst_abs = 0.0
             tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "library_ms": 0.0 if cs[0].library else None}
+            if cs[0].previous:
+                tot["previous_ms"] = 0.0
             for c in cs:
+                if c.route:
+                    fn, by_dt = c.route
+                    fn.routes = dict.fromkeys(fn.routes, 0)
                 got = c.kernel()
                 torch.cuda.synchronize()
+                if c.route and fn.routes != {**dict.fromkeys(fn.routes, 0),
+                                             by_dt[dt]: 1}:
+                    raise AssertionError(f"{c.name} {dt}: routes {fn.routes}, "
+                                         f"want one launch on {by_dt[dt]}")
                 ctol = c.tol or tol
                 if c.exact:
                     ref = c.plain()
@@ -467,17 +520,21 @@ def check_kernels(torch):
                 del got, ref
                 if c.extra:
                     c.extra()
-                if dt == torch.bfloat16:
+                if dt == torch.bfloat16 and c.timed:
                     ms = cuda_ms(c.kernel)
                     pms = cuda_ms(c.plain)
                     lms = cuda_ms(c.library) if c.library else None
+                    prev = cuda_ms(c.previous) if c.previous else None
                     bms, by = bound_ms(c.bytes, c.flops)
                     log(f"  {c.name} bf16: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                         f"library {'-' if lms is None else f'{lms:.4f} ms'}, "
                         f"bound {bms:.4f} ms ({by}; {c.bytes / 1e6:.1f} MB, "
-                        f"{c.flops / 1e9:.1f} GFLOP)")
+                        f"{c.flops / 1e9:.1f} GFLOP)"
+                        + (f", previous route {prev:.4f} ms" if prev else ""))
                     if not c.main:
                         continue
+                    if prev is not None:
+                        tot["previous_ms"] += prev
                     tot["ms"] += ms
                     tot["plain_ms"] += pms
                     tot["bound_ms"] += bms
@@ -488,6 +545,13 @@ def check_kernels(torch):
             rows[name]["max_abs_err"][str(dt)[6:]] = worst_abs
             if dt == torch.bfloat16:
                 rows[name].update(tot)
+                if "previous_ms" in tot:
+                    lib = tot["library_ms"]
+                    log(f"{name} bf16 at the main path's shapes: ms "
+                        f"{tot['ms']:.4f}, previous_ms {tot['previous_ms']:.4f}, "
+                        f"bound_ms {tot['bound_ms']:.4f}, library_ms {lib:.4f} "
+                        f"({tot['ms'] / lib:.2f}× the library call, "
+                        f"{tot['ms'] / tot['bound_ms']:.2f}× the bound)")
         del cases
         torch.cuda.empty_cache()
     return rows
@@ -508,6 +572,25 @@ def _plain_f64(torch, case):
         return a
 
     return fn(*(up(d) for d in defaults))
+
+
+def ptxas_usage(log_text, kernel):
+    """What ``ptxas -v`` said of the entry function whose mangled name
+    contains ``kernel``: registers, static shared memory, spills and any
+    remark (its dynamic shared memory is set at launch)."""
+    said = []
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if kernel not in line:
+            continue
+        if "Compiling entry function" in line:
+            said += [x.strip() for x in lines[i + 1:i + 4]
+                     if "registers" in x or "spill" in x]
+        elif "Compiling" not in line and "Function properties" not in line:
+            said.append(line.strip())       # a remark that names the kernel
+    if not said:
+        raise AssertionError(f"no ptxas record of {kernel}")
+    return " | ".join(x.replace("ptxas info    : ", "") for x in said)
 
 
 def flagship_opt(precision, scale=8, bucket=0, **net):
@@ -601,15 +684,28 @@ def psnr(a, b):
     return 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
 
 
+EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core"}
+
+
+def zero_counts(counters):
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "routes"):
+            c.routes = dict.fromkeys(c.routes, 0)
+
+
 def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
-          n_requests=2, also32=None):
+          n_requests=2, also32=None, want_routes=None):
     """Phase 5, one full-width path: ``n_requests`` batch-8 requests of LQ
     ``lr_hw`` through ``FModelDepthCond(opt16)`` (bf16) with the launch
     counts of ``counters`` set to 0 just before and read just after; then
     the first request through ``opt32`` (fp32, same weights) for the PSNR,
     and through ``also32`` = (label, options, tolerance), whose fp32 output
-    must equal ``opt32``'s. ``on_host``: requests are numpy arrays, as a
-    data loader hands them over. Returns (per-request seconds, launches)."""
+    must equal ``opt32``'s. ``want_routes``: {wrapper name: route} that all
+    of that wrapper's launches of the bf16 requests must have taken; the
+    fp32 request must take ``EXACT_ROUTES``. ``on_host``: requests are numpy
+    arrays, as a data loader hands them over. Returns (per-request seconds,
+    launches)."""
     import numpy as np
 
     from endosr_torch.models.f_depthcond import FModelDepthCond
@@ -642,8 +738,7 @@ def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
     model.test()                                   # warm-up request
     torch.cuda.synchronize()
 
-    for c in counters:
-        c.launches = 0
+    zero_counts(counters)
     lat, outs = [], []
     for r in reqs:
         t = time.perf_counter()
@@ -653,6 +748,8 @@ def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
         lat.append(time.perf_counter() - t)
         outs.append(sr)
     launches = {c.__name__: c.launches for c in counters}
+    routes = {c.__name__: dict(c.routes) for c in counters
+              if hasattr(c, "routes")}
 
     shape = (8, h * s, w * s, 3)
     for k, sr in enumerate(outs):
@@ -674,6 +771,14 @@ def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
                 f"[{label}] {c.__name__}: {launches[c.__name__]} launches in "
                 f"{n_requests} forwards, want {per} each")
 
+    for name, route in (want_routes or {}).items():
+        took = {**dict.fromkeys(routes[name], 0), route: launches[name]}
+        if routes[name] != took or not launches[name]:
+            raise AssertionError(f"[{label}] {name} routes {routes[name]}, "
+                                 f"want {took}")
+        log(f"[{label}] {name}: {launches[name]} launches, all on route "
+            f"{route!r}")
+
     sr16 = outs[0].clone()
     del outs
     sd = model.netG.state_dict()
@@ -686,7 +791,16 @@ def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
         m32.feed_data(reqs[0])
         return m32.test().clone()
 
+    zero_counts(counters)
     sr32 = fp32_output(opt32)
+    for c in counters:
+        if not hasattr(c, "routes"):
+            continue
+        exact = EXACT_ROUTES[c.__name__]
+        took = {**dict.fromkeys(c.routes, 0), exact: c.launches}
+        if c.routes != took:
+            raise AssertionError(f"[{label}] fp32 request: {c.__name__} routes "
+                                 f"{c.routes}, want {took}")
     db = psnr(sr16, sr32)
     log(f"[{label}] bf16 vs fp32 SR PSNR on the same weights: {db:.2f} dB "
         f"(min 40)")
@@ -715,7 +829,9 @@ def serving_paths(torch, counters):
     def x8(label, want, **net):
         return dict(label=label, opt16=flagship_opt("bf16", **net),
                     opt32=flagship_opt("fp32", **net), lr_hw=(128, 128),
-                    on_host=False, want=want, also32=plain32)
+                    on_host=False, want=want, also32=plain32,
+                    want_routes={"head_dot": "wgmma"} if "head_dot" in want
+                    else None)
     paths = [
         dict(x8("x8 unbucketed", {"style_blend_dot": 2, **tail}), n_requests=3),
         x8("x8 pallas_obranch", {"fused_o_branch": 1, **tail},
@@ -732,6 +848,7 @@ def serving_paths(torch, counters):
         dict(label="x8 bucketed", opt16=flagship_opt("bf16", bucket=None),
              opt32=flagship_opt("fp32", bucket=None), lr_hw=(120, 112),
              on_host=True, want={"style_dot_hwbm": 2, "output_stage": 1},
+             want_routes={"style_dot_hwbm": "tc"},
              also32=("the unbucketed forward", flagship_opt("fp32"), 1e-4)),
         dict(label="x4 fused_epilogue",
              opt16=flagship_opt("bf16", 4, None, **fused),
@@ -780,6 +897,11 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {src}: {line.strip()}")
 
+    for src, kern in (("head_dot", "head_dot_wgmma_kernel"),
+                      ("style_dot", "style_dot_tc_kernel")):
+        log(f"  {kern}: " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),
+                                        kern))
+
     rows = check_kernels(torch)
     small_forwards(torch)
     counters = [packed_g123, style_blend_dot, head_dot, output_stage_x8,
@@ -797,7 +919,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"]["bfloat16"],
             "max_abs_err_fp32": r["max_abs_err"]["float32"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {})})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(gpu)

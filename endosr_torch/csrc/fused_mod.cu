@@ -40,6 +40,7 @@
 // lane). A wgmma/TMA pipeline is later work.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 #define FM_TH 8
 #define FM_TW 16
@@ -178,25 +179,6 @@ __device__ __forceinline__ void fm_stage_mask(T* ms, int ldm,
 // bf16: warp-level mma.m16n8k16 through ldmatrix
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One k-step's operands of a warp: four A fragments (16 pixels × 16 k each)
 // and four B fragment pairs (16 k × 16 channels each).
 struct FmFrag {
@@ -238,17 +220,6 @@ __device__ __forceinline__ void fm_mma(float (&acc)[4][8][4], const __nv_bfloat1
     }
     if (more) cur = nxt;
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // rows of a [·, c2] bf16 matrix from device memory into ws (row stride ldw),

@@ -1,28 +1,58 @@
 // Group style dots for Hopper.
 //
 // style_dot_hwbm replaces endosr/kernels/style_dot.py::style_dot_hwbm
-// (pallas_call at :111): the dot below alone, rounded once to T, written
-// in [H, W, B, M] index order over a BHWC tensor. It runs where the masked
-// (bucketed) forward cannot take the blend. Bound on the H100 in bf16:
-// bytes, the [B,H,W,M] map written once (~470 MB at M=1792, ≈0.15 ms at
-// 3.35 TB/s) against 42 GFLOP (0.04 ms at the tensor-core peak).
+// (pallas_call at :111): out[b,h,w,m] = Σ_j shifted[b,h,w,j] · v[b,j,m]
+// (J = 9K = 90), rounded once to T, written in [H, W, B, M] index order over
+// a BHWC tensor. It runs where the masked (bucketed) forward cannot take the
+// blend. Bound on the H100 in bf16: bytes, the [B,H,W,M] map written once
+// (470 MB at M = 1792, 0.14 ms at 3.35 TB/s) against 42 GFLOP (0.04 ms at
+// the tensor-core peak). Two kernels, picked by shape in
+// endosr_torch/kernels/style_dot.py:
+//
+// style_dot_tc (bf16, J even and ≤ 96, M a multiple of 8): the stores are
+// the kernel, so everything else is arranged to keep them wide and flowing.
+// A block owns 128 consecutive pixels of one image and walks over M in
+// tiles of 128 channels.
+// - A. The block's rows of `shifted` are one contiguous run (rows of 2·J =
+//   180 bytes, which neither a tiled TMA copy nor ldmatrix can address), so
+//   it is read once with aligned 4-byte loads (a row is a whole number of
+//   words for even J, at any H·W and any image base), repacked into rows of
+//   96 with a 208-byte pitch (an odd multiple of 16: ldmatrix without bank
+//   conflicts), the pad columns J..95 and the rows past a ragged last tile
+//   zeroed; each warp then keeps its 16 pixels × 96 as mma fragments in
+//   registers for all of the block's N tiles.
+// - B. A [J, 128] slice of v[b] per N tile through 16-byte cp.async into
+//   one of two buffers (pitch 272 bytes), the next slice in flight during
+//   this one's product; rows J..95 are zeroed once, columns past M per
+//   tile (0 × garbage could be NaN).
+// - The product. mma.sync.m16n8k16 through ldmatrix, fp32 accumulators, a
+//   warp 16 pixels × 128 channels: six k-steps leave the tensor cores far
+//   from being the limit, so the warp-level instruction is enough here.
+// - The stores. A warp rounds its accumulators to bf16 into its own 16 ×
+//   128 staging tile in shared memory and reads it back as 16-byte pieces:
+//   half a warp writes 256 contiguous bytes of a pixel. Only the warp itself
+//   synchronises for this, global stores do not block the issuing warp, and
+//   two blocks share an SM, so one tile's stores drain while the next
+//   tile's product (of this or the neighbouring block) runs.
+// The main loop is a __device__ function whose epilogue is a functor over
+// (pixel, channel, eight rounded dot values): style_dot_hwbm's stores them.
+//
+// style_dot_kernel (fp32, and any other bf16 shape; style_blend_dot in both
+// types): 64 pixels × 64 channels a block, the dot in fp32 on the CUDA
+// cores, exact for float storage.
 //
 // style_blend_dot replaces endosr/kernels/style_dot.py::style_blend_dot
 // (pallas_call at :284). For one group of SEAN instances:
 //   out[h, w, b, m] = (dot[b,h,w,m] + conv_{m/c2}[h, w, b, m mod c2]) + bias[m]
-//   dot[b,h,w,m]    = Σ_j shifted[b,h,w,j] · v[b,j,m]      (J = 9K = 90)
 // with the dot rounded to T before the adds, as the twin does. The N conv
 // outputs are read in place through a device table of pointers, so no
-// concatenated copy of them is ever made.
-//
-// Bound on the H100: bytes. At the flagship M=1792 group it moves ~0.96 GB
-// (the convs in, the blended maps out, shifted once), ≈0.29 ms at
-// 3.35 TB/s; the dot is 2·B·H·W·90·M ≈ 42 GFLOP. This first version tiles
-// 64 pixels × 64 channels per block with the dot on the CUDA cores in fp32
-// and the adds fused into the epilogue; the conv reads and map writes are
-// one pass each.
+// concatenated copy of them is ever made. Bound on the H100: bytes. At the
+// flagship M = 1792 group it moves ~0.96 GB (the convs in, the blended maps
+// out, shifted once), ≈0.29 ms at 3.35 TB/s; the adds are fused into
+// style_dot_kernel's epilogue, the conv reads and map writes one pass each.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 #define SD_BM 64
 #define SD_BN 64
@@ -107,6 +137,148 @@ style_dot_kernel(const T* __restrict__ sh, const T* __restrict__ v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core dot
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+#define ST_PX 128      // pixels of a block
+#define ST_BN 128      // channels of an N tile
+#define ST_KP 96       // J padded to whole k-steps
+#define ST_AP 104      // A row pitch, elements (208 bytes)
+#define ST_BP 136      // B row and staging row pitch, elements (272 bytes)
+#define ST_BBUF (ST_KP * ST_BP)              // elements of one B buffer
+#define ST_SMEM ((2 * ST_BBUF + 8 * 16 * ST_BP) * 2)   // ≥ the A tile's 128·ST_AP
+
+// One block of the dot: pixels p0 .. p0+127 of an image whose `shifted` rows
+// start at sh ([HW, J]) and whose v is vb ([J, M]). epi(p, m, dot8) receives
+// eight consecutive channels m..m+7 of pixel p (p < HW, m < M), rounded to
+// bf16. smem: ST_SMEM bytes, 16-byte aligned. 256 threads.
+template <class Epi>
+__device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
+                                                   const bf16* __restrict__ vb, int HW,
+                                                   int J, int M, int p0,
+                                                   unsigned char* smem, Epi epi) {
+  bf16* Bs = reinterpret_cast<bf16*>(smem);
+  bf16* Rs = Bs + 2 * ST_BBUF;       // the A tile, later the warps' staging tiles
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r16 = lane & 15, q8 = (lane >> 4) * 8, g = lane >> 2, t = lane & 3;
+  const int ksteps = (J + 15) >> 4;
+
+  auto issue_b = [&](int n0, bf16* dst) {
+    for (int e = tid; e < J * (ST_BN / 8); e += 256) {
+      const int j = e >> 4, col = n0 + (e & 15) * 8;
+      bf16* d = dst + j * ST_BP + (e & 15) * 8;
+      if (col < M)
+        cp_async16(d, vb + (i64)j * M + col);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+  };
+
+  // B's pad rows, both buffers, once
+  for (int e = tid; e < 2 * (ST_KP - J) * (ST_BN / 8); e += 256) {
+    const int buf = e / ((ST_KP - J) * (ST_BN / 8)), r = e % ((ST_KP - J) * (ST_BN / 8));
+    *reinterpret_cast<uint4*>(Bs + buf * ST_BBUF + (J + (r >> 4)) * ST_BP + (r & 15) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  issue_b(0, Bs);
+
+  // A: words of the padded [128, 96] tile; all loads first, then the stores
+  {
+    constexpr int WPR = ST_KP / 2, IT = ST_PX * WPR / 256;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(sh);
+    const int jw = J >> 1;
+    uint32_t vals[IT];
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int e = tid + i * 256, p = e / WPR, kw = e - p * WPR;
+      vals[i] = (p0 + p < HW && kw < jw) ? src[(i64)(p0 + p) * jw + kw] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < IT; ++i) {
+      const int e = tid + i * 256, p = e / WPR, kw = e - p * WPR;
+      *reinterpret_cast<uint32_t*>(Rs + p * ST_AP + 2 * kw) = vals[i];
+    }
+  }
+  __syncthreads();
+  uint32_t a[ST_KP / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < ST_KP / 16; ++ks)
+    if (ks < ksteps) ldsm_x4(a[ks], Rs + (warp * 16 + r16) * ST_AP + ks * 16 + q8);
+  __syncthreads();      // the A tile's room becomes the staging tiles
+
+  bf16* Cw = Rs + warp * 16 * ST_BP;
+  const int tiles = (M + ST_BN - 1) / ST_BN;
+  for (int it = 0; it < tiles; ++it) {
+    const int n0 = it * ST_BN;
+    const bf16* Bt = Bs + (it & 1) * ST_BBUF;
+    if (it + 1 < tiles) {
+      issue_b(n0 + ST_BN, Bs + ((it + 1) & 1) * ST_BBUF);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();    // this tile's slice of v has landed for every thread
+
+    float acc[16][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < ST_KP / 16; ++ks) {
+      if (ks >= ksteps) continue;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, Bt + (ks * 16 + r16) * ST_BP + jj * 16 + q8);
+        mma_bf16(acc[2 * jj], a[ks], bf[0], bf[1]);
+        mma_bf16(acc[2 * jj + 1], a[ks], bf[2], bf[3]);
+      }
+    }
+
+    // accumulator (j, q): pixel lane/4 (+8 for q ≥ 2), channel 8j + 2·(lane%4) + (q&1)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(Cw + g * ST_BP + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(Cw + (g + 8) * ST_BP + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = lane + 32 * i, row = c >> 4, q = c & 15;
+      const int p = p0 + warp * 16 + row, m = n0 + q * 8;
+      const uint4 val = *reinterpret_cast<const uint4*>(Cw + row * ST_BP + q * 8);
+      if (p < HW && m < M) epi(p, m, val);
+    }
+    __syncthreads();    // every warp is done with this B buffer and its staging tile
+  }
+}
+
+// style_dot_hwbm's epilogue: the rounded dot, 16 bytes a store
+struct StoreDot {
+  bf16* out;   // this image's [HW, M]
+  int M;
+  __device__ __forceinline__ void operator()(int p, int m, uint4 dot8) const {
+    *reinterpret_cast<uint4*>(out + (i64)p * M + m) = dot8;
+  }
+};
+
+__global__ void __launch_bounds__(256, 2)
+style_dot_tc_kernel(const bf16* __restrict__ shifted, const bf16* __restrict__ v,
+                    bf16* __restrict__ out, int HW, int J, int M) {
+  extern __shared__ __align__(16) unsigned char st_smem[];
+  const int b = blockIdx.y;
+  style_dot_tc_block(shifted + (i64)b * HW * J, v + (i64)b * J * M, HW, J, M,
+                     blockIdx.x * ST_PX, st_smem,
+                     StoreDot{out + (i64)b * HW * M, M});
+}
+
 extern "C" {
 
 // shifted: contiguous [B, H, W, J]; v: contiguous [B, J, M]; convs: device
@@ -146,6 +318,21 @@ int style_dot_hwbm(int dtype, const void* shifted, const void* v, void* out,
     style_dot_kernel<__nv_bfloat16, false><<<grid, 256, 0, s>>>(
         (const __nv_bfloat16*)shifted, (const __nv_bfloat16*)v, nullptr, 0, 0,
         0, 1, nullptr, (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route of style_dot_hwbm, bf16 only: shifted contiguous
+// [B, HW, J] (4-byte aligned, J even and ≤ 96), v contiguous [B, J, M] and out
+// contiguous [B, HW, M] (16-byte aligned, M a multiple of 8).
+int style_dot_tc(const void* shifted, const void* v, void* out, int B, int HW,
+                 int J, int M, void* stream) {
+  if (J > ST_KP || J % 2 != 0 || M % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      style_dot_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((HW + ST_PX - 1) / ST_PX, B);
+  style_dot_tc_kernel<<<grid, 256, ST_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)shifted, (const bf16*)v, (bf16*)out, HW, J, M);
   return (int)cudaGetLastError();
 }
 

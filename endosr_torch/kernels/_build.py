@@ -38,14 +38,16 @@ SOURCES = {
         "output_stage_x8": [I, P, I64, I64, I64, I, I, I, F32, F32, P, P],
         "output_stage": [I, P, I64, I64, I64, I, I, I, I, I, F32, F32, P, P]},
     "head_dot": {
-        "head_dot": [I, P, I64, I64, I64, I, I, I, I, P, P, P, P, I, P]},
+        "head_dot": [I, P, I64, I64, I64, I, I, I, I, P, P, P, P, I, P],
+        "head_dot_wgmma": [P, I64, I64, I64, I, I, I, I, I, P, P, P, P, P]},
     "packed_chain": {
         "packed_stage": [I, P, I64, I64, I64, I, I, I, I, I, I, I, P, I, P, P,
                          I, I, P, I64, I64, I64, I, P, I64, I64, I64, I, I, P]},
     "style_dot": {
         "style_blend_dot": [I, P, P, P, I64, I64, I64, I, P, P, I64, I64, I64,
                             I, I, I, I, I, P],
-        "style_dot_hwbm": [I, P, P, P, I64, I64, I64, I, I, I, I, I, P]},
+        "style_dot_hwbm": [I, P, P, P, I64, I64, I64, I, I, I, I, I, P],
+        "style_dot_tc": [P, P, P, I, I, I, I, P]},
     "in_stats": {
         "in_stats": [I, P, I64, I64, I64, I, I, I, I, I, P, P, P]},
     "fused_in_mod": {

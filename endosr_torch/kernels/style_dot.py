@@ -6,21 +6,33 @@
 one rounding to the storage type. It serves the masked (bucketed) forward,
 where the blend below cannot run. [H,W,B,M] is only the index order of the
 returned view: the bytes are a BHWC tensor, so per-instance channel slices
-are BHWC views.
+are BHWC views. It is bound by the bytes of that map (470 MB at M = 1792,
+0.14 ms at the H100's 3.35 TB/s). ``endosr_torch/csrc/style_dot.cu`` holds
+two hand-written kernels for it and :func:`style_dot_route` picks one by
+shape, never by trial:
+
+- ``"tc"``: bf16, J even and ≤ 96, M a multiple of 8 (any H·W, any B).
+  ``style_dot_tc``: 128 pixels a block held as ``mma`` fragments in
+  registers over all of M, v in 128-channel slices through a two-buffer
+  ``cp.async`` ring, the product on the tensor cores, and the map written
+  as 16-byte pieces from a per-warp staging tile.
+- ``"cuda_core"``: everything else, float32 (exact) included: the K = 90
+  dot in fp32 on the CUDA cores, 64 pixels × 64 channels a block.
+
+``style_dot_hwbm.launches`` counts launches, ``style_dot_hwbm.routes``
+counts them per route.
 
 ``style_blend_dot`` ports ``style_blend_dot`` of the same file (TPU kernel
 ``pallas_call`` at ``:284``, twin ``style_blend_reference`` at ``:197``):
 
     out[h,w,b,m] = (Σ_j shifted[b,h,w,j]·v[b,j,m]) + concat(convs)[h,w,b,m] + bias[m]
 
-The CUDA kernel (``endosr_torch/csrc/style_dot.cu``) tiles 64 pixels of
-one image × 64 output channels, computes the K=90 dot in fp32, rounds it to
-the storage type and adds the conv slice and the bias in its epilogue. The
-N conv outputs are read in place through a device table of pointers, so
-no concatenated copy (≈470 MB per flagship launch) is made. It is bound by
-memory (≈0.96 GB per M=1792 launch, ≈0.29 ms at 3.35 TB/s). The
-``hwbc`` variant of the TPU kernel is off by default there and not ported.
-Both functions share the kernel's dot loop; they differ in its epilogue.
+It runs the CUDA-core kernel in both types, rounds the dot to the storage
+type and adds the conv slice and the bias in its epilogue. The N conv
+outputs are read in place through a device table of pointers, so no
+concatenated copy (≈470 MB per flagship launch) is made. It is bound by
+memory (≈0.96 GB per M=1792 launch, ≈0.29 ms at 3.35 TB/s). The ``hwbc``
+variant of the TPU kernel is off by default there and not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +42,8 @@ import torch
 from endosr_torch.kernels import _build
 
 __all__ = ["style_blend_dot", "style_blend_plain", "style_dot_hwbm",
-           "style_dot_plain"]
+           "style_dot_plain", "style_dot_route", "launch_cuda_core",
+           "launch_tc"]
 
 
 def style_blend_plain(shifted, v, convs, bias):
@@ -87,31 +100,69 @@ def style_dot_plain(shifted, v):
     return torch.einsum("bhwj,bjm->bhwm", shifted, v).permute(1, 2, 0, 3)
 
 
+def style_dot_route(dtype, j, m):
+    """Which kernel a CUDA call of ``style_dot_hwbm`` takes: ``"tc"`` or
+    ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and j <= 96 and j % 2 == 0 and m % 8 == 0:
+        return "tc"
+    return "cuda_core"
+
+
+def _operands(shifted, v):
+    """Contiguous, 16-byte aligned operands and the output buffer."""
+    b, h, w, _ = shifted.shape
+    sh, vv = shifted.contiguous(), v.contiguous()
+    sh = sh.clone() if sh.data_ptr() % 16 else sh
+    vv = vv.clone() if vv.data_ptr() % 16 else vv
+    out = torch.empty((b, h, w, v.shape[2]), dtype=shifted.dtype,
+                      device=shifted.device)
+    return sh, vv, out
+
+
+def launch_cuda_core(shifted, v):
+    """Launch the CUDA-core dot (route ``"cuda_core"``) on CUDA operands →
+    [B,H,W,M]; counts nothing."""
+    fn = _build.load("style_dot", "style_dot_hwbm")
+    b, h, w, j = shifted.shape
+    sh, vv, out = _operands(shifted, v)
+    code = fn(_build.dtype_code(shifted.dtype), sh.data_ptr(), vv.data_ptr(),
+              out.data_ptr(), out.stride(1), out.stride(2), out.stride(0),
+              b, h, w, j, v.shape[2], _build.stream_ptr(shifted.device))
+    _build.check("style_dot", code, "style_dot_hwbm")
+    return out
+
+
+def launch_tc(shifted, v):
+    """Launch the tensor-core dot (route ``"tc"``) on CUDA operands →
+    [B,H,W,M]; counts nothing."""
+    fn = _build.load("style_dot", "style_dot_tc")
+    b, h, w, j = shifted.shape
+    sh, vv, out = _operands(shifted, v)
+    code = fn(sh.data_ptr(), vv.data_ptr(), out.data_ptr(), b, h * w, j,
+              v.shape[2], _build.stream_ptr(shifted.device))
+    _build.check("style_dot", code, "style_dot_tc")
+    return out
+
+
 def style_dot_hwbm(shifted, v):
     """Group style dot [B,H,W,J] × [B,J,M] → [H, W, B, M] (the HWNC view
     of a BHWC tensor), any B and M.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (and raises if it cannot)."""
+    kernel :func:`style_dot_route` names (and raises if it cannot)."""
     if shifted.device.type == "cpu":
         return style_dot_plain(shifted, v)
-    fn = _build.load("style_dot", "style_dot_hwbm")
-    b, h, w, j = shifted.shape
+    b, _, _, j = shifted.shape
     if v.shape[:2] != (b, j):
         raise ValueError(f"v must be [{b},{j},M], got {tuple(v.shape)}")
     if v.dtype != shifted.dtype:
         raise TypeError("shifted and v must share one dtype")
-    m = v.shape[2]
-    dt, dev = shifted.dtype, shifted.device
-    sh = shifted.contiguous()
-    vv = v.contiguous()
-    out = torch.empty((b, h, w, m), dtype=dt, device=dev)
-    code = fn(_build.dtype_code(dt), sh.data_ptr(), vv.data_ptr(),
-              out.data_ptr(), out.stride(1), out.stride(2), out.stride(0),
-              b, h, w, j, m, _build.stream_ptr(dev))
-    _build.check("style_dot", code, "style_dot_hwbm")
+    route = style_dot_route(shifted.dtype, j, v.shape[2])
+    out = (launch_tc if route == "tc" else launch_cuda_core)(shifted, v)
     style_dot_hwbm.launches += 1
+    style_dot_hwbm.routes[route] += 1
     return out.permute(1, 2, 0, 3)
 
 
 style_dot_hwbm.launches = 0
+style_dot_hwbm.routes = {"tc": 0, "cuda_core": 0}

@@ -12,11 +12,15 @@ card by ``chip_smoke.py``.
 
 Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
-launch counters stay 0 on the CPU.
+launch and route counters stay 0 on the CPU; the rules that route
+``head_dot`` and ``style_dot_hwbm`` between their two kernels; the weight
+arrangement of the ``wgmma`` route; and the argument counts of the exported
+C functions against their ``ctypes`` signatures.
 """
 
 import ast
 import importlib
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -44,6 +48,7 @@ t_is = importlib.import_module("endosr_torch.kernels.in_stats")
 t_os = importlib.import_module("endosr_torch.kernels.output_stage")
 t_pc = importlib.import_module("endosr_torch.kernels.packed_chain")
 t_sd = importlib.import_module("endosr_torch.kernels.style_dot")
+t_build = importlib.import_module("endosr_torch.kernels._build")
 
 TOL = 1e-5
 REPO = Path(__file__).resolve().parent.parent
@@ -144,6 +149,80 @@ def test_head_dot_matches_jax_twin(pre_bias):
     _cmp(got.numpy(), want)
 
 
+@pytest.mark.parametrize("pre_bias", [True, False], ids=["pre_bias", "raw"])
+def test_head_dot_matches_jax_twin_ragged(pre_bias):
+    """B = 3, 13×21 live pixels of 24 columns, two 64-channel slices: the
+    ragged shape the card holds the ``wgmma`` kernel to."""
+    rng = _rng(31)
+    hp, wc, b, c4, cout, wout = 14, 24, 3, 128, 64, 21
+    g4 = _f32(rng, hp, wc, b, c4, s=0.5)
+    w64 = _f32(rng, 3, 3, c4, cout, s=0.03)
+    b64 = _f32(rng, cout, s=0.1)
+    pb = _f32(rng, c4, s=0.1) if pre_bias else None
+    want = jax_hd.head_dot_reference(jnp.asarray(g4), jnp.asarray(w64),
+                                     jnp.asarray(b64), wout,
+                                     None if pb is None else jnp.asarray(pb))
+    got = t_hd.head_dot(_t(g4), _t(w64), _t(b64), wout,
+                        None if pb is None else _t(pb))
+    assert got.shape == (hp - 1, b, wout, cout)
+    _cmp(got.numpy(), want)
+
+
+_FLAGSHIP_STRIDES = (257 * 512, 512, 257 * 257 * 512, 1)
+
+
+@pytest.mark.parametrize("dtype,c4,cout,strides,want", [
+    (torch.bfloat16, 512, 64, _FLAGSHIP_STRIDES, "wgmma"),
+    (torch.bfloat16, 128, 64, (24 * 3 * 128, 3 * 128, 128, 1), "wgmma"),
+    (torch.float32, 512, 64, _FLAGSHIP_STRIDES, "fp32"),
+    (torch.bfloat16, 512, 48, _FLAGSHIP_STRIDES, "mma"),
+    (torch.bfloat16, 48, 64, (257 * 48, 48, 257 * 257 * 48, 1), "mma"),
+    (torch.bfloat16, 512, 64, (257 * 516, 516, 257 * 257 * 516, 1), "mma"),
+    (torch.float32, 48, 48, (257 * 48, 48, 257 * 257 * 48, 1), "fp32"),
+], ids=["flagship", "ragged_c128", "fp32", "cout48", "c4_48",
+        "stride_not_16_bytes", "fp32_small"])
+def test_head_dot_route(dtype, c4, cout, strides, want):
+    assert t_hd.head_dot_route(dtype, c4, cout, strides) == want
+
+
+@pytest.mark.parametrize("dtype,j,m,want", [
+    (torch.bfloat16, 90, 1792, "tc"), (torch.bfloat16, 90, 1536, "tc"),
+    (torch.bfloat16, 90, 264, "tc"), (torch.bfloat16, 96, 8, "tc"),
+    (torch.float32, 90, 1792, "cuda_core"),
+    (torch.bfloat16, 100, 1792, "cuda_core"),
+    (torch.bfloat16, 90, 100, "cuda_core"),
+    (torch.bfloat16, 89, 1792, "cuda_core"),
+], ids=["flagship_7", "flagship_6", "ragged_m264", "j96_m8", "fp32", "j100",
+        "m100", "j_odd"])
+def test_style_dot_route(dtype, j, m, want):
+    assert t_sd.style_dot_route(dtype, j, m) == want
+
+
+@pytest.mark.parametrize("c4", [64, 192])
+def test_head_dot_packed_weights_round_trip_and_convolve(c4):
+    """The ``wgmma`` route's weight order: [slice, tap, o, c] tiles whose
+    16-byte pieces are swizzled. Unpacking gives w64 back, a conv with the
+    unpacked weights equals ``head_dot_plain`` exactly, and a tile read
+    the way the kernel's descriptor reads it (piece ^ (o & 7)) is the [o, c]
+    slice of the tap."""
+    rng = _rng(40 + c4)
+    w64 = _t(_f32(rng, 3, 3, c4, 64, s=0.1))
+    packed = t_hd.head_dot_pack_weights(w64)
+    assert packed.shape == (c4 // 64, 9, 64, 64) and packed.is_contiguous()
+    back = t_hd.head_dot_unpack_weights(packed)
+    assert torch.equal(back, w64)
+    s, tap, o = c4 // 64 - 1, 5, 13
+    row = packed[s, tap, o].reshape(8, 8)
+    logical = torch.stack([row[j ^ (o & 7)] for j in range(8)]).reshape(64)
+    assert torch.equal(logical, w64[tap // 3, tap % 3, s * 64:(s + 1) * 64, o])
+    g4 = _t(_f32(rng, 6, 8, 2, c4))
+    b64, pb = _t(_f32(rng, 64, s=0.1)), _t(_f32(rng, c4, s=0.1))
+    assert torch.equal(t_hd.head_dot_plain(g4, back, b64, 5, pb),
+                       t_hd.head_dot_plain(g4, w64, b64, 5, pb))
+    with pytest.raises(ValueError, match="64"):
+        t_hd.head_dot_pack_weights(torch.zeros(3, 3, 48, 64))
+
+
 # ----------------------------------------------------------- output_stage_x8
 
 @pytest.mark.parametrize("order", ["bhwc", "hbwc"])
@@ -189,13 +268,18 @@ def test_output_stage_refuses_channels_that_are_not_c_r2():
 @pytest.mark.parametrize("b,m,against", [
     (2, 128, "pallas_interpret"), (1, 128, "pallas_interpret"),
     (3, 128, "pallas_interpret"), (2, 128, "reference"), (3, 40, "reference"),
-], ids=["b2_kernel", "b1_kernel", "b3_kernel", "b2_twin", "b3_m40_twin"])
+    (2, 264, "ragged"),
+], ids=["b2_kernel", "b1_kernel", "b3_kernel", "b2_twin", "b3_m40_twin",
+        "b2_13x21_m264_twin"])
 def test_style_dot_hwbm_matches_jax(b, m, against):
     """Odd batches and an M that is no multiple of 128 included: the port
-    takes what the twin takes."""
+    takes what the twin takes. The last case is the ragged shape the card
+    holds the tensor-core kernel to (13×21 pixels, J = 90, dense values)."""
     rng = _rng(11 + b)
-    h, w, j = 8, 8, 36
+    h, w, j = (13, 21, 90) if against == "ragged" else (8, 8, 36)
     sh = (rng.random((b, h, w, j)) > 0.7).astype(np.float32)
+    if against == "ragged":
+        sh, against = _f32(rng, b, h, w, j, s=0.5), "reference"
     v = _f32(rng, b, j, m, s=0.3)
     if against == "reference":
         want = jax_sd.style_dot_reference(jnp.asarray(sh), jnp.asarray(v))
@@ -406,6 +490,8 @@ def _wrapper_calls():
                                                         order="hbwc"),
         "head_dot": lambda: t_hd.head_dot(
             c((9, 16, 2, 32)), torch.zeros(3, 3, 32, 64), torch.zeros(64), 8),
+        "head_dot[wgmma]": lambda: t_hd.head_dot(
+            c((9, 16, 2, 64)), torch.zeros(3, 3, 64, 64), torch.zeros(64), 8),
         "packed_g123": lambda: t_pc.packed_g123(
             c((8, 8, 2, 16)), *(torch.zeros(2, 2, 16, 16), torch.zeros(16)) * 3,
             pre_act=True),
@@ -415,6 +501,8 @@ def _wrapper_calls():
         "output_stage": lambda: t_os.output_stage(c((2, 4, 8, 12)), 2),
         "style_dot_hwbm": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 9)),
                                                       c((2, 9, 32))),
+        "style_dot_hwbm[tc]": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 90)),
+                                                          c((2, 90, 32))),
         "in_stats": lambda: t_is.in_stats(c((2, 4, 4, 8))),
         "fused_in_mod": lambda: t_fim.fused_in_mod(*(c((2, 4, 4, 8)),) * 3),
         "fused_o_branch": lambda: t_fo.fused_o_branch(
@@ -435,8 +523,10 @@ def _zero_o_weights():
 
 
 @pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
+                                  "head_dot[wgmma]",
                                   "packed_g123", "style_blend_dot",
                                   "output_stage", "style_dot_hwbm",
+                                  "style_dot_hwbm[tc]",
                                   "in_stats", "fused_in_mod",
                                   "fused_o_branch", "fused_modulation",
                                   "fused_tail", "mid_shuffle"])
@@ -444,9 +534,12 @@ def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr("endosr_torch.kernels._build.os.path.exists",
                         lambda p: False)
+    before = (dict(t_hd.head_dot.routes), dict(t_sd.style_dot_hwbm.routes))
     # no nvcc here: the wrapper must fail to build, not run the plain version
+    # (on either route of the two routed kernels), and count nothing
     with pytest.raises(RuntimeError, match="nvcc"):
         _wrapper_calls()[name]()
+    assert (t_hd.head_dot.routes, t_sd.style_dot_hwbm.routes) == before
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
@@ -473,7 +566,44 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     t_ft.fused_tail(torch.zeros(2, 9, 16, 32), torch.zeros(3, 3, 32, 48),
                     torch.zeros(48))
     t_sm.mid_shuffle(torch.zeros(2, 4, 4, 16), 2)
+    # shapes the card would send down the tensor-core routes
+    t_hd.head_dot(torch.zeros(5, 5, 1, 64, dtype=torch.bfloat16),
+                  torch.zeros(3, 3, 64, 64), torch.zeros(64))
+    t_sd.style_dot_hwbm(torch.zeros(1, 4, 4, 90, dtype=torch.bfloat16),
+                        torch.zeros(1, 90, 32, dtype=torch.bfloat16))
     assert [f.launches for f in fns] == before == [0] * 12
+    assert t_hd.head_dot.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert t_sd.style_dot_hwbm.routes == {"tc": 0, "cuda_core": 0}
+
+
+# ------------------------------------------------------- exported C signatures
+
+def _exported_functions():
+    return [(lib, fn) for lib, fns in t_build.SOURCES.items() for fn in fns]
+
+
+@pytest.mark.parametrize("lib,fn", _exported_functions(),
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_exported_function_takes_as_many_arguments_as_its_argtypes(lib, fn):
+    """A mismatch between an ``extern "C"`` function and its ``ctypes``
+    argument list would otherwise only show on the card."""
+    src = (REPO / "endosr_torch" / "csrc" / f"{lib}.cu").read_text()
+    externs = src[src.index('extern "C" {'):]
+    found = re.findall(r"\bint\s+" + re.escape(fn) + r"\s*\(([^)]*)\)\s*\{",
+                       externs)
+    assert len(found) == 1, f"{fn}: {len(found)} definitions in {lib}.cu"
+    params = [p for p in found[0].split(",") if p.strip()]
+    assert len(params) == len(t_build.SOURCES[lib][fn])
+    # pointers are c_void_p, i64 is c_longlong, float is c_float, the rest int
+    kinds = {t_build.P: "*", t_build.I64: "i64 ", t_build.F32: "float ",
+             t_build.I: "int "}
+    for param, ctype in zip(params, t_build.SOURCES[lib][fn]):
+        param = " ".join(param.split())
+        if ctype is t_build.P:
+            assert "*" in param, f"{fn}: {param!r} bound as a pointer"
+        else:
+            assert "*" not in param and param.startswith(kinds[ctype]), \
+                f"{fn}: {param!r} bound as {ctype.__name__}"
 
 
 # -------------------------------------------------------------- import rule
