@@ -10,7 +10,8 @@ exits non-zero):
 2. build — every kernel under ``endosr_torch/csrc`` with one ``nvcc`` per
    source, all started together, into ``build/endosr_torch/``; ``ptxas``'s
    registers, spills and static shared memory of every kernel are logged,
-   those of ``head_dot_wgmma`` and ``style_dot_tc`` on lines of their own.
+   those of the ``wgmma`` conv (in ``head_dot`` and in ``fused_tail``),
+   ``style_dot_tc`` and ``style_blend_tc`` on lines of their own.
 3. kernels — each of the twelve kernels against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
@@ -19,15 +20,20 @@ exits non-zero):
    and its backward against the plain un-shuffle and ``torch.autograd`` of
    the plain version) must be bit-identical; ``fused_o_branch`` and
    ``fused_modulation`` are also checked at a ragged small shape (tiles cut
-   by both edges, 2C < 128, K < 16), ``head_dot`` at B = 3, 13×21 of 24
-   columns, C4 = 128 with and without ``pre_bias``, ``style_dot_hwbm`` at
-   B = 2, 13×21, M = 264. In bf16 ``head_dot`` and ``style_dot_hwbm`` take
-   their tensor-core routes (``wgmma``; ``tc``), which sum in another order
-   than the plain versions (16-deep ``mma`` steps, 64-channel slices
-   outermost), hence the same 1e-2 as every bf16 kernel; in fp32 they take
-   the exact CUDA-core routes. The route each took is asserted, and the
-   earlier route of each (``launch_igemm``; ``launch_cuda_core``) is timed
-   beside it as ``previous_ms``. Times are CUDA-event medians
+   by both edges, 2C < 128, K < 16), ``head_dot`` and ``fused_tail`` at
+   B = 3, 13×21 of 24 columns, C4 = 128 with and without ``pre_bias``,
+   ``style_dot_hwbm`` at B = 2, 13×21, M = 264 and ``style_blend_dot`` at
+   B = 2, 13×21, c2 = 24, M = 264. ``fused_tail`` gets the raw g4 with its
+   ``pre_bias``, as the ``pallas_tail`` path calls it. In bf16 the four
+   routed kernels take their tensor-core routes (``head_dot`` and
+   ``fused_tail``: ``wgmma``; ``style_dot_hwbm`` and ``style_blend_dot``:
+   ``tc``), which sum in another order than the plain versions (16-deep
+   ``mma`` steps, 64-channel slices outermost), hence the same 1e-2 as
+   every bf16 kernel; in fp32 they take the exact CUDA-core routes. The
+   route each took is asserted, and the earlier route of each
+   (``head_dot.launch_igemm``, ``fused_tail.launch_igemm``,
+   ``launch_cuda_core``, ``launch_blend_cuda_core``) is timed beside it as
+   ``previous_ms``. Times are CUDA-event medians
    of 20 runs (5 for a call above 20 ms), beside the plain version's, the
    bound (larger of bytes over 3.35 TB/s and operations over the bf16
    tensor-core peak), and one PyTorch call computing the same function
@@ -44,17 +50,17 @@ exits non-zero):
    after it; every output finite, of the right shape, in [0,1]; bf16 vs
    fp32 PSNR ≥ 40 dB on the same weights:
    - ×8 flagship, unbucketed, LQ 128² → SR 1024²: ``packed_g123`` 2,
-     ``style_blend_dot`` 2, ``head_dot`` 1 (bf16: route ``wgmma``; the fp32
-     request: ``fp32``), ``output_stage_x8`` 1 per
-     forward; the fp32 output equals that of ``preset: plain`` to ≤ 2e-4,
-     and so does that of each of the next three;
+     ``style_blend_dot`` 2 (bf16: route ``tc``; the fp32 request:
+     ``cuda_core``), ``head_dot`` 1 (bf16: ``wgmma``; fp32: ``fp32``),
+     ``output_stage_x8`` 1 per forward; the fp32 output equals that of
+     ``preset: plain`` to ≤ 2e-4, and so does that of each of the next three;
    - the same with ``net_kw: {pallas_obranch: true}`` (hoisted trunk):
      ``fused_o_branch`` 1, ``style_blend_dot`` 0, the tail as above;
    - with ``net_kw: {fused_modulation: true}``: ``fused_modulation`` 1,
      ``style_blend_dot`` 0, the tail as above;
    - with ``net_kw: {pallas_tail: true}`` (lazy trunk): ``style_blend_dot``
-     2, ``packed_g123`` 2, ``fused_tail`` 1, ``head_dot`` 0,
-     ``output_stage_x8`` 0;
+     2 (``tc``), ``packed_g123`` 2, ``fused_tail`` 1 (``wgmma``; fp32:
+     ``fp32``), ``head_dot`` 0, ``output_stage_x8`` 0;
    - ``preset: plain``: no kernel launch at all;
    - ×8 flagship with ``eval_bucket_multiple`` unset (bucket 32), LQ
      120×112 → SR 960×896 through the masked forward: ``style_dot_hwbm`` 2
@@ -63,7 +69,7 @@ exits non-zero):
      the same request to ≤ 1e-4;
    - ×4 flagship with ``fused_epilogue`` and ``in_stats: kernel``, LQ 128²
      → SR 512²: ``fused_in_mod`` 26, ``in_stats`` 26, ``style_blend_dot``
-     2, ``output_stage_x8`` 1; the fp32 output equals that of the chained
+     2 (``tc``), ``output_stage_x8`` 1; the fp32 output equals that of the chained
      epilogue (``fused_epilogue: false``) to ≤ 2e-4.
 
 Prints the kernels JSON line (``launches`` summed over the paths;
@@ -177,6 +183,7 @@ def make_cases(torch, dt, gen):
                                                     fused_o_branch_plain,
                                                     grouped_w2)
     from endosr_torch.kernels.fused_tail import fused_tail, fused_tail_plain
+    from endosr_torch.kernels.fused_tail import launch_igemm as tail_igemm
     from endosr_torch.kernels.head_dot import (head_dot, head_dot_plain,
                                                launch_igemm)
     from endosr_torch.kernels.in_stats import in_stats, in_stats_plain
@@ -188,7 +195,8 @@ def make_cases(torch, dt, gen):
     from endosr_torch.kernels.shuffle_mid import (mid_shuffle,
                                                   mid_shuffle_plain,
                                                   mid_unshuffle_plain)
-    from endosr_torch.kernels.style_dot import (launch_cuda_core,
+    from endosr_torch.kernels.style_dot import (launch_blend_cuda_core,
+                                                launch_cuda_core,
                                                 style_blend_dot,
                                                 style_blend_plain,
                                                 style_dot_hwbm, style_dot_plain)
@@ -315,6 +323,8 @@ def make_cases(torch, dt, gen):
     scs = []
     masks = (torch.rand((B, 128, 128, 90), generator=gen, device=dev)
              > 0.8).to(dt)
+    blend_route = (style_blend_dot, {torch.bfloat16: "tc",
+                                     torch.float32: "cuda_core"})
     for nblk in (7, 6):
         m = nblk * 2 * 128
         v = rn(B, 90, m, s=0.05)
@@ -332,7 +342,21 @@ def make_cases(torch, dt, gen):
             lambda c=cat, s=sflat, vv=v, b=bias_dt:
                 torch.baddbmm(c, s, vv).add_(b),
             nbytes(masks, v, bias, *convs) + 128 * 128 * B * m * masks.element_size(),
-            2 * B * 128 * 128 * 90 * m))
+            2 * B * 128 * 128 * 90 * m,
+            previous=lambda s=masks, vv=v, c=convs, b=bias:
+                launch_blend_cuda_core(s, vv, c, b),
+            route=blend_route))
+    # ragged: 13×21 (a last pixel tile of 17 rows), c2 = 24 (a 128-channel
+    # tile spans six convs), M = 264 (the third tile cut to 8 channels)
+    rsh = (torch.rand((2, 13, 21, 90), generator=gen, device=dev) > 0.7).to(dt)
+    rv, rb = rn(2, 90, 264, s=0.05), rn(264, s=0.1, dtype=torch.float32)
+    rconvs = tuple(rn(2, 13, 21, 24, s=0.3).permute(1, 2, 0, 3)
+                   for _ in range(11))
+    scs.append(KernelCase(
+        "style_blend_dot[ragged 13×21, c2=24, M=264]",
+        lambda s=rsh, vv=rv, c=rconvs, b=rb: style_blend_dot(s, vv, c, b),
+        lambda s=rsh, vv=rv, c=rconvs, b=rb: style_blend_plain(s, vv, c, b),
+        None, 0, 0, main=False, route=blend_route, timed=False))
     cases["style_blend_dot"] = scs
 
     # style_dot_hwbm: the same two groups on the masked path
@@ -401,26 +425,51 @@ def make_cases(torch, dt, gen):
             main=main))
     cases["fused_o_branch"], cases["fused_modulation"] = ocs, mcs
 
-    # fused_tail: g4 [257, 257, 8, 512] (HWBC view of the producer's BHWC),
-    # activated, its dead last row and column zero
-    t4 = torch.relu(rn(B, 257, 257, 512, s=0.5))
-    t4[:, 256] = 0
-    t4[:, :, 256] = 0
-    t4 = t4.permute(1, 2, 0, 3)
+    # fused_tail: the raw g4 [257, 257, 8, 512] (HWBC view of the producer's
+    # BHWC) with its producer bias, as the pallas_tail path calls it; the
+    # dead last row and column hold data, which the kernel must gate
+    t4 = rn(B, 257, 257, 512, s=0.5).permute(1, 2, 0, 3)
     wh = rn(3, 3, 512, 48, s=0.01)
     bh = rn(48, s=0.1, mean=0.5, dtype=torch.float32)
-    t4_padded = F.pad(t4.permute(2, 3, 0, 1), (1, 0, 1, 0))
+    tpb = rn(512, s=0.1)
+    # yardstick: one cuDNN conv over the already-activated and gated input
+    t4_act = F.leaky_relu(t4.permute(2, 3, 0, 1) + tpb[None, :, None, None], 0.2)
+    t4_act[:, :, 256] = 0
+    t4_act[:, :, :, 256] = 0
+    t4_padded = F.pad(t4_act, (1, 0, 1, 0))
+    del t4_act
     wh_oihw, bh_dt = wh.permute(3, 2, 0, 1).contiguous(), bh.to(dt)
 
     def tail_lib():
         pre = F.conv2d(t4_padded, wh_oihw, bh_dt)[..., :256]
         return F.pixel_shuffle(torch.clamp(pre, 0.0, 1.0), 4).float()
+    tail_route = (fused_tail, {torch.bfloat16: "wgmma", torch.float32: "fp32"})
     cases["fused_tail"] = [KernelCase(
         "fused_tail",
-        lambda a=(t4, wh, bh): fused_tail(*a, 0.0, 1.0, "hwbc", 256),
-        lambda g=t4, w=wh, b=bh: fused_tail_plain(g, w, b, 0.0, 1.0, "hwbc", 256),
-        tail_lib, nbytes(t4, wh, bh) + B * 1024 * 3072 * 4,
-        2 * B * 256 * 256 * 9 * 512 * 48)]
+        lambda a=(t4, wh, bh): fused_tail(*a, 0.0, 1.0, "hwbc", 256, tpb),
+        lambda g=t4, w=wh, b=bh, p=tpb: fused_tail_plain(g, w, b, 0.0, 1.0,
+                                                         "hwbc", 256, p),
+        tail_lib, nbytes(t4, wh, bh, tpb) + B * 1024 * 3072 * 4,
+        2 * B * 256 * 256 * 9 * 512 * 48,
+        previous=lambda: tail_igemm(t4, wh, bh, 0.0, 1.0, "hwbc", 256, tpb),
+        route=tail_route)]
+    # ragged: h = 13 (not a multiple of 4) ≠ wout = 21 (not a multiple of
+    # 64) of 24 columns in memory, C4 = 128 (two slices), B = 3
+    for label, with_pb in (("pre_bias", True), ("raw", False)):
+        rg4 = rn(3, 14, 24, 128, s=0.5)
+        if not with_pb:        # activated and gated, as the function expects
+            rg4 = torch.relu(rg4)
+            rg4[:, 13] = 0
+            rg4[:, :, 21:] = 0
+        rg4 = rg4.permute(1, 2, 0, 3)
+        rw, rbh = rn(3, 3, 128, 48, s=0.03), rn(48, s=0.1, mean=0.5, dtype=torch.float32)
+        rpb = rn(128, s=0.1) if with_pb else None
+        cases["fused_tail"].append(KernelCase(
+            f"fused_tail[ragged 13×21 of 24, C4=128, {label}]",
+            lambda a=(rg4, rw, rbh, 0.0, 1.0, "hwbc", 21, rpb): fused_tail(*a),
+            lambda g=rg4, w=rw, b=rbh, p=rpb: fused_tail_plain(
+                g, w, b, 0.0, 1.0, "hwbc", 21, p),
+            None, 0, 0, main=False, route=tail_route, timed=False))
 
     # mid_shuffle: the ×8 tail's [8,128,128,512] → [8,256,256,128], and its
     # backward against the plain un-shuffle and autograd of the plain version
@@ -684,7 +733,8 @@ def psnr(a, b):
     return 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
 
 
-EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core"}
+EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core",
+                "fused_tail": "fp32", "style_blend_dot": "cuda_core"}
 
 
 def zero_counts(counters):
@@ -826,12 +876,16 @@ def serving_paths(torch, counters):
     plain32 = ("preset: plain", flagship_opt("fp32", preset="plain"), 2e-4)
     tail = {"packed_g123": 2, "head_dot": 1, "output_stage_x8": 1}
 
+    def routes(want):
+        fast = {"head_dot": "wgmma", "fused_tail": "wgmma",
+                "style_blend_dot": "tc", "style_dot_hwbm": "tc"}
+        return {k: r for k, r in fast.items() if k in want}
+
     def x8(label, want, **net):
         return dict(label=label, opt16=flagship_opt("bf16", **net),
                     opt32=flagship_opt("fp32", **net), lr_hw=(128, 128),
                     on_host=False, want=want, also32=plain32,
-                    want_routes={"head_dot": "wgmma"} if "head_dot" in want
-                    else None)
+                    want_routes=routes(want))
     paths = [
         dict(x8("x8 unbucketed", {"style_blend_dot": 2, **tail}), n_requests=3),
         x8("x8 pallas_obranch", {"fused_o_branch": 1, **tail},
@@ -848,7 +902,7 @@ def serving_paths(torch, counters):
         dict(label="x8 bucketed", opt16=flagship_opt("bf16", bucket=None),
              opt32=flagship_opt("fp32", bucket=None), lr_hw=(120, 112),
              on_host=True, want={"style_dot_hwbm": 2, "output_stage": 1},
-             want_routes={"style_dot_hwbm": "tc"},
+             want_routes=routes({"style_dot_hwbm"}),
              also32=("the unbucketed forward", flagship_opt("fp32"), 1e-4)),
         dict(label="x4 fused_epilogue",
              opt16=flagship_opt("bf16", 4, None, **fused),
@@ -856,6 +910,7 @@ def serving_paths(torch, counters):
              on_host=False,
              want={"fused_in_mod": 26, "in_stats": 26, "style_blend_dot": 2,
                    "output_stage_x8": 1},
+             want_routes=routes({"style_blend_dot"}),
              also32=("the chained epilogue", flagship_opt("fp32", 4, 0), 2e-4)),
     ]
     return {p["label"]: serve(torch, counters, **p)[1] for p in paths}
@@ -897,9 +952,11 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {src}: {line.strip()}")
 
-    for src, kern in (("head_dot", "head_dot_wgmma_kernel"),
-                      ("style_dot", "style_dot_tc_kernel")):
-        log(f"  {kern}: " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),
+    for src, kern in (("head_dot", "conv3x3_wgmma_kernel"),
+                      ("fused_tail", "conv3x3_wgmma_kernel"),
+                      ("style_dot", "style_dot_tc_kernel"),
+                      ("style_dot", "style_blend_tc_kernel")):
+        log(f"  {kern} ({src}): " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),
                                         kern))
 
     rows = check_kernels(torch)

@@ -35,11 +35,14 @@
 //   two blocks share an SM, so one tile's stores drain while the next
 //   tile's product (of this or the neighbouring block) runs.
 // The main loop is a __device__ function whose epilogue is a functor over
-// (pixel, channel, eight rounded dot values): style_dot_hwbm's stores them.
+// (pixel, channel, eight rounded dot values, what the functor loaded for
+// them before the product): style_dot_hwbm's stores the dot, style_blend's
+// adds the conv slice and the bias. It multiplies a tile in two halves of
+// 64 channels, so 32 accumulators are live beside the A fragments and the
+// epilogue's prefetched loads.
 //
-// style_dot_kernel (fp32, and any other bf16 shape; style_blend_dot in both
-// types): 64 pixels × 64 channels a block, the dot in fp32 on the CUDA
-// cores, exact for float storage.
+// style_dot_kernel (fp32, and any other bf16 shape): 64 pixels × 64 channels
+// a block, the dot in fp32 on the CUDA cores, exact for float storage.
 //
 // style_blend_dot replaces endosr/kernels/style_dot.py::style_blend_dot
 // (pallas_call at :284). For one group of SEAN instances:
@@ -48,8 +51,18 @@
 // outputs are read in place through a device table of pointers, so no
 // concatenated copy of them is ever made. Bound on the H100: bytes. At the
 // flagship M = 1792 group it moves ~0.96 GB (the convs in, the blended maps
-// out, shifted once), ≈0.29 ms at 3.35 TB/s; the adds are fused into
-// style_dot_kernel's epilogue, the conv reads and map writes one pass each.
+// out, shifted once), ≈0.29 ms at 3.35 TB/s. Two kernels, picked by shape in
+// endosr_torch/kernels/style_dot.py:
+//
+// style_blend_tc (bf16, J even and ≤ 96, M and c2 multiples of 8, conv
+// strides multiples of 8, 16-byte aligned bases): style_dot_tc_block with
+// BlendEpi. The conv reads are half the bytes; each lane issues the eight
+// 16-byte conv loads of the pieces it will store before the tile's product
+// and consumes them in the epilogue, so their latency hides under the mma
+// work instead of putting a global round trip before every store.
+//
+// style_dot_kernel<T, true> (fp32, and any other bf16 shape): the CUDA-core
+// dot with the adds in its scalar epilogue.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -152,9 +165,11 @@ typedef __nv_bfloat16 bf16;
 #define ST_SMEM ((2 * ST_BBUF + 8 * 16 * ST_BP) * 2)   // ≥ the A tile's 128·ST_AP
 
 // One block of the dot: pixels p0 .. p0+127 of an image whose `shifted` rows
-// start at sh ([HW, J]) and whose v is vb ([J, M]). epi(p, m, dot8) receives
-// eight consecutive channels m..m+7 of pixel p (p < HW, m < M), rounded to
-// bf16. smem: ST_SMEM bytes, 16-byte aligned. 256 threads.
+// start at sh ([HW, J]) and whose v is vb ([J, M]). epi(p, m, dot8, pre)
+// receives eight consecutive channels m..m+7 of pixel p (p < HW, m < M),
+// rounded to bf16, and what epi.load(p, m) (an Epi::Pre) returned for the
+// same piece before the tile's product. smem: ST_SMEM bytes, 16-byte
+// aligned. 256 threads.
 template <class Epi>
 __device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
                                                    const bf16* __restrict__ vb, int HW,
@@ -214,6 +229,15 @@ __device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
   const int tiles = (M + ST_BN - 1) / ST_BN;
   for (int it = 0; it < tiles; ++it) {
     const int n0 = it * ST_BN;
+    // the epilogue's own loads for this lane's eight pieces of the tile go
+    // out first, so their latency hides under the wait and the product
+    typename Epi::Pre pre[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = lane + 32 * i, row = c >> 4, q = c & 15;
+      const int p = p0 + warp * 16 + row, m = n0 + q * 8;
+      if (p < HW && m < M) pre[i] = epi.load(p, m);
+    }
     const bf16* Bt = Bs + (it & 1) * ST_BBUF;
     if (it + 1 < tiles) {
       issue_b(n0 + ST_BN, Bs + ((it + 1) & 1) * ST_BBUF);
@@ -223,30 +247,36 @@ __device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
     }
     __syncthreads();    // this tile's slice of v has landed for every thread
 
-    float acc[16][4];
+    // two halves of 64 channels, so only 32 accumulators are live beside the
+    // A fragments and the epilogue's loads
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int nh = 0; nh < 2; ++nh) {
+      float acc[8][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int ks = 0; ks < ST_KP / 16; ++ks) {
-      if (ks >= ksteps) continue;
+        for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, Bt + (ks * 16 + r16) * ST_BP + jj * 16 + q8);
-        mma_bf16(acc[2 * jj], a[ks], bf[0], bf[1]);
-        mma_bf16(acc[2 * jj + 1], a[ks], bf[2], bf[3]);
+      for (int ks = 0; ks < ST_KP / 16; ++ks) {
+        if (ks >= ksteps) continue;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          uint32_t bf[4];
+          ldsm_x4_trans(bf, Bt + (ks * 16 + r16) * ST_BP + (4 * nh + jj) * 16 + q8);
+          mma_bf16(acc[2 * jj], a[ks], bf[0], bf[1]);
+          mma_bf16(acc[2 * jj + 1], a[ks], bf[2], bf[3]);
+        }
       }
-    }
-
-    // accumulator (j, q): pixel lane/4 (+8 for q ≥ 2), channel 8j + 2·(lane%4) + (q&1)
+      // accumulator (j, q): pixel lane/4 (+8 for q ≥ 2), channel
+      // 64·nh + 8j + 2·(lane%4) + (q&1)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(Cw + g * ST_BP + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(Cw + (g + 8) * ST_BP + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * nh + 8 * j + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(Cw + g * ST_BP + col) =
+            __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+        *reinterpret_cast<__nv_bfloat162*>(Cw + (g + 8) * ST_BP + col) =
+            __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+      }
     }
     __syncwarp();
 #pragma unroll
@@ -254,7 +284,7 @@ __device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
       const int c = lane + 32 * i, row = c >> 4, q = c & 15;
       const int p = p0 + warp * 16 + row, m = n0 + q * 8;
       const uint4 val = *reinterpret_cast<const uint4*>(Cw + row * ST_BP + q * 8);
-      if (p < HW && m < M) epi(p, m, val);
+      if (p < HW && m < M) epi(p, m, val, pre[i]);
     }
     __syncthreads();    // every warp is done with this B buffer and its staging tile
   }
@@ -262,10 +292,46 @@ __device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
 
 // style_dot_hwbm's epilogue: the rounded dot, 16 bytes a store
 struct StoreDot {
+  struct Pre {};
   bf16* out;   // this image's [HW, M]
   int M;
-  __device__ __forceinline__ void operator()(int p, int m, uint4 dot8) const {
+  __device__ __forceinline__ Pre load(int, int) const { return Pre{}; }
+  __device__ __forceinline__ void operator()(int p, int m, uint4 dot8, Pre) const {
     *reinterpret_cast<uint4*>(out + (i64)p * M + m) = dot8;
+  }
+};
+
+// style_blend_dot's epilogue: out = rnd(rnd(dot + conv) + rnd(bias)) per
+// channel, the twin's (y + concat) + bias. The eight conv values of a piece
+// are one 16-byte load through the pointer table (c2 a multiple of 8, so a
+// piece lies in one conv), issued before the product; 16 bytes a store.
+struct BlendEpi {
+  typedef uint4 Pre;
+  const i64* convs;     // device table of the N conv pointers
+  i64 ch, cw, cb;       // their element strides
+  int c2, W, b;
+  const float* bias;    // [M] fp32
+  bf16* out;            // this image's [HW, M]
+  int M;
+  __device__ __forceinline__ Pre load(int p, int m) const {
+    const int ci = m / c2, hh = p / W;
+    const bf16* cp = reinterpret_cast<const bf16*>(__ldg(convs + ci));
+    return *reinterpret_cast<const uint4*>(cp + hh * ch + (p - hh * W) * cw + b * cb +
+                                           (m - ci * c2));
+  }
+  __device__ __forceinline__ void operator()(int p, int m, uint4 dot8, Pre conv8) const {
+    const bf16* d = reinterpret_cast<const bf16*>(&dot8);
+    const bf16* c = reinterpret_cast<const bf16*>(&conv8);
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + m));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + m) + 1);
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    uint4 o;
+    bf16* ov = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      ov[k] = __float2bfloat16_rn(rnd<bf16>(__bfloat162float(d[k]) + __bfloat162float(c[k])) +
+                                  rnd<bf16>(bv[k]));
+    *reinterpret_cast<uint4*>(out + (i64)p * M + m) = o;
   }
 };
 
@@ -277,6 +343,18 @@ style_dot_tc_kernel(const bf16* __restrict__ shifted, const bf16* __restrict__ v
   style_dot_tc_block(shifted + (i64)b * HW * J, v + (i64)b * J * M, HW, J, M,
                      blockIdx.x * ST_PX, st_smem,
                      StoreDot{out + (i64)b * HW * M, M});
+}
+
+__global__ void __launch_bounds__(256, 2)
+style_blend_tc_kernel(const bf16* __restrict__ shifted, const bf16* __restrict__ v,
+                      const i64* __restrict__ convs, i64 ch, i64 cw, i64 cb, int c2,
+                      const float* __restrict__ bias, bf16* __restrict__ out, int W, int HW,
+                      int J, int M) {
+  extern __shared__ __align__(16) unsigned char st_smem[];
+  const int b = blockIdx.y;
+  style_dot_tc_block(shifted + (i64)b * HW * J, v + (i64)b * J * M, HW, J, M,
+                     blockIdx.x * ST_PX, st_smem,
+                     BlendEpi{convs, ch, cw, cb, c2, W, b, bias, out + (i64)b * HW * M, M});
 }
 
 extern "C" {
@@ -333,6 +411,27 @@ int style_dot_tc(const void* shifted, const void* v, void* out, int B, int HW,
   dim3 grid((HW + ST_PX - 1) / ST_PX, B);
   style_dot_tc_kernel<<<grid, 256, ST_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)shifted, (const bf16*)v, (bf16*)out, HW, J, M);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route of style_blend_dot, bf16 only: shifted contiguous
+// [B, H·W, J] (4-byte aligned, J even and ≤ 96), v contiguous [B, J, M]
+// (16-byte aligned, M a multiple of 8); convs: device array of N pointers to
+// [H, W, B, c2] tensors (16-byte aligned) sharing the element strides ch, cw,
+// cb (multiples of 8, channel stride 1), c2 a multiple of 8, N·c2 = M; bias
+// fp32 [M] (16-byte aligned); out contiguous [B, H, W, M] (16-byte aligned).
+int style_blend_tc(const void* shifted, const void* v, const void* convs, i64 ch, i64 cw,
+                   i64 cb, int c2, const void* bias, void* out, int B, int H, int W, int J,
+                   int M, void* stream) {
+  if (J > ST_KP || J % 2 != 0 || M % 8 != 0 || c2 % 8 != 0 || (ch | cw | cb) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      style_blend_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((H * W + ST_PX - 1) / ST_PX, B);
+  style_blend_tc_kernel<<<grid, 256, ST_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)shifted, (const bf16*)v, (const i64*)convs, ch, cw, cb, c2,
+      (const float*)bias, (bf16*)out, W, H * W, J, M);
   return (int)cudaGetLastError();
 }
 

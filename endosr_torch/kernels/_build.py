@@ -47,7 +47,8 @@ SOURCES = {
         "style_blend_dot": [I, P, P, P, I64, I64, I64, I, P, P, I64, I64, I64,
                             I, I, I, I, I, P],
         "style_dot_hwbm": [I, P, P, P, I64, I64, I64, I, I, I, I, I, P],
-        "style_dot_tc": [P, P, P, I, I, I, I, P]},
+        "style_dot_tc": [P, P, P, I, I, I, I, P],
+        "style_blend_tc": [P, P, P, I64, I64, I64, I, P, P, I, I, I, I, I, P]},
     "in_stats": {
         "in_stats": [I, P, I64, I64, I64, I, I, I, I, I, P, P, P]},
     "fused_in_mod": {
@@ -57,7 +58,9 @@ SOURCES = {
         "fused_modulation": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "fused_o_branch": [I, P, P, P, P, P, P, I, I, I, I, I, P]},
     "fused_tail": {
-        "fused_tail": [I, P, I64, I64, I64, I, I, I, I, P, P, F32, F32, P, P]},
+        "fused_tail": [I, P, I64, I64, I64, I, I, I, I, P, P, P, F32, F32, P, P],
+        "fused_tail_wgmma": [P, I64, I64, I64, I, I, I, I, I, P, P, P, F32, F32, P,
+                             P]},
     "shuffle_mid": {
         "mid_shuffle": [I, P, P, I, I, I, I, I, I, P]},
 }

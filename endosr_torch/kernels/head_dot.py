@@ -11,11 +11,13 @@ writes HBWC. It is bound by operations (≈309 GFLOP at the flagship shape,
 :func:`head_dot_route` picks one by shape, never by trial:
 
 - ``"wgmma"``: bf16, C4 a multiple of 64, 64 output channels, g4's strides
-  multiples of 16 bytes. An implicit GEMM on ``wgmma`` whose blocks stage a
-  halo tile of raw g4 per 64-channel slice with one TMA load, activate it
-  in place once, and take the nine taps as shifted windows of it (A from
-  registers through ``ldmatrix``); the weights stream as swizzled 64 × 64
-  tiles that :func:`head_dot_pack_weights` arranges once per call.
+  multiples of 16 bytes. The implicit GEMM on ``wgmma`` of
+  ``csrc/conv3x3_wgmma.cuh`` (shared with ``fused_tail``), whose blocks
+  stage a halo tile of raw g4 per 64-channel slice with one TMA load,
+  activate it in place once, and take the nine taps as shifted windows of
+  it (A from registers through ``ldmatrix``); the weights stream as
+  swizzled 64 × 64 tiles that :func:`head_dot_pack_weights` arranges once
+  per call. Its epilogue writes bf16 HBWC in 16-byte stores.
 - ``"mma"``: any other bf16 shape, the shared warp-``mma`` implicit GEMM.
 - ``"fp32"``: float32 storage, an exact fp32 loop on the CUDA cores.
 
@@ -34,7 +36,7 @@ from endosr_torch.utils.device import device_constant
 
 __all__ = ["head_dot", "head_dot_plain", "head_dot_route",
            "head_dot_pack_weights", "head_dot_unpack_weights", "launch_igemm",
-           "launch_wgmma"]
+           "launch_wgmma", "wgmma_pack_index"]
 
 def head_dot_plain(g4_hwnc, w64, b64, wout=None, pre_bias=None):
     """Plain PyTorch version: optional producer epilogue (bias +
@@ -67,15 +69,15 @@ def head_dot_route(dtype, c4, cout, strides):
     return "mma"
 
 
-def _pack_index(c4):
-    """Flat indices into w64 [3,3,C4,64] of the packed order
-    [C4/64, 9 taps, 64 o, 8 pieces, 8]: the piece stored at position j of
-    row o is the logical piece j ^ (o & 7) (the 128-byte shared-memory
-    swizzle)."""
-    s, t, o, j, q = np.meshgrid(np.arange(c4 // 64), np.arange(9), np.arange(64),
+def wgmma_pack_index(c4, cout=64):
+    """Flat indices into w [3,3,C4,cout] of the order the ``wgmma`` conv
+    streams, [C4/64, 9 taps, cout o, 8 pieces, 8]: the piece stored at
+    position j of row o is the logical piece j ^ (o & 7) (the 128-byte
+    shared-memory swizzle)."""
+    s, t, o, j, q = np.meshgrid(np.arange(c4 // 64), np.arange(9), np.arange(cout),
                                 np.arange(8), np.arange(8), indexing="ij")
     c = s * 64 + (j ^ (o & 7)) * 8 + q
-    return ((t * c4 + c) * 64 + o).reshape(-1)
+    return ((t * c4 + c) * cout + o).reshape(-1)
 
 
 def head_dot_pack_weights(w64):
@@ -86,14 +88,14 @@ def head_dot_pack_weights(w64):
     if c4 % 64 or cout != 64:
         raise ValueError(f"w64 {tuple(w64.shape)}: needs C4 % 64 == 0 and "
                          "64 output channels")
-    idx = device_constant(_pack_index, (c4,), torch.int64, w64.device)
+    idx = device_constant(wgmma_pack_index, (c4,), torch.int64, w64.device)
     return w64.reshape(-1)[idx].reshape(c4 // 64, 9, 64, 64)
 
 
 def head_dot_unpack_weights(packed):
     """Inverse of :func:`head_dot_pack_weights`: → w64 [3,3,C4,64]."""
     c4 = packed.shape[0] * 64
-    idx = device_constant(_pack_index, (c4,), torch.int64, packed.device)
+    idx = device_constant(wgmma_pack_index, (c4,), torch.int64, packed.device)
     flat = torch.empty(9 * c4 * 64, dtype=packed.dtype, device=packed.device)
     flat[idx] = packed.reshape(-1)
     return flat.reshape(3, 3, c4, 64)

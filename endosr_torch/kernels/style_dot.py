@@ -27,12 +27,23 @@ counts them per route.
 
     out[h,w,b,m] = (Σ_j shifted[b,h,w,j]·v[b,j,m]) + concat(convs)[h,w,b,m] + bias[m]
 
-It runs the CUDA-core kernel in both types, rounds the dot to the storage
-type and adds the conv slice and the bias in its epilogue. The N conv
+with the dot rounded to the storage type before the adds. The N conv
 outputs are read in place through a device table of pointers, so no
 concatenated copy (≈470 MB per flagship launch) is made. It is bound by
-memory (≈0.96 GB per M=1792 launch, ≈0.29 ms at 3.35 TB/s). The ``hwbc``
-variant of the TPU kernel is off by default there and not ported.
+memory (≈0.96 GB per M=1792 launch, ≈0.29 ms at 3.35 TB/s). Two kernels,
+picked by :func:`style_blend_route`:
+
+- ``"tc"``: bf16, J even and ≤ 96, M and c2 multiples of 8, the convs'
+  strides multiples of 8 with contiguous channels, and 16-byte aligned
+  bases. ``style_blend_tc``: ``style_dot_tc``'s main loop with an epilogue
+  that adds the conv slice (16-byte loads issued before the tile's product)
+  and the bias, and stores 16 bytes.
+- ``"cuda_core"``: everything else, float32 (exact) included: the CUDA-core
+  dot with the adds in its scalar epilogue.
+
+``style_blend_dot.launches`` counts launches, ``style_blend_dot.routes``
+counts them per route. The ``hwbc`` variant of the TPU kernel is off by
+default there and not ported.
 """
 
 from __future__ import annotations
@@ -41,8 +52,9 @@ import torch
 
 from endosr_torch.kernels import _build
 
-__all__ = ["style_blend_dot", "style_blend_plain", "style_dot_hwbm",
-           "style_dot_plain", "style_dot_route", "launch_cuda_core",
+__all__ = ["style_blend_dot", "style_blend_plain", "style_blend_route",
+           "style_dot_hwbm", "style_dot_plain", "style_dot_route",
+           "launch_blend_cuda_core", "launch_blend_tc", "launch_cuda_core",
            "launch_tc"]
 
 
@@ -54,15 +66,21 @@ def style_blend_plain(shifted, v, convs, bias):
     return (y + torch.cat(list(convs), dim=-1)) + bias.to(dt)
 
 
-def style_blend_dot(shifted, v, convs, bias):
-    """Group style dot + conv adds + bias → [H, W, B, M] (the HWNC view of
-    a BHWC tensor, so per-instance channel slices are BHWC views).
+def style_blend_route(dtype, j, m, c2, strides, aligned):
+    """Which kernel a CUDA call of ``style_blend_dot`` takes: ``"tc"`` or
+    ``"cuda_core"``. ``strides``: the convs' element strides (h, w, b,
+    channel); ``aligned``: every conv's base is 16-byte aligned (the
+    wrapper allocates the output aligned)."""
+    if (dtype == torch.bfloat16 and j <= 96 and j % 2 == 0 and m % 8 == 0
+            and c2 % 8 == 0 and strides[3] == 1
+            and all(s % 8 == 0 for s in strides[:3]) and aligned):
+        return "tc"
+    return "cuda_core"
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (and raises if it cannot)."""
-    if shifted.device.type == "cpu":
-        return style_blend_plain(shifted, v, convs, bias)
-    fn = _build.load("style_dot")
+
+def _blend_operands(shifted, v, convs, bias):
+    """Checked, contiguous operands: (shifted, v, the convs' device pointer
+    table, their strides, c2, fp32 bias, the [B,H,W,M] output buffer)."""
     b, h, w, j = shifted.shape
     m = v.shape[2]
     n = len(convs)
@@ -76,23 +94,65 @@ def style_blend_dot(shifted, v, convs, bias):
     dt, dev = shifted.dtype, shifted.device
     if v.dtype != dt or any(c.dtype != dt for c in convs):
         raise TypeError("shifted, v and convs must share one dtype")
-    sh = shifted.contiguous()
-    vv = v.contiguous()
+    sh, vv = shifted.contiguous(), v.contiguous()
+    sh = sh.clone() if sh.data_ptr() % 16 else sh
+    vv = vv.clone() if vv.data_ptr() % 16 else vv
     bias32 = bias.float().contiguous()
+    bias32 = bias32.clone() if bias32.data_ptr() % 16 else bias32
     # pinned + non_blocking: the host does not wait for the device's queue
     table = torch.tensor([c.data_ptr() for c in convs],
                          dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     out = torch.empty((b, h, w, m), dtype=dt, device=dev)
-    code = fn(_build.dtype_code(dt), sh.data_ptr(), vv.data_ptr(),
+    return sh, vv, table, st, c2, bias32, out
+
+
+def launch_blend_cuda_core(shifted, v, convs, bias):
+    """Launch the CUDA-core blend (route ``"cuda_core"``) on CUDA operands
+    → [B,H,W,M]; counts nothing."""
+    fn = _build.load("style_dot")
+    b, h, w, j = shifted.shape
+    sh, vv, table, st, c2, bias32, out = _blend_operands(shifted, v, convs, bias)
+    code = fn(_build.dtype_code(shifted.dtype), sh.data_ptr(), vv.data_ptr(),
               table.data_ptr(), st[0], st[1], st[2], c2, bias32.data_ptr(),
               out.data_ptr(), out.stride(1), out.stride(2), out.stride(0),
-              b, h, w, j, m, _build.stream_ptr(dev))
+              b, h, w, j, v.shape[2], _build.stream_ptr(shifted.device))
     _build.check("style_dot", code)
+    return out
+
+
+def launch_blend_tc(shifted, v, convs, bias):
+    """Launch the tensor-core blend (route ``"tc"``) on CUDA operands →
+    [B,H,W,M]; counts nothing."""
+    fn = _build.load("style_dot", "style_blend_tc")
+    b, h, w, j = shifted.shape
+    sh, vv, table, st, c2, bias32, out = _blend_operands(shifted, v, convs, bias)
+    code = fn(sh.data_ptr(), vv.data_ptr(), table.data_ptr(), st[0], st[1],
+              st[2], c2, bias32.data_ptr(), out.data_ptr(), b, h, w, j,
+              v.shape[2], _build.stream_ptr(shifted.device))
+    _build.check("style_dot", code, "style_blend_tc")
+    return out
+
+
+def style_blend_dot(shifted, v, convs, bias):
+    """Group style dot + conv adds + bias → [H, W, B, M] (the HWNC view of
+    a BHWC tensor, so per-instance channel slices are BHWC views).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel :func:`style_blend_route` names (and raises if it cannot)."""
+    if shifted.device.type == "cpu":
+        return style_blend_plain(shifted, v, convs, bias)
+    aligned = all(c.data_ptr() % 16 == 0 for c in convs)
+    route = style_blend_route(shifted.dtype, shifted.shape[3], v.shape[2],
+                              convs[0].shape[3], convs[0].stride(), aligned)
+    launch = launch_blend_tc if route == "tc" else launch_blend_cuda_core
+    out = launch(shifted, v, convs, bias)
     style_blend_dot.launches += 1
+    style_blend_dot.routes[route] += 1
     return out.permute(1, 2, 0, 3)
 
 
 style_blend_dot.launches = 0
+style_blend_dot.routes = {"tc": 0, "cuda_core": 0}
 
 
 def style_dot_plain(shifted, v):

@@ -793,22 +793,23 @@ class DepthNet(nn.Module):
                                wh.device).reshape(-1)
         wh = wh[:, :, perm, :]
         rgb = self.out_nc == 3
-        if self.pallas_head and rgb and not self.pallas_tail:
-            # g4 stays raw: its bias + leaky_relu and the s=0 gate run
-            # inside head_dot
+        # fused_tail and head_dot take g4 raw: its bias + leaky_relu and the
+        # s=0 gate run inside the kernel while it loads
+        pb = b30.repeat(4).to(dt)
+        if self.pallas_tail and rgb:
+            flat = fused_tail(g4.permute(1, 2, 0, 3), wh.to(dt), bh, lo, hi,
+                              "hwbc", nw, pb)
+            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        if self.pallas_head and rgb:
             w64, b64 = embed_head_channels(wh, bh)
             pre64 = head_dot(g4.permute(1, 2, 0, 3), w64.to(dt), b64, nw,
-                             b30.repeat(4).to(dt))             # [H, B, W, 64]
+                             pb)                                 # [H, B, W, 64]
             flat = output_stage_x8(pre64, lo, hi, order="hbwc")
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
         # the other heads take g4 activated and gated (dead last row/column)
         gate = device_constant(_edge_gate, (g4.shape[1], g4.shape[2]), dt,
                                g4.device)
-        g4 = leaky_relu(g4 + b30.repeat(4).to(dt)) * gate
-        if self.pallas_tail and rgb:
-            flat = fused_tail(g4.permute(1, 2, 0, 3), wh.to(dt), bh, lo, hi,
-                              "hwbc", nw)
-            return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
+        g4 = leaky_relu(g4 + pb) * gate
         if self.pallas_output and rgb:
             w64, b64 = embed_head_channels(wh, bh)
             pre64 = conv2d_nhwc(g4, w64, ((1, 0), (1, 0)), dt) + b64.to(dt)

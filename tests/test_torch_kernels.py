@@ -13,9 +13,10 @@ card by ``chip_smoke.py``.
 Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
 launch and route counters stay 0 on the CPU; the rules that route
-``head_dot`` and ``style_dot_hwbm`` between their two kernels; the weight
-arrangement of the ``wgmma`` route; and the argument counts of the exported
-C functions against their ``ctypes`` signatures.
+``head_dot``, ``fused_tail``, ``style_dot_hwbm`` and ``style_blend_dot``
+between their kernels; the weight arrangement of the two ``wgmma`` routes;
+and the argument counts of the exported C functions against their
+``ctypes`` signatures.
 """
 
 import ast
@@ -126,6 +127,48 @@ def test_style_blend_dot_matches_jax_twin(blocks):
                                         jnp.asarray(bias))
     got = t_sd.style_blend_dot(_t(sh), _t(v), tuple(map(_t, convs)), _t(bias))
     _cmp(got.numpy(), want)
+
+
+def test_style_blend_dot_matches_jax_twin_with_tiles_across_convs():
+    """c2 = 24, M = 264: a 128-channel tile of the ``tc`` route spans
+    several convs, so its table index is per 8-channel piece."""
+    rng = _rng(9)
+    b, h, w, j, c2, n = 2, 5, 7, 90, 24, 11
+    sh = (rng.random((b, h, w, j)) > 0.7).astype(np.float32)
+    v = _f32(rng, b, j, n * c2, s=0.3)
+    convs = [_f32(rng, h, w, b, c2) for _ in range(n)]
+    bias = _f32(rng, n * c2, s=0.1)
+    want = jax_sd.style_blend_reference(jnp.asarray(sh), jnp.asarray(v),
+                                        tuple(map(jnp.asarray, convs)),
+                                        jnp.asarray(bias))
+    got = t_sd.style_blend_dot(_t(sh), _t(v), tuple(map(_t, convs)), _t(bias))
+    assert got.shape == (h, w, b, n * c2)
+    _cmp(got.numpy(), want)
+
+
+_CONV_STRIDES = (128 * 8 * 128, 8 * 128, 128, 1)    # [H,W,B,c2] view of BHWC
+
+
+@pytest.mark.parametrize("dtype,j,m,c2,strides,aligned,want", [
+    (torch.bfloat16, 90, 1792, 128, (128 * 128, 128, 128 * 128 * 128, 1), True,
+     "tc"),
+    (torch.bfloat16, 90, 1536, 128, _CONV_STRIDES, True, "tc"),
+    (torch.bfloat16, 90, 264, 24, (21 * 24, 24, 13 * 21 * 24, 1), True, "tc"),
+    (torch.float32, 90, 1792, 128, _CONV_STRIDES, True, "cuda_core"),
+    (torch.bfloat16, 90, 1792, 128, _CONV_STRIDES, False, "cuda_core"),
+    (torch.bfloat16, 90, 180, 20, (21 * 20, 20, 13 * 21 * 20, 1), True,
+     "cuda_core"),
+    (torch.bfloat16, 90, 264, 24, (21 * 26, 26, 13 * 21 * 26, 1), True,
+     "cuda_core"),
+    (torch.bfloat16, 90, 264, 24, (1, 13 * 24, 24, 13 * 21 * 24), True,
+     "cuda_core"),
+    (torch.bfloat16, 100, 1792, 128, _CONV_STRIDES, True, "cuda_core"),
+    (torch.bfloat16, 89, 1792, 128, _CONV_STRIDES, True, "cuda_core"),
+], ids=["flagship_7", "flagship_6", "ragged_c2_24", "fp32", "unaligned_conv",
+        "c2_20", "conv_stride_not_16_bytes", "channels_not_contiguous", "j100",
+        "j_odd"])
+def test_style_blend_route(dtype, j, m, c2, strides, aligned, want):
+    assert t_sd.style_blend_route(dtype, j, m, c2, strides, aligned) == want
 
 
 # ------------------------------------------------------------------ head_dot
@@ -442,6 +485,80 @@ def test_fused_tail_takes_a_non_square_grid():
     _cmp(got.numpy(), want)
 
 
+@pytest.mark.parametrize("layout", ["bhwc", "hwbc"])
+@pytest.mark.parametrize("nh,nw,padw", [(8, 8, 3), (8, 6, 2)],
+                         ids=["square", "non_square"])
+def test_fused_tail_with_pre_bias_matches_jax(layout, nh, nw, padw):
+    """Raw g4 with the producer's bias: equal to JAX's
+    ``fused_tail_reference`` fed the g4 that the JAX DepthNet activates and
+    gates for it (``endosr/nn/depthnet.py``, the ``use_fused`` branch: the
+    dead last row and column and the pad columns hold data here). On the
+    non-square grid the reference's square crop is cut to ``wout``."""
+    jl = importlib.import_module("endosr.nn.layers")
+    rng = _rng(25 + nw)
+    b, c4 = 2, 32
+    g4 = _f32(rng, nh + 1, nw + 1 + padw, b, c4)          # HWNC, raw
+    b30 = _f32(rng, c4 // 4, s=0.2)
+    wh, bh = _f32(rng, 3, 3, c4, 48, s=0.05), _f32(rng, 48, s=0.1) + 0.5
+    g4r = jl.leaky_relu(jnp.asarray(g4) + jnp.tile(b30, 4))
+    row, _ = jl.packed_gate(nh, c4 // 4, 0, g4r.dtype)
+    _, col = jl.packed_gate(nw, c4 // 4, 0, g4r.dtype)
+    colw = jnp.concatenate([col, jnp.zeros((padw, col.shape[1]), col.dtype)])
+    gated = g4r * row[:, None, None, :] * colw[None, :, None, :]
+    want = np.asarray(jax_ft.fused_tail_reference(
+        jnp.transpose(gated, (2, 0, 1, 3)), jnp.asarray(wh), jnp.asarray(bh),
+        0.0, 1.0))[:, :, :12 * nw]
+    gt = _t(g4) if layout == "hwbc" else _t(g4).permute(2, 0, 1, 3)
+    got = t_ft.fused_tail(gt, _t(wh), _t(bh), 0.0, 1.0, layout, nw,
+                          _t(np.tile(b30, 4)))
+    assert got.shape == (b, 4 * nh, 12 * nw)
+    _cmp(got.numpy(), want)
+
+
+_TAIL_STRIDES = (257 * 512, 512, 257 * 257 * 512, 1)    # HWBC view of BHWC
+
+
+@pytest.mark.parametrize("dtype,c4,strides,ptr,want", [
+    (torch.bfloat16, 512, _TAIL_STRIDES, 0, "wgmma"),
+    (torch.bfloat16, 128, (24 * 128, 128, 14 * 24 * 128, 1), 4096, "wgmma"),
+    (torch.float32, 512, _TAIL_STRIDES, 0, "fp32"),
+    (torch.bfloat16, 48, (257 * 48, 48, 257 * 257 * 48, 1), 0, "mma"),
+    (torch.bfloat16, 512, (257 * 516, 516, 257 * 257 * 516, 1), 0, "mma"),
+    (torch.bfloat16, 512, _TAIL_STRIDES, 8, "mma"),
+    (torch.bfloat16, 512, (1, 257, 257 * 257, 257 * 257 * 8), 0, "mma"),
+    (torch.float32, 48, (257 * 48, 48, 257 * 257 * 48, 1), 0, "fp32"),
+], ids=["flagship", "ragged_c128", "fp32", "c4_48", "stride_not_16_bytes",
+        "base_not_16_bytes", "channels_not_contiguous", "fp32_small"])
+def test_fused_tail_route(dtype, c4, strides, ptr, want):
+    assert t_ft.fused_tail_route(dtype, c4, strides, ptr) == want
+
+
+@pytest.mark.parametrize("c4", [64, 192])
+def test_fused_tail_packed_weights_round_trip_and_convolve(c4):
+    """The ``wgmma`` route's weight order: [slice, tap, o, c] tiles with the
+    48 output channels in i·12 + j·3 + c order and swizzled 16-byte pieces.
+    Unpacking gives wh back, the unpacked weights convolve exactly like wh,
+    and a tile read the way the kernel's descriptor reads it (piece ^ (o &
+    7)) is the [o, c] slice of the tap for the canonical channel of slot o."""
+    rng = _rng(50 + c4)
+    wh = _t(_f32(rng, 3, 3, c4, 48, s=0.1))
+    packed = t_ft.fused_tail_pack_weights(wh)
+    assert packed.shape == (c4 // 64, 9, 48, 64) and packed.is_contiguous()
+    back = t_ft.fused_tail_unpack_weights(packed)
+    assert torch.equal(back, wh)
+    s, tap, o = c4 // 64 - 1, 7, 29                   # slot 29: i 2, j 1, c 2
+    row = packed[s, tap, o].reshape(8, 8)
+    logical = torch.stack([row[j ^ (o & 7)] for j in range(8)]).reshape(64)
+    assert torch.equal(logical, wh[tap // 3, tap % 3, s * 64:(s + 1) * 64,
+                                   2 * 16 + 2 * 4 + 1])
+    g4, bh = _t(_f32(rng, 2, 6, 9, c4)), _t(_f32(rng, 48, s=0.1))
+    pb = _t(_f32(rng, c4, s=0.1))
+    assert torch.equal(t_ft.fused_tail_plain(g4, back, bh, wout=7, pre_bias=pb),
+                       t_ft.fused_tail_plain(g4, wh, bh, wout=7, pre_bias=pb))
+    with pytest.raises(ValueError, match="64"):
+        t_ft.fused_tail_pack_weights(torch.zeros(3, 3, 48, 48))
+
+
 # --------------------------------------------------------------- mid_shuffle
 
 @pytest.mark.parametrize("r,c", [(2, 128), (2, 3), (3, 4)],
@@ -482,6 +599,9 @@ class _CudaClaim:
         st = torch.empty(self.shape, device="meta").stride()
         return st if dim is None else st[dim]
 
+    def data_ptr(self):
+        return 0
+
 
 def _wrapper_calls():
     c = _CudaClaim
@@ -498,6 +618,9 @@ def _wrapper_calls():
         "style_blend_dot": lambda: t_sd.style_blend_dot(
             c((2, 4, 4, 9)), c((2, 9, 32)), (c((4, 4, 2, 16)),) * 2,
             torch.zeros(32)),
+        "style_blend_dot[tc]": lambda: t_sd.style_blend_dot(
+            c((2, 4, 4, 90)), c((2, 90, 32)), (c((4, 4, 2, 16)),) * 2,
+            torch.zeros(32)),
         "output_stage": lambda: t_os.output_stage(c((2, 4, 8, 12)), 2),
         "style_dot_hwbm": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 9)),
                                                       c((2, 9, 32))),
@@ -513,6 +636,9 @@ def _wrapper_calls():
             torch.zeros(2, 16)),
         "fused_tail": lambda: t_ft.fused_tail(
             c((2, 9, 16, 32)), torch.zeros(3, 3, 32, 48), torch.zeros(48)),
+        "fused_tail[wgmma]": lambda: t_ft.fused_tail(
+            c((9, 16, 2, 64)), torch.zeros(3, 3, 64, 48), torch.zeros(48),
+            layout="hwbc", wout=8, pre_bias=torch.zeros(64)),
         "mid_shuffle": lambda: t_sm.mid_shuffle(c((2, 4, 4, 16)), 2),
     }
 
@@ -525,21 +651,25 @@ def _zero_o_weights():
 @pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
                                   "head_dot[wgmma]",
                                   "packed_g123", "style_blend_dot",
+                                  "style_blend_dot[tc]",
                                   "output_stage", "style_dot_hwbm",
                                   "style_dot_hwbm[tc]",
                                   "in_stats", "fused_in_mod",
                                   "fused_o_branch", "fused_modulation",
-                                  "fused_tail", "mid_shuffle"])
+                                  "fused_tail", "fused_tail[wgmma]",
+                                  "mid_shuffle"])
 def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr("endosr_torch.kernels._build.os.path.exists",
                         lambda p: False)
-    before = (dict(t_hd.head_dot.routes), dict(t_sd.style_dot_hwbm.routes))
+    routed = (t_hd.head_dot, t_sd.style_dot_hwbm, t_ft.fused_tail,
+              t_sd.style_blend_dot)
+    before = [dict(f.routes) for f in routed]
     # no nvcc here: the wrapper must fail to build, not run the plain version
-    # (on either route of the two routed kernels), and count nothing
+    # (on any route of the routed kernels), and count nothing
     with pytest.raises(RuntimeError, match="nvcc"):
         _wrapper_calls()[name]()
-    assert (t_hd.head_dot.routes, t_sd.style_dot_hwbm.routes) == before
+    assert [f.routes for f in routed] == before
 
 
 def test_cpu_calls_leave_launch_counters_at_zero():
@@ -571,9 +701,18 @@ def test_cpu_calls_leave_launch_counters_at_zero():
                   torch.zeros(3, 3, 64, 64), torch.zeros(64))
     t_sd.style_dot_hwbm(torch.zeros(1, 4, 4, 90, dtype=torch.bfloat16),
                         torch.zeros(1, 90, 32, dtype=torch.bfloat16))
+    t_ft.fused_tail(torch.zeros(9, 16, 2, 64, dtype=torch.bfloat16),
+                    torch.zeros(3, 3, 64, 48), torch.zeros(48), layout="hwbc",
+                    wout=8, pre_bias=torch.zeros(64))
+    t_sd.style_blend_dot(torch.zeros(1, 4, 4, 90, dtype=torch.bfloat16),
+                         torch.zeros(1, 90, 32, dtype=torch.bfloat16),
+                         (torch.zeros(4, 4, 1, 16, dtype=torch.bfloat16),) * 2,
+                         torch.zeros(32))
     assert [f.launches for f in fns] == before == [0] * 12
     assert t_hd.head_dot.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sd.style_dot_hwbm.routes == {"tc": 0, "cuda_core": 0}
+    assert t_ft.fused_tail.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert t_sd.style_blend_dot.routes == {"tc": 0, "cuda_core": 0}
 
 
 # ------------------------------------------------------- exported C signatures
