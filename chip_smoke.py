@@ -10,8 +10,9 @@ exits non-zero):
 2. build — every kernel under ``endosr_torch/csrc`` with one ``nvcc`` per
    source, all started together, into ``build/endosr_torch/``; ``ptxas``'s
    registers, spills and static shared memory of every kernel are logged,
-   those of the ``wgmma`` conv (in ``head_dot`` and in ``fused_tail``),
-   ``style_dot_tc`` and ``style_blend_tc`` on lines of their own.
+   those of the ``wgmma`` conv (in ``head_dot``, ``fused_tail`` and
+   ``packed_chain``), ``style_dot_tc`` and ``style_blend_tc`` on lines of
+   their own.
 3. kernels — each of the twelve kernels against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
@@ -22,18 +23,22 @@ exits non-zero):
    ``fused_modulation`` are also checked at a ragged small shape (tiles cut
    by both edges, 2C < 128, K < 16), ``head_dot`` and ``fused_tail`` at
    B = 3, 13×21 of 24 columns, C4 = 128 with and without ``pre_bias``,
-   ``style_dot_hwbm`` at B = 2, 13×21, M = 264 and ``style_blend_dot`` at
-   B = 2, 13×21, c2 = 24, M = 264. ``fused_tail`` gets the raw g4 with its
-   ``pre_bias``, as the ``pallas_tail`` path calls it. In bf16 the four
-   routed kernels take their tensor-core routes (``head_dot`` and
-   ``fused_tail``: ``wgmma``; ``style_dot_hwbm`` and ``style_blend_dot``:
-   ``tc``), which sum in another order than the plain versions (16-deep
-   ``mma`` steps, 64-channel slices outermost), hence the same 1e-2 as
-   every bf16 kernel; in fp32 they take the exact CUDA-core routes. The
-   route each took is asserted, and the earlier route of each
+   ``style_dot_hwbm`` at B = 2, 13×21, M = 264, ``style_blend_dot`` at
+   B = 2, 13×21, c2 = 24, M = 264, and ``packed_g123`` at B = 3 on an
+   up1-like x [13, 21, 3, 256] and a tail-like packed [8, 12, 3, 512]
+   (9.0 and −9.0 planted in its dead row and column). ``fused_tail`` gets
+   the raw g4 with its ``pre_bias``, as the ``pallas_tail`` path calls it.
+   In bf16 the routed kernels take their fast routes (``head_dot``,
+   ``fused_tail`` and ``packed_g123``: ``wgmma``; ``style_dot_hwbm`` and
+   ``style_blend_dot``: ``tc``), which sum in another order than the plain
+   versions (16-deep ``mma`` steps, 64-channel slices outermost), hence the
+   same 1e-2 as every bf16 kernel; in fp32 they take the exact CUDA-core
+   routes; ``mid_shuffle`` takes ``vec16`` in both types. The route each
+   took is asserted, and the earlier route of each
    (``head_dot.launch_igemm``, ``fused_tail.launch_igemm``,
-   ``launch_cuda_core``, ``launch_blend_cuda_core``) is timed beside it as
-   ``previous_ms``. Times are CUDA-event medians
+   ``packed_chain.launch_igemm``, ``launch_cuda_core``,
+   ``launch_blend_cuda_core``, the ``scalar`` shuffle) is timed beside it
+   as ``previous_ms``. Times are CUDA-event medians
    of 20 runs (5 for a call above 20 ms), beside the plain version's, the
    bound (larger of bytes over 3.35 TB/s and operations over the bf16
    tensor-core peak), and one PyTorch call computing the same function
@@ -49,7 +54,8 @@ exits non-zero):
    weights, batch 8, bf16), the launch counts set to 0 before each and read
    after it; every output finite, of the right shape, in [0,1]; bf16 vs
    fp32 PSNR ≥ 40 dB on the same weights:
-   - ×8 flagship, unbucketed, LQ 128² → SR 1024²: ``packed_g123`` 2,
+   - ×8 flagship, unbucketed, LQ 128² → SR 1024²: ``packed_g123`` 2
+     (bf16: route ``wgmma`` on every ×8 path that runs it; fp32: ``fp32``),
      ``style_blend_dot`` 2 (bf16: route ``tc``; the fp32 request:
      ``cuda_core``), ``head_dot`` 1 (bf16: ``wgmma``; fp32: ``fp32``),
      ``output_stage_x8`` 1 per forward; the fp32 output equals that of
@@ -67,7 +73,8 @@ exits non-zero):
      (bf16: route ``tc``; fp32: ``cuda_core``), ``output_stage`` 1, none of
      the packed kernels; the fp32 output equals the fp32 unbucketed output of
      the same request to ≤ 1e-4;
-   - ×4 flagship with ``fused_epilogue`` and ``in_stats: kernel``, LQ 128²
+   - ×4 flagship with ``net_kw: {fused_epilogue: true, in_stats:
+     kernel}``, LQ 128²
      → SR 512²: ``fused_in_mod`` 26, ``in_stats`` 26, ``style_blend_dot``
      2 (``tc``), ``output_stage_x8`` 1; the fp32 output equals that of the chained
      epilogue (``fused_epilogue: false``) to ≤ 2e-4.
@@ -191,7 +198,9 @@ def make_cases(torch, dt, gen):
                                                    output_stage_plain,
                                                    output_stage_x8,
                                                    output_stage_x8_plain)
+    from endosr_torch.kernels.packed_chain import launch_igemm as packed_igemm
     from endosr_torch.kernels.packed_chain import packed_g123, packed_g123_plain
+    from endosr_torch.kernels.shuffle_mid import launch as shuffle_launch
     from endosr_torch.kernels.shuffle_mid import (mid_shuffle,
                                                   mid_shuffle_plain,
                                                   mid_unshuffle_plain)
@@ -294,20 +303,35 @@ def make_cases(torch, dt, gen):
             None, 0, 0, main=False, route=head_route, timed=False))
 
     # packed_g123: up1 chain (x [128,128,8,256], pre_act) and tail chain
-    # (packed producer [129,129,8,512], phases + pre_act + pre_bias)
+    # (packed producer [129,129,8,512], phases + pre_act + pre_bias); and
+    # ragged ones at B = 3 (odd extents under one column tile, two and four
+    # 64-channel slices), the tail-like one with data planted in the dead
+    # packed row and column, which the interleave drops
     pcs = []
-    for label, xshape, cin4, phases in (("up1", (B, 128, 128, 256), 256, False),
-                                        ("tail", (B, 129, 129, 512), 128, True)):
-        x = rn(*xshape, s=0.5).permute(1, 2, 0, 3)
+    packed_route = (packed_g123, {torch.bfloat16: "wgmma",
+                                  torch.float32: "fp32"})
+    for label, xshape, cin4, phases, main in (
+            ("up1", (B, 128, 128, 256), 256, False, True),
+            ("tail", (B, 129, 129, 512), 128, True, True),
+            ("ragged up1-like 13×21, B=3", (3, 13, 21, 256), 256, False, False),
+            ("ragged tail-like 8×12 packed, B=3", (3, 8, 12, 512), 128, True,
+             False)):
+        x = rn(*xshape, s=0.5)
+        if phases and not main:
+            x[:, -1] = 9.0
+            x[:, :, -1] = -9.0
+        x = x.permute(1, 2, 0, 3)
         k1 = rn(2, 2, cin4, 128, s=1.0 / math.sqrt(4 * cin4))
         k2 = rn(2, 2, 128, 128, s=1.0 / math.sqrt(512))
         k3 = rn(2, 2, 128, 128, s=1.0 / math.sqrt(512))
         b1, b2, b3 = (rn(128, s=0.1) for _ in range(3))
         pbias = rn(cin4, s=0.1) if phases else None
-        n = (2 * 128 if phases else 128) + 1
+        bb, hh, ww = xshape[:3]
+        n, m = ((2 * (hh - 1) + 1, 2 * (ww - 1) + 1) if phases
+                else (hh + 1, ww + 1))
         args = (x, k1, b1, k2, b2, k3, b3)
         kw = dict(pre_act=True, pre_bias=pbias, phases=phases)
-        flops = 2 * B * n * n * 4 * (cin4 * 128 + 2 * 128 * 128)
+        flops = 2 * bb * n * m * 4 * (cin4 * 128 + 2 * 128 * 128)
         pcs.append(KernelCase(
             f"packed_g123[{label}]",
             lambda a=args, k=kw: packed_g123(*a, **k),
@@ -315,8 +339,9 @@ def make_cases(torch, dt, gen):
             None,
             nbytes(x, k1, k2, k3, b1, b2, b3,
                    *([pbias] if pbias is not None else []))
-            + n * n * B * 128 * x.element_size(),
-            flops))
+            + n * m * bb * 128 * x.element_size(),
+            flops, main=main, timed=main, route=packed_route,
+            previous=lambda a=args, k=kw: packed_igemm(*a, **k)))
     cases["packed_g123"] = pcs
 
     # style_blend_dot: the 7- and 6-block groups (M = 1792 / 1536)
@@ -477,6 +502,7 @@ def make_cases(torch, dt, gen):
 
     def shuffle_backward(z=zs):
         g = torch.randn((B, 256, 256, 128), generator=gen, device=dev).to(dt)
+        mid_shuffle.routes = dict.fromkeys(mid_shuffle.routes, 0)
         with torch.enable_grad():
             za = z.clone().requires_grad_(True)
             mid_shuffle(za, 2).backward(g)
@@ -485,13 +511,22 @@ def make_cases(torch, dt, gen):
         if not (torch.equal(za.grad, mid_unshuffle_plain(g, 2))
                 and torch.equal(za.grad, zb.grad)):
             raise AssertionError(f"mid_shuffle backward {dt}: not bit-identical")
-        log(f"mid_shuffle backward {str(dt)[6:]}: bit-identical to the plain "
-            "un-shuffle and to autograd of the plain version")
+        if mid_shuffle.routes != {"vec16": 2, "scalar": 0}:
+            raise AssertionError(f"mid_shuffle backward {dt}: routes "
+                                 f"{mid_shuffle.routes}, want vec16")
+        sc = shuffle_launch(g, 2, True, "scalar")[0]
+        if not torch.equal(sc, za.grad):
+            raise AssertionError(f"mid_shuffle scalar backward {dt}: differs")
+        log(f"mid_shuffle backward {str(dt)[6:]}: route vec16, bit-identical "
+            "to the plain un-shuffle, to autograd of the plain version and "
+            "to the scalar route")
     cases["mid_shuffle"] = [KernelCase(
         "mid_shuffle", lambda z=zs: mid_shuffle(z, 2),
         lambda z=zs: mid_shuffle_plain(z, 2),
         lambda z=zs: mid_shuffle_plain(z, 2), 2 * nbytes(zs), 0, exact=True,
-        extra=shuffle_backward)]
+        extra=shuffle_backward,
+        route=(mid_shuffle, {torch.bfloat16: "vec16", torch.float32: "vec16"}),
+        previous=lambda z=zs: shuffle_launch(z, 2, False, "scalar")[0])]
     return cases
 
 
@@ -596,10 +631,13 @@ def check_kernels(torch):
                 rows[name].update(tot)
                 if "previous_ms" in tot:
                     lib = tot["library_ms"]
+                    vs_lib = ("no library call" if lib is None else
+                              f"library_ms {lib:.4f}, {tot['ms'] / lib:.2f}× "
+                              "the library call")
                     log(f"{name} bf16 at the main path's shapes: ms "
                         f"{tot['ms']:.4f}, previous_ms {tot['previous_ms']:.4f}, "
-                        f"bound_ms {tot['bound_ms']:.4f}, library_ms {lib:.4f} "
-                        f"({tot['ms'] / lib:.2f}× the library call, "
+                        f"bound_ms {tot['bound_ms']:.4f}, plain_ms "
+                        f"{tot['plain_ms']:.4f} ({vs_lib}, "
                         f"{tot['ms'] / tot['bound_ms']:.2f}× the bound)")
         del cases
         torch.cuda.empty_cache()
@@ -734,7 +772,8 @@ def psnr(a, b):
 
 
 EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core",
-                "fused_tail": "fp32", "style_blend_dot": "cuda_core"}
+                "fused_tail": "fp32", "style_blend_dot": "cuda_core",
+                "packed_g123": "fp32", "mid_shuffle": "vec16"}
 
 
 def zero_counts(counters):
@@ -872,13 +911,14 @@ def serve(torch, counters, label, opt16, opt32, lr_hw, want, on_host,
 
 def serving_paths(torch, counters):
     """The full-width paths; returns {label: launches}."""
-    fused = dict(fused_epilogue=True, in_stats="kernel")
+    fused = dict(net_kw={"fused_epilogue": True, "in_stats": "kernel"})
     plain32 = ("preset: plain", flagship_opt("fp32", preset="plain"), 2e-4)
     tail = {"packed_g123": 2, "head_dot": 1, "output_stage_x8": 1}
 
     def routes(want):
         fast = {"head_dot": "wgmma", "fused_tail": "wgmma",
-                "style_blend_dot": "tc", "style_dot_hwbm": "tc"}
+                "style_blend_dot": "tc", "style_dot_hwbm": "tc",
+                "packed_g123": "wgmma"}
         return {k: r for k, r in fast.items() if k in want}
 
     def x8(label, want, **net):
@@ -952,8 +992,9 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {src}: {line.strip()}")
 
-    for src, kern in (("head_dot", "conv3x3_wgmma_kernel"),
-                      ("fused_tail", "conv3x3_wgmma_kernel"),
+    for src, kern in (("head_dot", "conv_wgmma_kernel"),
+                      ("fused_tail", "conv_wgmma_kernel"),
+                      ("packed_chain", "conv_wgmma_kernel"),
                       ("style_dot", "style_dot_tc_kernel"),
                       ("style_dot", "style_blend_tc_kernel")):
         log(f"  {kern} ({src}): " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),

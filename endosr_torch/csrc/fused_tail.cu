@@ -17,7 +17,7 @@
 // Two kernels, picked by shape in endosr_torch/kernels/fused_tail.py:
 //
 // fused_tail_wgmma (bf16, C4 a multiple of 64): the implicit GEMM on wgmma
-// of conv3x3_wgmma.cuh with N = 48, the head's channels and nothing else
+// of conv_wgmma.cuh (3×3 taps) with N = 48, the head's channels and nothing else
 // (wgmma.m64n48k16 is a legal shape: no tile padded to 64, no zero work),
 // and TailWgEpi as its epilogue. The 48-channel pre-activation never reaches
 // device memory: a warp rounds, adds the bias, clamps and writes its 16
@@ -30,7 +30,7 @@
 // the output stage as its per-element epilogue.
 
 #include "common.cuh"
-#include "conv3x3_wgmma.cuh"
+#include "conv_wgmma.cuh"
 
 template <typename T>
 struct TailFetch {
@@ -93,6 +93,7 @@ struct TailWgEpi {
   const float* bias;    // [48] fp32, i·12 + q order
   int h, wout;
   float lo, hi;
+  static constexpr int kScratch = 3072;
   __device__ __forceinline__ void operator()(const float (&acc)[24], int y, int xw, int b,
                                              int lane, unsigned char* scratch) const {
     float* st = reinterpret_cast<float*>(scratch);

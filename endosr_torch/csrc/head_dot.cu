@@ -16,7 +16,7 @@
 // Two kernels, picked by shape in endosr_torch/kernels/head_dot.py:
 //
 // head_dot_wgmma (bf16, C4 a multiple of 64, 64 output channels): the
-// implicit GEMM on wgmma of conv3x3_wgmma.cuh (TMA halo tiles activated in
+// implicit GEMM on wgmma of conv_wgmma.cuh (TMA halo tiles activated in
 // place, A from registers through ldmatrix, a ring of weight tiles; 220 KB
 // of shared memory, one block an SM) with HeadWgEpi as its epilogue: bf16
 // HBWC in 16-byte stores. What holds it at about half the tensor-core peak
@@ -31,7 +31,7 @@
 // for float storage.
 
 #include "common.cuh"
-#include "conv3x3_wgmma.cuh"
+#include "conv_wgmma.cuh"
 
 template <typename T>
 struct HeadFetch {
@@ -75,7 +75,7 @@ static int launch(const void* g4, i64 sh, i64 sw, i64 sb, int B, int c4,
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma route: conv3x3_wgmma.cuh's kernel with 64 output channels and
+// The wgmma route: conv_wgmma.cuh's 3×3 kernel with 64 output channels and
 // this epilogue
 // ---------------------------------------------------------------------------
 
@@ -91,6 +91,7 @@ struct HeadWgEpi {
   bf16* out;            // contiguous [h, B, wout, 64]
   const float* bias;    // [64] fp32
   int h, wout, B;
+  static constexpr int kScratch = 0;
   __device__ __forceinline__ void operator()(const float (&acc)[32], int y, int xw, int b,
                                              int lane, unsigned char*) const {
     // Within a quad, lane t ends up with the whole 8-channel block

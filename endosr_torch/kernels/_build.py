@@ -42,7 +42,10 @@ SOURCES = {
         "head_dot_wgmma": [P, I64, I64, I64, I, I, I, I, I, P, P, P, P, P]},
     "packed_chain": {
         "packed_stage": [I, P, I64, I64, I64, I, I, I, I, I, I, I, P, I, P, P,
-                         I, I, P, I64, I64, I64, I, P, I64, I64, I64, I, I, P]},
+                         I, I, P, I64, I64, I64, I, P, I64, I64, I64, I, I, P],
+        "packed_stage_wgmma": [P, I64, I64, I64, I, I, I, I, I, I, I, P, I, P,
+                               P, I, P, I64, I64, I64, P, I64, I64, I64, I, I,
+                               P]},
     "style_dot": {
         "style_blend_dot": [I, P, P, P, I64, I64, I64, I, P, P, I64, I64, I64,
                             I, I, I, I, I, P],
@@ -62,7 +65,8 @@ SOURCES = {
         "fused_tail_wgmma": [P, I64, I64, I64, I, I, I, I, I, P, P, P, F32, F32, P,
                              P]},
     "shuffle_mid": {
-        "mid_shuffle": [I, P, P, I, I, I, I, I, I, P]},
+        "mid_shuffle": [I, P, P, I, I, I, I, I, I, P],
+        "mid_shuffle_vec16": [I, P, P, I, I, I, I, I, P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

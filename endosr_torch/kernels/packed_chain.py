@@ -8,25 +8,44 @@ and ``unfold_g4_phases`` (``:50``):
     g2 = gate₀(relu(g1 ⊛ K2 + b2))          pads (0,1)(0,1), s=0
     g3 = gate₁(relu(g1 + g2 ⊛ K3 + b3))     pads (1,0)(1,0), s=1
 
-with [2,2,4C,4C′] packed kernels. The CUDA kernel
-(``endosr_torch/csrc/packed_chain.cu``) is one packed stage; the wrapper
-launches it three times. Stage 1 applies ``pre_bias``/``pre_act`` and the
-``phases`` interleave while it loads x, so neither an activated nor an
-interleaved copy of the producer tensor is written. The chain is bound by
-operations (≈70 GFLOP for the up1 chain, ≈210 GFLOP for the tail chain);
-bf16 products run on the tensor cores through warp-level mma, fp32 on the
-CUDA cores, and g1/g2 go through device memory. Absorbing stage 4
-(``k4``/``b4``) is not on the serving path and is not ported.
+with [2,2,4C,4C′] packed kernels. ``endosr_torch/csrc/packed_chain.cu``
+holds one packed stage in two hand-written kernels, and
+:func:`packed_g123_route` picks one by shape, never by trial; the wrapper
+runs the three stages as three calls, g1 and g2 through device memory:
+
+- ``"wgmma"``: bf16, Cin4 % 64 == 0, C4 = 128, x's channel stride 1, its
+  other strides multiples of 8 and a 16-byte aligned base. The implicit
+  GEMM on ``wgmma`` of ``csrc/conv_wgmma.cuh`` with 2×2 taps (TMA halo
+  tiles activated in place once, the ``phases`` interleave an address map
+  of four phase boxes); the weights stream as swizzled 64 × 64 tiles that
+  :func:`packed_stage_pack_weights` arranges once per call. A stage whose
+  width is one to eight columns past a multiple of 64 (129, 257) runs
+  that strip as a second launch of the same kernel on the transposed view,
+  so no tile column is computed and thrown away.
+- ``"mma"``: any other bf16 shape, the shared warp-``mma`` implicit GEMM.
+- ``"fp32"``: float32 storage, an exact fp32 loop on the CUDA cores.
+
+Stage 1 applies ``pre_bias``/``pre_act`` and the ``phases`` interleave while
+it loads x, so neither an activated nor an interleaved copy of the producer
+tensor is written. The chain is bound by operations (≈70 GFLOP for the up1
+chain, ≈208 GFLOP for the tail chain). ``packed_g123.launches`` counts
+calls (three stage launches each), ``packed_g123.routes`` counts them per
+route. Absorbing stage 4 (``k4``/``b4``) is not on the serving path and is
+not ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from endosr_torch.kernels import _build
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu, packed_gate
+from endosr_torch.utils.device import device_constant
 
-__all__ = ["packed_g123", "packed_g123_plain", "unfold_g4_phases"]
+__all__ = ["packed_g123", "packed_g123_plain", "packed_g123_route",
+           "packed_stage_pack_weights", "packed_stage_unpack_weights",
+           "launch_igemm", "launch_wgmma", "unfold_g4_phases"]
 
 
 def unfold_g4_phases(g4_hwnc):
@@ -68,18 +87,129 @@ def packed_g123_plain(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
     return g3.permute(1, 2, 0, 3)
 
 
-def _stage(fn, dt, x, strides, nx, mx, n_out, m_out, b, cin, phases, pb,
-           pre_act, k, bias, pad, out, res, act, gate_s):
-    ost = (out.stride(1), out.stride(2), out.stride(0))      # out is BHWC
-    rst = ((res.stride(1), res.stride(2), res.stride(0))
-           if res is not None else (0, 0, 0))
-    code = fn(_build.dtype_code(dt), x.data_ptr(), *strides, nx, mx, n_out,
-              m_out, b, cin, int(phases),
-              None if pb is None else pb.data_ptr(), int(pre_act),
-              k.data_ptr(), bias.data_ptr(), pad, pad, out.data_ptr(), *ost,
-              k.shape[3], None if res is None else res.data_ptr(), *rst,
-              act, gate_s, _build.stream_ptr(x.device))
-    _build.check("packed_chain", code)
+def packed_g123_route(dtype, cin4, c4, strides, ptr=0):
+    """Which kernel a CUDA call takes: ``"wgmma"``, ``"mma"`` or ``"fp32"``.
+    ``strides``: x's element strides (row, column, batch, channel), of the
+    packed tensor with ``phases``; ``ptr``: its base address."""
+    if dtype == torch.float32:
+        return "fp32"
+    if (cin4 % 64 == 0 and c4 == 128 and strides[3] == 1
+            and all(s % 8 == 0 for s in strides[:3]) and ptr % 16 == 0):
+        return "wgmma"
+    return "mma"
+
+
+def stage_pack_index(cin, c4=128):
+    """Flat indices into a stage's k [2,2,Cin,C4] of the order the
+    ``wgmma`` stage streams, [Cin/64 slices, 4 taps, C4 o, 8 pieces, 8]:
+    the piece stored at position j of row o is the logical piece j ^ (o & 7)
+    (the 128-byte shared-memory swizzle)."""
+    s, t, o, j, q = np.meshgrid(np.arange(cin // 64), np.arange(4),
+                                np.arange(c4), np.arange(8), np.arange(8),
+                                indexing="ij")
+    c = s * 64 + (j ^ (o & 7)) * 8 + q
+    return ((t * cin + c) * c4 + o).reshape(-1)
+
+
+def packed_stage_pack_weights(k):
+    """k [2,2,Cin,C4] → [Cin/64, 4, C4, 64]: the order the wgmma stage
+    streams, one [o, c] tile (c contiguous) per 64-channel slice and tap,
+    each row's 16-byte pieces swizzled. One gather."""
+    cin, c4 = k.shape[2], k.shape[3]
+    if cin % 64 or c4 % 64:
+        raise ValueError(f"k {tuple(k.shape)}: needs Cin and C4 multiples "
+                         "of 64")
+    idx = device_constant(stage_pack_index, (cin, c4), torch.int64, k.device)
+    return k.reshape(-1)[idx].reshape(cin // 64, 4, c4, 64)
+
+
+def packed_stage_unpack_weights(packed):
+    """Inverse of :func:`packed_stage_pack_weights`: → k [2,2,Cin,C4]."""
+    cin, c4 = packed.shape[0] * 64, packed.shape[2]
+    idx = device_constant(stage_pack_index, (cin, c4), torch.int64,
+                          packed.device)
+    flat = torch.empty(4 * cin * c4, dtype=packed.dtype, device=packed.device)
+    flat[idx] = packed.reshape(-1)
+    return flat.reshape(2, 2, cin, c4)
+
+
+def _prepare(x_hwnc, ks, vs, pre_bias, phases):
+    """Shapes, the operands in x's type, and the three outputs (BHWC)."""
+    if phases:
+        hg, wg, b, c4g = x_hwnc.shape
+        nx, mx, cin4 = 2 * (hg - 1), 2 * (wg - 1), c4g // 4
+    else:
+        nx, mx, b, cin4 = x_hwnc.shape
+    dt, dev = x_hwnc.dtype, x_hwnc.device
+    ks = [k.to(dt).contiguous() for k in ks]
+    vs = [v.to(dt).contiguous() for v in vs]
+    pb = None if pre_bias is None else pre_bias.to(dt).contiguous()
+    c4 = ks[0].shape[3]
+    n, m = nx + 1, mx + 1
+    gs = [torch.empty((b, n, m, c4), dtype=dt, device=dev) for _ in range(3)]
+    return (nx, mx, n, m, b, cin4), ks, vs, pb, gs
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bhwc_strides(t):
+    return (t.stride(1), t.stride(2), t.stride(0)) if t is not None else (0, 0, 0)
+
+
+def launch_igemm(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
+                 pre_bias=None, phases=False):
+    """The three stages on the shared implicit GEMM (routes ``"mma"`` and
+    ``"fp32"``) on CUDA operands; counts nothing. Returns g3 (HWNC)."""
+    fn = _build.load("packed_chain")
+    (nx, mx, n, m, b, cin4), ks, bs, pb, (g1, g2, g3) = _prepare(
+        x_hwnc, (k1, k2, k3), (b1, b2, b3), pre_bias, phases)
+    dt, c4 = x_hwnc.dtype, ks[0].shape[3]
+    code_dt, stream = _build.dtype_code(dt), _build.stream_ptr(x_hwnc.device)
+    xs = (x_hwnc.stride(0), x_hwnc.stride(1), x_hwnc.stride(2))
+    gs = _bhwc_strides(g1)
+    for (x, st, ex, cin, ph, p, act_in, k, bias, pad, out, res, act, gate_s) in (
+            (x_hwnc, xs, (nx, mx), cin4, phases, pb, pre_act, ks[0], bs[0], 1,
+             g1, None, 1, 1),
+            (g1, gs, (n, m), c4, False, None, False, ks[1], bs[1], 0, g2, None,
+             0, 0),
+            (g2, gs, (n, m), c4, False, None, False, ks[2], bs[2], 1, g3, g1,
+             0, 1)):
+        code = fn(code_dt, x.data_ptr(), *st, *ex, n, m, b, cin, int(ph),
+                  _ptr(p), int(act_in), k.data_ptr(), bias.data_ptr(), pad,
+                  pad, out.data_ptr(), *_bhwc_strides(out), c4, _ptr(res),
+                  *_bhwc_strides(res), act, gate_s, stream)
+        _build.check("packed_chain", code)
+    return g3.permute(1, 2, 0, 3)
+
+
+def launch_wgmma(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
+                 pre_bias=None, phases=False, lib="packed_chain"):
+    """The three stages on the ``wgmma`` kernel (route ``"wgmma"``) on CUDA
+    operands; counts nothing. Returns g3 (HWNC). ``lib``: the library that
+    exports ``packed_stage_wgmma`` (another build of the source, to time two
+    versions)."""
+    fn = _build.load(lib, "packed_stage_wgmma")
+    (nx, mx, n, m, b, cin4), ks, bs, pb, (g1, g2, g3) = _prepare(
+        x_hwnc, (k1, k2, k3), (b1, b2, b3), pre_bias, phases)
+    stream = _build.stream_ptr(x_hwnc.device)
+    xs = (x_hwnc.stride(0), x_hwnc.stride(1), x_hwnc.stride(2))
+    gs = _bhwc_strides(g1)
+    for (x, st, ex, cin, ph, p, act_in, k, bias, pad, out, res, act, gate_s) in (
+            (x_hwnc, xs, (nx, mx), cin4, phases, pb, pre_act, ks[0], bs[0], 1,
+             g1, None, 1, 1),
+            (g1, gs, (n, m), 128, False, None, False, ks[1], bs[1], 0, g2,
+             None, 0, 0),
+            (g2, gs, (n, m), 128, False, None, False, ks[2], bs[2], 1, g3, g1,
+             0, 1)):
+        wp = packed_stage_pack_weights(k)
+        code = fn(x.data_ptr(), *st, *ex, n, m, b, cin, int(ph), _ptr(p),
+                  int(act_in), wp.data_ptr(), bias.data_ptr(), pad, out.data_ptr(),
+                  *_bhwc_strides(out), _ptr(res), *_bhwc_strides(res), act,
+                  gate_s, stream)
+        _build.check(lib, code, "packed_stage_wgmma")
+    return g3.permute(1, 2, 0, 3)
 
 
 def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
@@ -94,39 +224,27 @@ def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
     Returns g3 [Nx+1, Mx+1, B, C4] (HWNC view of a BHWC tensor).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (three stage launches, counted as one call) or raises."""
+    kernel :func:`packed_g123_route` names (three stage launches, counted
+    as one call) or raises."""
     if x_hwnc.device.type == "cpu":
         return packed_g123_plain(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act,
                                  pre_bias, phases)
-    fn = _build.load("packed_chain")
-    if phases:
-        hg, wg, b, c4g = x_hwnc.shape
-        nx, mx, cin4 = 2 * (hg - 1), 2 * (wg - 1), c4g // 4
-    else:
-        nx, mx, b, cin4 = x_hwnc.shape
+    c4g = x_hwnc.shape[3]
+    cin4 = c4g // 4 if phases else c4g
     c4 = k1.shape[3]
     if x_hwnc.stride(3) != 1 or cin4 % 16 or c4 % 16:
         raise ValueError(f"x {tuple(x_hwnc.shape)} strides {x_hwnc.stride()}: "
                          "channels must be contiguous and multiples of 16")
     if pre_bias is not None and not pre_act:
         raise ValueError("pre_bias requires pre_act")
-    dt, dev = x_hwnc.dtype, x_hwnc.device
-    ks = [k.to(dt).contiguous() for k in (k1, k2, k3)]
-    bs = [v.to(dt).contiguous() for v in (b1, b2, b3)]
-    pb = None if pre_bias is None else pre_bias.to(dt).contiguous()
-    n, m = nx + 1, mx + 1
-    g1, g2, g3 = (torch.empty((b, n, m, c4), dtype=dt, device=dev)
-                  for _ in range(3))
-    xs = (x_hwnc.stride(0), x_hwnc.stride(1), x_hwnc.stride(2))
-    gs = (g1.stride(1), g1.stride(2), g1.stride(0))
-    _stage(fn, dt, x_hwnc, xs, nx, mx, n, m, b, cin4, phases, pb, pre_act,
-           ks[0], bs[0], 1, g1, None, 1, 1)
-    _stage(fn, dt, g1, gs, n, m, n, m, b, c4, False, None, False,
-           ks[1], bs[1], 0, g2, None, 0, 0)
-    _stage(fn, dt, g2, gs, n, m, n, m, b, c4, False, None, False,
-           ks[2], bs[2], 1, g3, g1, 0, 1)
+    route = packed_g123_route(x_hwnc.dtype, cin4, c4, x_hwnc.stride(),
+                              x_hwnc.data_ptr())
+    launch = launch_wgmma if route == "wgmma" else launch_igemm
+    out = launch(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases)
     packed_g123.launches += 1
-    return g3.permute(1, 2, 0, 3)
+    packed_g123.routes[route] += 1
+    return out
 
 
 packed_g123.launches = 0
+packed_g123.routes = {"wgmma": 0, "mma": 0, "fp32": 0}

@@ -3,9 +3,12 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from endosr_torch.nn.depthnet import DepthNet
+from endosr_torch.utils.device import resolve_device
 
 __all__ = ["define_G", "DEPTHNET_PRESETS"]
 
@@ -39,19 +42,25 @@ def _dataset_block(opt):
 
 
 def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
-    """The generator of ``opt["network_G"]``. ``preset`` sets a named knob
-    combination and ``net_kw`` (raw DepthNet fields) is applied last, over
-    it, as in the JAX package. A field or value the port does not serve
-    raises ``NotImplementedError`` by name; an unknown field ``TypeError``."""
+    """The generator of ``opt["network_G"]``, read as the JAX package reads
+    it. ``preset`` sets a named knob combination and ``net_kw`` (raw
+    DepthNet fields, ``fused_epilogue`` among them) is applied last, over
+    it. A field or value the port does not serve raises
+    ``NotImplementedError`` by name; an unknown field ``TypeError``.
+
+    ``in_stats`` follows the JAX package's ``ENDOSR_IN_STATS`` switch:
+    ``pallas`` gives ``"kernel"`` (the block norms' sums from the
+    ``in_stats`` kernel), anything else ``"default"``. JAX's ``variadic``
+    is another reduction order of the same sums, served as ``"default"``.
+    ``net_kw: {in_stats: kernel}`` is a port-only field that sets it too.
+
+    ``device``: None means CUDA, and raises where there is none."""
     opt_net = opt["network_G"]
     which_model = opt_net["which_model_G"]
     if which_model != "DepthNet":
         raise NotImplementedError(f"Generator [{which_model}] is not ported")
     scale = opt.get("scale") or opt_net.get("scale") or opt_net.get("upscale", 4)
     ds = _dataset_block(opt)
-    # fused_epilogue: a DepthNet field in the JAX package, also read from
-    # network_G here; in_stats: "default" | "kernel", the port's form of
-    # the JAX package's ENDOSR_IN_STATS=pallas switch
     kwargs = dict(
         which_resblk_depth=tuple(opt_net.get("which_ResBlk_depth") or ()),
         in_nc=opt_net.get("in_nc", 3), out_nc=opt_net.get("out_nc", 3),
@@ -64,8 +73,8 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
         ablate_depth_matrix=bool(opt_net.get("ablate_depth_matrix", False)),
         ablate_depth_block=bool(opt_net.get("ablate_depth_block", False)),
         remat_blocks=bool(opt_net.get("remat_blocks", False)),
-        fused_epilogue=bool(opt_net.get("fused_epilogue", False)),
-        in_stats=opt_net.get("in_stats") or "default")
+        in_stats=("kernel" if os.environ.get("ENDOSR_IN_STATS") == "pallas"
+                  else "default"))
     preset = opt_net.get("preset")
     if preset:
         if preset not in DEPTHNET_PRESETS:
@@ -73,4 +82,4 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
                              f"{sorted(DEPTHNET_PRESETS)}")
         kwargs.update(DEPTHNET_PRESETS[preset])
     kwargs.update(opt_net.get("net_kw") or {})
-    return DepthNet(dtype=dtype, device=device, **kwargs)
+    return DepthNet(dtype=dtype, device=resolve_device(device), **kwargs)

@@ -1,10 +1,10 @@
-"""Time the ``wgmma`` 3×3 conv of ``head_dot`` or ``fused_tail`` at the
-flagship shape, alone or against a variant of its source, in one process on
-one card.
+"""Time the ``wgmma`` conv of ``head_dot`` or ``fused_tail`` (3×3) or of
+``packed_g123``'s stages (2×2) at the flagship shapes, alone or against a
+variant of its source, in one process on one card.
 
-    python -m endosr_torch.tools.ab_conv3x3 [--kernel head_dot|fused_tail]
-                                            [--other path/to/variant.cu]
-                                            [--rounds 7]
+    python -m endosr_torch.tools.ab_conv3x3
+        [--kernel head_dot|fused_tail|packed_chain]
+        [--other path/to/variant.cu] [--rounds 7]
 
 Times of one kernel differ by a few percent between calls and cards, so two
 versions are compared only here: both are built (the variant, a copy of the
@@ -15,8 +15,10 @@ version first. Each reading is ``chip_smoke.py``'s CUDA-event median of 20
 launches; the table gives the median, minimum and maximum over the rounds.
 Also timed: the wrapper (which adds the weight packing), the packing alone,
 the warp-``mma`` route and one cuDNN ``conv2d`` on the activated input (for
-``fused_tail`` with clamp and ``pixel_shuffle``). Prints the card's name and
-power limit first.
+``fused_tail`` with clamp and ``pixel_shuffle``). For ``packed_chain`` the
+readings are the up1 and the tail chain, three stage launches each, through
+``launch_wgmma``, beside the warp-``mma`` route and the packing of one
+stage's weights. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ def main(argv=None) -> int:
     from endosr_torch.kernels import _build
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("head_dot", "fused_tail"),
+    ap.add_argument("--kernel", choices=("head_dot", "fused_tail",
+                                         "packed_chain"),
                     default="head_dot")
     ap.add_argument("--other", type=Path, help="a variant of the kernel's .cu")
     ap.add_argument("--rounds", type=int, default=7)
@@ -58,8 +61,8 @@ def main(argv=None) -> int:
         libs["B"] = variant.stem
     try:
         _build.build_all(list(libs.values()))
-        fns = (_head_dot if args.kernel == "head_dot" else _fused_tail)(
-            torch, _build, libs)
+        fns = {"head_dot": _head_dot, "fused_tail": _fused_tail,
+               "packed_chain": _packed_chain}[args.kernel](torch, _build, libs)
         times = {k: [] for k in fns}
         for _ in range(args.rounds):
             for k, f in fns.items():
@@ -182,5 +185,38 @@ def _fused_tail(torch, _build, libs):
     return fns
 
 
+def _packed_chain(torch, _build, libs):
+    import math
+
+    from endosr_torch.kernels import packed_chain as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(
+            torch.bfloat16)
+
+    fns = {}
+    for label, xshape, cin4, phases in (("up1", (8, 128, 128, 256), 256, False),
+                                        ("tail", (8, 129, 129, 512), 128, True)):
+        x = rn(*xshape, s=0.5).permute(1, 2, 0, 3)
+        ks = (rn(2, 2, cin4, 128, s=1 / math.sqrt(4 * cin4)),
+              *(rn(2, 2, 128, 128, s=1 / math.sqrt(512)) for _ in range(2)))
+        bs = [rn(128, s=0.1) for _ in range(3)]
+        args = (x, ks[0], bs[0], ks[1], bs[1], ks[2], bs[2], True,
+                rn(cin4, s=0.1) if phases else None, phases)
+        ref = pc.packed_g123_plain(*args)
+        for tag, lib in libs.items():
+            fns[f"{tag} {label} chain"] = (
+                lambda a=args, lib=lib: pc.launch_wgmma(*a, lib=lib))
+            _check(torch, f"{tag} ({lib}) {label}", fns[f"{tag} {label} chain"](),
+                   ref)
+        fns[f"warp-mma route, {label}"] = lambda a=args: pc.launch_igemm(*a)
+        fns[f"weight packing, {label} k1"] = (
+            lambda k=ks[0]: pc.packed_stage_pack_weights(k))
+    return fns
+
+
 if __name__ == "__main__":
     sys.exit(main())
+

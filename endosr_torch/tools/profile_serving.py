@@ -12,8 +12,9 @@ time (name, calls, ms per request, share). Needs a CUDA device.
 ``--config``: ``x8`` — ×8, ``eval_bucket_multiple: 0``, LQ 128² → SR 1024²;
 ``x8_bucketed`` — ×8 with the key unset (bucket 32), LQ 120×112 fed from
 the host → SR 960×896 through the masked forward; ``x4_fused`` — ×4 with
-``fused_epilogue`` and ``in_stats: kernel``, LQ 128² → SR 512²; and the ×8
-request of ``x8`` through ``net_kw``: ``x8_obranch`` (``pallas_obranch``, the
+``net_kw: {fused_epilogue: true, in_stats: kernel}``, LQ 128² → SR 512²;
+and the ×8 request of ``x8`` through ``net_kw``: ``x8_obranch``
+(``pallas_obranch``, the
 hoisted trunk through ``fused_o_branch``), ``x8_fused_mod``
 (``fused_modulation``), ``x8_fused_tail`` (``pallas_tail``), ``x8_hoisted``
 (``lazy_branches: false``, the hoisted trunk in plain PyTorch),
@@ -38,7 +39,7 @@ _CONFIGS = {
     "x8_plain": (*_X8, {"preset": "plain"}),
     "x8_bucketed": (8, (120, 112), True, {}, {}),
     "x4_fused": (4, (128, 128), False, {},
-                 {"fused_epilogue": True, "in_stats": "kernel"}),
+                 {"net_kw": {"fused_epilogue": True, "in_stats": "kernel"}}),
 }
 
 

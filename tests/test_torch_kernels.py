@@ -13,8 +13,9 @@ card by ``chip_smoke.py``.
 Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
 launch and route counters stay 0 on the CPU; the rules that route
-``head_dot``, ``fused_tail``, ``style_dot_hwbm`` and ``style_blend_dot``
-between their kernels; the weight arrangement of the two ``wgmma`` routes;
+``head_dot``, ``fused_tail``, ``style_dot_hwbm``, ``style_blend_dot``,
+``packed_g123`` and ``mid_shuffle`` between their kernels; the weight
+arrangement of the three ``wgmma`` routes;
 and the argument counts of the exported C functions against their
 ``ctypes`` signatures.
 """
@@ -76,12 +77,24 @@ def _t(a):
 
 # --------------------------------------------------------------- packed_g123
 
-@pytest.mark.parametrize("mode", ["phases+pre_act+pre_bias", "pre_act"])
-def test_packed_g123_matches_jax_twin(mode):
+@pytest.mark.parametrize("mode,nx,mx,b,cin4,c4", [
+    ("phases", 8, 10, 2, 16, 16),
+    ("pre_act", 8, 10, 2, 16, 16),
+    ("phases", 14, 22, 3, 16, 16),
+    ("pre_act", 13, 21, 3, 16, 16),
+    ("phases", 14, 22, 3, 64, 128),
+    ("pre_act", 13, 21, 3, 64, 128),
+], ids=["phases+pre_act+pre_bias", "pre_act",
+        "phases+pre_act+pre_bias-14x22-b3-c16",
+        "pre_act-13x21-b3-c16", "phases+pre_act+pre_bias-14x22-b3-c64-c4_128",
+        "pre_act-13x21-b3-c64-c4_128"])
+def test_packed_g123_matches_jax_twin(mode, nx, mx, b, cin4, c4):
+    """Also at odd extents (an output of 14 × 22 or 15 × 23, no tile of
+    the card's kernels fills it) and at the ``wgmma`` route's channels."""
     rng = _rng(3)
-    nx, mx, b, cin4, c4 = 8, 10, 2, 16, 16
-    k1 = _f32(rng, 2, 2, cin4, c4, s=0.2)
-    k2, k3 = _f32(rng, 2, 2, c4, c4, s=0.2), _f32(rng, 2, 2, c4, c4, s=0.2)
+    s1, s2 = 0.8 / np.sqrt(4 * cin4), 0.8 / np.sqrt(4 * c4)
+    k1 = _f32(rng, 2, 2, cin4, c4, s=s1)
+    k2, k3 = _f32(rng, 2, 2, c4, c4, s=s2), _f32(rng, 2, 2, c4, c4, s=s2)
     b1, b2, b3 = (_f32(rng, c4, s=0.1) for _ in range(3))
     if mode == "pre_act":
         x = _f32(rng, nx, mx, b, cin4, s=0.5)
@@ -108,6 +121,56 @@ def test_unfold_g4_phases_matches_jax():
     g4 = _f32(_rng(4), 5, 6, 2, 12)
     _cmp(t_pc.unfold_g4_phases(_t(g4)).numpy(),
          jax_pc.unfold_g4_phases(jnp.asarray(g4)), 0.0)
+
+
+_UP1_STRIDES = (128 * 8 * 256, 8 * 256, 256, 1)      # x [128,128,8,256] HWNC
+_PACKED_STRIDES = (129 * 512, 512, 129 * 129 * 512, 1)   # HWNC of [8,129,129,512]
+
+
+@pytest.mark.parametrize("dtype,cin4,c4,strides,ptr,want", [
+    (torch.bfloat16, 256, 128, _UP1_STRIDES, 0, "wgmma"),
+    (torch.bfloat16, 128, 128, _PACKED_STRIDES, 4096, "wgmma"),
+    (torch.bfloat16, 64, 128, (21 * 3 * 64, 3 * 64, 64, 1), 0, "wgmma"),
+    (torch.float32, 256, 128, _UP1_STRIDES, 0, "fp32"),
+    (torch.float32, 16, 16, (10 * 2 * 16, 2 * 16, 16, 1), 0, "fp32"),
+    (torch.bfloat16, 16, 16, (10 * 2 * 16, 2 * 16, 16, 1), 0, "mma"),
+    (torch.bfloat16, 96, 128, (128 * 8 * 96, 8 * 96, 96, 1), 0, "mma"),
+    (torch.bfloat16, 256, 64, _UP1_STRIDES, 0, "mma"),
+    (torch.bfloat16, 256, 128, (128 * 8 * 260, 8 * 260, 260, 1), 0, "mma"),
+    (torch.bfloat16, 256, 128, _UP1_STRIDES, 8, "mma"),
+    (torch.bfloat16, 256, 128, (1, 128, 128 * 128, 128 * 128 * 8), 0, "mma"),
+], ids=["up1", "tail_phases", "ragged_c64", "fp32", "fp32_small", "c16",
+        "cin_96", "c4_64", "stride_not_16_bytes", "base_not_16_bytes",
+        "channels_not_contiguous"])
+def test_packed_g123_route(dtype, cin4, c4, strides, ptr, want):
+    assert t_pc.packed_g123_route(dtype, cin4, c4, strides, ptr) == want
+
+
+@pytest.mark.parametrize("cin", [64, 256])
+def test_packed_stage_packed_weights_round_trip_and_convolve(cin):
+    """The ``wgmma`` stage's weight order: [slice, tap, o, c] tiles of all
+    128 output channels whose 16-byte pieces are swizzled. Unpacking gives k
+    back, a chain with the unpacked weights equals ``packed_g123_plain``
+    exactly, and a tile read the way the kernel's descriptor reads it
+    (piece ^ (o & 7)) is the [o, c] slice of the tap."""
+    rng = _rng(60 + cin)
+    k1 = _t(_f32(rng, 2, 2, cin, 128, s=0.05))
+    packed = t_pc.packed_stage_pack_weights(k1)
+    assert packed.shape == (cin // 64, 4, 128, 64) and packed.is_contiguous()
+    back = t_pc.packed_stage_unpack_weights(packed)
+    assert torch.equal(back, k1)
+    s, tap, o = cin // 64 - 1, 2, 93
+    row = packed[s, tap, o].reshape(8, 8)
+    logical = torch.stack([row[j ^ (o & 7)] for j in range(8)]).reshape(64)
+    assert torch.equal(logical, k1[tap // 2, tap % 2, s * 64:(s + 1) * 64, o])
+    x = _t(_f32(rng, 5, 7, 2, cin))
+    k2, k3 = (_t(_f32(rng, 2, 2, 128, 128, s=0.05)) for _ in range(2))
+    bs = [_t(_f32(rng, 128, s=0.1)) for _ in range(3)]
+    assert torch.equal(
+        t_pc.packed_g123_plain(x, back, bs[0], k2, bs[1], k3, bs[2], True),
+        t_pc.packed_g123_plain(x, k1, bs[0], k2, bs[1], k3, bs[2], True))
+    with pytest.raises(ValueError, match="64"):
+        t_pc.packed_stage_pack_weights(torch.zeros(2, 2, 48, 128))
 
 
 # ----------------------------------------------------------- style_blend_dot
@@ -584,6 +647,22 @@ def test_mid_shuffle_and_gradient_match_jax_exactly(r, c):
         t_sm.mid_unshuffle_plain(_t(wgt), r).numpy(), np.asarray(gj))
 
 
+@pytest.mark.parametrize("esize,r,c,ptrs,want", [
+    (2, 2, 128, (0, 4096), "vec16"),
+    (4, 2, 128, (0, 4096), "vec16"),
+    (2, 2, 8, (16, 32), "vec16"),
+    (4, 2, 4, (16, 32), "vec16"),
+    (2, 2, 4, (0, 0), "scalar"),
+    (4, 2, 6, (0, 0), "scalar"),
+    (2, 3, 128, (0, 0), "scalar"),
+    (2, 2, 128, (8, 0), "scalar"),
+    (4, 2, 128, (0, 4), "scalar"),
+], ids=["bf16", "fp32", "bf16_c8", "fp32_c4", "bf16_c4", "fp32_c6", "r3",
+        "src_not_16_bytes", "out_not_16_bytes"])
+def test_mid_shuffle_route(esize, r, c, ptrs, want):
+    assert t_sm.mid_shuffle_route(esize, r, c, ptrs) == want
+
+
 # ------------------------------------------------------ no silent CPU fallback
 
 class _CudaClaim:
@@ -615,6 +694,10 @@ def _wrapper_calls():
         "packed_g123": lambda: t_pc.packed_g123(
             c((8, 8, 2, 16)), *(torch.zeros(2, 2, 16, 16), torch.zeros(16)) * 3,
             pre_act=True),
+        "packed_g123[wgmma]": lambda: t_pc.packed_g123(
+            c((5, 5, 2, 256)), torch.zeros(2, 2, 64, 128), torch.zeros(128),
+            *(torch.zeros(2, 2, 128, 128), torch.zeros(128)) * 2,
+            pre_act=True, pre_bias=torch.zeros(64), phases=True),
         "style_blend_dot": lambda: t_sd.style_blend_dot(
             c((2, 4, 4, 9)), c((2, 9, 32)), (c((4, 4, 2, 16)),) * 2,
             torch.zeros(32)),
@@ -640,6 +723,7 @@ def _wrapper_calls():
             c((9, 16, 2, 64)), torch.zeros(3, 3, 64, 48), torch.zeros(48),
             layout="hwbc", wout=8, pre_bias=torch.zeros(64)),
         "mid_shuffle": lambda: t_sm.mid_shuffle(c((2, 4, 4, 16)), 2),
+        "mid_shuffle[scalar]": lambda: t_sm.mid_shuffle(c((2, 4, 4, 12)), 2),
     }
 
 
@@ -650,20 +734,21 @@ def _zero_o_weights():
 
 @pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
                                   "head_dot[wgmma]",
-                                  "packed_g123", "style_blend_dot",
+                                  "packed_g123", "packed_g123[wgmma]",
+                                  "style_blend_dot",
                                   "style_blend_dot[tc]",
                                   "output_stage", "style_dot_hwbm",
                                   "style_dot_hwbm[tc]",
                                   "in_stats", "fused_in_mod",
                                   "fused_o_branch", "fused_modulation",
                                   "fused_tail", "fused_tail[wgmma]",
-                                  "mid_shuffle"])
+                                  "mid_shuffle", "mid_shuffle[scalar]"])
 def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr("endosr_torch.kernels._build.os.path.exists",
                         lambda p: False)
     routed = (t_hd.head_dot, t_sd.style_dot_hwbm, t_ft.fused_tail,
-              t_sd.style_blend_dot)
+              t_sd.style_blend_dot, t_pc.packed_g123, t_sm.mid_shuffle)
     before = [dict(f.routes) for f in routed]
     # no nvcc here: the wrapper must fail to build, not run the plain version
     # (on any route of the routed kernels), and count nothing
@@ -708,11 +793,18 @@ def test_cpu_calls_leave_launch_counters_at_zero():
                          torch.zeros(1, 90, 32, dtype=torch.bfloat16),
                          (torch.zeros(4, 4, 1, 16, dtype=torch.bfloat16),) * 2,
                          torch.zeros(32))
+    t_pc.packed_g123(torch.zeros(3, 3, 1, 256, dtype=torch.bfloat16),
+                     torch.zeros(2, 2, 64, 128), torch.zeros(128),
+                     *(torch.zeros(2, 2, 128, 128), torch.zeros(128)) * 2,
+                     pre_act=True, pre_bias=torch.zeros(64), phases=True)
+    t_sm.mid_shuffle(torch.zeros(1, 2, 2, 512, dtype=torch.bfloat16), 2)
     assert [f.launches for f in fns] == before == [0] * 12
     assert t_hd.head_dot.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sd.style_dot_hwbm.routes == {"tc": 0, "cuda_core": 0}
     assert t_ft.fused_tail.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sd.style_blend_dot.routes == {"tc": 0, "cuda_core": 0}
+    assert t_pc.packed_g123.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert t_sm.mid_shuffle.routes == {"vec16": 0, "scalar": 0}
 
 
 # ------------------------------------------------------- exported C signatures

@@ -6,8 +6,9 @@ CPU in fp32 at ≤ 2e-4 max abs (the repo's parity bar): a batch of 10
 an odd-sized batch at every scale with the key unset (exact bucketed eval,
 bucket 32), which must also equal the port's own unbucketed output on the
 crop to 1e-4; and the 8-view self-ensemble ``test_x8``. Also: without
-CUDA, building the serving model with no device raises, and the options
-the port does not serve yet raise.
+CUDA, building the serving model or the network with no device raises;
+``define_G`` reads ``fused_epilogue`` and ``in_stats`` where the JAX
+package does; and the options the port does not serve yet raise.
 """
 
 import copy
@@ -152,10 +153,10 @@ def test_test_x8_reads_device_masks_back_once(monkeypatch):
 
 
 def test_fused_epilogue_serves_unbucketed():
-    """``network_G.fused_epilogue`` switches bucketing off (the masked
+    """``net_kw: {fused_epilogue: true}`` switches bucketing off (the masked
     forward does not support it) and reaches the fused kernels' path."""
     opt = _opt(4, [0, 1, 2])
-    opt["network_G"].update(fused_epilogue=True, in_stats="kernel")
+    opt["network_G"]["net_kw"] = {"fused_epilogue": True, "in_stats": "kernel"}
     tm = FModelDepthCond(opt, device="cpu")
     assert tm.netG.fused_epilogue and tm._bucket() == 0
     batch = _hw_batch(1, 12, 12)
@@ -166,6 +167,52 @@ def test_fused_epilogue_serves_unbucketed():
     ref.feed_data(batch)
     err = float((tm.test() - ref.test()).abs().max())
     assert err <= 2e-4, f"fused vs chained epilogue: max |Δ| {err:.3g}"
+
+
+@pytest.mark.parametrize("where,want", [("network_G", False), ("net_kw", True)])
+def test_define_g_reads_fused_epilogue_as_jax_does(where, want):
+    """``fused_epilogue`` is a DepthNet field: only ``net_kw`` sets it, in
+    the JAX package and in the port; a ``network_G`` key of that name is
+    read by neither."""
+    from endosr.nn.networks import define_G as jax_define_G
+    from endosr_torch.nn.networks import define_G
+
+    opt = _opt(4, [0, 1, 2])
+    if where == "net_kw":
+        opt["network_G"]["net_kw"] = {"fused_epilogue": True}
+    else:
+        opt["network_G"]["fused_epilogue"] = True
+    assert jax_define_G(copy.deepcopy(opt)).fused_epilogue is want
+    assert define_G(copy.deepcopy(opt), device="cpu").fused_epilogue is want
+
+
+@pytest.mark.parametrize("env,want", [("pallas", "kernel"), (None, "default"),
+                                      ("variadic", "default")])
+def test_define_g_in_stats_follows_the_jax_switch(env, want, monkeypatch):
+    """``ENDOSR_IN_STATS=pallas`` takes the block norms' sums from the
+    ``in_stats`` kernel, as it does in the JAX package; ``network_G.in_stats``
+    is no key of either."""
+    from endosr_torch.nn.networks import define_G
+
+    if env is None:
+        monkeypatch.delenv("ENDOSR_IN_STATS", raising=False)
+    else:
+        monkeypatch.setenv("ENDOSR_IN_STATS", env)
+    opt = _opt(4, [0, 1, 2])
+    opt["network_G"]["in_stats"] = "kernel"
+    net = define_G(opt, device="cpu")
+    assert net.get_submodule("depth-residual1").in_stats == want
+    opt["network_G"]["net_kw"] = {"in_stats": "kernel"}
+    net = define_G(opt, device="cpu")
+    assert net.get_submodule("depth-residual1").in_stats == "kernel"
+
+
+def test_define_g_without_device_raises_without_cuda(monkeypatch):
+    from endosr_torch.nn.networks import define_G
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        define_G(copy.deepcopy(OPT))
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
