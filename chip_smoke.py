@@ -11,8 +11,8 @@ exits non-zero):
    source, all started together, into ``build/endosr_torch/``; ``ptxas``'s
    registers, spills and static shared memory of every kernel are logged,
    those of the ``wgmma`` conv (in ``head_dot``, ``fused_tail`` and
-   ``packed_chain``), ``style_dot_tc`` and ``style_blend_tc`` on lines of
-   their own.
+   ``packed_chain``), ``fused_mod_wgmma``, ``style_dot_tc`` and
+   ``style_blend_tc`` on lines of their own.
 3. kernels — each of the twelve kernels against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
@@ -20,8 +20,11 @@ exits non-zero):
    shape), ``output_stage`` (r = 2, 3, 4) and ``mid_shuffle`` (forward,
    and its backward against the plain un-shuffle and ``torch.autograd`` of
    the plain version) must be bit-identical; ``fused_o_branch`` and
-   ``fused_modulation`` are also checked at a ragged small shape (tiles cut
-   by both edges, 2C < 128, K < 16), ``head_dot`` and ``fused_tail`` at
+   ``fused_modulation`` are also checked on their ``wgmma`` route at B = 2,
+   13×21, N = 3, 2C = 128, K = 10 (tiles cut by both edges), at 2C = 64
+   (40×70) and with a large positive ``bm`` (a ``relu(bm)`` padding ring
+   would show), and on the ``mma`` route at a ragged small shape (2C = 32,
+   K = 4), ``head_dot`` and ``fused_tail`` at
    B = 3, 13×21 of 24 columns, C4 = 128 with and without ``pre_bias``,
    ``style_dot_hwbm`` at B = 2, 13×21, M = 264, ``style_blend_dot`` at
    B = 2, 13×21, c2 = 24, M = 264, and ``packed_g123`` at B = 3 on an
@@ -29,7 +32,8 @@ exits non-zero):
    (9.0 and −9.0 planted in its dead row and column). ``fused_tail`` gets
    the raw g4 with its ``pre_bias``, as the ``pallas_tail`` path calls it.
    In bf16 the routed kernels take their fast routes (``head_dot``,
-   ``fused_tail`` and ``packed_g123``: ``wgmma``; ``style_dot_hwbm`` and
+   ``fused_tail``, ``packed_g123``, ``fused_o_branch`` and
+   ``fused_modulation``: ``wgmma``; ``style_dot_hwbm`` and
    ``style_blend_dot``: ``tc``), which sum in another order than the plain
    versions (16-deep ``mma`` steps, 64-channel slices outermost), hence the
    same 1e-2 as every bf16 kernel; in fp32 they take the exact CUDA-core
@@ -37,7 +41,8 @@ exits non-zero):
    took is asserted, and the earlier route of each
    (``head_dot.launch_igemm``, ``fused_tail.launch_igemm``,
    ``packed_chain.launch_igemm``, ``launch_cuda_core``,
-   ``launch_blend_cuda_core``, the ``scalar`` shuffle) is timed beside it
+   ``launch_blend_cuda_core``, the ``scalar`` shuffle, the ``launch_mma``
+   of ``fused_o_branch`` and ``fused_modulation``) is timed beside it
    as ``previous_ms``. Times are CUDA-event medians
    of 20 runs (5 for a call above 20 ms), beside the plain version's, the
    bound (larger of bytes over 3.35 TB/s and operations over the bf16
@@ -61,9 +66,11 @@ exits non-zero):
      ``output_stage_x8`` 1 per forward; the fp32 output equals that of
      ``preset: plain`` to ≤ 2e-4, and so does that of each of the next three;
    - the same with ``net_kw: {pallas_obranch: true}`` (hoisted trunk):
-     ``fused_o_branch`` 1, ``style_blend_dot`` 0, the tail as above;
-   - with ``net_kw: {fused_modulation: true}``: ``fused_modulation`` 1,
+     ``fused_o_branch`` 1 (bf16: route ``wgmma``; fp32: ``fp32``),
      ``style_blend_dot`` 0, the tail as above;
+   - with ``net_kw: {fused_modulation: true}``: ``fused_modulation`` 1
+     (bf16: ``wgmma``; fp32: ``fp32``), ``style_blend_dot`` 0, the tail as
+     above;
    - with ``net_kw: {pallas_tail: true}`` (lazy trunk): ``style_blend_dot``
      2 (``tc``), ``packed_g123`` 2, ``fused_tail`` 1 (``wgmma``; fp32:
      ``fp32``), ``head_dot`` 0, ``output_stage_x8`` 0;
@@ -186,9 +193,11 @@ def make_cases(torch, dt, gen):
                                                    fused_in_mod_plain)
     from endosr_torch.kernels.fused_mod import (fused_modulation,
                                                 fused_modulation_plain)
+    from endosr_torch.kernels.fused_mod import launch_mma as mod_mma
     from endosr_torch.kernels.fused_obranch import (fused_o_branch,
                                                     fused_o_branch_plain,
                                                     grouped_w2)
+    from endosr_torch.kernels.fused_obranch import launch_mma as obranch_mma
     from endosr_torch.kernels.fused_tail import fused_tail, fused_tail_plain
     from endosr_torch.kernels.fused_tail import launch_igemm as tail_igemm
     from endosr_torch.kernels.head_dot import (head_dot, head_dot_plain,
@@ -412,20 +421,29 @@ def make_cases(torch, dt, gen):
     cases["style_dot_hwbm"] = hcs
 
     # fused_o_branch and fused_modulation: the 13 trunk blocks' 26 SEANs on
-    # one depth map [8,128,128,1] (hoist_chunk 0), K = 10 bins; and a ragged
-    # small shape (tiles cut by both edges, 2C < 128, K < 16), checked only
+    # one depth map [8,128,128,1] (hoist_chunk 0), K = 10 bins; checked
+    # only: the wgmma route on tiles cut by both edges (B = 2, 13×21, N = 3,
+    # 2C = 128), at 2C = 64 (40×70: a cut row tile and column tile), with a
+    # large positive bm (a relu(bm) padding ring would show), and the mma
+    # route at a ragged small shape (2C = 32, K = 4)
     ocs, mcs = [], []
-    for label, (nb_, hh, ww), N, C2, K, main in (
-            ("", (B, 128, 128), 26, 128, 10, True),
-            ("[ragged 13×21]", (2, 13, 21), 3, 32, 4, False)):
+    wg_routes = {torch.float32: "fp32", torch.bfloat16: "wgmma"}
+    for label, (nb_, hh, ww), N, C2, K, bm_mean, want, main in (
+            ("", (B, 128, 128), 26, 128, 10, 0.0, "wgmma", True),
+            ("[ragged 13×21, 2C=128]", (2, 13, 21), 3, 128, 10, 0.0, "wgmma", False),
+            ("[40×70, 2C=64]", (2, 40, 70), 5, 64, 10, 0.0, "wgmma", False),
+            ("[large bm]", (1, 20, 30), 2, 128, 10, 5.0, "wgmma", False),
+            ("[ragged 13×21]", (2, 13, 21), 3, 32, 4, 0.0, "mma", False)):
         d = torch.rand((nb_, hh, ww, 1), generator=gen, device=dev).to(dt)
-        wm, bm = rn(N, 9, C2, s=0.3), rn(N, C2, s=0.1)
+        wm = rn(N, 9, C2, s=0.3)
+        bm = (rn(N, C2, s=0.1).abs() + bm_mean).to(dt) if bm_mean else rn(N, C2, s=0.1)
         w2 = rn(N, 9, C2, C2, s=1.0 / math.sqrt(9 * C2))
         b2 = rn(N, C2, s=0.1)
         out_bytes = nb_ * hh * ww * N * C2 * d.element_size()
         wm_oihw = wm.permute(0, 2, 1).reshape(N * C2, 1, 3, 3).contiguous()
         w2_oihw = grouped_w2(w2, N, C2).contiguous()
         d_nchw = d.permute(0, 3, 1, 2)
+        routes = {**wg_routes, torch.bfloat16: want}
 
         def obranch_lib(d_nchw=d_nchw, wm_oihw=wm_oihw, bm=bm, w2_oihw=w2_oihw,
                         b2=b2, N=N):
@@ -436,18 +454,22 @@ def make_cases(torch, dt, gen):
             lambda a=(d, wm, bm, w2, b2): fused_o_branch(*a),
             lambda a=(d, wm, bm, w2, b2): fused_o_branch_plain(*a),
             obranch_lib, nbytes(d, wm, bm, w2, b2) + out_bytes,
-            2 * nb_ * hh * ww * N * (9 * C2 + 9 * C2 * C2), main=main))
+            2 * nb_ * hh * ww * N * (9 * C2 + 9 * C2 * C2), main=main,
+            route=(fused_o_branch, routes), timed=main,
+            previous=(lambda a=(d, wm, bm, w2, b2): obranch_mma(*a)) if main else None))
         dmask = (torch.rand((nb_, hh, ww, K), generator=gen, device=dev)
                  > 0.8).to(dt)
         vmod = rn(nb_, N, 9 * K, C2, s=0.05)
         w2f = w2.reshape(N, 9 * C2, C2)
+        margs = (d, dmask, wm, bm, w2f, vmod, b2)
         mcs.append(KernelCase(
             "fused_modulation" + label,
-            lambda a=(d, dmask, wm, bm, w2f, vmod, b2): fused_modulation(*a),
-            lambda a=(d, dmask, wm, bm, w2f, vmod, b2): fused_modulation_plain(*a),
+            lambda a=margs: fused_modulation(*a),
+            lambda a=margs: fused_modulation_plain(*a),
             None, nbytes(d, dmask, wm, bm, w2f, vmod, b2) + out_bytes,
             2 * nb_ * hh * ww * N * (9 * C2 + (9 * C2 + 9 * K) * C2),
-            main=main))
+            main=main, route=(fused_modulation, routes), timed=main,
+            previous=(lambda a=margs: mod_mma(*a)) if main else None))
     cases["fused_o_branch"], cases["fused_modulation"] = ocs, mcs
 
     # fused_tail: the raw g4 [257, 257, 8, 512] (HWBC view of the producer's
@@ -773,7 +795,8 @@ def psnr(a, b):
 
 EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core",
                 "fused_tail": "fp32", "style_blend_dot": "cuda_core",
-                "packed_g123": "fp32", "mid_shuffle": "vec16"}
+                "packed_g123": "fp32", "mid_shuffle": "vec16",
+                "fused_o_branch": "fp32", "fused_modulation": "fp32"}
 
 
 def zero_counts(counters):
@@ -918,7 +941,8 @@ def serving_paths(torch, counters):
     def routes(want):
         fast = {"head_dot": "wgmma", "fused_tail": "wgmma",
                 "style_blend_dot": "tc", "style_dot_hwbm": "tc",
-                "packed_g123": "wgmma"}
+                "packed_g123": "wgmma", "fused_o_branch": "wgmma",
+                "fused_modulation": "wgmma"}
         return {k: r for k, r in fast.items() if k in want}
 
     def x8(label, want, **net):
@@ -995,6 +1019,7 @@ def main() -> int:
     for src, kern in (("head_dot", "conv_wgmma_kernel"),
                       ("fused_tail", "conv_wgmma_kernel"),
                       ("packed_chain", "conv_wgmma_kernel"),
+                      ("fused_mod", "fused_mod_wgmma_kernel"),
                       ("style_dot", "style_dot_tc_kernel"),
                       ("style_dot", "style_blend_tc_kernel")):
         log(f"  {kern} ({src}): " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),

@@ -15,31 +15,93 @@
 // Bound on the H100: operations. conv2 is 2·B·H·W·N·9·c2² ≈ 1.0 TFLOP at
 // the flagship shape (B=8, 128², N=26, c2=128; ≈1.0 ms at the bf16
 // tensor-core peak), the style product adds 8 %; the bytes are the output
-// map written once (872 MB, 0.26 ms). What the design does about it: the
+// map written once (872 MB, 0.26 ms). What every route does about it: the
 // N·c2-wide activation (another 872 MB written and read back nine-fold by
-// a split lowering) never leaves the SM. A block owns an 8×16-pixel tile
-// of one image and one instance:
+// a split lowering) never leaves the SM. Three kernels, picked by shape in
+// kernels/fused_obranch.py and kernels/fused_mod.py:
+//
+// fused_mod_wgmma (route "wgmma": bf16, c2 = 64 or 128, K ≤ 16). A tile is
+// 3 output rows × 64 columns × all c2 output channels of one image and one
+// instance; one persistent block an SM walks its tiles in instance-major
+// order (n, b, row tile, column tile), so the 132 blocks stream one
+// instance's conv2 weights at a time and they stay in L2.
+// - Three consumer warpgroups, one output row each, run conv2 as
+//   wgmma.m64n{c2}k16 with fp32 accumulators in registers (64 a thread at
+//   c2 = 128): per 64-channel slice of the activation nine taps of four
+//   k-steps. A tap's A operand is the halo tile shifted by whole pixels,
+//   loaded from shared memory with ldmatrix.x4 (128-byte pixel rows, the
+//   16-byte piece c of pixel p at c ^ (p & 7): free of bank conflicts at
+//   any shift); the next tap's fragments are loaded while this one's wgmma
+//   run.
+// - conv1 is produced on chip. Three warps of the fourth (producer)
+//   warpgroup load the tile's (3+4) × 68 depth window once, then compute
+//   relu(conv3x3(d; wm_n) + bm_n) for the 5 × 66 halo pixels one 64-channel
+//   slice at a time as one mma.m16n8k16 k-step over the halo's patch
+//   matrix: A's columns are the nine taps and a constant 1 (so bm_n rides
+//   in B's tenth row and the sum includes it), zero-padded to 16, held in
+//   registers for the whole tile (a halo pixel outside the image has an
+//   all-zero row: relu(0) = 0 is conv2's zero padding, not relu(bm)); B is
+//   the instance's wm_n and bm_n as fragments cached in shared memory when
+//   the instance changes. One cvt.rn.relu.bf16x2 rounds and packs two
+//   values, stmatrix.x4 stores four 16-byte pieces of the consumers'
+//   swizzled layout a lane. Two halo stages (mbarriers full → empty): the
+//   producers fill slice 0 of the next tile while the consumers multiply
+//   slice 1 of this one. The producer shares the SM with three warpgroups
+//   of wgmma, so its instruction count sets its pace: a first version that
+//   added the bias, applied the ReLU by coordinate and stored 4 bytes at a
+//   time took longer than the taps (on an H100, prof_conv: 30 K against
+//   18 K cycles a tile) and the consumers waited for it; conv1 on the CUDA
+//   cores (9 FMA a value) was slower still.
+// - conv2's weights arrive through a ring: the wrapper packs w2 once per
+//   call into the order the kernel streams, [n][slice][tap] tiles of c2 o
+//   × 64 k (K-major, 16-byte pieces in the 128-byte swizzle), and one
+//   thread of the producer warpgroup moves each 16 KB tile with one 1-D
+//   bulk copy into a ring of mbarrier stages (full → empty), as far ahead
+//   as the ring allows. A tile is used by all three consumer warpgroups
+//   (192 output pixels), against 128 in the warp-mma kernel below. All of
+//   an instance's tiles (295 KB at c2 = 128) stay in L2.
+// - The style taps (fused_modulation): nine more k-steps, one a tap, after
+//   the last slice's conv2 taps. A is the mask's halo tile (K zero-padded
+//   to 16; rows 48 bytes apart, an odd multiple of 16, so ldmatrix is free
+//   of bank conflicts), stored by the producers beside the last slice's
+//   activation; B is v[b, n] packed by the wrapper as three more ring
+//   tiles of c2 o × 64 k, four taps of 16 k each.
+// - The epilogue adds the bias in each function's rounding order; a quad of
+//   lanes trades words so that each lane holds 8 consecutive channels of a
+//   pixel, written with one 16-byte store.
+// - FM_PROFILE (python -m endosr_torch.tools.prof_conv --kernel fused_mod)
+//   compiles in clock64 phase counters. What sets the pace: conv2's taps
+//   (≈16 K cycles a tile against ≈13.8 K for its 216 wgmma at the
+//   tensor-core rate), then the epilogue (≈3 K), which no wgmma overlaps:
+//   the three consumer warpgroups reach it together. Keeping one tap's
+//   wgmma group in flight across the next tap's ring wait made ptxas
+//   serialise every wgmma (C7520) and doubled the taps.
+//
+// fused_mod_bf16 (route "mma": any other bf16 shape, c2 = 16 or 32). A
+// block owns an 8×16-pixel tile of one image and one instance:
 // - conv1 + bias + ReLU for the tile's 10×18 halo goes into shared memory
-//   (bf16: one mma k-step over the halo's [192, 16] patch matrix of d; fp32:
-//   on the CUDA cores, a thread keeping the nine weights of its two channels
-//   in registers);
+//   (one mma k-step over the halo's [192, 16] patch matrix of d);
 // - conv2 is nine [128 px, c2] × [c2, c2] products whose A rows are shifted
 //   windows of that tile (consecutive pixels of a halo row are consecutive
 //   rows), so no im2col matrix exists;
 // - the style product is nine more, one a tap: the mask's halo tile (K
 //   zero-padded to 16) as A, that tap's K rows of this image's v as B.
-// bf16 runs warp-level mma.m16n8k16 with fp32 accumulation through ldmatrix:
-// 4 warps, each 4 tile rows × 64 output channels (128 accumulators a thread),
-// so a k-step's eight fragment loads feed 32 mma, and the next k-step's
-// fragments are loaded before this one's mma issue; shared-memory rows are
-// odd multiples of 16 bytes, which keeps the shifted windows free of bank
-// conflicts; conv2's weights arrive half a tap at a time through cp.async
-// into two buffers, the next half in flight while this one multiplies; the
-// accumulators go straight from registers to the output. fp32 storage runs
-// an exact fp32 loop on the CUDA cores (a warp per tile row, 4 channels a
-// lane). A wgmma/TMA pipeline is later work.
+// It runs warp-level mma.m16n8k16 with fp32 accumulation through ldmatrix:
+// 4 warps, each 4 tile rows × 64 output channels (128 accumulators a
+// thread), so a k-step's eight fragment loads feed 32 mma, and the next
+// k-step's fragments are loaded before this one's mma issue; shared-memory
+// rows are odd multiples of 16 bytes, which keeps the shifted windows free
+// of bank conflicts; conv2's weights arrive half a tap at a time through
+// cp.async into two buffers; the accumulators go straight from registers
+// to the output.
+//
+// fused_mod_fp32 (route "fp32": float32 storage): the same tiles on the
+// CUDA cores, an exact fp32 loop (a warp per tile row, 4 channels a lane),
+// conv1 with a thread keeping the nine weights of its two channels in
+// registers.
 
 #include "common.cuh"
+#include "conv_wgmma.cuh"
 #include "hopper.cuh"
 
 #define FM_TH 8
@@ -508,6 +570,495 @@ fused_mod_fp32(const float* __restrict__ d, const float* __restrict__ mask,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, c2 = 64 or 128: wgmma, conv1 produced on chip, weights through a
+// bulk-copy ring, persistent blocks (route "wgmma")
+// ---------------------------------------------------------------------------
+
+// Where a block's time goes, compiled in only with FM_PROFILE defined
+// (python -m endosr_torch.tools.prof_conv --kernel fused_mod): cycles summed
+// per block for the first consumer thread (0 waiting for halo stages, 1
+// waiting for ring tiles, 2 in conv2's taps with their waits, 3 in the
+// style taps with their waits, 4 in the epilogue, 5 from start to end, 6
+// tiles), the first producer thread (7 waiting for a free halo stage, 10
+// loading the depth window and building conv1's A fragments, 11 reading
+// conv1's B fragments, 8 computing and storing conv1, 12 staging the mask)
+// and the weight issuer (9 waiting for a free ring stage).
+#ifdef FM_PROFILE
+__device__ unsigned long long fm_prof[1024][16];
+#define FM_NOW() clock64()
+#define FM_ADD(cond, k, v)                                          \
+  do {                                                              \
+    if ((cond) && blockIdx.x < 1024) fm_prof[blockIdx.x][k] += (v); \
+  } while (0)
+#else
+#define FM_NOW() 0ull
+#define FM_ADD(cond, k, v) \
+  do {                     \
+  } while (0)
+#endif
+
+#define FW_ROWS 3          // output rows of a tile: one consumer warpgroup each
+#define FW_COLS 64         // output columns of a tile
+#define FW_PRODUCERS 96    // threads that compute conv1 (3 warps)
+
+// The shared-memory plan of a block (byte offsets from a 1024-byte aligned
+// base): the weight ring (WS tiles of NOUT o × 64 k), two halo stages (the
+// activation of one 64-channel slice, 128 bytes a halo pixel, 336 rows: a
+// whole number of conv1's m16 tiles; with STYLE the mask's halo tile after
+// it, 48 bytes a pixel), the depth window, conv1's B fragments, the
+// mbarriers.
+template <int NOUT, bool STYLE, int WS>
+struct FwPlan {
+  static_assert(NOUT == 64 || NOUT == 128, "c2 = 64 or 128");
+  static constexpr int nout = NOUT, ws = WS, hs = 2, rows = FW_ROWS;
+  static constexpr bool style = STYLE;
+  static constexpr int slices = NOUT / 64;
+  static constexpr int hr = FW_ROWS + 2, hc = FW_COLS + 2;   // the halo
+  static constexpr int halo_px = hr * hc;
+  static constexpr int mtiles = (halo_px + 15) / 16;          // conv1's m16 tiles
+  static constexpr int dr = FW_ROWS + 4, dc = FW_COLS + 4;   // the depth window
+  static constexpr int mask_ld = 24;     // elements: 48 bytes, an odd multiple of 16
+  static constexpr int wtile = NOUT * 64;                     // elements of a ring tile
+  static constexpr int vtiles = STYLE ? 3 : 0;                // the style taps' B tiles
+  static constexpr int tiles_per_tile = slices * 9 + vtiles;  // ring tiles a tile
+  static constexpr int mask_off = (mtiles * 16 * 128 + 1023) / 1024 * 1024;
+  static constexpr int stage_bytes =
+      STYLE ? (mask_off + halo_px * mask_ld * 2 + 1023) / 1024 * 1024 : mask_off;
+  static constexpr int off_halo = WS * wtile * 2;
+  static constexpr int off_dwin = off_halo + hs * stage_bytes;
+  static constexpr int off_cw = off_dwin + (dr * dc * 2 + 127) / 128 * 128;
+  // conv1's B fragments of the block's current instance: [slice][8 nb][32
+  // lanes] pairs of words
+  static constexpr int cw_bytes = slices * 8 * 32 * 8;
+  static constexpr int off_bar = off_cw + (cw_bytes + 127) / 128 * 128;
+  static constexpr int total = off_bar + 8 * 2 * (hs + WS) + 1024;
+  static constexpr int threads = (FW_ROWS + 1) * 128;
+  static_assert(total <= 232448, "one block fits an SM's shared memory");
+};
+
+// Output tile t: columns fastest, then rows, then the image, then the
+// instance
+struct FwTile {
+  int n, b, y0, x0;
+};
+__device__ __forceinline__ FwTile fw_tile(int t, int ncx, int nry, int B) {
+  FwTile c;
+  c.x0 = (t % ncx) * FW_COLS;
+  t /= ncx;
+  c.y0 = (t % nry) * FW_ROWS;
+  t /= nry;
+  c.b = t % B;
+  c.n = t / B;
+  return c;
+}
+
+// the producer warps' own barrier (named barrier 1)
+__device__ __forceinline__ void fw_producer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FW_PRODUCERS) : "memory");
+}
+
+__device__ __forceinline__ uint32_t fw_pack(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// relu(lo), relu(hi) rounded to bf16 and packed (lo in the low half)
+__device__ __forceinline__ uint32_t fw_relu_pack(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// four 8×8 bf16 matrices to shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; register i of lane l holds row l / 4, columns
+// 2·(l % 4) and + 1 of matrix i (an mma accumulator's layout)
+__device__ __forceinline__ void fw_stsm_x4(void* row, uint32_t r0, uint32_t r1, uint32_t r2,
+                                           uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t fw_pick4(uint32_t a, uint32_t b, uint32_t c, uint32_t d,
+                                             int i) {
+  return i == 0 ? a : i == 1 ? b : i == 2 ? c : d;
+}
+
+template <class P>
+__global__ void __launch_bounds__(P::threads, 1)
+fused_mod_wgmma_kernel(const bf16* __restrict__ d, const bf16* __restrict__ mask,
+                       const bf16* __restrict__ wm, const bf16* __restrict__ bm,
+                       const bf16* __restrict__ w2p, const bf16* __restrict__ vp,
+                       const bf16* __restrict__ bias, bf16* __restrict__ out, int B, int H,
+                       int W, int N, int K, int ncx, int nry, int ntiles) {
+  constexpr int NOUT = P::nout, S = P::slices, WS = P::ws, HS = P::hs, ROWS = P::rows;
+  constexpr bool STYLE = P::style;
+  constexpr int HC = P::hc, DC = P::dc;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled ring tiles need a 1024-byte aligned base
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  unsigned char* halo = smem + P::off_halo;
+  bf16* dwin = reinterpret_cast<bf16*>(smem + P::off_dwin);
+  uint2* cw = reinterpret_cast<uint2*>(smem + P::off_cw);
+  uint64_t* full_h = reinterpret_cast<uint64_t*>(smem + P::off_bar);
+  uint64_t* empty_h = full_h + HS;
+  uint64_t* full_w = empty_h + HS;
+  uint64_t* empty_w = full_w + WS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < HS; ++i) {
+      mbar_init(full_h + i, FW_PRODUCERS);
+      mbar_init(empty_h + i, ROWS * 4);     // one arrival a consumer warp
+    }
+    for (int i = 0; i < WS; ++i) {
+      mbar_init(full_w + i, 1);             // the issuer's expect_tx arrival
+      mbar_init(empty_w + i, ROWS * 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // this block's tiles: blockIdx.x, blockIdx.x + gridDim.x, ... (grid ≤ ntiles)
+  const int my_tiles = (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  auto tile_of = [&](int j) {
+    return fw_tile((int)blockIdx.x + j * (int)gridDim.x, ncx, nry, B);
+  };
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+
+  if (wg == ROWS) {
+    // ============ producer warpgroup ============
+    const int t = threadIdx.x - ROWS * 128;
+    if (t < FW_PRODUCERS) {
+      // warps 0-2: conv1 + bias + ReLU of each halo slice, the mask's halo
+      // tile; lane (g, q) of warp `warp` holds mma fragments
+      const int warp = t >> 5, g = lane >> 2, q = lane & 3;
+      const bf16 zero = __float2bfloat16_rn(0.f), one = __float2bfloat16_rn(1.f);
+      int cached_n = -1;
+      for (int j = 0; j < my_tiles; ++j) {
+        const FwTile c = tile_of(j);
+        // the depth window of the tile, zero outside the image; the barrier
+        // before keeps the last one until every producer warp is done with it
+        fw_producer_sync();
+        const unsigned long long t0 = FM_NOW();
+        {
+          constexpr int DIT = (P::dr * DC + FW_PRODUCERS - 1) / FW_PRODUCERS;
+          bf16 dv[DIT];
+#pragma unroll
+          for (int i = 0; i < DIT; ++i) {
+            const int e = t + i * FW_PRODUCERS;
+            const int y = c.y0 - 2 + e / DC, x = c.x0 - 2 + e % DC;
+            dv[i] = e < P::dr * DC && y >= 0 && y < H && x >= 0 && x < W
+                        ? d[((i64)c.b * H + y) * W + x]
+                        : zero;
+          }
+          if (c.n != cached_n) {
+            // a new instance: wm_n and bm_n as the mma's B fragments, entry
+            // (slice, nb, lane (g, q)) holding rows 2q, 2q + 1 and, for
+            // q = 0, rows 8 (tap 8) and 9 (the bias) of column 8·nb + g;
+            // rows 10..15 zero
+            cached_n = c.n;
+            for (int e = t; e < S * 8 * 32; e += FW_PRODUCERS) {
+              const int ln = e & 31, ch = (e >> 5) * 8 + (ln >> 2), qq = ln & 3;
+              const bf16* wmn = wm + (i64)c.n * 9 * NOUT + ch;
+              cw[e] = make_uint2(fw_pack(wmn[(2 * qq) * NOUT], wmn[(2 * qq + 1) * NOUT]),
+                                 qq == 0 ? fw_pack(wmn[8 * NOUT], bm[(i64)c.n * NOUT + ch]) : 0u);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < DIT; ++i)
+            if (t + i * FW_PRODUCERS < P::dr * DC) dwin[t + i * FW_PRODUCERS] = dv[i];
+        }
+        fw_producer_sync();
+        // this warp's m-tiles mt = warp + 3i of the halo's patch matrix as
+        // mma A fragments, for every slice of the tile: rows (halo pixels)
+        // mt·16 + g and + 8, columns 2q, 2q + 1 and 2q + 8, 2q + 9 (taps
+        // 0..8 from the depth window, column 9 the bias's 1, zero beyond;
+        // a row outside the image or past the halo all zero)
+        constexpr int PW = FW_PRODUCERS / 32, MT = (P::mtiles + PW - 1) / PW;
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = (warp + PW * i) * 16 + g + 8 * h;
+            const int pp = min(p, P::halo_px - 1);
+            const int hy = pp / HC, hx = pp - hy * HC;
+            const int y = c.y0 - 1 + hy, x = c.x0 - 1 + hx;
+            const bool inside = p < P::halo_px && y >= 0 && y < H && x >= 0 && x < W;
+            const bf16* dw = dwin + hy * DC + hx;
+            const int j0 = 2 * q, j1 = 2 * q + 1;
+            af[i][h] = inside ? fw_pack(dw[(j0 / 3) * DC + j0 % 3], dw[(j1 / 3) * DC + j1 % 3]) : 0u;
+            af[i][2 + h] = q == 0 && inside ? fw_pack(dw[2 * DC + 2], one) : 0u;
+          }
+        FM_ADD(t == 0, 10, FM_NOW() - t0);
+        for (int s = 0; s < S; ++s) {
+          const int gs = j * S + s, st = gs % HS;
+          const unsigned long long tw = FM_NOW();
+          mbar_wait(empty_h + st, ((gs / HS) & 1) ^ 1);
+          const unsigned long long tb = FM_NOW();
+          FM_ADD(t == 0, 7, tb - tw);
+          unsigned char* stage = halo + st * P::stage_bytes;
+          uint32_t bw[8][2];
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const uint2 wv = cw[(s * 8 + nb) * 32 + lane];
+            bw[nb][0] = wv.x;
+            bw[nb][1] = wv.y;
+          }
+          const unsigned long long tc = FM_NOW();
+          FM_ADD(t == 0, 11, tc - tb);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const int mt = warp + PW * i;
+            if (mt >= P::mtiles) break;
+            float c4[8][4];
+#pragma unroll
+            for (int nb = 0; nb < 8; ++nb) {
+              c4[nb][0] = c4[nb][1] = c4[nb][2] = c4[nb][3] = 0.f;
+              mma_bf16(c4[nb], af[i], bw[nb][0], bw[nb][1]);
+            }
+            // relu, one rounding, and stmatrix.x4 per pair of 8-channel
+            // blocks: matrix r (lanes 8r .. 8r + 7 give its rows'
+            // addresses) is rows 8·(r & 1) .. + 7 of block 2m + (r >> 1); a
+            // row is one 16-byte piece of a pixel's 128
+            const int sp = mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+            unsigned char* srow = stage + sp * 128;
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int nb = 2 * m + (lane >> 4);
+              fw_stsm_x4(srow + ((nb ^ (sp & 7)) << 4),
+                         fw_relu_pack(c4[2 * m][0], c4[2 * m][1]),
+                         fw_relu_pack(c4[2 * m][2], c4[2 * m][3]),
+                         fw_relu_pack(c4[2 * m + 1][0], c4[2 * m + 1][1]),
+                         fw_relu_pack(c4[2 * m + 1][2], c4[2 * m + 1][3]));
+            }
+          }
+          const unsigned long long tm = FM_NOW();
+          FM_ADD(t == 0, 8, tm - tc);
+          if (STYLE && s == S - 1) {
+            // the mask's halo tile: 16 values a pixel (k ≥ K zero), zero
+            // outside the image
+            unsigned char* ms = stage + P::mask_off;
+            for (int p = t; p < P::halo_px; p += FW_PRODUCERS) {
+              const int hy = p / HC, hx = p - hy * HC;
+              const int y = c.y0 - 1 + hy, x = c.x0 - 1 + hx;
+              const bool in = y >= 0 && y < H && x >= 0 && x < W;
+              const bf16* mp = mask + (((i64)c.b * H + (in ? y : 0)) * W + (in ? x : 0)) * K;
+              bf16 vals[16];
+#pragma unroll
+              for (int k = 0; k < 16; ++k) vals[k] = in && k < K ? mp[k] : zero;
+              uint4 lo, hi;
+              lo.x = fw_pack(vals[0], vals[1]);
+              lo.y = fw_pack(vals[2], vals[3]);
+              lo.z = fw_pack(vals[4], vals[5]);
+              lo.w = fw_pack(vals[6], vals[7]);
+              hi.x = fw_pack(vals[8], vals[9]);
+              hi.y = fw_pack(vals[10], vals[11]);
+              hi.z = fw_pack(vals[12], vals[13]);
+              hi.w = fw_pack(vals[14], vals[15]);
+              *reinterpret_cast<uint4*>(ms + p * 48) = lo;
+              *reinterpret_cast<uint4*>(ms + p * 48 + 16) = hi;
+            }
+          }
+          mbar_arrive(full_h + st);
+          FM_ADD(t == 0, 12, FM_NOW() - tm);
+        }
+      }
+    } else if (t == FW_PRODUCERS) {
+      // one thread of warp 3 moves every ring tile, in the order the
+      // consumers take them: a tile's conv2 taps slice by slice, then its
+      // style tiles
+      int i = 0;
+      for (int j = 0; j < my_tiles; ++j) {
+        const FwTile c = tile_of(j);
+        const bf16* wn = w2p + (i64)c.n * S * 9 * P::wtile;
+        const bf16* vn = STYLE ? vp + ((i64)c.b * N + c.n) * P::vtiles * P::wtile : nullptr;
+        for (int k = 0; k < P::tiles_per_tile; ++k, ++i) {
+          const int st = i % WS;
+          const unsigned long long tw = FM_NOW();
+          mbar_wait(empty_w + st, ((i / WS) & 1) ^ 1);
+          FM_ADD(true, 9, FM_NOW() - tw);
+          mbar_arrive_expect_tx(full_w + st, P::wtile * 2);
+          const bf16* src = k < S * 9 ? wn + (i64)k * P::wtile : vn + (i64)(k - S * 9) * P::wtile;
+          bulk_copy_g2s(ring + st * P::wtile, src, P::wtile * 2, full_w + st);
+        }
+      }
+    }
+  } else {
+    // ============ consumer warpgroups: output row wg of each tile ============
+    const int w4 = (threadIdx.x >> 5) & 3;
+    const int r16 = lane & 15, hi = lane >> 4;
+    // this lane's ldmatrix row at tap (0, 0): halo pixel (wg, 16·w4 + r16)
+    const int p0 = wg * HC + w4 * 16 + r16;
+    const i64 cout = (i64)N * NOUT;
+    int wst = 0;
+    uint32_t wph = 0;
+    auto next_w = [&]() {
+      if (lane == 0) mbar_arrive(empty_w + wst);
+      if (++wst == WS) {
+        wst = 0;
+        wph ^= 1;
+      }
+    };
+    const unsigned long long t_start = FM_NOW();
+    for (int j = 0; j < my_tiles; ++j) {
+      FM_ADD(threadIdx.x == 0, 6, 1);
+      const FwTile c = tile_of(j);
+      float acc[NOUT / 2];
+#pragma unroll
+      for (int i = 0; i < NOUT / 2; ++i) acc[i] = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const int gs = j * S + s, hst = gs % HS;
+        const unsigned long long t0 = FM_NOW();
+        mbar_wait(full_h + hst, (gs / HS) & 1);
+        const unsigned long long t1 = FM_NOW();
+        FM_ADD(threadIdx.x == 0, 0, t1 - t0);
+        const unsigned char* tile = halo + hst * P::stage_bytes;
+        auto load_a = [&](uint32_t (&a)[4][4], int tap) {
+          const int p = p0 + (tap / 3) * HC + tap % 3;
+          const bf16* row = reinterpret_cast<const bf16*>(tile + p * 128);
+          const int sw = p & 7;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) ldsm_x4(a[kk], row + (((2 * kk + hi) ^ sw) << 3));
+        };
+        uint32_t a[2][4][4];
+        load_a(a[0], 0);
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const unsigned long long tw = FM_NOW();
+          mbar_wait(full_w + wst, wph);
+          FM_ADD(threadIdx.x == 0, 1, FM_NOW() - tw);
+          const uint64_t desc = wgmma_desc_k128(ring + wst * P::wtile);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs<NOUT>(acc, a[tap & 1][kk], desc + 2 * kk);
+          wgmma_commit();
+          if (tap < 8) load_a(a[(tap + 1) & 1], tap + 1);
+          wgmma_wait<0>();
+          next_w();
+        }
+        const unsigned long long t2 = FM_NOW();
+        FM_ADD(threadIdx.x == 0, 2, t2 - t1);
+        if (STYLE && s == S - 1) {
+          // the style taps: A the mask's halo tile at the tap's shift, B
+          // ring tile u holds taps 4u .. 4u + 3, one k-step each
+          const unsigned char* ms = tile + P::mask_off;
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+            uint32_t am[4][4];
+#pragma unroll
+            for (int k4 = 0; k4 < 4; ++k4) {
+              const int tap = 4 * u + k4;
+              if (tap < 9) ldsm_x4(am[k4], ms + (p0 + (tap / 3) * HC + tap % 3) * 48 + hi * 16);
+            }
+            const unsigned long long tw = FM_NOW();
+            mbar_wait(full_w + wst, wph);
+            FM_ADD(threadIdx.x == 0, 1, FM_NOW() - tw);
+            const uint64_t desc = wgmma_desc_k128(ring + wst * P::wtile);
+            wgmma_fence();
+#pragma unroll
+            for (int k4 = 0; k4 < 4; ++k4)
+              if (4 * u + k4 < 9) wgmma_rs<NOUT>(acc, am[k4], desc + 2 * k4);
+            wgmma_commit();
+            wgmma_wait<0>();
+            next_w();
+          }
+          FM_ADD(threadIdx.x == 0, 3, FM_NOW() - t2);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_h + hst);
+      }
+
+      // The epilogue: accumulator 4j + 2·half + e holds pixel
+      // 16·w4 + lane/4 + 8·half, channel 8j + 2·(lane%4) + e. The bias is
+      // added in the function's order (o-branch: the sum rounded, then b2
+      // in bf16; modulation: the bias in fp32, one rounding), then within a
+      // quad lane t gathers the 8-channel block 4m + t of its pixel for one
+      // 16-byte store.
+      const unsigned long long te = FM_NOW();
+      const int y = c.y0 + wg;
+      const int g = lane >> 2, tq = lane & 3;
+      const bf16* bn = bias + (i64)c.n * NOUT;
+#pragma unroll
+      for (int m = 0; m < NOUT / 32; ++m) {
+        uint32_t bw[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          bw[jj] = *reinterpret_cast<const uint32_t*>(bn + 8 * (4 * m + jj) + 2 * tq);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t v[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int jb = 4 * m + jj;
+            const float a0 = acc[4 * jb + 2 * half], a1 = acc[4 * jb + 2 * half + 1];
+            const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(&bw[jj]);
+            __nv_bfloat162 r2;
+            if constexpr (STYLE)
+              r2 = __floats2bfloat162_rn(a0 + __low2float(b2), a1 + __high2float(b2));
+            else
+              r2 = __hadd2(__floats2bfloat162_rn(a0, a1), b2);
+            v[jj] = *reinterpret_cast<uint32_t*>(&r2);
+          }
+          // round r: lane u hands its word of block u^r to lane u^r
+          uint32_t rc[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            rc[r] = __shfl_xor_sync(0xFFFFFFFFu, fw_pick4(v[0], v[1], v[2], v[3], tq ^ r), r);
+          // rc[r] came from lane tq^r: channels 2·(tq^r), +1 of the block
+          const uint4 o = make_uint4(fw_pick4(rc[0], rc[1], rc[2], rc[3], tq),
+                                     fw_pick4(rc[0], rc[1], rc[2], rc[3], tq ^ 1),
+                                     fw_pick4(rc[0], rc[1], rc[2], rc[3], tq ^ 2),
+                                     fw_pick4(rc[0], rc[1], rc[2], rc[3], tq ^ 3));
+          const int x = c.x0 + 16 * w4 + g + 8 * half;
+          if (y < H && x < W)
+            *reinterpret_cast<uint4*>(out + (((i64)c.b * H + y) * W + x) * cout +
+                                      (i64)c.n * NOUT + (4 * m + tq) * 8) = o;
+        }
+      }
+      FM_ADD(threadIdx.x == 0, 4, FM_NOW() - te);
+    }
+    FM_ADD(threadIdx.x == 0, 5, FM_NOW() - t_start);
+  }
+}
+
+// The plans: the weight ring as deep as the shared memory allows beside two
+// halo stages (16 KB tiles at c2 = 128, 8 KB at 64)
+template <int NOUT, bool STYLE>
+struct FwPick;
+template <> struct FwPick<128, false> { typedef FwPlan<128, false, 8> P; };
+template <> struct FwPick<128, true> { typedef FwPlan<128, true, 6> P; };
+template <> struct FwPick<64, false> { typedef FwPlan<64, false, 16> P; };
+template <> struct FwPick<64, true> { typedef FwPlan<64, true, 12> P; };
+
+template <int NOUT, bool STYLE>
+static int fw_launch(const void* d, const void* mask, const void* wm, const void* bm,
+                     const void* w2p, const void* vp, const void* bias, void* out, int B, int H,
+                     int W, int N, int K, cudaStream_t s) {
+  typedef typename FwPick<NOUT, STYLE>::P P;
+  auto kern = fused_mod_wgmma_kernel<P>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::total);
+  if (e != cudaSuccess) return (int)e;
+  const int ncx = (W + FW_COLS - 1) / FW_COLS, nry = (H + FW_ROWS - 1) / FW_ROWS;
+  const long long ntiles = (long long)ncx * nry * B * N;
+  if (ntiles <= 0) return 0;
+  if (ntiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const int grid = ntiles < sms ? (int)ntiles : sms;
+  kern<<<grid, P::threads, P::total, s>>>(
+      (const bf16*)d, (const bf16*)mask, (const bf16*)wm, (const bf16*)bm, (const bf16*)w2p,
+      (const bf16*)vp, (const bf16*)bias, (bf16*)out, B, H, W, N, K, ncx, nry, (int)ntiles);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool STYLE, class Kern>
 static int launch(Kern kern, const void* d, const void* mask, const void* wm,
                   const void* bm, const void* w2, const void* v, const void* bias,
@@ -561,6 +1112,31 @@ int fused_o_branch(int dtype, const void* d, const void* wm, const void* bm,
                          out, B, H, W, N, c2, 0, s);
   return launch<__nv_bfloat16, false>(fused_mod_bf16<false>, d, nullptr, wm, bm, w2,
                                nullptr, b2, out, B, H, W, N, c2, 0, s);
+}
+
+// Route "wgmma": bf16, c2 = 64 or 128, with style (fused_modulation) 1 ≤ K
+// ≤ 16. d, mask, wm, bm, bias and out as above (out 16-byte aligned, bias
+// 4-byte aligned); w2p: w2 packed as [N][c2/64 slices][9 taps][c2 o][64 c]
+// tiles, the 16-byte pieces of a row swizzled (piece ^ (o & 7)); vp (style
+// only): v packed as [B][N][3][c2 o][64 kk] tiles, kk = 16·(tap % 4) + k
+// for tap 4·tile + kk / 16, zero for k ≥ K and tap ≥ 9, swizzled alike;
+// both 16-byte aligned. Without style the conv2 sum is rounded before
+// bias (b2) is added, as fused_o_branch does. Returns a cudaError_t.
+int fused_mod_wgmma(int style, const void* d, const void* mask, const void* wm,
+                    const void* bm, const void* w2p, const void* vp, const void* bias,
+                    void* out, int B, int H, int W, int N, int c2, int K, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((c2 != 64 && c2 != 128) || (style && (K < 1 || K > 16)) ||
+      ((uintptr_t)out & 15) != 0 || ((uintptr_t)w2p & 15) != 0 ||
+      ((uintptr_t)bias & 3) != 0 || (style && ((uintptr_t)vp & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  if (style)
+    return c2 == 128
+               ? fw_launch<128, true>(d, mask, wm, bm, w2p, vp, bias, out, B, H, W, N, K, s)
+               : fw_launch<64, true>(d, mask, wm, bm, w2p, vp, bias, out, B, H, W, N, K, s);
+  return c2 == 128
+             ? fw_launch<128, false>(d, nullptr, wm, bm, w2p, nullptr, bias, out, B, H, W, N, 0, s)
+             : fw_launch<64, false>(d, nullptr, wm, bm, w2p, nullptr, bias, out, B, H, W, N, 0, s);
 }
 
 const char* fused_modulation_error(int e) {

@@ -59,7 +59,8 @@ SOURCES = {
                          I64, I, I, I, I, I, F32, P, P, P, P]},
     "fused_mod": {
         "fused_modulation": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-        "fused_o_branch": [I, P, P, P, P, P, P, I, I, I, I, I, P]},
+        "fused_o_branch": [I, P, P, P, P, P, P, I, I, I, I, I, P],
+        "fused_mod_wgmma": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]},
     "fused_tail": {
         "fused_tail": [I, P, I64, I64, I64, I, I, I, I, P, P, P, F32, F32, P, P],
         "fused_tail_wgmma": [P, I64, I64, I64, I, I, I, I, I, P, P, P, F32, F32, P,

@@ -6,29 +6,46 @@ Port of ``endosr/kernels/fused_obranch.py::fused_o_branch`` (TPU kernel
     ob[b,y,x, n·2C+c] = conv3×3(relu(conv3×3(d; wm_n) + bm_n); w2_n)[c] + b2_n[c]
 
 with conv2's padding ring of the activation zero (not ``relu(bm)``). The
-CUDA kernel (``endosr_torch/csrc/fused_mod.cu``, shared with
-``fused_modulation``) gives one block an 8×16-pixel tile of one image and
-one instance: it computes conv1 + bias + ReLU on the tile's 10×18 halo into
-shared memory, zero outside the image, rounded once to the storage type,
-then runs conv2 as nine shifted [128 px, 2C] × [2C, 2C] products over that
-tile (warp-level bf16 ``mma`` with fp32 accumulation, or an fp32 CUDA-core
-loop), so the [B,H,W,N·2C] activation never reaches device memory. The sum
-is rounded to the storage type, then the bias is added, as the twin does.
-It is bound by operations (2·B·H·W·N·9·(2C)² ≈ 1.0 TFLOP at the flagship
-shape). The TPU kernel's pre-cut row tiles and tap stack of the depth map,
-and its bf16-only gate, are not copied: any H, W and both storage types run,
-for 2C = 16, 32, 64 or 128.
+activation is computed on chip, rounded once to the storage type, and never
+reaches device memory; the conv2 sum is rounded to the storage type, then
+the bias is added, as the twin does. It is bound by operations
+(2·B·H·W·N·9·(2C)² ≈ 1.0 TFLOP at the flagship shape).
+
+``endosr_torch/csrc/fused_mod.cu`` (shared with ``fused_modulation``) holds
+three kernels and :func:`fused_o_branch_route` picks one by shape, never
+by trial:
+
+- ``"wgmma"``: bf16, 2C = 64 or 128, 16-byte aligned operands. Persistent
+  blocks walk tiles of 3 rows × 64 columns × all 2C channels of one image
+  and one instance, instance-major; a producer warpgroup computes conv1 for
+  each 64-channel slice of the tile's halo with one ``mma`` k-step into
+  shared memory, three consumer warpgroups run conv2 as ``wgmma`` with A
+  from that halo through ``ldmatrix``, and the weights stream through a
+  ring of 1-D bulk copies, packed once per call by
+  :func:`o_branch_pack_weights`.
+- ``"mma"``: any other bf16 shape (2C = 16 or 32): a block an 8×16-pixel
+  tile of one instance, warp-level ``mma``.
+- ``"fp32"``: float32 storage, an exact fp32 loop on the CUDA cores.
+
+``fused_o_branch.launches`` counts launches, ``fused_o_branch.routes``
+counts them per route. The TPU kernel's pre-cut row tiles and tap stack of
+the depth map, and its bf16-only gate, are not copied: any H, W and both
+storage types run, for 2C = 16, 32, 64 or 128.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from endosr_torch.kernels import _build
+from endosr_torch.utils.device import device_constant
 
-__all__ = ["fused_o_branch", "fused_o_branch_plain", "o_actv_plain",
-           "acc_dtype", "grouped_w2", "check_o_operands"]
+__all__ = ["fused_o_branch", "fused_o_branch_plain", "fused_o_branch_route",
+           "o_actv_plain", "acc_dtype", "grouped_w2", "check_o_operands",
+           "o_branch_pack_index", "o_branch_pack_weights",
+           "o_branch_unpack_weights", "launch_mma", "launch_wgmma"]
 
 
 def acc_dtype(dt):
@@ -82,26 +99,107 @@ def check_o_operands(d, wm, bm, w2, b2):
     return b, h, w, n, c2
 
 
+def fused_o_branch_route(dtype, c2, ptrs, k=0):
+    """Which kernel a CUDA call takes: ``"wgmma"``, ``"mma"`` or ``"fp32"``.
+    ``ptrs``: the operands' base addresses; ``k``: the mask's depth bins
+    (``fused_modulation``; 0 for the o-branch alone)."""
+    if dtype == torch.float32:
+        return "fp32"
+    if c2 in (64, 128) and k <= 16 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "mma"
+
+
+def o_branch_pack_index(c2):
+    """Flat indices into one instance's w2 [9, 2C in, 2C out] of the order
+    the ``wgmma`` kernel streams, [2C/64 slices, 9 taps, 2C o, 8 pieces,
+    8]: the piece stored at position j of row o is the logical piece
+    j ^ (o & 7) of the slice's 64 input channels (the 128-byte
+    shared-memory swizzle)."""
+    s, t, o, j, q = np.meshgrid(np.arange(c2 // 64), np.arange(9),
+                                np.arange(c2), np.arange(8), np.arange(8),
+                                indexing="ij")
+    c = s * 64 + (j ^ (o & 7)) * 8 + q
+    return ((t * c2 + c) * c2 + o).reshape(-1)
+
+
+def o_branch_pack_weights(w2):
+    """w2 [N, 9, 2C, 2C] (or [N, 9·2C, 2C]) → [N, 2C/64, 9, 2C, 64]: one
+    [o, c] tile (c contiguous, pieces swizzled) per instance, 64-channel
+    slice and tap. One gather."""
+    n, c2 = w2.shape[0], w2.shape[-1]
+    if c2 % 64:
+        raise ValueError(f"w2 {tuple(w2.shape)}: 2C must be a multiple of 64")
+    idx = device_constant(o_branch_pack_index, (c2,), torch.int64, w2.device)
+    return w2.reshape(n, -1)[:, idx].reshape(n, c2 // 64, 9, c2, 64)
+
+
+def o_branch_unpack_weights(packed):
+    """Inverse of :func:`o_branch_pack_weights`: → w2 [N, 9, 2C, 2C]."""
+    n, c2 = packed.shape[0], packed.shape[3]
+    idx = device_constant(o_branch_pack_index, (c2,), torch.int64,
+                          packed.device)
+    flat = torch.empty((n, 9 * c2 * c2), dtype=packed.dtype,
+                       device=packed.device)
+    flat[:, idx] = packed.reshape(n, -1)
+    return flat.reshape(n, 9, c2, c2)
+
+
+def _o_prepare(d, wm, bm, w2, b2, out_dtype):
+    b, h, w, n, c2 = check_o_operands(d, wm, bm, w2, b2)
+    dt = out_dtype or d.dtype
+    dd = d.to(dt).contiguous()
+    ops = [t.to(dt).contiguous() for t in (wm, bm, w2, b2)]
+    out = torch.empty((b, h, w, n * c2), dtype=dt, device=d.device)
+    return (b, h, w, n, c2), dt, dd, ops, out
+
+
+def launch_mma(d, wm, bm, w2, b2, out_dtype=None):
+    """Launch the tile kernel (routes ``"mma"`` and ``"fp32"``) on CUDA
+    operands; counts nothing."""
+    fn = _build.load("fused_mod", "fused_o_branch")
+    (b, h, w, n, c2), dt, dd, ops, out = _o_prepare(d, wm, bm, w2, b2,
+                                                    out_dtype)
+    code = fn(_build.dtype_code(dt), dd.data_ptr(),
+              *(t.data_ptr() for t in ops), out.data_ptr(), b, h, w, n, c2,
+              _build.stream_ptr(d.device))
+    _build.check("fused_mod", code, "fused_o_branch")
+    return out
+
+
+def launch_wgmma(d, wm, bm, w2, b2, out_dtype=None, lib="fused_mod"):
+    """Launch the ``wgmma`` kernel (route ``"wgmma"``) on CUDA operands;
+    counts nothing. ``lib``: the library that exports ``fused_mod_wgmma``
+    (another build of the source, to time or profile two versions)."""
+    fn = _build.load(lib, "fused_mod_wgmma")
+    (b, h, w, n, c2), dt, dd, (wm_, bm_, w2_, b2_), out = _o_prepare(
+        d, wm, bm, w2, b2, out_dtype)
+    wp = o_branch_pack_weights(w2_)
+    code = fn(0, dd.data_ptr(), None, wm_.data_ptr(), bm_.data_ptr(),
+              wp.data_ptr(), None, b2_.data_ptr(), out.data_ptr(), b, h, w, n,
+              c2, 0, _build.stream_ptr(d.device))
+    _build.check(lib, code, "fused_mod_wgmma")
+    return out
+
+
 def fused_o_branch(d, wm, bm, w2, b2, out_dtype=None):
     """All N depth-map branches of one depth map in one pass →
     [B,H,W,N·2C] in ``out_dtype`` (default ``d.dtype``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (and raises if it cannot)."""
+    kernel :func:`fused_o_branch_route` names (and raises if it cannot)."""
     if d.device.type == "cpu":
         return fused_o_branch_plain(d, wm, bm, w2, b2, out_dtype)
-    fn = _build.load("fused_mod", "fused_o_branch")
-    b, h, w, n, c2 = check_o_operands(d, wm, bm, w2, b2)
-    dt, dev = out_dtype or d.dtype, d.device
-    dd = d.to(dt).contiguous()
-    ops = [t.to(dt).contiguous() for t in (wm, bm, w2, b2)]
-    out = torch.empty((b, h, w, n * c2), dtype=dt, device=dev)
-    code = fn(_build.dtype_code(dt), dd.data_ptr(),
-              *(t.data_ptr() for t in ops), out.data_ptr(), b, h, w, n, c2,
-              _build.stream_ptr(dev))
-    _build.check("fused_mod", code, "fused_o_branch")
+    c2 = check_o_operands(d, wm, bm, w2, b2)[4]
+    dt = out_dtype or d.dtype
+    route = fused_o_branch_route(
+        dt, c2, [t.data_ptr() for t in (d, wm, bm, w2, b2)])
+    launch = launch_wgmma if route == "wgmma" else launch_mma
+    out = launch(d, wm, bm, w2, b2, out_dtype)
     fused_o_branch.launches += 1
+    fused_o_branch.routes[route] += 1
     return out
 
 
 fused_o_branch.launches = 0
+fused_o_branch.routes = {"wgmma": 0, "mma": 0, "fp32": 0}

@@ -1,9 +1,10 @@
-"""Time the ``wgmma`` conv of ``head_dot`` or ``fused_tail`` (3×3) or of
-``packed_g123``'s stages (2×2) at the flagship shapes, alone or against a
-variant of its source, in one process on one card.
+"""Time the ``wgmma`` conv of ``head_dot`` or ``fused_tail`` (3×3), of
+``packed_g123``'s stages (2×2) or of ``fused_o_branch`` /
+``fused_modulation`` at the flagship shapes, alone or against a variant of
+its source, in one process on one card.
 
     python -m endosr_torch.tools.ab_conv3x3
-        [--kernel head_dot|fused_tail|packed_chain]
+        [--kernel head_dot|fused_tail|packed_chain|fused_mod]
         [--other path/to/variant.cu] [--rounds 7]
 
 Times of one kernel differ by a few percent between calls and cards, so two
@@ -18,7 +19,10 @@ the warp-``mma`` route and one cuDNN ``conv2d`` on the activated input (for
 ``fused_tail`` with clamp and ``pixel_shuffle``). For ``packed_chain`` the
 readings are the up1 and the tail chain, three stage launches each, through
 ``launch_wgmma``, beside the warp-``mma`` route and the packing of one
-stage's weights. Prints the card's name and power limit first.
+stage's weights. For ``fused_mod`` they are ``fused_o_branch`` and
+``fused_modulation`` (B = 8, 128², N = 26, 2C = 128, K = 10) through
+``launch_wgmma`` (which packs w2, and v), beside the warp-``mma`` route and
+the packing alone. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("head_dot", "fused_tail",
-                                         "packed_chain"),
+                                         "packed_chain", "fused_mod"),
                     default="head_dot")
     ap.add_argument("--other", type=Path, help="a variant of the kernel's .cu")
     ap.add_argument("--rounds", type=int, default=7)
@@ -62,7 +66,8 @@ def main(argv=None) -> int:
     try:
         _build.build_all(list(libs.values()))
         fns = {"head_dot": _head_dot, "fused_tail": _fused_tail,
-               "packed_chain": _packed_chain}[args.kernel](torch, _build, libs)
+               "packed_chain": _packed_chain,
+               "fused_mod": _fused_mod}[args.kernel](torch, _build, libs)
         times = {k: [] for k in fns}
         for _ in range(args.rounds):
             for k, f in fns.items():
@@ -214,6 +219,44 @@ def _packed_chain(torch, _build, libs):
         fns[f"warp-mma route, {label}"] = lambda a=args: pc.launch_igemm(*a)
         fns[f"weight packing, {label} k1"] = (
             lambda k=ks[0]: pc.packed_stage_pack_weights(k))
+    return fns
+
+
+def _fused_mod(torch, _build, libs):
+    import math
+
+    from endosr_torch.kernels import fused_mod as fm
+    from endosr_torch.kernels import fused_obranch as fo
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * s).to(
+            torch.bfloat16)
+
+    n, c2, k = 26, 128, 10
+    d = torch.rand((8, 128, 128, 1), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    wm, bm, b2 = rn(n, 9, c2, s=0.3), rn(n, c2, s=0.1), rn(n, c2, s=0.1)
+    w2 = rn(n, 9, c2, c2, s=1 / math.sqrt(9 * c2))
+    mask = (torch.rand((8, 128, 128, k), generator=gen, device="cuda")
+            > 0.8).to(torch.bfloat16)
+    v = rn(8, n, 9 * k, c2, s=0.05)
+    o_args = (d, wm, bm, w2, b2)
+    m_args = (d, mask, wm, bm, w2.reshape(n, 9 * c2, c2), v, b2)
+    refs = {"fused_o_branch": fo.fused_o_branch_plain(*o_args),
+            "fused_modulation": fm.fused_modulation_plain(*m_args)}
+    fns = {}
+    for tag, lib in libs.items():
+        for name, launch, a in (("fused_o_branch", fo.launch_wgmma, o_args),
+                                ("fused_modulation", fm.launch_wgmma, m_args)):
+            fns[f"{tag} {name}"] = lambda f=launch, a=a, lib=lib: f(*a, lib=lib)
+            _check(torch, f"{tag} ({lib}) {name}", fns[f"{tag} {name}"](),
+                   refs[name])
+    fns["warp-mma route, fused_o_branch"] = lambda: fo.launch_mma(*o_args)
+    fns["warp-mma route, fused_modulation"] = lambda: fm.launch_mma(*m_args)
+    fns["w2 packing"] = lambda: fo.o_branch_pack_weights(w2)
+    fns["v packing"] = lambda: fm.style_pack_v(v)
     return fns
 
 

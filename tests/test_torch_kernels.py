@@ -14,8 +14,9 @@ Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
 launch and route counters stay 0 on the CPU; the rules that route
 ``head_dot``, ``fused_tail``, ``style_dot_hwbm``, ``style_blend_dot``,
-``packed_g123`` and ``mid_shuffle`` between their kernels; the weight
-arrangement of the three ``wgmma`` routes;
+``packed_g123``, ``mid_shuffle``, ``fused_o_branch`` and
+``fused_modulation`` between their kernels; the weight arrangement of the
+five ``wgmma`` routes (and of v for ``fused_modulation``'s);
 and the argument counts of the exported C functions against their
 ``ctypes`` signatures.
 """
@@ -483,6 +484,45 @@ def test_fused_o_branch_padding_ring_is_zero_not_relu_bias():
     assert float(actv.min()) > 4.0       # so a wrong ring would show
 
 
+_W = torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,c2,ptrs,want", [
+    (_W, 128, (0, 256, 4096), "wgmma"), (_W, 64, (0, 16, 32), "wgmma"),
+    (_W, 32, (0, 16), "mma"), (_W, 16, (0,), "mma"),
+    (torch.float32, 128, (0, 16), "fp32"), (torch.float32, 32, (8,), "fp32"),
+    (_W, 128, (0, 8), "mma"),
+], ids=["flagship", "c64", "c32", "c16", "fp32", "fp32_c32", "misaligned"])
+def test_fused_o_branch_route(dtype, c2, ptrs, want):
+    assert t_fo.fused_o_branch_route(dtype, c2, ptrs) == want
+
+
+@pytest.mark.parametrize("c2", [64, 128])
+def test_o_branch_packed_weights_round_trip_and_convolve(c2):
+    """The ``wgmma`` route's weight order: [n, slice, tap, o, c] tiles whose
+    16-byte pieces are swizzled. Unpacking gives w2 back, the plain version
+    on the unpacked weights equals it on the originals exactly, and a tile
+    read the way the kernel's descriptor reads it (piece ^ (o & 7)) is the
+    [o, c] slice of its tap."""
+    rng = _rng(50 + c2)
+    d, wm, bm, w2, b2 = map(_t, _o_operands(rng, 1, 5, 6, 2, c2))
+    packed = t_fo.o_branch_pack_weights(w2)
+    assert packed.shape == (2, c2 // 64, 9, c2, 64) and packed.is_contiguous()
+    back = t_fo.o_branch_unpack_weights(packed)
+    assert torch.equal(back, w2)
+    n, s, tap, o = 1, c2 // 64 - 1, 7, 21
+    row = packed[n, s, tap, o].reshape(8, 8)
+    logical = torch.stack([row[j ^ (o & 7)] for j in range(8)]).reshape(64)
+    assert torch.equal(logical, w2[n, tap, s * 64:(s + 1) * 64, o])
+    assert torch.equal(t_fo.fused_o_branch_plain(d, wm, bm, back, b2),
+                       t_fo.fused_o_branch_plain(d, wm, bm, w2, b2))
+    # [N, 9·2C, 2C], as fused_modulation passes it, packs the same
+    assert torch.equal(t_fo.o_branch_pack_weights(w2.reshape(2, 9 * c2, c2)),
+                       packed)
+    with pytest.raises(ValueError, match="64"):
+        t_fo.o_branch_pack_weights(torch.zeros(2, 9, 32, 32))
+
+
 # ---------------------------------------------------------- fused_modulation
 
 def _mod_operands(rng, b, h, w, k, n, c2):
@@ -504,6 +544,43 @@ def test_fused_modulation_matches_jax(against, shape):
     want = fn(*map(jnp.asarray, args))
     got = t_fm.fused_modulation(*map(_t, args))
     _cmp(got.numpy(), want, 2e-5)      # sums of 9·2C + 9K products of O(1)
+
+
+@pytest.mark.parametrize("dtype,c2,k,ptrs,want", [
+    (_W, 128, 10, (0, 16, 32), "wgmma"), (_W, 64, 10, (0,), "wgmma"),
+    (_W, 128, 16, (0,), "wgmma"), (_W, 128, 17, (0,), "mma"),
+    (_W, 32, 4, (0,), "mma"), (torch.float32, 128, 10, (0,), "fp32"),
+    (_W, 128, 10, (0, 16, 2), "mma"),
+], ids=["flagship", "c64", "k16", "k17", "c32", "fp32", "misaligned"])
+def test_fused_modulation_route(dtype, c2, k, ptrs, want):
+    assert t_fm.fused_modulation_route(dtype, c2, k, ptrs) == want
+
+
+@pytest.mark.parametrize("k,c2", [(10, 128), (4, 64), (16, 64)])
+def test_style_packed_v_round_trip_and_tiles(k, c2):
+    """v's ``wgmma`` tiles: tile u, row o holds taps 4u .. 4u+3 as k-steps
+    of 16 (kk = 16·(tap % 4) + k), zero for k ≥ K and for tap ≥ 9, pieces
+    swizzled. Unpacking gives v back, and the plain version on the unpacked
+    v equals it on the original exactly."""
+    rng = _rng(60 + k)
+    args = [_t(a) for a in _mod_operands(rng, 2, 5, 6, k, 2, c2)]
+    v = args[5]
+    packed = t_fm.style_pack_v(v)
+    assert packed.shape == (2, 2, 3, c2, 64) and packed.is_contiguous()
+    back = t_fm.style_unpack_v(packed, k)
+    assert torch.equal(back, v)
+    b, n = 1, 1
+    for u, o in ((0, 3), (1, 12), (2, c2 - 1)):
+        row = packed[b, n, u, o].reshape(8, 8)
+        logical = torch.stack([row[j ^ (o & 7)] for j in range(8)]).reshape(64)
+        for kk in range(64):
+            tap, kb = 4 * u + kk // 16, kk % 16
+            want = v[b, n, tap * k + kb, o] if tap < 9 and kb < k else 0.0
+            assert float(logical[kk]) == float(want)
+    args2 = list(args)
+    args2[5] = back
+    assert torch.equal(t_fm.fused_modulation_plain(*args2),
+                       t_fm.fused_modulation_plain(*args))
 
 
 # ---------------------------------------------------------------- fused_tail
@@ -717,6 +794,12 @@ def _wrapper_calls():
             c((2, 4, 4, 1)), c((2, 4, 4, 3)), *_zero_o_weights()[:2],
             torch.zeros(2, 144, 16), torch.zeros(2, 2, 27, 16),
             torch.zeros(2, 16)),
+        "fused_o_branch[wgmma]": lambda: t_fo.fused_o_branch(
+            c((2, 4, 4, 1)), *_zero_o_weights(128)),
+        "fused_modulation[wgmma]": lambda: t_fm.fused_modulation(
+            c((2, 4, 4, 1)), c((2, 4, 4, 10)), *_zero_o_weights(64)[:2],
+            torch.zeros(2, 9 * 64, 64), torch.zeros(2, 2, 90, 64),
+            torch.zeros(2, 64)),
         "fused_tail": lambda: t_ft.fused_tail(
             c((2, 9, 16, 32)), torch.zeros(3, 3, 32, 48), torch.zeros(48)),
         "fused_tail[wgmma]": lambda: t_ft.fused_tail(
@@ -727,9 +810,9 @@ def _wrapper_calls():
     }
 
 
-def _zero_o_weights():
-    return (torch.zeros(2, 9, 16), torch.zeros(2, 16),
-            torch.zeros(2, 9, 16, 16), torch.zeros(2, 16))
+def _zero_o_weights(c2=16):
+    return (torch.zeros(2, 9, c2), torch.zeros(2, c2),
+            torch.zeros(2, 9, c2, c2), torch.zeros(2, c2))
 
 
 @pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
@@ -741,6 +824,8 @@ def _zero_o_weights():
                                   "style_dot_hwbm[tc]",
                                   "in_stats", "fused_in_mod",
                                   "fused_o_branch", "fused_modulation",
+                                  "fused_o_branch[wgmma]",
+                                  "fused_modulation[wgmma]",
                                   "fused_tail", "fused_tail[wgmma]",
                                   "mid_shuffle", "mid_shuffle[scalar]"])
 def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
@@ -748,7 +833,8 @@ def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     monkeypatch.setattr("endosr_torch.kernels._build.os.path.exists",
                         lambda p: False)
     routed = (t_hd.head_dot, t_sd.style_dot_hwbm, t_ft.fused_tail,
-              t_sd.style_blend_dot, t_pc.packed_g123, t_sm.mid_shuffle)
+              t_sd.style_blend_dot, t_pc.packed_g123, t_sm.mid_shuffle,
+              t_fo.fused_o_branch, t_fm.fused_modulation)
     before = [dict(f.routes) for f in routed]
     # no nvcc here: the wrapper must fail to build, not run the plain version
     # (on any route of the routed kernels), and count nothing
@@ -798,6 +884,12 @@ def test_cpu_calls_leave_launch_counters_at_zero():
                      *(torch.zeros(2, 2, 128, 128), torch.zeros(128)) * 2,
                      pre_act=True, pre_bias=torch.zeros(64), phases=True)
     t_sm.mid_shuffle(torch.zeros(1, 2, 2, 512, dtype=torch.bfloat16), 2)
+    t_fo.fused_o_branch(torch.zeros(1, 4, 4, 1, dtype=torch.bfloat16),
+                        *_zero_o_weights(64))
+    t_fm.fused_modulation(torch.zeros(1, 4, 4, 1, dtype=torch.bfloat16),
+                          torch.zeros(1, 4, 4, 10, dtype=torch.bfloat16),
+                          *_zero_o_weights(64)[:2], torch.zeros(2, 576, 64),
+                          torch.zeros(1, 2, 90, 64), torch.zeros(2, 64))
     assert [f.launches for f in fns] == before == [0] * 12
     assert t_hd.head_dot.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sd.style_dot_hwbm.routes == {"tc": 0, "cuda_core": 0}
@@ -805,6 +897,8 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     assert t_sd.style_blend_dot.routes == {"tc": 0, "cuda_core": 0}
     assert t_pc.packed_g123.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sm.mid_shuffle.routes == {"vec16": 0, "scalar": 0}
+    assert t_fo.fused_o_branch.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert t_fm.fused_modulation.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
 
 
 # ------------------------------------------------------- exported C signatures
