@@ -43,8 +43,21 @@ exits non-zero):
    ``packed_chain.launch_igemm``, ``launch_cuda_core``,
    ``launch_blend_cuda_core``, the ``scalar`` shuffle, the ``launch_mma``
    of ``fused_o_branch`` and ``fused_modulation``) is timed beside it
-   as ``previous_ms``. Times are CUDA-event medians
-   of 20 runs (5 for a call above 20 ms), beside the plain version's, the
+   as ``previous_ms``. ``in_stats`` and ``fused_in_mod`` take route
+   ``vec16`` at [8,128,128,64] in both types (``in_stats`` also on a
+   channel slice of a [8,128,128,256] map), are held bit-equal over two
+   calls, launch 1 and 2 device kernels a call (``torch.profiler``) and
+   leave the ticket counters at 0 after B = 8 and then B = 3; their ``v1``
+   route is ``previous_ms`` and takes a ragged case (C = 24, 13×21, every
+   base one element past 16 bytes). Times: ``output_stage_x8``,
+   ``output_stage``, ``in_stats``, ``fused_in_mod`` and ``mid_shuffle``
+   (kernel, plain, library, previous) are device time, a CUDA graph of
+   ≥ 20 launches over ≥ 3 input sets of ≥ 100 MB in all, in turn (so each
+   launch finds its inputs out of the 50 MB L2) replayed between two events
+   and divided by the launches, median of 5 replays (``graph_ms``), the kernel also
+   once a call as ``call_ms``; the other kernels are CUDA-event medians
+   of 20 single calls (5 for a call above 20 ms), ``call_ms`` = ``ms``. Beside
+   them: the plain version's time, the
    bound (larger of bytes over 3.35 TB/s and operations over the bf16
    tensor-core peak), and one PyTorch call computing the same function
    where there is one.
@@ -82,11 +95,13 @@ exits non-zero):
      the same request to ≤ 1e-4;
    - ×4 flagship with ``net_kw: {fused_epilogue: true, in_stats:
      kernel}``, LQ 128²
-     → SR 512²: ``fused_in_mod`` 26, ``in_stats`` 26, ``style_blend_dot``
-     2 (``tc``), ``output_stage_x8`` 1; the fp32 output equals that of the chained
+     → SR 512²: ``fused_in_mod`` 26, ``in_stats`` 26 (both route ``vec16``
+     in both types), ``style_blend_dot`` 2 (``tc``), ``output_stage_x8`` 1;
+     the fp32 output equals that of the chained
      epilogue (``fused_epilogue: false``) to ≤ 2e-4.
 
-Prints the kernels JSON line (``launches`` summed over the paths;
+Prints the kernels JSON line (``launches`` summed over the paths,
+``timing`` "graph" or "call";
 ``mid_shuffle`` is a kernel no forward calls, in the JAX package as here, so
 its count is 0 and it is held to its plain version in phase 3 only), then the ``nvidia-smi`` name/power line, then ``{"ok": true, "device":
 {...}}`` as the last line. Exits non-zero without a result when no CUDA
@@ -142,6 +157,54 @@ def cuda_ms(fn, n=N_TIMED):
     return times[len(times) // 2]
 
 
+N_GRAPH = 20           # launches a timing graph holds at least
+ROTATE_BYTES = 100e6   # input sets a timing graph rotates over hold this
+
+
+def graph_ms(fn, sets, k_min=N_GRAPH):
+    """Device ms of one call of ``fn``: a CUDA graph of K ≥ ``k_min`` calls
+    ``fn(*inputs)`` with ``inputs`` running over ``sets`` in turn (so a call
+    finds its inputs out of the L2 cache), replayed between two events and
+    divided by K; the median of 5 replays after one warm-up replay. A
+    capture that fails raises."""
+    import torch
+
+    k = -(-k_min // len(sets)) * len(sets)
+    for inputs in sets:                 # warm-up, outside the capture
+        fn(*inputs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(k):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
+def rotation(first, more):
+    """Input sets for :func:`graph_ms`: ``first`` and calls of ``more()``
+    until their tensors' elements (:func:`nbytes`: a channel slice counts
+    its own elements, not the bytes of the map it spans) hold
+    ``ROTATE_BYTES``, at least three sets, so no set is still in the L2
+    when its turn comes again."""
+    sets = [first]
+    while len(sets) < 3 or sum(nbytes(*s) for s in sets) < ROTATE_BYTES:
+        sets.append(more())
+    return sets
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -172,16 +235,20 @@ class KernelCase:
     tolerance. ``extra``: a further check of the case, run once per type.
     ``previous``: the kernel's earlier route on the same inputs, timed in
     bf16. ``route``: (wrapper, {dtype: route name}), the route the call must
-    take. ``timed=False``: checked only."""
+    take. ``timed=False``: checked only. ``rotate``: (the case's own input
+    set, a function making one more), where the call, plain, library and
+    previous functions take an input set as positional arguments in place
+    of their defaults; such a case is timed by :func:`graph_ms` over a
+    :func:`rotation` of input sets (and once a call, as ``call_ms``)."""
 
     def __init__(self, name, kernel, plain, library, bytes_, flops, main=True,
                  exact=False, ref64=None, tol=None, extra=None, previous=None,
-                 route=None, timed=True):
+                 route=None, timed=True, rotate=None):
         self.name, self.kernel, self.plain = name, kernel, plain
         self.library, self.bytes, self.flops = library, bytes_, flops
         self.main, self.exact, self.ref64, self.tol = main, exact, ref64, tol
         self.extra, self.previous, self.route = extra, previous, route
-        self.timed = timed
+        self.timed, self.rotate = timed, rotate
 
 
 def make_cases(torch, dt, gen):
@@ -191,6 +258,7 @@ def make_cases(torch, dt, gen):
 
     from endosr_torch.kernels.fused_in_mod import (fused_in_mod,
                                                    fused_in_mod_plain)
+    from endosr_torch.kernels.fused_in_mod import launch as in_mod_launch
     from endosr_torch.kernels.fused_mod import (fused_modulation,
                                                 fused_modulation_plain)
     from endosr_torch.kernels.fused_mod import launch_mma as mod_mma
@@ -203,6 +271,7 @@ def make_cases(torch, dt, gen):
     from endosr_torch.kernels.head_dot import (head_dot, head_dot_plain,
                                                launch_igemm)
     from endosr_torch.kernels.in_stats import in_stats, in_stats_plain
+    from endosr_torch.kernels.in_stats import launch as stats_launch
     from endosr_torch.kernels.output_stage import (output_stage,
                                                    output_stage_plain,
                                                    output_stage_x8,
@@ -239,7 +308,8 @@ def make_cases(torch, dt, gen):
             lambda p=pre64, o=order: output_stage_x8(p, 0.0, 1.0, o),
             lambda p=pre64, o=order: output_stage_x8_plain(p, 0.0, 1.0, o),
             None, nbytes(pre64) + pre64.numel() // 64 * 48 * 4, 0, main=main,
-            exact=True))
+            exact=True,
+            rotate=((pre64,), lambda s=shape: (rn(*s, s=0.6, mean=0.5),))))
     cases["output_stage_x8"] = xcs
 
     # output_stage: the bucketed ×8 forward's [8,256,256,48] r=4 (main path),
@@ -253,31 +323,79 @@ def make_cases(torch, dt, gen):
             lambda p=pre, r=r: output_stage(p, r, 0.0, 1.0),
             lambda p=pre, r=r: output_stage_plain(p, r, 0.0, 1.0),
             None, nbytes(pre) + B * hw * hw * 3 * r * r * 4, 0, main=main,
-            exact=True))
+            exact=True,
+            rotate=((pre,), lambda s=pre.shape: (rn(*s, s=0.6, mean=0.5),))))
     cases["output_stage"] = ocs
 
     # in_stats and fused_in_mod: one trunk activation [8,128,128,64]; γ and β
-    # are channel slices of a group's [8,128,128,M] map, as on the main path
-    xs = rn(B, 128, 128, 64, s=1.5, mean=0.5)
-    cases["in_stats"] = [KernelCase(
-        "in_stats", lambda x=xs: in_stats(x), lambda x=xs: in_stats_plain(x),
-        lambda x=xs: torch.var_mean(x.float(), dim=(1, 2)),
-        nbytes(xs) + 2 * B * 64 * 4, 3 * xs.numel(),
-        ref64=lambda x=xs: (x.double().sum(dim=(1, 2)),
-                            x.double().square().sum(dim=(1, 2))),
-        tol=1e-5)]
-    gb = rn(B, 128, 128, 256, s=0.3)
-    gam, bet = gb[..., 64:128], gb[..., 128:192]
+    # are channel slices of a group's [8,128,128,M] map, as on the main path;
+    # route vec16 in both types (on x and on a channel slice), v1 (forced)
+    # timed as previous; a ragged case (C = 24, 13×21 pixels, every base one
+    # element past 16 bytes) on v1
+    def trunk_x():
+        return rn(B, 128, 128, 64, s=1.5, mean=0.5)
 
-    def in_mod_64(x=xs, g=gam, b=bet):
+    def in_mod_inputs():
+        gb = rn(B, 128, 128, 256, s=0.3)
+        return trunk_x(), gb[..., 64:128], gb[..., 128:192]
+
+    def ragged(*shape):
+        return rn(*shape[:-1], shape[-1] + 1, s=1.5, mean=0.5)[..., 1:]
+
+    def sums64(x):
+        return x.double().sum(dim=(1, 2)), x.double().square().sum(dim=(1, 2))
+
+    def in_mod_64(x, g, b):
         x, g, b = x.double(), g.double(), b.double()
         mean = x.mean(dim=(1, 2), keepdim=True)
         var = (x - mean).square().mean(dim=(1, 2), keepdim=True)
         return (x - mean) * torch.rsqrt(var + 1e-5) * (1.0 + g) + b
-    cases["fused_in_mod"] = [KernelCase(
-        "fused_in_mod", lambda x=xs, g=gam, b=bet: fused_in_mod(x, g, b),
-        lambda x=xs, g=gam, b=bet: fused_in_mod_plain(x, g, b), None,
-        4 * nbytes(xs), 8 * xs.numel(), ref64=in_mod_64)]
+
+    xs, gam, bet = in_mod_inputs()
+    vec16 = {torch.bfloat16: "vec16", torch.float32: "vec16"}
+    v1 = {torch.bfloat16: "v1", torch.float32: "v1"}
+    xr = ragged(3, 13, 21, 24)
+    cases["in_stats"] = [
+        KernelCase(
+            "in_stats", lambda x=xs: in_stats(x), lambda x=xs: in_stats_plain(x),
+            lambda x=xs: torch.var_mean(x.float(), dim=(1, 2)),
+            nbytes(xs) + 2 * B * 64 * 4, 3 * xs.numel(),
+            ref64=lambda x=xs: sums64(x), tol=1e-5, route=(in_stats, vec16),
+            previous=lambda x=xs: stats_launch(x, "v1")[0],
+            extra=lambda x=xs: vec16_checks(
+                torch, dt, "in_stats", lambda: in_stats(x),
+                lambda: stats_launch(x[:3])[1], 1),
+            rotate=((xs,), lambda: (trunk_x(),))),
+        KernelCase(
+            "in_stats[channel slice]",
+            lambda x=gam: in_stats(x), lambda x=gam: in_stats_plain(x), None,
+            nbytes(xs) + 2 * B * 64 * 4, 3 * xs.numel(), main=False,
+            ref64=lambda x=gam: sums64(x), tol=1e-5, route=(in_stats, vec16),
+            rotate=((gam,), lambda: in_mod_inputs()[1:2])),
+        KernelCase(
+            "in_stats[ragged 13×21, C=24, unaligned]",
+            lambda x=xr: in_stats(x), lambda x=xr: in_stats_plain(x), None,
+            0, 0, main=False, timed=False, ref64=lambda x=xr: sums64(x),
+            tol=1e-5, route=(in_stats, v1))]
+    rg = tuple(ragged(3, 13, 21, 24) for _ in range(3))
+    cases["fused_in_mod"] = [
+        KernelCase(
+            "fused_in_mod", lambda x=xs, g=gam, b=bet: fused_in_mod(x, g, b),
+            lambda x=xs, g=gam, b=bet: fused_in_mod_plain(x, g, b), None,
+            4 * nbytes(xs), 8 * xs.numel(),
+            ref64=lambda x=xs, g=gam, b=bet: in_mod_64(x, g, b),
+            route=(fused_in_mod, vec16),
+            previous=lambda x=xs, g=gam, b=bet: in_mod_launch(x, g, b,
+                                                              route="v1")[0],
+            extra=lambda x=xs, g=gam, b=bet: vec16_checks(
+                torch, dt, "fused_in_mod", lambda: fused_in_mod(x, g, b),
+                lambda: in_mod_launch(x[:3], g[:3], b[:3])[1], 2),
+            rotate=((xs, gam, bet), in_mod_inputs)),
+        KernelCase(
+            "fused_in_mod[ragged 13×21, C=24, unaligned]",
+            lambda a=rg: fused_in_mod(*a), lambda a=rg: fused_in_mod_plain(*a),
+            None, 0, 0, main=False, timed=False,
+            ref64=lambda a=rg: in_mod_64(*a), route=(fused_in_mod, v1))]
 
     # head_dot: g4 [257, 257, 8, 512] (HWNC view of the producer's BHWC)
     g4 = rn(B, 257, 257, 512, s=0.5).permute(1, 2, 0, 3)
@@ -547,9 +665,52 @@ def make_cases(torch, dt, gen):
         lambda z=zs: mid_shuffle_plain(z, 2),
         lambda z=zs: mid_shuffle_plain(z, 2), 2 * nbytes(zs), 0, exact=True,
         extra=shuffle_backward,
+        rotate=((zs,), lambda: (rn(B, 128, 128, 512),)),
         route=(mid_shuffle, {torch.bfloat16: "vec16", torch.float32: "vec16"}),
         previous=lambda z=zs: shuffle_launch(z, 2, False, "scalar")[0])]
     return cases
+
+
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of ``fn`` launches, read by
+    ``torch.profiler`` (after one call outside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def vec16_checks(torch, dt, name, call, b_view, n_kernels):
+    """The vec16 route of ``in_stats`` or ``fused_in_mod``: ``n_kernels``
+    device kernels a call, two calls bit-equal, and the ticket counters all
+    0 after a call with B = 8 and then one with B = 3 (``b_view``)."""
+    from endosr_torch.kernels.in_stats import tickets
+
+    def flat(r):
+        return r if isinstance(r, tuple) else (r,)
+
+    first, second = flat(call()), flat(call())
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        raise AssertionError(f"{name} {dt}: two vec16 calls differ")
+    route = b_view()
+    torch.cuda.synchronize()
+    t = tickets(first[0].device, 8)
+    if route != "vec16" or bool(t.any()):
+        raise AssertionError(f"{name} {dt}: route {route}, tickets {t.tolist()} "
+                             "after B = 8 and B = 3")
+    kernels = device_kernels(torch, call)
+    if len(kernels) != n_kernels:
+        raise AssertionError(f"{name} {dt}: {len(kernels)} device kernels a "
+                             f"call ({kernels}), want {n_kernels}")
+    log(f"{name} vec16 {str(dt)[6:]}: two calls bit-equal; tickets 0 after "
+        f"B = 8 and B = 3; {n_kernels} device kernel(s) a call: "
+        + ", ".join(k[:60] for k in kernels))
 
 
 SOURCES = {
@@ -589,7 +750,7 @@ def check_kernels(torch):
         cases = make_cases(torch, dt, gen)
         for name, cs in cases.items():
             worst_abs = 0.0
-            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "library_ms": 0.0 if cs[0].library else None}
             if cs[0].previous:
                 tot["previous_ms"] = 0.0
@@ -627,26 +788,41 @@ def check_kernels(torch):
                 if c.extra:
                     c.extra()
                 if dt == torch.bfloat16 and c.timed:
-                    ms = cuda_ms(c.kernel)
-                    pms = cuda_ms(c.plain)
-                    lms = cuda_ms(c.library) if c.library else None
-                    prev = cuda_ms(c.previous) if c.previous else None
+                    if c.rotate:
+                        sets = rotation(*c.rotate)
+
+                        def timer(f, sets=sets):
+                            return graph_ms(f, sets)
+                    else:
+                        timer = cuda_ms
+                    ms = timer(c.kernel)
+                    call = cuda_ms(c.kernel) if c.rotate else ms
+                    pms = timer(c.plain)
+                    lms = timer(c.library) if c.library else None
+                    prev = timer(c.previous) if c.previous else None
                     bms, by = bound_ms(c.bytes, c.flops)
-                    log(f"  {c.name} bf16: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                    how = (f"graph of ≥ {N_GRAPH} over {len(sets)} input sets"
+                           if c.rotate else "one call")
+                    log(f"  {c.name} bf16 ({how}): kernel {ms:.4f} ms, call "
+                        f"{call:.4f} ms, plain {pms:.4f} ms, "
                         f"library {'-' if lms is None else f'{lms:.4f} ms'}, "
                         f"bound {bms:.4f} ms ({by}; {c.bytes / 1e6:.1f} MB, "
                         f"{c.flops / 1e9:.1f} GFLOP)"
                         + (f", previous route {prev:.4f} ms" if prev else ""))
+                    if c.rotate:
+                        del sets, timer
                     if not c.main:
                         continue
                     if prev is not None:
                         tot["previous_ms"] += prev
                     tot["ms"] += ms
+                    tot["call_ms"] += call
                     tot["plain_ms"] += pms
                     tot["bound_ms"] += bms
                     if lms is not None:
                         tot["library_ms"] += lms
                     tot["bound_by"] = by
+                    tot["timing"] = "graph" if c.rotate else "call"
             rows.setdefault(name, {"max_abs_err": {}})
             rows[name]["max_abs_err"][str(dt)[6:]] = worst_abs
             if dt == torch.bfloat16:
@@ -796,7 +972,8 @@ def psnr(a, b):
 EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core",
                 "fused_tail": "fp32", "style_blend_dot": "cuda_core",
                 "packed_g123": "fp32", "mid_shuffle": "vec16",
-                "fused_o_branch": "fp32", "fused_modulation": "fp32"}
+                "fused_o_branch": "fp32", "fused_modulation": "fp32",
+                "in_stats": "vec16", "fused_in_mod": "vec16"}
 
 
 def zero_counts(counters):
@@ -942,7 +1119,8 @@ def serving_paths(torch, counters):
         fast = {"head_dot": "wgmma", "fused_tail": "wgmma",
                 "style_blend_dot": "tc", "style_dot_hwbm": "tc",
                 "packed_g123": "wgmma", "fused_o_branch": "wgmma",
-                "fused_modulation": "wgmma"}
+                "fused_modulation": "wgmma", "in_stats": "vec16",
+                "fused_in_mod": "vec16"}
         return {k: r for k, r in fast.items() if k in want}
 
     def x8(label, want, **net):
@@ -974,7 +1152,8 @@ def serving_paths(torch, counters):
              on_host=False,
              want={"fused_in_mod": 26, "in_stats": 26, "style_blend_dot": 2,
                    "output_stage_x8": 1},
-             want_routes=routes({"style_blend_dot"}),
+             want_routes=routes({"style_blend_dot", "in_stats",
+                                 "fused_in_mod"}),
              also32=("the chained epilogue", flagship_opt("fp32", 4, 0), 2e-4)),
     ]
     return {p["label"]: serve(torch, counters, **p)[1] for p in paths}
@@ -1021,7 +1200,9 @@ def main() -> int:
                       ("packed_chain", "conv_wgmma_kernel"),
                       ("fused_mod", "fused_mod_wgmma_kernel"),
                       ("style_dot", "style_dot_tc_kernel"),
-                      ("style_dot", "style_blend_tc_kernel")):
+                      ("style_dot", "style_blend_tc_kernel"),
+                      ("in_stats", "in_stats_vec16_kernel"),
+                      ("fused_in_mod", "in_mod_apply_vec16")):
         log(f"  {kern} ({src}): " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),
                                         kern))
 
@@ -1041,7 +1222,8 @@ def main() -> int:
             "launches_by_path": {k: p[kname] for k, p in by_path.items()},
             "max_abs_err": r["max_abs_err"]["bfloat16"],
             "max_abs_err_fp32": r["max_abs_err"]["float32"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "call_ms": r["call_ms"], "timing": r["timing"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {})})
     log(f"total {time.perf_counter() - t_start:.1f} s")

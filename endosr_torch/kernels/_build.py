@@ -53,10 +53,14 @@ SOURCES = {
         "style_dot_tc": [P, P, P, I, I, I, I, P],
         "style_blend_tc": [P, P, P, I64, I64, I64, I, P, P, I, I, I, I, I, P]},
     "in_stats": {
-        "in_stats": [I, P, I64, I64, I64, I, I, I, I, I, P, P, P]},
+        "in_stats": [I, P, I64, I64, I64, I, I, I, I, I, P, P, P],
+        "in_stats_vec16": [I, P, I64, I64, I64, I, I, I, I, I, I, P, P, P, P]},
     "fused_in_mod": {
         "fused_in_mod": [I, P, I64, I64, I64, P, I64, I64, I64, P, I64, I64,
-                         I64, I, I, I, I, I, F32, P, P, P, P]},
+                         I64, I, I, I, I, I, F32, P, P, P, P],
+        "fused_in_mod_vec16": [I, P, I64, I64, I64, P, I64, I64, I64, P, I64,
+                               I64, I64, I, I, I, I, I, I, F32, P, P, P, P,
+                               P]},
     "fused_mod": {
         "fused_modulation": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
         "fused_o_branch": [I, P, P, P, P, P, P, I, I, I, I, I, P],

@@ -1,11 +1,12 @@
 """Time the ``wgmma`` conv of ``head_dot`` or ``fused_tail`` (3×3), of
 ``packed_g123``'s stages (2×2) or of ``fused_o_branch`` /
-``fused_modulation`` at the flagship shapes, alone or against a variant of
+``fused_modulation``, or the ``vec16`` route of ``in_stats`` or
+``fused_in_mod``, at the flagship shapes, alone or against a variant of
 its source, in one process on one card.
 
     python -m endosr_torch.tools.ab_conv3x3
-        [--kernel head_dot|fused_tail|packed_chain|fused_mod]
-        [--other path/to/variant.cu] [--rounds 7]
+        [--kernel head_dot|fused_tail|packed_chain|fused_mod|in_stats|fused_in_mod]
+        [--other path/to/variant.cu] [--rounds 7] [--per PIXELS]
 
 Times of one kernel differ by a few percent between calls and cards, so two
 versions are compared only here: both are built (the variant, a copy of the
@@ -22,12 +23,22 @@ readings are the up1 and the tail chain, three stage launches each, through
 stage's weights. For ``fused_mod`` they are ``fused_o_branch`` and
 ``fused_modulation`` (B = 8, 128², N = 26, 2C = 128, K = 10) through
 ``launch_wgmma`` (which packs w2, and v), beside the warp-``mma`` route and
-the packing alone. Prints the card's name and power limit first.
+the packing alone. For ``in_stats`` and ``fused_in_mod`` ([8,128,128,64],
+γ and β channel slices of a [8,128,128,256] map) the readings are device
+time, ``chip_smoke.py``'s ``graph_ms`` (a CUDA graph of ≥ 20 launches over
+≥ 3 input sets of ≥ 100 MB in all, divided by the launches), of the ``vec16`` route
+through ``launch`` beside the ``v1`` route and the plain version (an
+``in_stats`` variant that disagrees with float64 sums, a probe that skips
+work, is timed all the same and its error printed);
+``--per`` sets the pixels a chunk of the statistics pass in place of
+``stats_plan``'s (for all of them, through ``launch``'s ``per``). Prints
+the card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import shutil
 import statistics
 import subprocess
@@ -42,16 +53,19 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("head_dot", "fused_tail",
-                                         "packed_chain", "fused_mod"),
+                                         "packed_chain", "fused_mod",
+                                         "in_stats", "fused_in_mod"),
                     default="head_dot")
     ap.add_argument("--other", type=Path, help="a variant of the kernel's .cu")
     ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--per", type=int,
+                    help="in_stats / fused_in_mod: pixels a chunk")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_conv3x3: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(_build.REPO))
-    from chip_smoke import cuda_ms
+    from chip_smoke import cuda_ms, graph_ms, rotation
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -66,12 +80,21 @@ def main(argv=None) -> int:
     try:
         _build.build_all(list(libs.values()))
         fns = {"head_dot": _head_dot, "fused_tail": _fused_tail,
-               "packed_chain": _packed_chain,
-               "fused_mod": _fused_mod}[args.kernel](torch, _build, libs)
+               "packed_chain": _packed_chain, "fused_mod": _fused_mod,
+               "in_stats": functools.partial(_in_stats, per=args.per),
+               "fused_in_mod": functools.partial(_fused_in_mod, per=args.per),
+               }[args.kernel](torch, _build, libs)
+        timer = cuda_ms
+        if isinstance(fns, tuple):      # functions of an input set
+            fns, sets = fns
+            sets = rotation(*sets)
+
+            def timer(f):
+                return graph_ms(f, sets)
         times = {k: [] for k in fns}
         for _ in range(args.rounds):
             for k, f in fns.items():
-                times[k].append(cuda_ms(f))
+                times[k].append(timer(f))
         for k, v in times.items():
             print(f"{k:30s} median {statistics.median(v):.4f} ms  min "
                   f"{min(v):.4f}  max {max(v):.4f}", flush=True)
@@ -258,6 +281,62 @@ def _fused_mod(torch, _build, libs):
     fns["w2 packing"] = lambda: fo.o_branch_pack_weights(w2)
     fns["v packing"] = lambda: fm.style_pack_v(v)
     return fns
+
+
+def _statistics_inputs(torch):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape, s=1.0, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * s
+                + mean).to(torch.bfloat16)
+
+    def one_set():
+        gb = rn(8, 128, 128, 256, s=0.3)
+        return (rn(8, 128, 128, 64, s=1.5, mean=0.5), gb[..., 64:128],
+                gb[..., 128:192])
+    return one_set
+
+
+def _in_stats(torch, _build, libs, per=None):
+    from endosr_torch.kernels import in_stats as ist
+
+    one_set = _statistics_inputs(torch)
+
+    def make():
+        return one_set()[:1]
+    first = make()
+    x = first[0]
+    ref = (x.double().sum(dim=(1, 2)), x.double().square().sum(dim=(1, 2)))
+    fns = {}
+    for tag, lib in libs.items():
+        fns[f"{tag} vec16"] = (lambda x, lib=lib:
+                               ist.launch(x, "vec16", lib=lib, per=per))
+        got = fns[f"{tag} vec16"](x)[0]
+        err = max(float((g.double() - r).abs().max() / r.abs().max())
+                  for g, r in zip(got, ref))
+        print(f"{tag} ({lib}): rel err vs float64 {err:.3e}", flush=True)
+        if not err <= 1e-5 and tag == "A":
+            raise AssertionError(f"{tag} ({lib}) disagrees with float64 sums")
+    fns["v1 route"] = lambda x: ist.launch(x, "v1", per=per)
+    fns["plain"] = ist.in_stats_plain
+    return fns, (first, make)
+
+
+def _fused_in_mod(torch, _build, libs, per=None):
+    from endosr_torch.kernels import fused_in_mod as fim
+
+    one_set = _statistics_inputs(torch)
+    first = one_set()
+    ref = fim.fused_in_mod_plain(*first)
+    fns = {}
+    for tag, lib in libs.items():
+        fns[f"{tag} vec16"] = (lambda x, g, b, lib=lib:
+                               fim.launch(x, g, b, route="vec16", lib=lib,
+                                          per=per))
+        _check(torch, f"{tag} ({lib})", fns[f"{tag} vec16"](*first)[0], ref)
+    fns["v1 route"] = lambda x, g, b: fim.launch(x, g, b, route="v1", per=per)
+    fns["plain"] = fim.fused_in_mod_plain
+    return fns, (first, one_set)
 
 
 if __name__ == "__main__":

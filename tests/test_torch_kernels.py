@@ -14,8 +14,9 @@ Also here: a wrapper given a tensor that lies on a CUDA device launches
 the kernel or raises — it never falls back to the plain version — and the
 launch and route counters stay 0 on the CPU; the rules that route
 ``head_dot``, ``fused_tail``, ``style_dot_hwbm``, ``style_blend_dot``,
-``packed_g123``, ``mid_shuffle``, ``fused_o_branch`` and
-``fused_modulation`` between their kernels; the weight arrangement of the
+``packed_g123``, ``mid_shuffle``, ``fused_o_branch``,
+``fused_modulation``, ``in_stats`` and ``fused_in_mod`` between their
+kernels; the chunk plan of the statistics kernels; the weight arrangement of the
 five ``wgmma`` routes (and of v for ``fused_modulation``'s);
 and the argument counts of the exported C functions against their
 ``ctypes`` signatures.
@@ -399,8 +400,9 @@ def test_style_dot_hwbm_matches_jax(b, m, against):
 
 # ------------------------------------------------------------------ in_stats
 
-@pytest.mark.parametrize("shape", [(2, 16, 12, 8), (1, 5, 7, 3)],
-                         ids=["even", "ragged"])
+@pytest.mark.parametrize("shape", [(2, 16, 12, 8), (1, 5, 7, 3),
+                                   (2, 8, 8, 64), (3, 13, 21, 24)],
+                         ids=["even", "ragged", "c64", "ragged_c24"])
 def test_in_stats_matches_jnp_sums(shape):
     x = _f32(_rng(13), *shape) + 0.5
     x32 = jnp.asarray(x)
@@ -411,6 +413,78 @@ def test_in_stats_matches_jnp_sums(shape):
         assert g.shape == w_.shape and g.dtype == torch.float32
         rel = float(np.abs(g.numpy() - w_).max() / np.abs(w_).max())
         assert rel <= 1e-6, f"rel {rel:.3g}"
+
+
+@pytest.mark.parametrize("b,hw", [(8, 128 * 128), (3, 13 * 21), (1, 1),
+                                  (2, 5 * 7), (1, 128 * 128), (65535, 3)],
+                         ids=["flagship", "ragged", "one_pixel", "small",
+                              "one_image", "largest_b"])
+@pytest.mark.parametrize("per_sm", [2, 4], ids=["vec16", "v1"])
+def test_stats_plan_covers_every_pixel_once(b, hw, per_sm):
+    chunks, per = t_is.stats_plan(b, hw, per_sm)
+    assert per % t_is.PLAN_STEP == 0 and 1 <= chunks < 2 ** 31
+    covered = np.zeros(hw, dtype=np.int64)
+    for k in range(chunks):
+        covered[k * per:min(hw, (k + 1) * per)] += 1
+    assert (covered == 1).all()
+    assert (chunks - 1) * per < hw        # no chunk is empty
+    # the kernel's grid: (chunks, B) blocks, 32-bit pixel indices
+    assert b <= t_is.MAX_B and chunks * per + 2048 < 2 ** 31
+    if (b, hw) == (8, 128 * 128):         # about per_sm blocks an SM of 132
+        assert (per_sm - 0.5) * 132 <= b * chunks <= (per_sm + 0.5) * 132
+
+
+@pytest.mark.parametrize("route,per_sm", [("vec16", 2), ("v1", 4)])
+@pytest.mark.parametrize("per", [None, 256, 1000], ids=["plan", "256", "1000"])
+def test_chunk_plan_takes_per_or_the_routes_plan(route, per_sm, per):
+    got = t_is.chunk_plan(8, 128 * 128, route, per)
+    if per is None:
+        assert got == t_is.stats_plan(8, 128 * 128, per_sm)
+    else:
+        chunks, p = got
+        assert p == per and (chunks - 1) * per < 128 * 128 <= chunks * per
+
+
+@pytest.mark.parametrize("dtype,c,strides,ptr,want", [
+    (torch.bfloat16, 64, (1048576, 8192, 64), 0, "vec16"),
+    (torch.float32, 64, (1048576, 8192, 64), 256, "vec16"),
+    (torch.bfloat16, 64, (4194304, 32768, 256), 128, "vec16"),
+    (torch.bfloat16, 8, (128, 32, 8), 16, "vec16"),
+    (torch.bfloat16, 256, (4096, 1024, 256), 0, "vec16"),
+    (torch.float32, 128, (2048, 512, 128), 0, "vec16"),
+    (torch.bfloat16, 24, (6825, 525, 25), 2, "v1"),
+    (torch.float32, 24, (6825, 525, 25), 4, "v1"),
+    (torch.bfloat16, 24, (6552, 504, 24), 0, "v1"),
+    (torch.bfloat16, 64, (1048576, 8192, 64), 8, "v1"),
+    (torch.bfloat16, 64, (1048576, 8192, 68), 0, "v1"),
+    (torch.bfloat16, 64, (1048580, 8192, 64), 0, "v1"),
+    (torch.bfloat16, 512, (8192, 2048, 512), 0, "v1"),
+    (torch.float32, 256, (4096, 1024, 256), 0, "v1"),
+    (torch.bfloat16, 4, (64, 16, 4), 0, "v1"),
+], ids=["bf16_c64", "fp32_c64", "bf16_channel_slice", "bf16_c8", "bf16_c256",
+        "fp32_c128", "bf16_c24_unaligned", "fp32_c24_unaligned",
+        "bf16_c24_three_vectors", "base_not_16_bytes", "column_stride",
+        "batch_stride", "bf16_c512", "fp32_c256", "bf16_c4"])
+def test_in_stats_route(dtype, c, strides, ptr, want):
+    assert t_is.in_stats_route(dtype, c, strides, ptr) == want
+
+
+_ALIGNED = (1048576, 8192, 64)
+
+
+@pytest.mark.parametrize("dtype,c,strides,ptrs,want", [
+    (torch.bfloat16, 64, (_ALIGNED, (4194304, 32768, 256), (4194304, 32768, 256)),
+     (0, 128, 256, 0), "vec16"),
+    (torch.float32, 64, (_ALIGNED,) * 3, (0, 0, 0, 0), "vec16"),
+    (torch.bfloat16, 64, (_ALIGNED,) * 3, (0, 2, 0, 0), "v1"),
+    (torch.bfloat16, 64, (_ALIGNED,) * 3, (0, 0, 0, 8), "v1"),
+    (torch.bfloat16, 64, (_ALIGNED, _ALIGNED, (1048576, 8192, 66)),
+     (0, 0, 0, 0), "v1"),
+    (torch.bfloat16, 24, ((6552, 504, 24),) * 3, (0, 0, 0, 0), "v1"),
+], ids=["bf16_channel_slices", "fp32", "gamma_unaligned", "out_unaligned",
+        "beta_column_stride", "c24"])
+def test_fused_in_mod_route(dtype, c, strides, ptrs, want):
+    assert t_fim.fused_in_mod_route(dtype, c, strides, ptrs) == want
 
 
 def test_instance_norm_kernel_stats_equal_default():
@@ -424,11 +498,14 @@ def test_instance_norm_kernel_stats_equal_default():
 
 # -------------------------------------------------------------- fused_in_mod
 
+@pytest.mark.parametrize("shape", [(2, 16, 16, 32), (2, 8, 8, 64),
+                                   (3, 13, 21, 24)],
+                         ids=["c32", "c64", "ragged_c24"])
 @pytest.mark.parametrize("against", ["pallas_interpret", "reference"])
-def test_fused_in_mod_matches_jax(against):
+def test_fused_in_mod_matches_jax(against, shape):
     rng = _rng(15)
-    x = _f32(rng, 2, 16, 16, 32) * 3.0 + 1.5
-    g, b = _f32(rng, 2, 16, 16, 32), _f32(rng, 2, 16, 16, 32)
+    x = _f32(rng, *shape) * 3.0 + 1.5
+    g, b = _f32(rng, *shape), _f32(rng, *shape)
     if against == "reference":
         want = jax_fim.instance_norm_modulate_reference(
             jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))
@@ -787,7 +864,10 @@ def _wrapper_calls():
         "style_dot_hwbm[tc]": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 90)),
                                                           c((2, 90, 32))),
         "in_stats": lambda: t_is.in_stats(c((2, 4, 4, 8))),
+        "in_stats[v1]": lambda: t_is.in_stats(c((3, 13, 21, 24))),
         "fused_in_mod": lambda: t_fim.fused_in_mod(*(c((2, 4, 4, 8)),) * 3),
+        "fused_in_mod[v1]": lambda: t_fim.fused_in_mod(
+            *(c((3, 13, 21, 24)),) * 3),
         "fused_o_branch": lambda: t_fo.fused_o_branch(
             c((2, 4, 4, 1)), *_zero_o_weights()),
         "fused_modulation": lambda: t_fm.fused_modulation(
@@ -822,7 +902,8 @@ def _zero_o_weights(c2=16):
                                   "style_blend_dot[tc]",
                                   "output_stage", "style_dot_hwbm",
                                   "style_dot_hwbm[tc]",
-                                  "in_stats", "fused_in_mod",
+                                  "in_stats", "in_stats[v1]",
+                                  "fused_in_mod", "fused_in_mod[v1]",
                                   "fused_o_branch", "fused_modulation",
                                   "fused_o_branch[wgmma]",
                                   "fused_modulation[wgmma]",
@@ -834,7 +915,8 @@ def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
                         lambda p: False)
     routed = (t_hd.head_dot, t_sd.style_dot_hwbm, t_ft.fused_tail,
               t_sd.style_blend_dot, t_pc.packed_g123, t_sm.mid_shuffle,
-              t_fo.fused_o_branch, t_fm.fused_modulation)
+              t_fo.fused_o_branch, t_fm.fused_modulation, t_is.in_stats,
+              t_fim.fused_in_mod)
     before = [dict(f.routes) for f in routed]
     # no nvcc here: the wrapper must fail to build, not run the plain version
     # (on any route of the routed kernels), and count nothing
@@ -899,6 +981,8 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     assert t_sm.mid_shuffle.routes == {"vec16": 0, "scalar": 0}
     assert t_fo.fused_o_branch.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_fm.fused_modulation.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert t_is.in_stats.routes == {"vec16": 0, "v1": 0}
+    assert t_fim.fused_in_mod.routes == {"vec16": 0, "v1": 0}
 
 
 # ------------------------------------------------------- exported C signatures
