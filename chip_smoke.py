@@ -11,8 +11,9 @@ exits non-zero):
    source, all started together, into ``build/endosr_torch/``; ``ptxas``'s
    registers, spills and static shared memory of every kernel are logged,
    those of the ``wgmma`` conv (in ``head_dot``, ``fused_tail`` and
-   ``packed_chain``), ``fused_mod_wgmma``, ``style_dot_tc`` and
-   ``style_blend_tc`` on lines of their own.
+   ``packed_chain``), ``fused_mod_wgmma``, ``style_dot_tc``,
+   ``style_blend_tc`` and the ``vec16`` kernels of ``in_stats``,
+   ``fused_in_mod`` and the output stages on lines of their own.
 3. kernels — each of the twelve kernels against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
@@ -37,16 +38,21 @@ exits non-zero):
    ``style_blend_dot``: ``tc``), which sum in another order than the plain
    versions (16-deep ``mma`` steps, 64-channel slices outermost), hence the
    same 1e-2 as every bf16 kernel; in fp32 they take the exact CUDA-core
-   routes; ``mid_shuffle`` takes ``vec16`` in both types. The route each
-   took is asserted, and the earlier route of each
+   routes; ``mid_shuffle``, ``output_stage_x8`` and ``output_stage`` take
+   ``vec16`` in both types (the output stages also ``v1`` on a ragged case:
+   every pixel one element past 16 bytes, a channel slice), and both output
+   stages are held bit-identical to their plain versions on every route
+   they can take at clamp bounds 0/1 and 0.001/0.999 (``clamp_checks``:
+   the bounds rounded to the storage type, 0.999 is 1.0 in bf16). The
+   route each took is asserted, and the earlier route of each
    (``head_dot.launch_igemm``, ``fused_tail.launch_igemm``,
    ``packed_chain.launch_igemm``, ``launch_cuda_core``,
    ``launch_blend_cuda_core``, the ``scalar`` shuffle, the ``launch_mma``
-   of ``fused_o_branch`` and ``fused_modulation``) is timed beside it
-   as ``previous_ms``. ``in_stats`` and ``fused_in_mod`` take route
-   ``vec16`` at [8,128,128,64] in both types (``in_stats`` also on a
-   channel slice of a [8,128,128,256] map), are held bit-equal over two
-   calls, launch 1 and 2 device kernels a call (``torch.profiler``) and
+   of ``fused_o_branch`` and ``fused_modulation``, the output stages'
+   ``v1``) is timed beside it as ``previous_ms``. ``in_stats`` and
+   ``fused_in_mod`` take route ``vec16`` at [8,128,128,64] in both types
+   (``in_stats`` also on a channel slice of a [8,128,128,256] map), are
+   held bit-equal over two calls, launch 1 and 2 device kernels a call (``torch.profiler``) and
    leave the ticket counters at 0 after B = 8 and then B = 3; their ``v1``
    route is ``previous_ms`` and takes a ragged case (C = 24, 13×21, every
    base one element past 16 bytes). Times: ``output_stage_x8``,
@@ -76,8 +82,9 @@ exits non-zero):
      (bf16: route ``wgmma`` on every ×8 path that runs it; fp32: ``fp32``),
      ``style_blend_dot`` 2 (bf16: route ``tc``; the fp32 request:
      ``cuda_core``), ``head_dot`` 1 (bf16: ``wgmma``; fp32: ``fp32``),
-     ``output_stage_x8`` 1 per forward; the fp32 output equals that of
-     ``preset: plain`` to ≤ 2e-4, and so does that of each of the next three;
+     ``output_stage_x8`` 1 per forward (route ``vec16``, as every output
+     stage launch of every path, bf16 and fp32); the fp32 output equals
+     that of ``preset: plain`` to ≤ 2e-4, and so does that of each of the next three;
    - the same with ``net_kw: {pallas_obranch: true}`` (hoisted trunk):
      ``fused_o_branch`` 1 (bf16: route ``wgmma``; fp32: ``fp32``),
      ``style_blend_dot`` 0, the tail as above;
@@ -272,7 +279,8 @@ def make_cases(torch, dt, gen):
                                                launch_igemm)
     from endosr_torch.kernels.in_stats import in_stats, in_stats_plain
     from endosr_torch.kernels.in_stats import launch as stats_launch
-    from endosr_torch.kernels.output_stage import (output_stage,
+    from endosr_torch.kernels.output_stage import launch as os_launch
+    from endosr_torch.kernels.output_stage import (launch_x8, output_stage,
                                                    output_stage_plain,
                                                    output_stage_x8,
                                                    output_stage_x8_plain)
@@ -298,7 +306,12 @@ def make_cases(torch, dt, gen):
     cases = {}
 
     # output_stage_x8: the ×8 forward's pre64 [256, 8, 256, 64] HBWC (the
-    # JSON row) and the ×4 unmasked forward's [8, 128, 128, 64] BHWC
+    # JSON row) and the ×4 unmasked forward's [8, 128, 128, 64] BHWC, route
+    # vec16 in both types, v1 timed as previous; a ragged case (every pixel
+    # one element past 16 bytes) on v1; each at clamp bounds 0/1 and
+    # 0.001/0.999 on every route it can take (clamp_checks)
+    vec16 = {torch.bfloat16: "vec16", torch.float32: "vec16"}
+    v1 = {torch.bfloat16: "v1", torch.float32: "v1"}
     xcs = []
     for label, shape, order, main in (("x8 hbwc", (256, B, 256, 64), "hbwc", True),
                                       ("x4 bhwc", (B, 128, 128, 64), "bhwc", False)):
@@ -308,12 +321,28 @@ def make_cases(torch, dt, gen):
             lambda p=pre64, o=order: output_stage_x8(p, 0.0, 1.0, o),
             lambda p=pre64, o=order: output_stage_x8_plain(p, 0.0, 1.0, o),
             None, nbytes(pre64) + pre64.numel() // 64 * 48 * 4, 0, main=main,
-            exact=True,
+            exact=True, route=(output_stage_x8, vec16),
+            previous=lambda p=pre64, o=order: launch_x8(p, 0.0, 1.0, o, "v1")[0],
+            extra=lambda p=pre64, o=order, n=label: clamp_checks(
+                torch, dt, f"output_stage_x8[{n}]",
+                lambda lo, hi, route: launch_x8(p, lo, hi, o, route),
+                lambda lo, hi: output_stage_x8_plain(p, lo, hi, o)),
             rotate=((pre64,), lambda s=shape: (rn(*s, s=0.6, mean=0.5),))))
+    xr = rn(3, 13, 21, 65, s=0.6, mean=0.5)[..., 1:]
+    xcs.append(KernelCase(
+        "output_stage_x8[ragged 13×21, unaligned]",
+        lambda p=xr: output_stage_x8(p, 0.001, 0.999),
+        lambda p=xr: output_stage_x8_plain(p, 0.001, 0.999), None, 0, 0,
+        main=False, exact=True, timed=False, route=(output_stage_x8, v1),
+        extra=lambda p=xr: clamp_checks(
+            torch, dt, "output_stage_x8[ragged]",
+            lambda lo, hi, route: launch_x8(p, lo, hi, "bhwc", route),
+            lambda lo, hi: output_stage_x8_plain(p, lo, hi), ("v1",))))
     cases["output_stage_x8"] = xcs
 
     # output_stage: the bucketed ×8 forward's [8,256,256,48] r=4 (main path),
-    # and the ×4 / ×2 / ×3 tails' shapes
+    # and the ×4 / ×2 / ×3 tails' shapes, route vec16, v1 as previous; a
+    # ragged case (a channel slice, pixel stride 64) on v1
     ocs = []
     for label, hw, r, main in (("x8 r=4", 256, 4, True), ("x4 r=4", 128, 4, False),
                                ("x2 r=2", 128, 2, False), ("x3 r=3", 128, 3, False)):
@@ -323,8 +352,23 @@ def make_cases(torch, dt, gen):
             lambda p=pre, r=r: output_stage(p, r, 0.0, 1.0),
             lambda p=pre, r=r: output_stage_plain(p, r, 0.0, 1.0),
             None, nbytes(pre) + B * hw * hw * 3 * r * r * 4, 0, main=main,
-            exact=True,
+            exact=True, route=(output_stage, vec16),
+            previous=lambda p=pre, r=r: os_launch(p, r, 0.0, 1.0, "v1")[0],
+            extra=lambda p=pre, r=r, n=label: clamp_checks(
+                torch, dt, f"output_stage[{n}]",
+                lambda lo, hi, route: os_launch(p, r, lo, hi, route),
+                lambda lo, hi: output_stage_plain(p, r, lo, hi)),
             rotate=((pre,), lambda s=pre.shape: (rn(*s, s=0.6, mean=0.5),))))
+    orr = rn(3, 13, 21, 64, s=0.6, mean=0.5)[..., :48]
+    ocs.append(KernelCase(
+        "output_stage[ragged 13×21, channel slice, r=4]",
+        lambda p=orr: output_stage(p, 4, 0.001, 0.999),
+        lambda p=orr: output_stage_plain(p, 4, 0.001, 0.999), None, 0, 0,
+        main=False, exact=True, timed=False, route=(output_stage, v1),
+        extra=lambda p=orr: clamp_checks(
+            torch, dt, "output_stage[ragged]",
+            lambda lo, hi, route: os_launch(p, 4, lo, hi, route),
+            lambda lo, hi: output_stage_plain(p, 4, lo, hi), ("v1",))))
     cases["output_stage"] = ocs
 
     # in_stats and fused_in_mod: one trunk activation [8,128,128,64]; γ and β
@@ -352,8 +396,6 @@ def make_cases(torch, dt, gen):
         return (x - mean) * torch.rsqrt(var + 1e-5) * (1.0 + g) + b
 
     xs, gam, bet = in_mod_inputs()
-    vec16 = {torch.bfloat16: "vec16", torch.float32: "vec16"}
-    v1 = {torch.bfloat16: "v1", torch.float32: "v1"}
     xr = ragged(3, 13, 21, 24)
     cases["in_stats"] = [
         KernelCase(
@@ -713,6 +755,27 @@ def vec16_checks(torch, dt, name, call, b_view, n_kernels):
         + ", ".join(k[:60] for k in kernels))
 
 
+CLAMPS = ((0.0, 1.0), (0.001, 0.999))
+
+
+def clamp_checks(torch, dt, name, launch, plain, routes=("vec16", "v1")):
+    """An output stage on each of ``routes`` (``launch(lo, hi, route)`` →
+    (output, route)) at the clamp bounds of ``CLAMPS``, bit-identical to
+    ``plain(lo, hi)``: the kernels round the bounds to the storage type as
+    ``torch.clamp`` does (0.999 is 1.0 in bf16)."""
+    for lo, hi in CLAMPS:
+        want = plain(lo, hi)
+        for route in routes:
+            got, took = launch(lo, hi, route)
+            if took != route or not torch.equal(got, want):
+                raise AssertionError(
+                    f"{name} {dt} route {took} at clamp {lo}, {hi}: not "
+                    f"bit-identical (max |Δ| {rel_err(got, want)[0]})")
+    log(f"{name} {str(dt)[6:]}: routes {', '.join(routes)} bit-identical to "
+        "the plain version at clamp bounds "
+        + " and ".join(f"{lo}/{hi}" for lo, hi in CLAMPS))
+
+
 SOURCES = {
     "packed_g123": ("endosr_torch/csrc/packed_chain.cu",
                     "endosr/kernels/packed_chain.py:438"),
@@ -973,7 +1036,8 @@ EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core",
                 "fused_tail": "fp32", "style_blend_dot": "cuda_core",
                 "packed_g123": "fp32", "mid_shuffle": "vec16",
                 "fused_o_branch": "fp32", "fused_modulation": "fp32",
-                "in_stats": "vec16", "fused_in_mod": "vec16"}
+                "in_stats": "vec16", "fused_in_mod": "vec16",
+                "output_stage_x8": "vec16", "output_stage": "vec16"}
 
 
 def zero_counts(counters):
@@ -1120,7 +1184,8 @@ def serving_paths(torch, counters):
                 "style_blend_dot": "tc", "style_dot_hwbm": "tc",
                 "packed_g123": "wgmma", "fused_o_branch": "wgmma",
                 "fused_modulation": "wgmma", "in_stats": "vec16",
-                "fused_in_mod": "vec16"}
+                "fused_in_mod": "vec16", "output_stage_x8": "vec16",
+                "output_stage": "vec16"}
         return {k: r for k, r in fast.items() if k in want}
 
     def x8(label, want, **net):
@@ -1144,7 +1209,7 @@ def serving_paths(torch, counters):
         dict(label="x8 bucketed", opt16=flagship_opt("bf16", bucket=None),
              opt32=flagship_opt("fp32", bucket=None), lr_hw=(120, 112),
              on_host=True, want={"style_dot_hwbm": 2, "output_stage": 1},
-             want_routes=routes({"style_dot_hwbm"}),
+             want_routes=routes({"style_dot_hwbm", "output_stage"}),
              also32=("the unbucketed forward", flagship_opt("fp32"), 1e-4)),
         dict(label="x4 fused_epilogue",
              opt16=flagship_opt("bf16", 4, None, **fused),
@@ -1153,7 +1218,7 @@ def serving_paths(torch, counters):
              want={"fused_in_mod": 26, "in_stats": 26, "style_blend_dot": 2,
                    "output_stage_x8": 1},
              want_routes=routes({"style_blend_dot", "in_stats",
-                                 "fused_in_mod"}),
+                                 "fused_in_mod", "output_stage_x8"}),
              also32=("the chained epilogue", flagship_opt("fp32", 4, 0), 2e-4)),
     ]
     return {p["label"]: serve(torch, counters, **p)[1] for p in paths}
@@ -1202,7 +1267,9 @@ def main() -> int:
                       ("style_dot", "style_dot_tc_kernel"),
                       ("style_dot", "style_blend_tc_kernel"),
                       ("in_stats", "in_stats_vec16_kernel"),
-                      ("fused_in_mod", "in_mod_apply_vec16")):
+                      ("fused_in_mod", "in_mod_apply_vec16"),
+                      ("output_stage", "output_stage_x8_vec16_kernel"),
+                      ("output_stage", "output_stage_vec16_kernel")):
         log(f"  {kern} ({src}): " + ptxas_usage((_build.BUILD / f"{src}.log").read_text(),
                                         kern))
 

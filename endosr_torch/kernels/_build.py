@@ -36,7 +36,11 @@ P, I, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SOURCES = {
     "output_stage": {
         "output_stage_x8": [I, P, I64, I64, I64, I, I, I, F32, F32, P, P],
-        "output_stage": [I, P, I64, I64, I64, I, I, I, I, I, F32, F32, P, P]},
+        "output_stage_x8_vec16": [I, P, I64, I64, I64, I, I, I, F32, F32, P,
+                                  P],
+        "output_stage": [I, P, I64, I64, I64, I, I, I, I, I, F32, F32, P, P],
+        "output_stage_vec16": [I, P, I64, I64, I64, I, I, I, I, I, F32, F32, P,
+                               P]},
     "head_dot": {
         "head_dot": [I, P, I64, I64, I64, I, I, I, I, P, P, P, P, I, P],
         "head_dot_wgmma": [P, I64, I64, I64, I, I, I, I, I, P, P, P, P, P]},

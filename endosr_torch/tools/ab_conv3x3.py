@@ -1,11 +1,13 @@
 """Time the ``wgmma`` conv of ``head_dot`` or ``fused_tail`` (3×3), of
 ``packed_g123``'s stages (2×2) or of ``fused_o_branch`` /
-``fused_modulation``, or the ``vec16`` route of ``in_stats`` or
-``fused_in_mod``, at the flagship shapes, alone or against a variant of
-its source, in one process on one card.
+``fused_modulation``, or the ``vec16`` route of ``in_stats``,
+``fused_in_mod``, ``output_stage_x8`` or ``output_stage``, at the flagship
+shapes, alone or against a variant of its source, in one process on one
+card.
 
     python -m endosr_torch.tools.ab_conv3x3
-        [--kernel head_dot|fused_tail|packed_chain|fused_mod|in_stats|fused_in_mod]
+        [--kernel head_dot|fused_tail|packed_chain|fused_mod|in_stats|
+                  fused_in_mod|output_stage_x8|output_stage]
         [--other path/to/variant.cu] [--rounds 7] [--per PIXELS]
 
 Times of one kernel differ by a few percent between calls and cards, so two
@@ -31,8 +33,14 @@ through ``launch`` beside the ``v1`` route and the plain version (an
 ``in_stats`` variant that disagrees with float64 sums, a probe that skips
 work, is timed all the same and its error printed);
 ``--per`` sets the pixels a chunk of the statistics pass in place of
-``stats_plan``'s (for all of them, through ``launch``'s ``per``). Prints
-the card's name and power limit first.
+``stats_plan``'s (for all of them, through ``launch``'s ``per``). For the
+output stages (library ``output_stage``) they are device time too, one
+table a shape: ``output_stage_x8`` at the ×8 HBWC [256,8,256,64] and the ×4
+BHWC [8,128,128,64] shape, ``output_stage`` at r = 4 [8,256,256,48] and
+the tails' r = 4, 2, 3 at 128², bf16, the ``vec16`` route of each library
+(bit-identical to the plain version at clamp bounds 0/1 and 0.001/0.999)
+beside the ``v1`` route and the plain version. Prints the card's name and
+power limit first.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("head_dot", "fused_tail",
                                          "packed_chain", "fused_mod",
-                                         "in_stats", "fused_in_mod"),
+                                         "in_stats", "fused_in_mod",
+                                         "output_stage_x8", "output_stage"),
                     default="head_dot")
     ap.add_argument("--other", type=Path, help="a variant of the kernel's .cu")
     ap.add_argument("--rounds", type=int, default=7)
@@ -70,38 +79,50 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs, variant = {"A": args.kernel}, None
+    lib = LIBRARY.get(args.kernel, args.kernel)
+    libs, variant = {"A": lib}, None
     if args.other:
         # the variant builds beside the kernel's own source and is removed again
-        variant = _build.CSRC / f"{args.kernel}_variant.cu"
+        variant = _build.CSRC / f"{lib}_variant.cu"
         shutil.copy(args.other, variant)
-        _build.SOURCES[variant.stem] = dict(_build.SOURCES[args.kernel])
+        _build.SOURCES[variant.stem] = dict(_build.SOURCES[lib])
         libs["B"] = variant.stem
     try:
         _build.build_all(list(libs.values()))
-        fns = {"head_dot": _head_dot, "fused_tail": _fused_tail,
-               "packed_chain": _packed_chain, "fused_mod": _fused_mod,
-               "in_stats": functools.partial(_in_stats, per=args.per),
-               "fused_in_mod": functools.partial(_fused_in_mod, per=args.per),
-               }[args.kernel](torch, _build, libs)
-        timer = cuda_ms
-        if isinstance(fns, tuple):      # functions of an input set
-            fns, sets = fns
-            sets = rotation(*sets)
+        made = {"head_dot": _head_dot, "fused_tail": _fused_tail,
+                "packed_chain": _packed_chain, "fused_mod": _fused_mod,
+                "in_stats": functools.partial(_in_stats, per=args.per),
+                "fused_in_mod": functools.partial(_fused_in_mod, per=args.per),
+                "output_stage_x8": _output_stage_x8,
+                "output_stage": _output_stage,
+                }[args.kernel](torch, _build, libs)
+        # one table, or one a shape; a table of functions of an input set is
+        # device time over a rotation of such sets
+        for group in made if isinstance(made, list) else [made]:
+            timer, sets = cuda_ms, None
+            if isinstance(group, tuple):
+                fns, sets = group
+                sets = rotation(*sets)
 
-            def timer(f):
-                return graph_ms(f, sets)
-        times = {k: [] for k in fns}
-        for _ in range(args.rounds):
-            for k, f in fns.items():
-                times[k].append(timer(f))
-        for k, v in times.items():
-            print(f"{k:30s} median {statistics.median(v):.4f} ms  min "
-                  f"{min(v):.4f}  max {max(v):.4f}", flush=True)
+                def timer(f, sets=sets):
+                    return graph_ms(f, sets)
+            else:
+                fns = group
+            times = {k: [] for k in fns}
+            for _ in range(args.rounds):
+                for k, f in fns.items():
+                    times[k].append(timer(f))
+            for k, v in times.items():
+                print(f"{k:30s} median {statistics.median(v):.4f} ms  min "
+                      f"{min(v):.4f}  max {max(v):.4f}", flush=True)
         return 0
     finally:
         if variant:
             variant.unlink()
+
+
+# the library a kernel name is built in, where the two differ
+LIBRARY = {"output_stage_x8": "output_stage"}
 
 
 def _operands(torch, cout):
@@ -337,6 +358,77 @@ def _fused_in_mod(torch, _build, libs, per=None):
     fns["v1 route"] = lambda x, g, b: fim.launch(x, g, b, route="v1", per=per)
     fns["plain"] = fim.fused_in_mod_plain
     return fns, (first, one_set)
+
+
+
+def _bf16_maker(torch, shape):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def make():
+        return ((torch.randn(shape, generator=gen, device="cuda") * 0.6
+                 + 0.5).to(torch.bfloat16),)
+    return make
+
+
+def _exact(torch, name, launch, plain):
+    """``launch(lo, hi)`` equals ``plain(lo, hi)`` bit for bit at both
+    pairs of clamp bounds, else raise."""
+    for lo, hi in ((0.0, 1.0), (0.001, 0.999)):
+        if not torch.equal(launch(lo, hi), plain(lo, hi)):
+            raise AssertionError(f"{name} differs from the plain version at "
+                                 f"clamp bounds {lo}, {hi}")
+    print(f"{name}: bit-identical to the plain version at clamp bounds 0/1 "
+          "and 0.001/0.999", flush=True)
+
+
+def _output_stage_x8(torch, _build, libs):
+    from endosr_torch.kernels import output_stage as os_
+
+    groups = []
+    for label, shape, order in (("x8 hbwc", (256, 8, 256, 64), "hbwc"),
+                                ("x4 bhwc", (8, 128, 128, 64), "bhwc")):
+        make = _bf16_maker(torch, shape)
+        first = make()
+        fns = {}
+        for tag, lib in libs.items():
+            def run(p, lo=0.0, hi=1.0, lib=lib, o=order):
+                return os_.launch_x8(p, lo, hi, o, "vec16", lib=lib)[0]
+            fns[f"{tag} vec16 {label}"] = run
+            _exact(torch, f"{tag} ({lib}) {label}",
+                   lambda lo, hi, run=run: run(first[0], lo, hi),
+                   lambda lo, hi, o=order: os_.output_stage_x8_plain(
+                       first[0], lo, hi, o))
+        fns[f"v1 route {label}"] = (lambda p, o=order:
+                                    os_.launch_x8(p, 0.0, 1.0, o, "v1")[0])
+        fns[f"plain {label}"] = (lambda p, o=order:
+                                 os_.output_stage_x8_plain(p, 0.0, 1.0, o))
+        groups.append((fns, (first, make)))
+    return groups
+
+
+def _output_stage(torch, _build, libs):
+    from endosr_torch.kernels import output_stage as os_
+
+    groups = []
+    for label, hw, r in (("x8 r=4", 256, 4), ("x4 r=4", 128, 4),
+                         ("x2 r=2", 128, 2), ("x3 r=3", 128, 3)):
+        make = _bf16_maker(torch, (8, hw, hw, 3 * r * r))
+        first = make()
+        fns = {}
+        for tag, lib in libs.items():
+            def run(p, lo=0.0, hi=1.0, lib=lib, r=r):
+                return os_.launch(p, r, lo, hi, "vec16", lib=lib)[0]
+            fns[f"{tag} vec16 {label}"] = run
+            _exact(torch, f"{tag} ({lib}) {label}",
+                   lambda lo, hi, run=run: run(first[0], lo, hi),
+                   lambda lo, hi, r=r: os_.output_stage_plain(first[0], r, lo,
+                                                              hi))
+        fns[f"v1 route {label}"] = (lambda p, r=r:
+                                    os_.launch(p, r, 0.0, 1.0, "v1")[0])
+        fns[f"plain {label}"] = (lambda p, r=r:
+                                 os_.output_stage_plain(p, r, 0.0, 1.0))
+        groups.append((fns, (first, make)))
+    return groups
 
 
 if __name__ == "__main__":

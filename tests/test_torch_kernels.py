@@ -3,7 +3,9 @@
 On the CPU each wrapper runs its plain PyTorch version, and so does the
 JAX function (its Pallas kernel falls back to the jnp twin off the TPU).
 Same numpy inputs into both; tolerance 1e-5 max abs, and exact for the
-pure data movement of ``output_stage_x8`` and ``output_stage``;
+pure data movement of ``output_stage_x8`` and ``output_stage`` (also in
+bf16 at clamp bounds that bf16 rounds, and ``output_stage_x8`` against its
+Pallas kernel in interpret mode);
 ``style_dot_hwbm``, ``fused_in_mod``, ``fused_o_branch`` (bf16),
 ``fused_modulation`` and ``fused_tail`` are also held against their Pallas
 kernels in interpret mode, and ``mid_shuffle`` with its gradient exactly.
@@ -15,10 +17,10 @@ the kernel or raises — it never falls back to the plain version — and the
 launch and route counters stay 0 on the CPU; the rules that route
 ``head_dot``, ``fused_tail``, ``style_dot_hwbm``, ``style_blend_dot``,
 ``packed_g123``, ``mid_shuffle``, ``fused_o_branch``,
-``fused_modulation``, ``in_stats`` and ``fused_in_mod`` between their
-kernels; the chunk plan of the statistics kernels; the weight arrangement of the
-five ``wgmma`` routes (and of v for ``fused_modulation``'s);
-and the argument counts of the exported C functions against their
+``fused_modulation``, ``in_stats``, ``fused_in_mod``, ``output_stage_x8``
+and ``output_stage`` between their kernels; the chunk plan of the
+statistics kernels; the weight arrangement of the five ``wgmma`` routes
+(and of v for ``fused_modulation``'s); and the argument counts of the exported C functions against their
 ``ctypes`` signatures.
 """
 
@@ -342,6 +344,116 @@ def test_output_stage_x8_matches_jax_twin_exactly(order):
     got = t_os.output_stage_x8(_t(pre), 0.0, 1.0, order)
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+_TIGHT = (0.001, 0.999)   # both round in bf16: 0.999 is 1.0 there
+
+
+def _typed(pre, dtype):
+    """The same values as a torch tensor and a JAX array of ``dtype``."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    return _t(pre).to(getattr(torch, dtype)), jnp.asarray(pre).astype(jdt)
+
+
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), _TIGHT], ids=["0_1", "tight"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", ["bhwc", "hbwc"])
+def test_output_stage_x8_matches_pallas_interpret_exactly(order, dtype, bounds):
+    """The Pallas kernel itself (interpret mode) at a shape it takes
+    (H % 8 == 0, W % 128 == 0), bit for bit."""
+    pre = (_rng(30).standard_normal((1, 8, 128, 64)) * 0.7
+           + 0.5).astype(np.float32)
+    if order == "hbwc":
+        pre = np.ascontiguousarray(pre.transpose(1, 0, 2, 3))
+    tp, jp = _typed(pre, dtype)
+    want = jax_os._forward_x8(jp, *bounds, order, interpret=True)
+    got = t_os.output_stage_x8(tp, *bounds, order)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", ["bhwc", "hbwc"])
+def test_output_stage_x8_rounds_clamp_bounds_as_jax_twin(order, dtype):
+    pre = (_rng(31).standard_normal((2, 4, 8, 64)) * 0.7
+           + 0.5).astype(np.float32)
+    if order == "hbwc":
+        pre = np.ascontiguousarray(pre.transpose(1, 0, 2, 3))
+    tp, jp = _typed(pre, dtype)
+    want = jax_os.output_stage_x8_reference(jp, *_TIGHT, order)
+    got = t_os.output_stage_x8(tp, *_TIGHT, order)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # bf16 clamps to the bounds rounded to bf16: 1.0 and 0.00099945…
+    top = 1.0 if dtype == "bfloat16" else np.float32(0.999)
+    assert float(got.max()) == top
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_output_stage_rounds_clamp_bounds_as_jax_twin(r, dtype):
+    pre = (_rng(32 + r).standard_normal((2, 4, 6, 3 * r * r)) * 0.7
+           + 0.5).astype(np.float32)
+    tp, jp = _typed(pre, dtype)
+    want = jax_os.output_stage_reference(jp, r, *_TIGHT)
+    got = t_os.output_stage(tp, r, *_TIGHT)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    top = 1.0 if dtype == "bfloat16" else np.float32(0.999)
+    assert float(got.max()) == top
+
+
+def _contiguous(shape):
+    return torch.empty(shape, device="meta").stride()
+
+
+_X8_HBWC = (256, 8, 256, 64)
+
+
+@pytest.mark.parametrize("dtype,shape,strides,ptr,want", [
+    (torch.bfloat16, _X8_HBWC, _contiguous(_X8_HBWC), 0, "vec16"),
+    (torch.float32, _X8_HBWC, _contiguous(_X8_HBWC), 256, "vec16"),
+    (torch.bfloat16, (128, 8, 128, 64), (8192, 1048576, 64, 1), 0, "vec16"),
+    (torch.float32, (128, 8, 128, 64), (8192, 1048576, 64, 1), 16, "vec16"),
+    (torch.bfloat16, (128, 8, 128, 64), (16384, 2097152, 128, 1), 128,
+     "vec16"),
+    (torch.bfloat16, _X8_HBWC, _contiguous(_X8_HBWC), 2, "v1"),
+    (torch.float32, _X8_HBWC, _contiguous(_X8_HBWC), 4, "v1"),
+    (torch.bfloat16, (13, 3, 21, 64), (1365, 17745, 65, 1), 2, "v1"),
+    (torch.bfloat16, (13, 3, 21, 64), (1344, 17472, 64, 1), 0, "vec16"),
+    (torch.bfloat16, (13, 3, 21, 64), (1346, 17472, 64, 1), 0, "v1"),
+    (torch.bfloat16, (300, 256, 8, 64), _contiguous((300, 256, 8, 64)), 0,
+     "v1"),
+    (torch.float16, _X8_HBWC, _contiguous(_X8_HBWC), 0, "v1"),
+], ids=["bf16_x8_hbwc", "fp32_x8_hbwc", "bf16_x4_bhwc_view", "fp32_x4_bhwc_view",
+        "bf16_channel_slice", "bf16_base_off_16_bytes", "fp32_base_off_16_bytes",
+        "bf16_pixel_stride_65", "bf16_ragged_aligned", "bf16_row_stride_odd",
+        "h_times_b_over_grid", "fp16"])
+def test_output_stage_x8_route(dtype, shape, strides, ptr, want):
+    assert t_os.output_stage_x8_route(dtype, shape, strides, ptr) == want
+
+
+@pytest.mark.parametrize("dtype,shape,r,strides,ptrs,want", [
+    (torch.bfloat16, (8, 256, 256, 48), 4, None, (0, 0), "vec16"),
+    (torch.float32, (8, 256, 256, 48), 4, None, (16, 0), "vec16"),
+    (torch.bfloat16, (8, 128, 128, 12), 2, None, (0, 0), "vec16"),
+    (torch.float32, (8, 128, 128, 12), 2, None, (0, 0), "vec16"),
+    (torch.bfloat16, (8, 128, 128, 27), 3, None, (0, 0), "vec16"),
+    (torch.float32, (2, 13, 20, 27), 3, None, (0, 0), "vec16"),
+    (torch.bfloat16, (2, 13, 20, 27), 3, None, (0, 0), "v1"),
+    (torch.float32, (2, 4, 5, 12), 2, None, (0, 0), "v1"),
+    (torch.bfloat16, (8, 256, 256, 48), 4, None, (2, 0), "v1"),
+    (torch.float32, (8, 256, 256, 48), 4, None, (0, 8), "v1"),
+    (torch.bfloat16, (3, 13, 21, 48), 4, (17472, 1344, 64, 1), (0, 0), "v1"),
+    (torch.float32, (2, 4, 8, 75), 5, None, (0, 0), "v1"),
+    (torch.float32, (1, 2, 8, 512), 4, None, (0, 0), "vec16"),
+    (torch.float32, (1, 2, 8, 528), 4, None, (0, 0), "v1"),
+    (torch.float16, (8, 256, 256, 48), 4, None, (0, 0), "v1"),
+], ids=["bf16_x8_r4", "fp32_x8_r4", "bf16_x2_r2", "fp32_x2_r2", "bf16_x3_r3",
+        "fp32_r3_w20", "bf16_r3_row_stride_not_16_bytes",
+        "fp32_r2_w5_rows_unaligned", "bf16_base_off_16_bytes",
+        "out_base_off_16_bytes", "bf16_channel_slice", "r5",
+        "fp32_span_fits", "fp32_span_too_large", "fp16"])
+def test_output_stage_route(dtype, shape, r, strides, ptrs, want):
+    strides = strides or _contiguous(shape)
+    assert t_os.output_stage_route(dtype, shape, r, strides, ptrs) == want
 
 
 def test_embed_head_channels_matches_jax_exactly():
@@ -825,15 +937,16 @@ class _CudaClaim:
     device = torch.device("cuda")
     dtype = torch.bfloat16
 
-    def __init__(self, shape):
+    def __init__(self, shape, ptr=0):
         self.shape = torch.Size(shape)
+        self.ptr = ptr
 
     def stride(self, dim=None):
         st = torch.empty(self.shape, device="meta").stride()
         return st if dim is None else st[dim]
 
     def data_ptr(self):
-        return 0
+        return self.ptr
 
 
 def _wrapper_calls():
@@ -841,6 +954,8 @@ def _wrapper_calls():
     return {
         "output_stage_x8": lambda: t_os.output_stage_x8(c((4, 2, 8, 64)),
                                                         order="hbwc"),
+        "output_stage_x8[v1]": lambda: t_os.output_stage_x8(
+            c((4, 2, 8, 64), ptr=2), order="hbwc"),
         "head_dot": lambda: t_hd.head_dot(
             c((9, 16, 2, 32)), torch.zeros(3, 3, 32, 64), torch.zeros(64), 8),
         "head_dot[wgmma]": lambda: t_hd.head_dot(
@@ -859,6 +974,8 @@ def _wrapper_calls():
             c((2, 4, 4, 90)), c((2, 90, 32)), (c((4, 4, 2, 16)),) * 2,
             torch.zeros(32)),
         "output_stage": lambda: t_os.output_stage(c((2, 4, 8, 12)), 2),
+        "output_stage[v1]": lambda: t_os.output_stage(c((2, 4, 8, 12), ptr=2),
+                                                      2),
         "style_dot_hwbm": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 9)),
                                                       c((2, 9, 32))),
         "style_dot_hwbm[tc]": lambda: t_sd.style_dot_hwbm(c((2, 4, 4, 90)),
@@ -895,12 +1012,14 @@ def _zero_o_weights(c2=16):
             torch.zeros(2, 9, c2, c2), torch.zeros(2, c2))
 
 
-@pytest.mark.parametrize("name", ["output_stage_x8", "head_dot",
+@pytest.mark.parametrize("name", ["output_stage_x8", "output_stage_x8[v1]",
+                                  "head_dot",
                                   "head_dot[wgmma]",
                                   "packed_g123", "packed_g123[wgmma]",
                                   "style_blend_dot",
                                   "style_blend_dot[tc]",
-                                  "output_stage", "style_dot_hwbm",
+                                  "output_stage", "output_stage[v1]",
+                                  "style_dot_hwbm",
                                   "style_dot_hwbm[tc]",
                                   "in_stats", "in_stats[v1]",
                                   "fused_in_mod", "fused_in_mod[v1]",
@@ -916,7 +1035,7 @@ def test_wrapper_on_cuda_tensor_raises_without_kernel(name, monkeypatch):
     routed = (t_hd.head_dot, t_sd.style_dot_hwbm, t_ft.fused_tail,
               t_sd.style_blend_dot, t_pc.packed_g123, t_sm.mid_shuffle,
               t_fo.fused_o_branch, t_fm.fused_modulation, t_is.in_stats,
-              t_fim.fused_in_mod)
+              t_fim.fused_in_mod, t_os.output_stage_x8, t_os.output_stage)
     before = [dict(f.routes) for f in routed]
     # no nvcc here: the wrapper must fail to build, not run the plain version
     # (on any route of the routed kernels), and count nothing
@@ -972,6 +1091,9 @@ def test_cpu_calls_leave_launch_counters_at_zero():
                           torch.zeros(1, 4, 4, 10, dtype=torch.bfloat16),
                           *_zero_o_weights(64)[:2], torch.zeros(2, 576, 64),
                           torch.zeros(1, 2, 90, 64), torch.zeros(2, 64))
+    t_os.output_stage_x8(torch.zeros(8, 1, 8, 64, dtype=torch.bfloat16),
+                         0.001, 0.999, "hbwc")
+    t_os.output_stage(torch.zeros(1, 4, 8, 27, dtype=torch.bfloat16), 3)
     assert [f.launches for f in fns] == before == [0] * 12
     assert t_hd.head_dot.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sd.style_dot_hwbm.routes == {"tc": 0, "cuda_core": 0}
@@ -983,6 +1105,8 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     assert t_fm.fused_modulation.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_is.in_stats.routes == {"vec16": 0, "v1": 0}
     assert t_fim.fused_in_mod.routes == {"vec16": 0, "v1": 0}
+    assert t_os.output_stage_x8.routes == {"vec16": 0, "v1": 0}
+    assert t_os.output_stage.routes == {"vec16": 0, "v1": 0}
 
 
 # ------------------------------------------------------- exported C signatures
