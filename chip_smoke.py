@@ -107,7 +107,38 @@ exits non-zero):
      the fp32 output equals that of the chained
      epilogue (``fused_epilogue: false``) to ≤ 2e-4.
 
-Prints the kernels JSON line (``launches`` summed over the paths,
+6. train — (a) the flagship training step (``models/recipes.py``: the ×8
+   YAML's ``train:`` block, L1 + dynamic SmoothL1 × 10, cosine restarts,
+   β2 0.99), bf16, batch 8 of seeded uint8 LQ 128² / GT 1024² on the card,
+   four steps with the launch counts set to 0 before and read after:
+   ``packed_g123`` 2, ``style_blend_dot`` 2, ``head_dot`` 1,
+   ``output_stage_x8`` 1 a step (routes ``wgmma``, ``tc``, ``wgmma``,
+   ``vec16``), every loss finite and step 4's below step 1's; ms a step
+   (steps 2–4, host clock, synchronised) and the peak device memory. The
+   same four steps from the same weights in fp32 and in bf16 with
+   ``preset: plain``: step 1's loss and gradients (norm-relative over all)
+   no farther from the fp32 step's than 2× plain PyTorch bf16's are.
+   (b) One fp32 step, batch 2, full width, of the default configuration
+   against ``preset: plain`` on the same weights and batch: logs ≤ 1e-5
+   relative; the conv biases before an InstanceNorm (zero true gradient)
+   ≤ 1e-7 of the largest gradient; all other gradients as one vector
+   ≤ 2e-4 norm-relative; each tensor's norm-relative difference ≤ 4× the
+   largest change that four one-ulp nudges of the plain path (LQ up and
+   down, every weight up or down at random, twice) make in that tensor,
+   + 2e-4; the updated parameters' difference over their move ≤ 4× the
+   largest nudge's (the clamp at 0, the ReLUs and the backward's
+   nondeterministic reductions move the small SEAN gradients by percents;
+   ``train_parity``). (c) Each of the nine kernels with a
+   gradient, bf16 and fp32, at the full-width shapes: every input's
+   gradient through the wrapper (kernel forward, ``*_vjp`` backward)
+   against autograd of the plain version, max |Δ| / max |ref| ≤ 1e-4 in
+   fp32 and 2⁻⁴ in bf16 (``fused_o_branch`` and ``fused_modulation``
+   follow the JAX twin's roundings); ``in_stats`` and ``fused_in_mod``
+   must raise ``NotImplementedError`` under autograd.
+
+Prints the kernels JSON line (``launches`` summed over the paths and the
+training steps, ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
+phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
 ``mid_shuffle`` is a kernel no forward calls, in the JAX package as here, so
 its count is 0 and it is held to its plain version in phase 3 only), then the ``nvidia-smi`` name/power line, then ``{"ok": true, "device":
@@ -1015,10 +1046,11 @@ def small_forwards(torch):
             pad = (0, 0, 0, 32 - w, 0, 32 - h)
             x, d, m = (F.pad(t, pad) for t in (x, d, m))
             extra = dict(valid_hw=valid, pool_mask=torch.from_numpy(pm))
-        want = cpu(x, d, m, **extra)
-        got = gpu(x.cuda(), d.cuda(), m.cuda(),
-                  **{k: v.cuda() if torch.is_tensor(v) else v
-                     for k, v in extra.items()}).cpu()
+        with torch.inference_mode():         # forwards, as serving runs them
+            want = cpu(x, d, m, **extra)
+            got = gpu(x.cuda(), d.cuda(), m.cuda(),
+                      **{k: v.cuda() if torch.is_tensor(v) else v
+                         for k, v in extra.items()}).cpu()
         s = kw["scale"]
         err = float((got - want)[:, :h * s, :w * s].abs().max())
         log(f"small DepthNet {label} fp32, kernels on the card vs plain on "
@@ -1224,6 +1256,461 @@ def serving_paths(torch, counters):
     return {p["label"]: serve(torch, counters, **p)[1] for p in paths}
 
 
+TRAIN_STEPS = 4
+TRAIN_WANT = {"packed_g123": 2, "style_blend_dot": 2, "head_dot": 1,
+              "output_stage_x8": 1}
+BF16_VS_PLAIN = 2      # × plain PyTorch bf16's own distance from the fp32 step
+GRAD_NOISE = 4         # × the plain version's own change under a one-ulp move
+GRAD_FLOOR = 2e-4      # the repo's parity bar, norm-relative
+GRAD_NREL_ALL = 2e-4    # all gradients as one vector
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
+
+
+def _before_instance_norm(name):
+    """A depth block's conv biases: an InstanceNorm follows each, so their
+    true gradient is zero and both sides hold rounding only."""
+    return name.startswith("netG.depth-residual") and name.endswith(
+        (".conv1.0.bias", ".conv2.0.bias"))
+
+
+def _grads(model):
+    """The model's gradients, copied to the host (so that keeping them does
+    not count in the step's peak device memory)."""
+    return {k: p.grad.cpu() for k, p in model.named_train_parameters()}
+
+
+def _nrel(got, want):
+    """‖got − want‖ / ‖want‖ over every tensor of two gradient dicts."""
+    num = sum(float((got[k] - w).square().sum()) for k, w in want.items())
+    den = sum(float(w.square().sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def _train_from(torch, opt, start, batch, steps):
+    """``steps`` steps of FModelDepthCond(opt) from the parameters ``start``
+    on ``batch``: (l_all a step, the first step's gradients)."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+
+    m = FModelDepthCond(opt)
+    with torch.no_grad():
+        for k, p in m.named_train_parameters():
+            p.copy_(start[k])
+    m.feed_data(batch)
+    losses, first = [], None
+    for n in range(steps):
+        losses.append(m.optimize_parameters(n)["l_all"])
+        if first is None:
+            first = _grads(m)
+    del m
+    torch.cuda.empty_cache()
+    return losses, first
+
+
+def train_flagship(torch, counters):
+    """Phase 6a: the flagship training step (bf16, batch 8, LQ 128² → GT
+    1024², the ×8 YAML's ``train:`` block), ``TRAIN_STEPS`` steps on one
+    seeded uint8 batch, the launch counts set to 0 just before and read
+    just after. Then the same steps from the same weights in fp32 and in
+    bf16 with ``preset: plain`` (no kernel): the first step's loss and
+    gradients (all tensors, norm-relative) may be ``BF16_VS_PLAIN``× as far
+    from the fp32 step's as plain PyTorch bf16's are. Returns (launches,
+    ms a step after the first, peak GiB, the bf16 readings)."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.models.recipes import x8_train_opt
+    from endosr_torch.ops.masks import depth_masks
+
+    t0 = time.perf_counter()
+    model = FModelDepthCond(x8_train_opt("bf16"))
+    log(f"[train x8] FModelDepthCond bf16 (is_train) built in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for _, p in model.named_train_parameters()):,} "
+        "trainable parameters)")
+    start = {k: p.detach().cpu() for k, p in model.named_train_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    dep = torch.rand((8, 128, 128, 1), generator=gen, device="cuda")
+    batch = {"LQ": u8(8, 128, 128, 3), "GT": u8(8, 1024, 1024, 3),
+             "Depth": dep,
+             "DepthMaskList": depth_masks(dep[..., 0], False, 10).to(
+                 torch.uint8)}
+    model.feed_data(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    losses, secs, first = [], [], None
+    for n in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        logs = model.optimize_parameters(n)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(logs["l_all"])
+        if first is None:
+            first = _grads(model)
+        log(f"[train x8] step {n + 1}: l_all {logs['l_all']:.6f} (l_pix "
+            f"{logs['l_pix']:.6f}, l_dynamic {logs['l_dynamic']:.6f}), lr "
+            f"{model.optimizer_G.param_groups[0]['lr']:.6g}, "
+            f"{secs[-1] * 1e3:.1f} ms")
+    launches = {c.__name__: c.launches for c in counters}
+    routes = {c.__name__: dict(c.routes) for c in counters
+              if hasattr(c, "routes")}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    torch.cuda.empty_cache()
+    for c in counters:
+        want = TRAIN_WANT.get(c.__name__, 0) * TRAIN_STEPS
+        if launches[c.__name__] != want:
+            raise AssertionError(f"[train x8] {c.__name__}: "
+                                 f"{launches[c.__name__]} launches in "
+                                 f"{TRAIN_STEPS} steps, want {want}")
+    fast = {"packed_g123": "wgmma", "style_blend_dot": "tc",
+            "head_dot": "wgmma", "output_stage_x8": "vec16"}
+    for name, route in fast.items():
+        took = {**dict.fromkeys(routes[name], 0), route: launches[name]}
+        if routes[name] != took:
+            raise AssertionError(f"[train x8] {name} routes {routes[name]}, "
+                                 f"want {took}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train x8] losses {losses}: not finite, or "
+                             f"step {TRAIN_STEPS}'s not below step 1's")
+    ms = sum(secs[1:]) / (len(secs) - 1) * 1e3
+    log(f"[train x8] {TRAIN_STEPS} steps, batch 8, LQ 128² → GT 1024², bf16: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f" launches, routes {', '.join(f'{k} {v}' for k, v in fast.items())}; "
+        f"{ms:.1f} ms a step (mean of steps 2–{TRAIN_STEPS}, host clock, "
+        f"synchronised); peak device memory {peak:.2f} GiB; l_all "
+        f"{losses[0]:.6f} → {losses[-1]:.6f}; {gpu_line()}")
+
+    f32_losses, f32 = _train_from(torch, x8_train_opt("fp32"), start, batch,
+                                  TRAIN_STEPS)
+    pl_losses, pl = _train_from(torch, x8_train_opt("bf16", preset="plain"),
+                                start, batch, TRAIN_STEPS)
+    bf = {"loss_rel": abs(losses[0] - f32_losses[0]) / f32_losses[0],
+          "grad_nrel": _nrel(first, f32),
+          "plain_loss_rel": abs(pl_losses[0] - f32_losses[0]) / f32_losses[0],
+          "plain_grad_nrel": _nrel(pl, f32)}
+    per = sorted(((float((first[k] - w).norm() / w.norm().clamp_min(1e-30)),
+                   k) for k, w in f32.items() if not _before_instance_norm(k)),
+                 reverse=True)
+    log(f"[train x8] l_all a step — bf16 kernels {losses}, fp32 {f32_losses}, "
+        f"bf16 preset: plain {pl_losses}. Step 1 against fp32: loss "
+        f"{bf['loss_rel']:.3g} relative (plain bf16 {bf['plain_loss_rel']:.3g}), "
+        f"gradients {bf['grad_nrel']:.3g} norm-relative (plain bf16 "
+        f"{bf['plain_grad_nrel']:.3g}; tol {BF16_VS_PLAIN}× plain bf16's); "
+        "worst tensors " + ", ".join(f"{k} {e:.3g}" for e, k in per[:4]))
+    for what in ("loss_rel", "grad_nrel"):
+        if not bf[what] <= BF16_VS_PLAIN * bf[f"plain_{what}"]:
+            raise AssertionError(
+                f"[train x8] bf16 step 1 {what} against fp32 {bf[what]:.3g} > "
+                f"{BF16_VS_PLAIN}× plain bf16's {bf[f'plain_{what}']:.3g}")
+    bf.update(fp32_losses=f32_losses, plain_bf16_losses=pl_losses)
+    return launches, ms, peak, bf
+
+
+def _nudge_weights(torch, start, seed):
+    """``start`` with every parameter moved one fp32 ulp up or down (a
+    seeded random sign each)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for k, p in start.items():
+        up = torch.rand(p.shape, generator=gen, device=p.device) < 0.5
+        out[k] = torch.where(up, torch.nextafter(p, p + 1.0),
+                             torch.nextafter(p, p - 1.0))
+    return out
+
+
+def parity_runs(torch):
+    """Phase 6b's steps: one fp32 step (batch 2, full width) of the default
+    configuration and of ``preset: plain`` on the same weights and batch,
+    then four of ``preset: plain`` nudged by one fp32 ulp: LQ up, LQ down,
+    every weight up or down at random (two draws). Each: logs, gradients,
+    start and updated parameters, which output pixels were clamped."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond, u8_cast
+    from endosr_torch.models.recipes import x8_train_opt
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dep = torch.rand((2, 128, 128, 1), generator=gen, device="cuda")
+    lq = torch.rand((2, 128, 128, 3), generator=gen, device="cuda")
+    batch = {"LQ": lq,
+             "GT": torch.rand((2, 1024, 1024, 3), generator=gen,
+                              device="cuda"),
+             "Depth": dep,
+             # drawn per bin (with one-hot bins the SEAN style gradients
+             # are sums that cancel to ~1e-6 of the largest)
+             "DepthMaskList": (torch.rand((2, 128, 128, 10), generator=gen,
+                                          device="cuda") > 0.6).float()}
+    runs, start = {}, None
+    for label, net, feed, seed in (
+            ("kernels", {}, batch, None),
+            ("plain", {"preset": "plain"}, batch, None),
+            ("LQ + 1 ulp", {"preset": "plain"},
+             dict(batch, LQ=torch.nextafter(lq, lq + 1.0)), None),
+            ("LQ - 1 ulp", {"preset": "plain"},
+             dict(batch, LQ=torch.nextafter(lq, lq - 1.0)), None),
+            ("weights ± 1 ulp (a)", {"preset": "plain"}, batch, 7),
+            ("weights ± 1 ulp (b)", {"preset": "plain"}, batch, 8)):
+        m = FModelDepthCond(x8_train_opt("fp32", **net))
+        if start is None:
+            start = {k: p.detach().clone()
+                     for k, p in m.named_train_parameters()}
+        w0 = start if seed is None else _nudge_weights(torch, start, seed)
+        with torch.no_grad():
+            for k, p in m.named_train_parameters():
+                p.copy_(w0[k])
+            sr = m.netG(feed["LQ"], feed["Depth"],
+                        u8_cast(feed["DepthMaskList"]))
+        m.feed_data(feed)
+        logs = m.optimize_parameters()
+        torch.cuda.synchronize()
+        runs[label] = dict(
+            logs=logs, start=w0, clamped=(sr == 0) | (sr == 1), grads=_grads(m),
+            params={k: p.detach().clone()
+                    for k, p in m.named_train_parameters()})
+        del m, sr
+        torch.cuda.empty_cache()
+    return runs
+
+
+def train_parity(torch):
+    """Phase 6b: the default configuration's fp32 step against ``preset:
+    plain``'s (``parity_runs``): the logs, every gradient and the updated
+    parameters. The output is clamped to [0, 1] and, at random weights,
+    mostly near 0, so a pixel whose pre-clamp value the two forwards (≤
+    5.2e-7 apart) put on two sides of 0 passes its gradient in one and not
+    in the other; ReLUs do the same inside, and the small SEAN gradients
+    (sums that cancel) move most. The yardstick of each tensor: the largest
+    change of its gradient in the plain path itself under the four one-ulp
+    nudges. Each tensor's norm-relative difference may be ``GRAD_NOISE``×
+    that plus ``GRAD_FLOOR``; all gradients together ``GRAD_NREL_ALL``; the
+    updated parameters ``GRAD_NOISE``× the largest nudge's change (both as
+    the norm of the difference over the norm of the plain step's move)."""
+    runs = parity_runs(torch)
+    k_, p_ = runs.pop("kernels"), runs.pop("plain")
+    fails = []
+    if any(not torch.equal(k_["start"][k], p_["start"][k]) for k in k_["start"]):
+        fails.append("the two models did not start from the same weights")
+    worst_log = max(abs(k_["logs"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in p_["logs"].items())
+    if sorted(k_["logs"]) != sorted(p_["logs"]) or not worst_log <= 1e-5:
+        fails.append(f"logs differ: {worst_log:.3g} relative")
+    flips = int((k_["clamped"] ^ p_["clamped"]).sum())
+    flips_n = {lab: int((r["clamped"] ^ p_["clamped"]).sum())
+               for lab, r in runs.items()}
+    gp = p_["grads"]
+    top = max(float(g.abs().max()) for g in gp.values())
+    rows, num, den = [], 0.0, 0.0
+    for k, ref in gp.items():
+        d = k_["grads"][k] - ref
+        if _before_instance_norm(k):
+            worst = max(float(ref.abs().max()),
+                        float(k_["grads"][k].abs().max()))
+            if not worst <= 1e-7 * top:
+                fails.append(f"{k}: |g| {worst:.3g} > 1e-7 of the largest")
+            continue
+        num += float(d.square().sum())
+        den += float(ref.square().sum())
+        norm = float(ref.norm().clamp_min(1e-30))
+        err = float(d.norm()) / norm
+        noise = max(float((r["grads"][k] - ref).norm()) / norm
+                    for r in runs.values())
+        tol = GRAD_NOISE * noise + GRAD_FLOOR
+        rows.append((err / tol, err, noise, k))
+        if not err <= tol:
+            fails.append(f"{k}: gradient norm-relative {err:.3g} > "
+                         f"{GRAD_NOISE}× its one-ulp change {noise:.3g} + "
+                         f"{GRAD_FLOOR:g}")
+    rows.sort(reverse=True)
+    nrel_all = (num / den) ** 0.5
+    if not nrel_all <= GRAD_NREL_ALL:
+        fails.append(f"all gradients: norm-relative {nrel_all:.3g} > "
+                     f"{GRAD_NREL_ALL}")
+
+    def apart(a):
+        num = sum(float((a["params"][k] - p_["params"][k]).square().sum())
+                  for k in gp)
+        den = sum(float((p_["params"][k] - p_["start"][k]).square().sum())
+                  for k in gp)
+        return (num / den) ** 0.5
+
+    prel = apart(k_)
+    prel_n = max(apart(r) for r in runs.values())
+    if not prel <= GRAD_NOISE * prel_n:
+        fails.append(f"updated parameters {prel:.3g} of the move apart, > "
+                     f"{GRAD_NOISE}× the largest one-ulp change {prel_n:.3g}")
+    log(f"[train parity] fp32 batch 2 full width, default vs preset: plain: "
+        f"logs ≤ {worst_log:.3g} relative (tol 1e-5); output pixels clamped "
+        f"in one and not the other: {flips} (plain vs plain nudged: "
+        + ", ".join(f"{lab} {n}" for lab, n in flips_n.items())
+        + f"); gradients: all norm-relative {nrel_all:.3g} (tol "
+        f"{GRAD_NREL_ALL:g}); per tensor (norm-relative, tol {GRAD_NOISE}× "
+        f"its largest one-ulp change + {GRAD_FLOOR:g}), nearest the bound: "
+        + ", ".join(f"{k} {e:.3g} (one-ulp {n:.3g}, {q:.2f} of tol)"
+                    for q, e, n, k in rows[:8])
+        + f" ({len(rows)} tensors, largest difference "
+        f"{max(r[1] for r in rows):.3g}); updated parameters {prel:.3g} of "
+        f"the move apart (largest one-ulp change {prel_n:.3g})")
+    if fails:
+        raise AssertionError("[train parity] " + "; ".join(fails))
+    return {"grad_nrel": nrel_all, "grad_nrel_worst": max(r[1] for r in rows),
+            "grad_worst_of_tol": rows[0][0], "params_rel": prel,
+            "logs_rel": worst_log, "clamp_flips": flips}
+
+
+def grad_cases(torch, dt, gen):
+    """The nine kernels with a gradient at the shapes the full-width ×8
+    forwards give them (``make_cases``' main shapes): (name, the wrapper
+    on leaf tensors, its plain version on them, the leaves). An HWNC
+    operand is a view of a BHWC leaf, as in the forwards."""
+    from endosr_torch.kernels.fused_mod import (fused_modulation,
+                                                fused_modulation_plain)
+    from endosr_torch.kernels.fused_obranch import (fused_o_branch,
+                                                    fused_o_branch_plain)
+    from endosr_torch.kernels.fused_tail import fused_tail, fused_tail_plain
+    from endosr_torch.kernels.head_dot import head_dot, head_dot_plain
+    from endosr_torch.kernels.output_stage import (output_stage,
+                                                   output_stage_plain,
+                                                   output_stage_x8,
+                                                   output_stage_x8_plain)
+    from endosr_torch.kernels.packed_chain import packed_g123, packed_g123_plain
+    from endosr_torch.kernels.style_dot import (style_blend_dot,
+                                                style_blend_plain,
+                                                style_dot_hwbm, style_dot_plain)
+
+    def rn(*shape, s=1.0, mean=0.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device="cuda") * s
+                + mean).to(dtype)
+
+    def hwnc(t):
+        return t.permute(1, 2, 0, 3)
+
+    B = 8
+    cases = []
+    for label, xshape, cin4, phases in (("up1", (B, 128, 128, 256), 256, False),
+                                        ("tail", (B, 129, 129, 512), 128, True)):
+        leaves = [rn(*xshape, s=0.5), rn(2, 2, cin4, 128, s=0.03), rn(128, s=0.1),
+                  rn(2, 2, 128, 128, s=0.04), rn(128, s=0.1),
+                  rn(2, 2, 128, 128, s=0.04), rn(128, s=0.1)]
+        if phases:
+            leaves.append(rn(cin4, s=0.1))
+        cases.append((
+            f"packed_g123[{label}]",
+            lambda x, *a, f=packed_g123, ph=phases: f(
+                hwnc(x), *a[:6], True, a[6] if ph else None, ph),
+            lambda x, *a, f=packed_g123_plain, ph=phases: f(
+                hwnc(x), *a[:6], True, a[6] if ph else None, ph),
+            leaves))
+    m = 7 * 2 * 128
+    blend = [(torch.rand((B, 128, 128, 90), generator=gen, device="cuda")
+              > 0.8).to(dt), rn(B, 90, m, s=0.05),
+             *[rn(B, 128, 128, 128, s=0.3) for _ in range(14)], rn(m, s=0.1)]
+    cases.append((
+        "style_blend_dot[M=1792]",
+        lambda s, v, *r: style_blend_dot(s, v, tuple(map(hwnc, r[:-1])), r[-1]),
+        lambda s, v, *r: style_blend_plain(s, v, tuple(map(hwnc, r[:-1])),
+                                           r[-1]),
+        blend))
+    cases.append(("style_dot_hwbm[M=1792]", style_dot_hwbm, style_dot_plain,
+                  blend[:2]))
+    head = [rn(B, 257, 257, 512, s=0.5), rn(3, 3, 512, 64, s=0.02),
+            rn(64, s=0.1, dtype=torch.float32), rn(512, s=0.1)]
+    cases.append((
+        "head_dot",
+        lambda g4, w, b, pb: head_dot(hwnc(g4), w, b, 256, pb),
+        lambda g4, w, b, pb: head_dot_plain(hwnc(g4), w, b, 256, pb), head))
+    pre64 = rn(256, B, 256, 64, s=0.6, mean=0.5)
+    cases.append((
+        "output_stage_x8[x8 hbwc]",
+        lambda p: output_stage_x8(p, 0.0, 1.0, "hbwc"),
+        lambda p: output_stage_x8_plain(p, 0.0, 1.0, "hbwc"), [pre64]))
+    cases.append((
+        "output_stage[x8 r=4]", lambda p: output_stage(p, 4, 0.0, 1.0),
+        lambda p: output_stage_plain(p, 4, 0.0, 1.0),
+        [rn(B, 256, 256, 48, s=0.6, mean=0.5)]))
+    d = torch.rand((B, 128, 128, 1), generator=gen, device="cuda").to(dt)
+    o = [d, rn(26, 9, 128, s=0.3), rn(26, 128, s=0.1),
+         rn(26, 9, 128, 128, s=1.0 / math.sqrt(9 * 128)), rn(26, 128, s=0.1)]
+    cases.append(("fused_o_branch", fused_o_branch, fused_o_branch_plain, o))
+    mask = (torch.rand((B, 128, 128, 10), generator=gen, device="cuda")
+            > 0.8).to(dt)
+    cases.append((
+        "fused_modulation", fused_modulation, fused_modulation_plain,
+        [d, mask, o[1], o[2], o[3].reshape(26, 9 * 128, 128),
+         rn(B, 26, 90, 128, s=0.05), o[4]]))
+    tail = [rn(B, 257, 257, 512, s=0.5), rn(3, 3, 512, 48, s=0.01),
+            rn(48, s=0.1, mean=0.5, dtype=torch.float32), rn(512, s=0.1)]
+    cases.append((
+        "fused_tail",
+        lambda g4, w, b, pb: fused_tail(hwnc(g4), w, b, 0.0, 1.0, "hwbc", 256,
+                                        pb),
+        lambda g4, w, b, pb: fused_tail_plain(hwnc(g4), w, b, 0.0, 1.0, "hwbc",
+                                              256, pb), tail))
+    return cases
+
+
+def kernel_gradients(torch, counters):
+    """Phase 6c: each of the nine kernels with a gradient, bf16 and fp32,
+    at the full-width shapes: the gradient of every input through the
+    wrapper (the kernel's forward, ``*_vjp`` backward) against autograd
+    of its plain version, max |Δ| / max |ref| ≤ ``GRAD_TOL``; and the two
+    kernels without one raise under autograd. Returns {kernel: {dtype:
+    worst relative error}}."""
+    from endosr_torch.kernels.fused_in_mod import fused_in_mod
+    from endosr_torch.kernels.in_stats import in_stats
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        tol = GRAD_TOL[str(dt)[6:]]
+        for name, call, plain, inputs in grad_cases(torch, dt, gen):
+            kernel = name.split("[")[0]
+            counter = next(c for c in counters if c.__name__ == kernel)
+            before = counter.launches
+
+            def grads(fn):
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in inputs]
+                out = fn(*leaves)
+                g = torch.randn(out.shape, generator=torch.Generator(
+                    device="cuda").manual_seed(6), device="cuda").to(out.dtype)
+                got = torch.autograd.grad(out, leaves, g, allow_unused=True)
+                return [torch.zeros_like(t) if a is None else a
+                        for a, t in zip(got, inputs)]
+
+            got = grads(call)
+            torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise AssertionError(f"{name} {dt}: the wrapper launched "
+                                     f"{counter.launches - before} kernels")
+            want = grads(plain)
+            errs = [rel_err(a, b)[1] for a, b in zip(got, want)]
+            del got, want
+            log(f"{name} gradient {str(dt)[6:]}: max |Δ| / max |ref| per "
+                "input " + ", ".join(f"{e:.2e}" for e in errs)
+                + f" (tol {tol:g})")
+            if not max(errs) <= tol:
+                raise AssertionError(f"{name} gradient {dt}: {max(errs)} > {tol}")
+            row = worst.setdefault(kernel, {})
+            row[str(dt)[6:]] = max(row.get(str(dt)[6:], 0.0), max(errs))
+        torch.cuda.empty_cache()
+    x = torch.rand((2, 16, 16, 64), device="cuda", requires_grad=True)
+    for name, fn, field in (("in_stats", lambda: in_stats(x), "in_stats"),
+                            ("fused_in_mod", lambda: fused_in_mod(x, x, x),
+                             "fused_epilogue")):
+        try:
+            fn()
+        except NotImplementedError as e:
+            if field not in str(e):
+                raise AssertionError(f"{name}: refused without naming "
+                                     f"{field}: {e}") from e
+            log(f"{name} under autograd on CUDA: NotImplementedError ({e})")
+        else:
+            raise AssertionError(f"{name} ran under autograd on CUDA")
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -1279,10 +1766,24 @@ def main() -> int:
                 output_stage, style_dot_hwbm, fused_in_mod, in_stats,
                 fused_o_branch, fused_modulation, fused_tail, mid_shuffle]
     by_path = serving_paths(torch, counters)
+    by_path["train x8"], train_ms, train_peak, bf16 = train_flagship(
+        torch, counters)
+    parity = train_parity(torch)
+    grads = kernel_gradients(torch, counters)
+    log(f"[train] summary: {json.dumps({'ms_per_step': train_ms, 'peak_gib': train_peak, 'bf16': bf16, **parity})}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():
         r = rows[kname]
+        if kname in grads:
+            grad = {"grad_checked": True, "grad": "*_vjp",
+                    "grad_max_rel_err": grads[kname]}
+        elif kname == "mid_shuffle":     # phase 3: bit-identical
+            grad = {"grad_checked": True, "grad": "un-shuffle kernel",
+                    "grad_max_rel_err": {"float32": 0.0, "bfloat16": 0.0}}
+        else:
+            grad = {"grad_checked": True, "grad": "none: raises under "
+                    "autograd on CUDA", "grad_max_rel_err": None}
         out.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
             "launches": sum(p[kname] for p in by_path.values()),
@@ -1292,7 +1793,8 @@ def main() -> int:
             "ms": r["ms"], "call_ms": r["call_ms"], "timing": r["timing"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {})})
+            **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
+            **grad})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(gpu)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import refuse_grad
 from endosr_torch.kernels.in_stats import (MAX_B, chunk_plan,
                                            in_stats_route, tickets)
 
@@ -102,9 +103,13 @@ def fused_in_mod(x, gamma, beta, eps: float = 1e-5):
     """IN(x)·(1+γ)+β for NHWC ``x`` and same-shape γ, β → x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernels :func:`fused_in_mod_route` names (and raises if it cannot)."""
+    kernels :func:`fused_in_mod_route` names (and raises if it cannot).
+    Neither has a gradient: on CUDA under autograd it raises
+    ``NotImplementedError`` (the JAX kernel has none on the TPU)."""
     if x.device.type == "cpu":
         return fused_in_mod_plain(x, gamma, beta, eps)
+    refuse_grad("fused_in_mod", "net_kw: {fused_epilogue: true}",
+                (x, gamma, beta))
     out, route = launch(x, gamma, beta, eps)
     fused_in_mod.launches += 1
     fused_in_mod.routes[route] += 1

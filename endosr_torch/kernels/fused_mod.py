@@ -35,14 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.kernels.fused_obranch import (acc_dtype, check_o_operands,
+                                                conv1_twin,
                                                 fused_o_branch_route,
                                                 grouped_w2, o_actv_plain,
-                                                o_branch_pack_weights)
+                                                o_branch_pack_weights,
+                                                promoted)
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["fused_modulation", "fused_modulation_plain",
-           "fused_modulation_route", "style_pack_index", "style_pack_v",
+           "fused_modulation_route", "fused_modulation_twin",
+           "fused_modulation_vjp", "style_pack_index", "style_pack_v",
            "style_unpack_v", "launch_mma", "launch_wgmma"]
 
 
@@ -52,19 +56,55 @@ def fused_modulation_plain(d, mask, wm, bm, w2, v, bias, out_dtype=None):
     Operands are rounded to the storage type; both products and the bias
     add run in the accumulation type, with one rounding at the end."""
     n, _, c2 = wm.shape
-    b, h, w, k = mask.shape
+    b, h, w, _ = mask.shape
     dt = out_dtype or d.dtype
     ct = acc_dtype(dt)
     actv = o_actv_plain(d, wm, bm, dt).to(ct)
     o = F.conv2d(actv.permute(0, 3, 1, 2),
                  grouped_w2(w2.to(dt).to(ct), n, c2), padding=1, groups=n)
-    mp = F.pad(mask.to(dt).to(ct), (0, 0, 1, 1, 1, 1))
-    shifted = torch.cat([mp[:, dy:dy + h, dx:dx + w]
-                         for dy in range(3) for dx in range(3)], dim=-1)
-    style = torch.einsum("bhwj,bnjc->bhwnc", shifted, v.to(dt).to(ct))
+    style = torch.einsum("bhwj,bnjc->bhwnc", _shifted(mask.to(dt).to(ct)),
+                         v.to(dt).to(ct))
     out = (o.permute(0, 2, 3, 1) + style.reshape(b, h, w, n * c2)
            + bias.to(dt).to(ct).reshape(-1))
     return out.to(dt)
+
+
+def _shifted(mask):
+    """The 9 shifted copies of ``mask`` [B,H,W,K] → [B,H,W,9K], zero
+    outside, tap-major."""
+    h, w = mask.shape[1], mask.shape[2]
+    mp = F.pad(mask, (0, 0, 1, 1, 1, 1))
+    return torch.cat([mp[:, dy:dy + h, dx:dx + w]
+                      for dy in range(3) for dx in range(3)], dim=-1)
+
+
+def fused_modulation_twin(d, mask, wm, bm, w2, v, bias, out_dtype=None):
+    """The JAX twin's op order (``fused_mod.py:40``), lowered as convs:
+    conv1 + bias + ReLU, conv2 and the style product each in its operands'
+    promoted type, then (conv2 + style) + bias, rounded to the output type
+    once. In fp32 it is :func:`fused_modulation_plain`; in bf16 it rounds
+    where the twin does (after each product and add), where the plain
+    version (as the kernel) sums in fp32 and rounds once."""
+    n, _, c2 = wm.shape
+    b, h, w, _ = mask.shape
+    dt = out_dtype or d.dtype
+    a_, w_ = promoted(conv1_twin(d, wm, bm), w2)
+    o = F.conv2d(a_, grouped_w2(w_, n, c2), padding=1, groups=n)
+    s_, v_ = promoted(_shifted(mask), v)
+    style = torch.einsum("bhwj,bnjc->bhwnc", s_, v_).reshape(b, h, w, n * c2)
+    o, style = promoted(o.permute(0, 2, 3, 1), style)
+    out, b_ = promoted(o + style, bias)
+    return (out + b_.reshape(-1)).to(dt)
+
+
+def fused_modulation_vjp(d, mask, wm, bm, w2, v, bias, g, out_dtype=None):
+    """The backward of :func:`fused_modulation` (the JAX ``_bwd``,
+    ``fused_mod.py:196-202``): the VJP of the twin
+    (:func:`fused_modulation_twin`). Returns the gradients of (d, mask,
+    wm, bm, w2, v, bias)."""
+    return twin_vjp(
+        lambda *a: fused_modulation_twin(*a, out_dtype=out_dtype),
+        (d, mask, wm, bm, w2, v, bias), g)
 
 
 def fused_modulation_route(dtype, c2, k, ptrs):
@@ -159,7 +199,14 @@ def fused_modulation(d, mask, wm, bm, w2, v, bias, out_dtype=None):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`fused_modulation_route` names (and raises if it
-    cannot)."""
+    cannot). Under autograd the backward is :func:`fused_modulation_vjp`."""
+    return differentiable(
+        lambda *a: _forward(*a, out_dtype),
+        lambda saved, g: fused_modulation_vjp(*saved, g, out_dtype),
+        (d, mask, wm, bm, w2, v, bias))
+
+
+def _forward(d, mask, wm, bm, w2, v, bias, out_dtype):
     if d.device.type == "cpu":
         return fused_modulation_plain(d, mask, wm, bm, w2, v, bias, out_dtype)
     c2 = check_o_operands(d, wm, bm, w2, bias)[4]

@@ -40,9 +40,11 @@ import torch
 import torch.nn.functional as F
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["fused_o_branch", "fused_o_branch_plain", "fused_o_branch_route",
+           "fused_o_branch_twin", "fused_o_branch_vjp", "promoted",
            "o_actv_plain", "acc_dtype", "grouped_w2", "check_o_operands",
            "o_branch_pack_index", "o_branch_pack_weights",
            "o_branch_unpack_weights", "launch_mma", "launch_wgmma"]
@@ -80,6 +82,50 @@ def fused_o_branch_plain(d, wm, bm, w2, b2, out_dtype=None):
     ob = F.conv2d(actv.permute(0, 3, 1, 2), grouped_w2(w2.to(dt), n, c2),
                   padding=1, groups=n)
     return ob.permute(0, 2, 3, 1) + b2.to(dt).reshape(-1)
+
+
+def promoted(a, b):
+    """``a`` and ``b`` in their promoted type, as a jnp op between them
+    computes."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t), b.to(t)
+
+
+def conv1_twin(d, wm, bm):
+    """relu(conv3×3(d; wm_n) + bm_n) of all N instances → [B,N·2C,H,W]
+    (NCHW) in the JAX twin's types: the conv in d and wm's promoted type,
+    the bias add in that and bm's."""
+    n, _, c2 = wm.shape
+    d_, w_ = promoted(d, wm)
+    c1 = F.conv2d(d_.permute(0, 3, 1, 2),
+                  w_.permute(0, 2, 1).reshape(n * c2, 1, 3, 3), padding=1)
+    c1, b_ = promoted(c1, bm)
+    return torch.relu(c1 + b_.reshape(1, -1, 1, 1))
+
+
+def fused_o_branch_twin(d, wm, bm, w2, b2, out_dtype=None):
+    """The JAX twin's op order (``fused_obranch.py:51``), lowered as convs:
+    conv1 + bias + ReLU in the operands' promoted types, rounded to the
+    output type; conv2 in the promoted type, plus the bias, rounded again.
+    In fp32 it is :func:`fused_o_branch_plain`; in bf16 it rounds where the
+    twin does, which the plain version (as the kernel) does not."""
+    n, _, c2 = wm.shape
+    dt = out_dtype or d.dtype
+    actv = conv1_twin(d, wm, bm).to(dt)
+    a_, w_ = promoted(actv, w2)
+    ob, b_ = promoted(F.conv2d(a_, grouped_w2(w_, n, c2), padding=1,
+                               groups=n), b2)
+    return (ob + b_.reshape(1, -1, 1, 1)).permute(0, 2, 3, 1).to(dt)
+
+
+def fused_o_branch_vjp(d, wm, bm, w2, b2, g, out_dtype=None):
+    """The backward of :func:`fused_o_branch` (the JAX ``_bwd``,
+    ``fused_obranch.py:179-185``): the VJP of the twin
+    (:func:`fused_o_branch_twin`). Returns the gradients of (d, wm, bm,
+    w2, b2)."""
+    return twin_vjp(
+        lambda *a: fused_o_branch_twin(*a, out_dtype=out_dtype),
+        (d, wm, bm, w2, b2), g)
 
 
 def check_o_operands(d, wm, bm, w2, b2):
@@ -187,7 +233,15 @@ def fused_o_branch(d, wm, bm, w2, b2, out_dtype=None):
     [B,H,W,N·2C] in ``out_dtype`` (default ``d.dtype``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`fused_o_branch_route` names (and raises if it cannot)."""
+    kernel :func:`fused_o_branch_route` names (and raises if it cannot).
+    Under autograd the backward is :func:`fused_o_branch_vjp`."""
+    return differentiable(
+        lambda *a: _forward(*a, out_dtype),
+        lambda saved, g: fused_o_branch_vjp(*saved, g, out_dtype),
+        (d, wm, bm, w2, b2))
+
+
+def _forward(d, wm, bm, w2, b2, out_dtype):
     if d.device.type == "cpu":
         return fused_o_branch_plain(d, wm, bm, w2, b2, out_dtype)
     c2 = check_o_operands(d, wm, bm, w2, b2)[4]

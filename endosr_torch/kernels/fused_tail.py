@@ -43,12 +43,14 @@ import numpy as np
 import torch
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.kernels.head_dot import wgmma_pack_index
 from endosr_torch.kernels.output_stage import output_stage_plain
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["fused_tail", "fused_tail_plain", "fused_tail_route",
+           "fused_tail_vjp",
            "fused_tail_pack_weights", "fused_tail_unpack_weights",
            "launch_igemm", "launch_wgmma"]
 
@@ -189,7 +191,28 @@ def fused_tail(g4, wh, bh, clamp_min=0.0, clamp_max=1.0, layout="bhwc",
     12·wout] fp32 (``wout`` defaults to Hp−1; Wc > wout).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`fused_tail_route` names (and raises if it cannot)."""
+    kernel :func:`fused_tail_route` names (and raises if it cannot).
+    Under autograd the backward is :func:`fused_tail_vjp`."""
+    return differentiable(
+        lambda a, w, b, pb: _forward(a, w, b, clamp_min, clamp_max, layout,
+                                     wout, pb),
+        lambda saved, g: fused_tail_vjp(*saved, g, clamp_min, clamp_max,
+                                        layout, wout),
+        (g4, wh, bh, pre_bias))
+
+
+def fused_tail_vjp(g4, wh, bh, pre_bias, g, clamp_min=0.0, clamp_max=1.0,
+                   layout="bhwc", wout=None):
+    """The backward of :func:`fused_tail` (the JAX ``_bwd``,
+    ``fused_tail.py:271-283``): the VJP of the plain version at the saved
+    inputs. Returns the gradients of (g4, wh, bh, pre_bias)."""
+    return twin_vjp(
+        lambda a, w, b, pb: fused_tail_plain(a, w, b, clamp_min, clamp_max,
+                                             layout, wout, pb),
+        (g4, wh, bh, pre_bias), g)
+
+
+def _forward(g4, wh, bh, clamp_min, clamp_max, layout, wout, pre_bias):
     if g4.device.type == "cpu":
         return fused_tail_plain(g4, wh, bh, clamp_min, clamp_max, layout, wout,
                                 pre_bias)

@@ -31,11 +31,13 @@ import numpy as np
 import torch
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["head_dot", "head_dot_plain", "head_dot_route",
-           "head_dot_pack_weights", "head_dot_unpack_weights", "launch_igemm",
+           "head_dot_pack_weights", "head_dot_unpack_weights",
+           "head_dot_vjp", "launch_igemm",
            "launch_wgmma", "wgmma_pack_index"]
 
 def head_dot_plain(g4_hwnc, w64, b64, wout=None, pre_bias=None):
@@ -149,7 +151,23 @@ def head_dot(g4_hwnc, w64, b64, wout=None, pre_bias=None):
     → [Hp−1, B, wout, Cout] (HBWC).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`head_dot_route` names (and raises if it cannot)."""
+    kernel :func:`head_dot_route` names (and raises if it cannot). Under
+    autograd the backward is :func:`head_dot_vjp`."""
+    return differentiable(
+        lambda g4, w, b, pb: _forward(g4, w, b, wout, pb),
+        lambda saved, g: head_dot_vjp(*saved, g, wout=wout),
+        (g4_hwnc, w64, b64, pre_bias))
+
+
+def head_dot_vjp(g4_hwnc, w64, b64, pre_bias, g, wout=None):
+    """The backward of :func:`head_dot` (the JAX ``_bwd``,
+    ``head_dot.py:310-320``): the VJP of the plain version at the saved
+    inputs. Returns the gradients of (g4, w64, b64, pre_bias)."""
+    return twin_vjp(lambda a, w, b, pb: head_dot_plain(a, w, b, wout, pb),
+                    (g4_hwnc, w64, b64, pre_bias), g)
+
+
+def _forward(g4_hwnc, w64, b64, wout, pre_bias):
     if g4_hwnc.device.type == "cpu":
         return head_dot_plain(g4_hwnc, w64, b64, wout, pre_bias)
     hp, wc, _, c4 = g4_hwnc.shape

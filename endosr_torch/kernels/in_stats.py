@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import refuse_grad
 
 __all__ = ["in_stats", "in_stats_plain", "in_stats_route", "stats_plan",
            "chunk_plan", "tickets", "launch"]
@@ -130,9 +131,12 @@ def in_stats(x):
     """(Σx, Σx²) over the spatial dims of NHWC ``x`` → two [B, C] fp32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`in_stats_route` names (and raises if it cannot)."""
+    kernel :func:`in_stats_route` names (and raises if it cannot). Neither
+    has a gradient: on CUDA under autograd it raises
+    ``NotImplementedError`` (the JAX kernel has none on the TPU)."""
     if x.device.type == "cpu":
         return in_stats_plain(x)
+    refuse_grad("in_stats", "in_stats: kernel", (x,))
     sums, route = launch(x)
     in_stats.launches += 1
     in_stats.routes[route] += 1

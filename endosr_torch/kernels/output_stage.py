@@ -34,12 +34,14 @@ import numpy as np
 import torch
 
 from endosr_torch.kernels import _build
-from endosr_torch.nn.layers import pixel_shuffle
+from endosr_torch.kernels._autograd import differentiable, twin_vjp
+from endosr_torch.nn.layers import clip, pixel_shuffle
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["output_stage", "output_stage_plain", "output_stage_route",
            "output_stage_x8", "output_stage_x8_plain", "output_stage_x8_route",
-           "embed_head_channels", "launch", "launch_x8"]
+           "output_stage_vjp", "output_stage_x8_vjp", "embed_head_channels",
+           "launch", "launch_x8"]
 
 _CP = 16  # padded per-phase channel group of the 64-slot embedding
 SPAN_BYTES = 16384  # output_stage vec16: shared memory of a span, at most
@@ -80,7 +82,7 @@ def output_stage_x8_plain(pre64, clamp_min=0.0, clamp_max=1.0, order="bhwc"):
         pre64 = pre64.permute(1, 0, 2, 3)
     pre = pre64[..., device_constant(_unembed_index, (), torch.int64,
                                      pre64.device)]
-    out = pixel_shuffle(torch.clamp(pre, clamp_min, clamp_max), 4)
+    out = pixel_shuffle(clip(pre, clamp_min, clamp_max), 4)
     b, hh, ww, c = out.shape
     return out.float().reshape(b, hh, ww * c)
 
@@ -126,7 +128,26 @@ def output_stage_x8(pre64, clamp_min=0.0, clamp_max=1.0, order="bhwc"):
     ([B,H,W,64], or [H,B,W,64] with ``order="hbwc"``) → [B, 4H, 12W].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`output_stage_x8_route` names (and raises if it cannot)."""
+    kernel :func:`output_stage_x8_route` names (and raises if it cannot).
+    Under autograd the backward is :func:`output_stage_x8_vjp`."""
+    return differentiable(
+        lambda p: _forward_x8(p, clamp_min, clamp_max, order),
+        lambda saved, g: output_stage_x8_vjp(*saved, g, clamp_min, clamp_max,
+                                             order),
+        (pre64,))
+
+
+def output_stage_x8_vjp(pre64, g, clamp_min=0.0, clamp_max=1.0,
+                        order="bhwc"):
+    """The backward of :func:`output_stage_x8` (the JAX ``_bwd_x8``,
+    ``output_stage.py:299-306``): the VJP of the plain version, g
+    [B, 4H, 12W] → (g_pre64,), zero in the 16 padding slots."""
+    return twin_vjp(
+        lambda p: output_stage_x8_plain(p, clamp_min, clamp_max, order),
+        (pre64,), g)
+
+
+def _forward_x8(pre64, clamp_min, clamp_max, order):
     if pre64.device.type == "cpu":
         return output_stage_x8_plain(pre64, clamp_min, clamp_max, order)
     out, route = launch_x8(pre64, clamp_min, clamp_max, order)
@@ -142,7 +163,7 @@ output_stage_x8.routes = {"vec16": 0, "v1": 0}
 def output_stage_plain(pre, r, clamp_min=0.0, clamp_max=1.0):
     """Plain PyTorch version: clamp → PixelShuffle(r) → fp32, flattened to
     [B, H·r, W·r·C]."""
-    out = pixel_shuffle(torch.clamp(pre, clamp_min, clamp_max), r)
+    out = pixel_shuffle(clip(pre, clamp_min, clamp_max), r)
     b, hh, ww, c = out.shape
     return out.float().reshape(b, hh, ww * c)
 
@@ -202,8 +223,24 @@ def output_stage(pre, r, clamp_min=0.0, clamp_max=1.0):
     """clip → PS(r) → fp32 of ``pre`` [B,H,W,C·r²] → [B, H·r, W·r·C].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`output_stage_route` names (and raises if it cannot)."""
+    kernel :func:`output_stage_route` names (and raises if it cannot).
+    Under autograd the backward is :func:`output_stage_vjp`."""
     _colours(pre.shape[-1], r)
+    return differentiable(
+        lambda p: _forward(p, r, clamp_min, clamp_max),
+        lambda saved, g: output_stage_vjp(*saved, g, r, clamp_min, clamp_max),
+        (pre,))
+
+
+def output_stage_vjp(pre, g, r, clamp_min=0.0, clamp_max=1.0):
+    """The backward of :func:`output_stage` (the JAX ``_bwd``,
+    ``output_stage.py:374-380``): the VJP of the plain version, g
+    [B, H·r, W·r·C] → (g_pre,)."""
+    return twin_vjp(lambda p: output_stage_plain(p, r, clamp_min, clamp_max),
+                    (pre,), g)
+
+
+def _forward(pre, r, clamp_min, clamp_max):
     if pre.device.type == "cpu":
         return output_stage_plain(pre, r, clamp_min, clamp_max)
     out, route = launch(pre, r, clamp_min, clamp_max)

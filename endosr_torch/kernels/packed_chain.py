@@ -40,10 +40,12 @@ import numpy as np
 import torch
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu, packed_gate
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["packed_g123", "packed_g123_plain", "packed_g123_route",
+           "packed_g123_vjp",
            "packed_stage_pack_weights", "packed_stage_unpack_weights",
            "launch_igemm", "launch_wgmma", "unfold_g4_phases"]
 
@@ -212,6 +214,17 @@ def launch_wgmma(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
     return g3.permute(1, 2, 0, 3)
 
 
+def packed_g123_vjp(x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, g,
+                    pre_act=False, phases=False):
+    """The backward of :func:`packed_g123` (the JAX ``_bwd``,
+    ``packed_chain.py:464-493``): the VJP of the plain version at the
+    saved inputs, the forward recomputed. Returns the gradients of (x, k1,
+    b1, k2, b2, k3, b3, pre_bias), None for a missing ``pre_bias``."""
+    return twin_vjp(
+        lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases),
+        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias), g)
+
+
 def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
                 pre_bias=None, phases=False):
     """Three-stage packed chain.
@@ -225,7 +238,16 @@ def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`packed_g123_route` names (three stage launches, counted
-    as one call) or raises."""
+    as one call) or raises. Under autograd the backward is
+    :func:`packed_g123_vjp`."""
+    return differentiable(
+        lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases),
+        lambda saved, g: packed_g123_vjp(*saved, g, pre_act=pre_act,
+                                         phases=phases),
+        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias))
+
+
+def _forward(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases):
     if x_hwnc.device.type == "cpu":
         return packed_g123_plain(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act,
                                  pre_bias, phases)

@@ -51,9 +51,11 @@ from __future__ import annotations
 import torch
 
 from endosr_torch.kernels import _build
+from endosr_torch.kernels._autograd import differentiable
 
 __all__ = ["style_blend_dot", "style_blend_plain", "style_blend_route",
-           "style_dot_hwbm", "style_dot_plain", "style_dot_route",
+           "style_blend_vjp", "style_dot_hwbm", "style_dot_plain",
+           "style_dot_route", "style_dot_vjp",
            "launch_blend_cuda_core", "launch_blend_tc", "launch_cuda_core",
            "launch_tc"]
 
@@ -133,12 +135,55 @@ def launch_blend_tc(shifted, v, convs, bias):
     return out
 
 
+def style_dot_vjp(shifted, v, g):
+    """The backward of the group style dot (the JAX ``_bwd``,
+    ``style_dot.py:137-142``): g [H,W,B,M] → (g_shifted, g_v), each
+    product in its operands' promoted type, then cast to its input's
+    type."""
+    gt = g.permute(2, 0, 1, 3)
+    ct = torch.promote_types(g.dtype, v.dtype)
+    gs = torch.einsum("bhwm,bjm->bhwj", gt.to(ct), v.to(ct))
+    ct = torch.promote_types(shifted.dtype, g.dtype)
+    gv = torch.einsum("bhwj,bhwm->bjm", shifted.to(ct), gt.to(ct))
+    return gs.to(shifted.dtype), gv.to(v.dtype)
+
+
+def style_blend_vjp(shifted, v, n_conv, conv_dtype, bias_dtype, g):
+    """The backward of :func:`style_blend_dot` (the JAX ``_blend_bwd``,
+    ``style_dot.py:306-320``): the dot's two gradients as in
+    :func:`style_dot_vjp`, each conv's gradient its channel slice of g
+    (in the convs' type), the bias's g summed in fp32 (in the bias's
+    type). Returns (g_shifted, g_v, (g_conv, ...), g_bias)."""
+    gs, gv = style_dot_vjp(shifted, v, g)
+    c2 = g.shape[3] // n_conv
+    gconvs = tuple(g[..., i * c2:(i + 1) * c2].to(conv_dtype)
+                   for i in range(n_conv))
+    gbias = g.float().sum(dim=(0, 1, 2)).to(bias_dtype)
+    return gs, gv, gconvs, gbias
+
+
 def style_blend_dot(shifted, v, convs, bias):
     """Group style dot + conv adds + bias → [H, W, B, M] (the HWNC view of
     a BHWC tensor, so per-instance channel slices are BHWC views).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`style_blend_route` names (and raises if it cannot)."""
+    kernel :func:`style_blend_route` names (and raises if it cannot).
+    Under autograd the backward is :func:`style_blend_vjp`, which keeps
+    only ``shifted`` and ``v``."""
+    n = len(convs)
+    cdt, bdt = convs[0].dtype, bias.dtype
+
+    def vjp(saved, g):
+        gs, gv, gconvs, gbias = style_blend_vjp(saved[0], saved[1], n, cdt,
+                                                bdt, g)
+        return (gs, gv, *gconvs, gbias)
+
+    return differentiable(
+        lambda s, vv, *rest: _blend(s, vv, rest[:-1], rest[-1]), vjp,
+        (shifted, v, *convs, bias), save=(True, True) + (False,) * (n + 1))
+
+
+def _blend(shifted, v, convs, bias):
     if shifted.device.type == "cpu":
         return style_blend_plain(shifted, v, convs, bias)
     aligned = all(c.data_ptr() % 16 == 0 for c in convs)
@@ -209,7 +254,13 @@ def style_dot_hwbm(shifted, v):
     of a BHWC tensor), any B and M.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`style_dot_route` names (and raises if it cannot)."""
+    kernel :func:`style_dot_route` names (and raises if it cannot).
+    Under autograd the backward is :func:`style_dot_vjp`."""
+    return differentiable(_dot, lambda saved, g: style_dot_vjp(*saved, g),
+                          (shifted, v))
+
+
+def _dot(shifted, v):
     if shifted.device.type == "cpu":
         return style_dot_plain(shifted, v)
     b, _, _, j = shifted.shape

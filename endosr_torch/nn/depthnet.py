@@ -1,4 +1,5 @@
-"""DepthNet — the flagship generator's serving forward in the port.
+"""DepthNet — the flagship generator's forward in the port, for serving and
+training.
 
 Counterpart of ``endosr/nn/depthnet.py``, at every scale (×2, ×3, ×4, ×8):
 
@@ -54,6 +55,7 @@ from endosr_torch.nn.layers import (
     WNConv,
     WNConvTranspose,
     chained_instance_norm,
+    clip,
     compose_pixel_shuffle_perm,
     conv2d_nhwc,
     fold_kernel_through_pixel_shuffle,
@@ -320,7 +322,7 @@ class ClassicResidualBlock(nn.Module):
 
 
 class DepthNet(nn.Module):
-    """The DepthNet serving forward. The fields below the model's own are
+    """The DepthNet forward. The fields below the model's own are
     the JAX module's graph switches with its defaults (lazy branches,
     blend-fused or masked style groups, folded tails, the packed ×8 tail
     when unmasked, kernel output stages):
@@ -437,10 +439,15 @@ class DepthNet(nn.Module):
         self.conv_output.init_(gen)
         return self
 
-    @torch.inference_mode()
     def forward(self, x, depth_map, depth_mask, valid_hw=None, pool_mask=None):
         """x [B,H,W,3], depth_map [B,H,W,1], depth_mask [B,H,W,K] →
         [B,s·H,s·W,3] fp32 in [clamp_min, clamp_max].
+
+        Differentiable: every weight is prepared (weight norm, folds,
+        packed kernels) from the parameters inside the forward, and the
+        kernels run through their gradient ``Function`` when an input
+        requires a gradient. Serving calls it under ``torch.inference_mode``
+        (``models/f_depthcond.py``).
 
         ``valid_hw`` = (hv, wv), plain ints: exact bucketed eval of inputs
         zero-padded to H, W (multiples of 4) with ``pool_mask`` from
@@ -592,7 +599,7 @@ class DepthNet(nn.Module):
         if self.pallas_output:
             flat = output_stage(pre, r, self.clamp_min, self.clamp_max)
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
-        return pixel_shuffle(torch.clamp(pre, self.clamp_min, self.clamp_max),
+        return pixel_shuffle(clip(pre, self.clamp_min, self.clamp_max),
                              r).float()
 
     def _folded_classic(self, blk, z, r, vr):
@@ -668,7 +675,7 @@ class DepthNet(nn.Module):
             out = pixel_shuffle(_conv_b(vr.zero(leaky_relu(h)), wh, bh, dt), fs)
         else:
             out = self.conv_output(vr.zero(leaky_relu(pixel_shuffle(h, fs))), dt)
-        return torch.clamp(out.float(), self.clamp_min, self.clamp_max)
+        return clip(out.float(), self.clamp_min, self.clamp_max)
 
     def _folded_head(self, z, r, vr):
         """upscale3 + the 9×9 head with every pending shuffle deferred: ``z``

@@ -30,7 +30,7 @@ __all__ = [
     "wn_effective_kernel", "conv2d_nhwc", "hwio", "instance_norm",
     "chained_instance_norm", "masked_instance_norm",
     "masked_chained_instance_norm", "valid_mask", "pixel_shuffle",
-    "leaky_relu",
+    "leaky_relu", "clip",
     "fold_kernel_through_pixel_shuffle", "packed_stage_kernel",
     "packed_gate", "compose_pixel_shuffle_perm",
 ]
@@ -85,6 +85,19 @@ def leaky_relu(x, negative_slope: float = 0.2):
     fp32 product of two bf16 values is exact, so rounding it equals the
     bf16 multiply)."""
     return torch.maximum(x, x * _in_dtype(negative_slope, x.dtype))
+
+
+def clip(x, lo: float, hi: float):
+    """``jnp.clip(x, lo, hi)``: the maximum with ``lo``, then the minimum
+    with ``hi``, the bounds rounded to x's dtype (as ``torch.clamp`` rounds
+    them, so the values are ``torch.clamp``'s). A value at a bound passes
+    half the gradient, as in JAX (``torch.clamp`` passes all of it). With
+    no gradient to pass it is the one ``torch.clamp`` pass."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(x, lo, hi)
+    lo_t = device_constant(float, (lo,), x.dtype, x.device)
+    hi_t = device_constant(float, (hi,), x.dtype, x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
 class Conv(nn.Module):

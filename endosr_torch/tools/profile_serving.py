@@ -1,4 +1,5 @@
-"""Where the time of one flagship serving request goes, on one GPU.
+"""Where the time of one flagship serving request, or one training step,
+goes on one GPU.
 
     python -m endosr_torch.tools.profile_serving [--config x8] [--requests 2] [--top 25]
 
@@ -8,6 +9,12 @@ then serves ``--requests`` more under ``torch.profiler`` and prints: the
 host wall time per request, the summed device time per request, the
 device's idle share of the window, and the kernels with the most device
 time (name, calls, ms per request, share). Needs a CUDA device.
+
+``--config train_x8`` profiles training steps in place of requests: the
+flagship recipe (``models/recipes.py``: the ×8 YAML's ``train:`` block),
+bf16, a seeded uint8 batch 8 of LQ 128² / GT 1024² on the card, one
+warm-up step, then ``--requests`` steps; it also prints the peak device
+memory of the steps.
 
 ``--config``: ``x8`` — ×8, ``eval_bucket_multiple: 0``, LQ 128² → SR 1024²;
 ``x8_bucketed`` — ×8 with the key unset (bucket 32), LQ 120×112 fed from
@@ -40,7 +47,28 @@ _CONFIGS = {
     "x8_bucketed": (8, (120, 112), True, {}, {}),
     "x4_fused": (4, (128, 128), False, {},
                  {"net_kw": {"fused_epilogue": True, "in_stats": "kernel"}}),
+    "train_x8": None,
 }
+
+
+def _train_model(torch):
+    """The flagship training model and one step's seeded uint8 batch."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.models.recipes import x8_train_opt
+    from endosr_torch.ops.masks import depth_masks
+
+    model = FModelDepthCond(x8_train_opt("bf16"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    dep = torch.rand((8, 128, 128, 1), generator=gen, device="cuda")
+    model.feed_data({"LQ": u8(8, 128, 128, 3), "GT": u8(8, 1024, 1024, 3),
+                     "Depth": dep, "DepthMaskList": depth_masks(
+                         dep[..., 0], False, 10).to(torch.uint8)})
+    return model, model.optimize_parameters
 
 
 def main(argv=None) -> int:
@@ -59,37 +87,48 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
 
-    scale, (h, w), on_host, top, net = _CONFIGS[args.config]
-    opt = {"is_train": False, "scale": scale, "precision": "bf16", **top,
-           "datasets": {"test": {"depthMaskNum": 10}},
-           "network_G": {"which_model_G": "DepthNet", "nf": 64, "nb": 16,
-                         "depth_latent_ch": 256,
-                         "which_ResBlk_depth": list(range(14)), **net},
-           "path": {}}
-    model = FModelDepthCond(opt)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    lq = torch.rand((8, h, w, 3), generator=gen, device="cuda")
-    dep = torch.rand((8, h, w, 1), generator=gen, device="cuda")
-    batch = {"LQ": lq, "Depth": dep,
-             "DepthMaskList": depth_masks(dep[..., 0], True, 10)}
-    if on_host:     # as a data loader hands a request over
-        batch = {k: v.cpu().numpy() for k, v in batch.items()}
-    model.feed_data(batch)
-    model.test()
+    what = "step" if args.config == "train_x8" else "request"
+    if args.config == "train_x8":
+        model, run = _train_model(torch)
+    else:
+        scale, (h, w), on_host, top, net = _CONFIGS[args.config]
+        opt = {"is_train": False, "scale": scale, "precision": "bf16", **top,
+               "datasets": {"test": {"depthMaskNum": 10}},
+               "network_G": {"which_model_G": "DepthNet", "nf": 64, "nb": 16,
+                             "depth_latent_ch": 256,
+                             "which_ResBlk_depth": list(range(14)), **net},
+               "path": {}}
+        model = FModelDepthCond(opt)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        lq = torch.rand((8, h, w, 3), generator=gen, device="cuda")
+        dep = torch.rand((8, h, w, 1), generator=gen, device="cuda")
+        batch = {"LQ": lq, "Depth": dep,
+                 "DepthMaskList": depth_masks(dep[..., 0], True, 10)}
+        if on_host:     # as a data loader hands a request over
+            batch = {k: v.cpu().numpy() for k, v in batch.items()}
+
+        def run():
+            model.feed_data(batch)
+            model.test()
+    run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     n = args.requests
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            model.feed_data(batch)
-            model.test()
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
 
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:   # device kernels only
+        # device kernels only: a user annotation's row (the optimizer's
+        # ``Optimizer.step#Adam.step``) spans kernels already counted
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0))
@@ -98,10 +137,11 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows) / n / 1e3
     print(f"config {args.config}; device {torch.cuda.get_device_name(0)}; "
-          f"per request: wall "
+          f"per {what}: wall "
           f"{wall * 1e3:.3f} ms, device busy {total:.3f} ms, idle share "
-          f"{max(0.0, 1 - total / (wall * 1e3)):.3f}")
-    print(f"{'ms/request':>10} {'share':>6} {'calls/req':>9}  kernel")
+          f"{max(0.0, 1 - total / (wall * 1e3)):.3f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{'ms/' + what:>10} {'share':>6} {'calls/' + what[:3]:>9}  kernel")
     for dev_us, count, key in rows[:args.top]:
         ms = dev_us / n / 1e3
         print(f"{ms:10.3f} {ms / total:6.3f} {count / n:9.1f}  {key[:110]}")

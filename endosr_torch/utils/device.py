@@ -15,8 +15,11 @@ def device_constant(build, args, dtype, device):
     (build, args, dtype, device). A constant made inside a forward would
     otherwise be a synchronous host-to-device copy on every call, which
     stalls the host until the device's queue drains. Callers must not
-    write to the returned tensor."""
-    return torch.as_tensor(build(*args), dtype=dtype, device=device)
+    write to the returned tensor. It is made outside inference mode, so a
+    constant first made by a serving call can still be saved for the
+    backward of a training step."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(build(*args), dtype=dtype, device=device)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -8,7 +8,9 @@ become reference checkpoint keys (``depth_residual3`` → ``depth-residual3``,
 ``A_i_j_kernel`` → ``A_i_j.weight``) and HWIO kernels become OIHW
 (a transposed conv's (kh,kw,I,O) becomes (I,O,kh,kw); ``g`` becomes
 (D,1,1,1)). The result loads into the port's modules, whose names are the
-reference checkpoint's.
+reference checkpoint's. :func:`from_flax_train` carries a training
+model's tree (the generator and the dynamic loss's K-vector) across the
+same way, and so a gradient tree too.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax", "flax_path_to_torch_key", "load_params",
-           "seeded_init"]
+__all__ = ["from_flax", "from_flax_train", "flax_path_to_torch_key",
+           "load_params", "seeded_init"]
 
 _SEQ_IDX = re.compile(r"^(.*)_(\d+)$")
 _TRANSPOSE_CONV_SEGMENTS = {"layer4", "mlp_depthMatrix"}
@@ -71,6 +73,19 @@ def from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
             a = a.reshape(-1, 1, 1, 1)
         sd[flax_path_to_torch_key(path)] = torch.from_numpy(np.array(a))
     return sd
+
+
+def from_flax_train(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX training model's parameter tree ``{"netG": ..., "dyn":
+    {"trainable_weight": [K]}}`` (or a gradient tree of the same shape) →
+    {name: tensor} under the names of ``FModelDepthCond.
+    named_train_parameters``: ``netG.<key>`` by :func:`from_flax`'s
+    mapping, and ``dyn.trainable_weight``."""
+    out = {f"netG.{k}": v for k, v in from_flax(tree["netG"]).items()}
+    if "dyn" in tree:
+        out["dyn.trainable_weight"] = torch.from_numpy(np.array(
+            tree["dyn"]["trainable_weight"], np.float32))
+    return out
 
 
 def load_params(path: str) -> dict[str, torch.Tensor]:

@@ -76,6 +76,7 @@ def runs():
     net = torch_dn.DepthNet(**KW, device="cpu")
     params_np = jax.tree_util.tree_map(np.asarray, params)
     net.load_state_dict(from_flax(params_np), strict=True)
+    net.requires_grad_(False)         # a forward only: no autograd graph
     rec_t = {"blocks": [], "g3": []}
     net.encoder.register_forward_hook(
         lambda m, a, o: rec_t.__setitem__("enc", o))
@@ -179,6 +180,7 @@ def _pair(kw, lq, dep, mk):
     net = torch_dn.DepthNet(**SMALL, **tkw, device="cpu")
     net.load_state_dict(
         from_flax(jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    net.requires_grad_(False)         # forwards only: no autograd graph
     return jnet, params, net
 
 

@@ -203,6 +203,7 @@ def _pair(kw, inputs):
     net = torch_dn.DepthNet(**SMALL, **kw, device="cpu")
     net.load_state_dict(
         from_flax(jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    net.requires_grad_(False)         # forwards only: no autograd graph
     return jnet, params, net
 
 

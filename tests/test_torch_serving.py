@@ -231,7 +231,10 @@ def _net(**kw):
     {"precision": "bf16c3"},
     {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
                         ablate_depth_matrix=True)},
-    {"is_train": True}, {"precision": "mixed"}, {"precision": "bf16c"},
+    {"is_train": True, "train": {"lr_G": 1e-3, "pixel_criterion": "l1",
+                                 "pixel_weight": 1.0,
+                                 "depth_loss": {"use_depth_criterion": True}}},
+    {"precision": "mixed"}, {"precision": "bf16c"},
     _net(preset="plain", net_kw={"remat_blocks": True}),
     _net(net_kw={"blend_fold": True}),
     _net(ablate_depth_block=True), _net(remat_blocks=True),
@@ -240,7 +243,8 @@ def _net(**kw):
 def test_unported_options_raise(change):
     """What still waits: sharded bucketed eval (``spatial_shard``, with the
     bucket set or left at its default), the centered and mixed precisions,
-    training, the ablations (also on a ×4 network with a depth block after
+    training with the depth loss (its monodepth2 weights are not in the
+    repo), the ablations (also on a ×4 network with a depth block after
     upscale2, which is served now), ``remat_blocks`` (also over
     ``preset: plain``) and the ``net_kw`` fields the port lacks."""
     opt = {**copy.deepcopy(OPT), **change}
