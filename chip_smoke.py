@@ -135,9 +135,45 @@ exits non-zero):
    fp32 and 2⁻⁴ in bf16 (``fused_o_branch`` and ``fused_modulation``
    follow the JAX twin's roundings); ``in_stats`` and ``fused_in_mod``
    must raise ``NotImplementedError`` under autograd.
+7. entry points — ``python -m endosr_torch.train`` and ``.test`` through
+   their ``main``, as a user runs them. A synthetic Kvasir-style tree under
+   ``build/entry/`` (written with ``cv2``; 16 train pairs of smooth
+   random GT 1024² and LR 128² = ``imresize_np(GT, 1/8)``, 2 test pairs
+   of GT 960×896 / LR 120×112 so that bucketing pads, ``<stem>_disp.npy``
+   depth), and YAMLs derived from the repo's ×8 training YAML and test
+   YAML with only the data roots, ``path.root``, ``data_num``, ``niter``,
+   ``val_freq``, ``save_checkpoint_freq`` and ``print_freq`` changed
+   (each logged as a ``reduced`` line): batch 8, GT 1024², 4 loader
+   workers, ``cache_data``, ``u8_pipeline``, flips and rotations, fp32.
+   Training: 4 steps, 2 an epoch, saved at 2 and 4, validated at 4; each
+   ``optimize_parameters`` and ``test`` call runs with the counts set to 0
+   just before and read just after: a step launches ``packed_g123`` 2
+   (route ``fp32``), ``style_blend_dot`` 2 (``cuda_core``), ``head_dot`` 1
+   (``fp32``), ``output_stage_x8`` 1 (``vec16``), a validation image
+   ``style_dot_hwbm`` 2 (``cuda_core``) and ``output_stage`` 1
+   (``vec16``); losses finite; checkpoints, validation PNGs and log lines
+   written. A copy of the run without its step-4 files resumes with
+   ``resume_state: auto``: the state it loads equals step 2's bit for bit
+   (Adam, weights, K-vector, update count); it reruns epoch 0 from its
+   first batch as steps 3–4, as the JAX ``train.py`` does, and its losses
+   are within 1e-4 relative of a replay of that rule through the model
+   API (``resume_training`` of ``2.state``, then epoch 0's two batches;
+   cuDNN's backward is not bit-stable). Evaluation: ``latest_G.pth`` with
+   its output conv scaled and shifted (``eval_G.pth``) so that the fp32
+   output of the test images has its median at 0.5 and its 1st–99th
+   percentiles within [0.1, 0.9] (four steps from random weights leave it
+   clamped at 0 almost everywhere); precision auto-selected bf16, an image
+   launches ``style_dot_hwbm`` 2 (``tc``) and ``output_stage`` 1
+   (``vec16``), the TSV's header, rows and ``Average``, 2 PNGs of 960×896,
+   and over the pixels that neither run clamps (at least 90 % of them)
+   each SR ≥ 40 dB against an fp32 serve of the same weights. Logged: ms
+   a training step (steps 2–4),
+   peak device memory, the loader's images/s (its first epoch fills the
+   cache), validation and eval ms an image.
 
 Prints the kernels JSON line (``launches`` summed over the paths and the
-training steps, ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
+training steps, ``launches_by_path`` with phase 7's ``train entry``,
+``val entry`` and ``eval entry``, ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
 ``mid_shuffle`` is a kernel no forward calls, in the JAX package as here, so
@@ -1711,6 +1747,517 @@ def kernel_gradients(torch, counters):
     return worst
 
 
+ENTRY_ROOT = "build/entry"      # under the repository root, git-ignored
+ENTRY_TRAIN_ROUTES = {"packed_g123": "fp32", "style_blend_dot": "cuda_core",
+                      "head_dot": "fp32", "output_stage_x8": "vec16"}
+ENTRY_SERVE_WANT = {"style_dot_hwbm": 2, "output_stage": 1}
+ENTRY_VAL_ROUTES = {"style_dot_hwbm": "cuda_core", "output_stage": "vec16"}
+ENTRY_EVAL_ROUTES = {"style_dot_hwbm": "tc", "output_stage": "vec16"}
+RESUME_REL = 1e-4       # resumed losses against the replay's (cuDNN's
+                        # backward is not bit-stable on the card)
+EXP = "experiments/DepthNet_ResBlk_depthMask_x8"
+ENTRY_LR = {"train": (128, 128), "test": (120, 112)}   # ×8: GT 1024², 960×896
+ENTRY_N = {"train": 16, "test": 2}
+
+
+def _smooth_u8(np, rng, h, w):
+    """Smooth random uint8 RGB [h, w, 3]: products of low-frequency sines
+    and a little noise."""
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    chans = []
+    for _ in range(3):
+        f = rng.uniform(0.004, 0.03, 4).astype(np.float32)
+        p = rng.uniform(0, 6.3, 2).astype(np.float32)
+        chans.append(np.sin(xx * f[0] + p[0]) * np.cos(yy * f[1]) * 60
+                     + np.sin(yy * f[2] + p[1]) * np.cos(xx * f[3]) * 50 + 128)
+    img = np.stack(chans, -1) + rng.integers(0, 8, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_kvasir(root):
+    """Phase 7's synthetic Kvasir-style tree, written with ``cv2`` (which
+    picks each row's PNG filter, as it does for a real dataset): 16 train pairs (GT 1024², LR 128² = ``imresize_np(GT, 1/8)``)
+    and 2 test pairs (GT 960×896, LR 120×112, so that bucketing pads),
+    each with ``<stem>_disp.npy`` [1, 1, h, w]."""
+    import numpy as np
+
+    import cv2
+
+    from endosr_torch.ops.resize import imresize_np
+
+    rng = np.random.default_rng(7)
+    for split, (lh, lw) in ENTRY_LR.items():
+        for sub in ("HR", "LR", "depth"):
+            (root / sub / split).mkdir(parents=True)
+        for i in range(ENTRY_N[split]):
+            gt = _smooth_u8(np, rng, lh * 8, lw * 8)
+            lr = imresize_np(gt.astype(np.float32) / 255.0, 1 / 8)
+            lr = np.clip(lr * 255.0, 0, 255).round().astype(np.uint8)
+            cv2.imwrite(str(root / "HR" / split / f"f{i:02d}.png"), gt)
+            cv2.imwrite(str(root / "LR" / split / f"f{i:02d}.png"), lr)
+            np.save(root / "depth" / split / f"f{i:02d}_disp.npy",
+                    rng.random((1, 1, lh, lw), dtype=np.float32))
+
+
+def _derive(src, dst, changes):
+    """Write ``src`` (a YAML of the repo) with ``changes`` ({dotted key:
+    value}) as ``dst``, logging each change as a ``reduced`` line."""
+    import yaml
+
+    y = yaml.safe_load(src.read_text())
+    for key, value in changes.items():
+        *parents, leaf = key.split(".")
+        node = y
+        for p in parents:
+            node = node[p]
+        log(f"[entry] reduced: {src.name} {key}: {node.get(leaf)!r} → "
+            f"{value!r}")
+        node[leaf] = value
+    dst.write_text(yaml.safe_dump(y))
+    return str(dst)
+
+
+def _host_tree(x):
+    """``x`` (nested dicts, lists and tensors) with every tensor copied to
+    the host."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_tree(v) for v in x)
+    return x
+
+
+def _tree_equal(torch, a, b):
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+class EntryTaps:
+    """Wraps ``FModelDepthCond.optimize_parameters``, ``test`` and
+    ``resume_training`` for phase 7: every call runs with the launch counts
+    set to 0 just before it and read just after it (synchronised, host
+    clock), recorded under ``self.training`` or ``self.serving``."""
+
+    def __init__(self, torch, counters):
+        self.torch, self.counters = torch, counters
+        self.training, self.serving = "train entry", None
+        self.calls: dict[str, list] = {}
+        self.step2 = self.resumed = None
+
+    def _state(self, model):
+        return _host_tree({"optimizer": model.optimizer_G.state_dict(),
+                           "netG": model.netG.state_dict(),
+                           "dyn": model.dyn_weight, "step": model.step})
+
+    def _call(self, label, model, fn, args, kwargs):
+        torch = self.torch
+        torch.cuda.synchronize()
+        zero_counts(self.counters)
+        t = time.perf_counter()
+        out = fn(model, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec = {"secs": time.perf_counter() - t,
+               "launches": {c.__name__: c.launches for c in self.counters},
+               "routes": {c.__name__: dict(c.routes) for c in self.counters
+                          if hasattr(c, "routes")}}
+        if label.startswith("train"):
+            rec["logs"] = dict(model.log_dict)
+            if model.step == 2 and self.step2 is None:
+                self.step2 = self._state(model)
+        else:
+            rec["sr"] = out.detach().float().cpu()
+        self.calls.setdefault(label, []).append(rec)
+        return out
+
+    def install(self):
+        from endosr_torch.models.f_depthcond import FModelDepthCond as M
+
+        saved = (M.optimize_parameters, M.test, M.resume_training)
+        opt, test, resume = saved
+
+        def optimize_parameters(model, *a, **k):
+            return self._call(self.training, model, opt, a, k)
+
+        def test_(model, *a, **k):
+            return self._call(self.serving, model, test, a, k)
+
+        def resume_training(model, path):
+            out = resume(model, path)
+            if self.resumed is None:
+                self.resumed = self._state(model)
+            return out
+
+        M.optimize_parameters, M.test, M.resume_training = (
+            optimize_parameters, test_, resume_training)
+
+        def uninstall():
+            M.optimize_parameters, M.test, M.resume_training = saved
+
+        return uninstall
+
+    def check(self, label, calls, want, routes):
+        """Each of ``calls`` launched ``want`` (others 0), all on ``routes``."""
+        for n, rec in enumerate(calls):
+            for c in self.counters:
+                got = rec["launches"][c.__name__]
+                if got != want.get(c.__name__, 0):
+                    raise AssertionError(
+                        f"[{label}] call {n + 1}: {c.__name__} {got} "
+                        f"launches, want {want.get(c.__name__, 0)}")
+            for name, route in routes.items():
+                took = {**dict.fromkeys(rec["routes"][name], 0),
+                        route: rec["launches"][name]}
+                if rec["routes"][name] != took:
+                    raise AssertionError(f"[{label}] call {n + 1}: {name} "
+                                         f"routes {rec['routes'][name]}, "
+                                         f"want {took}")
+
+
+def _loader_rate(yaml_path):
+    """The training loader of ``yaml_path``: images/s of its first epoch,
+    and of that the seconds to start it (this process fills the cache:
+    decode, bins; then the workers fork), then, on the filled cache, an epoch of 8× the index space
+    (``dataset_enlarge_ratio: 8``): the seconds to its first batch (the
+    workers start) and the images/s of the batches after it; last, with
+    ``cache_data`` off (the workers decode and prepare every image), the
+    images/s of such an epoch, the workers' start included."""
+    from endosr_torch.config import options as option
+    from endosr_torch.data import create_dataloader, create_dataset
+
+    opt = option.dict_to_nonedict(option.parse(yaml_path, is_train=True))
+    ds_opt = opt["datasets"]["train"]
+    ds = create_dataset(ds_opt)
+    t = time.perf_counter()
+    it = iter(create_dataloader(ds, ds_opt, opt, pin_memory=True))
+    fill_s = time.perf_counter() - t
+    n = sum(b["LQ"].shape[0] for b in it)
+    epoch0 = n / (time.perf_counter() - t)
+    loader = create_dataloader(ds, {**ds_opt, "dataset_enlarge_ratio": 8},
+                               opt, pin_memory=True)
+    loader.set_epoch(1)
+    t = time.perf_counter()
+    it = iter(loader)
+    next(it)
+    t1 = time.perf_counter()
+    n = sum(b["LQ"].shape[0] for b in it)
+    steady = n / (time.perf_counter() - t1)
+    first_batch_s = t1 - t
+    plain_opt = {**ds_opt, "cache_data": False, "dataset_enlarge_ratio": 8}
+    loader = create_dataloader(create_dataset(plain_opt), plain_opt, opt,
+                               pin_memory=True)
+    loader.set_epoch(1)
+    t = time.perf_counter()
+    m = sum(b["LQ"].shape[0] for b in loader)
+    return {"epoch0": epoch0, "fill_s": fill_s,
+            "first_batch_s": first_batch_s,
+            "steady": steady, "steady_images": n,
+            "no_cache": m / (time.perf_counter() - t)}
+
+
+def _psnr_unclamped(a, b):
+    """(PSNR of ``a`` against ``b`` over the values that neither clamps to
+    0 or 1, their share)."""
+    import numpy as np
+
+    keep = (a > 0) & (a < 1) & (b > 0) & (b < 1)
+    d = a[keep].astype(np.float64) - b[keep]
+    mse = float(np.mean(d ** 2)) if d.size else float("nan")
+    db = 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
+    return db, float(keep.mean())
+
+
+def _replay_resume(yaml_path, state_path, steps):
+    """The resume rule through the model API: ``state_path`` restored, then
+    the first ``steps`` batches of its saved epoch."""
+    from endosr_torch.config import options as option
+    from endosr_torch.data import create_dataloader, create_dataset
+    from endosr_torch.models import create_model
+    from endosr_torch.utils import misc as util
+
+    opt = option.dict_to_nonedict(option.parse(yaml_path, is_train=True))
+    util.set_random_seed(opt["train"]["manual_seed"])
+    model = create_model(opt)
+    epoch, step = model.resume_training(str(state_path))
+    ds_opt = opt["datasets"]["train"]
+    loader = create_dataloader(create_dataset(ds_opt), ds_opt, opt,
+                               pin_memory=True)
+    loader.set_epoch(epoch)
+    for n, batch in enumerate(loader, 1):
+        model.feed_data(batch)
+        model.optimize_parameters(step + n)
+        if n == steps:
+            break
+
+
+def _centred_weights(torch, test_yaml, src, dst):
+    """``src`` with its output conv scaled by s ≤ 1 and shifted, per
+    colour, so that the fp32 output of the test set (its clamp opened) has
+    its median at 0.5 and its 1st and 99th percentiles within [0.1, 0.9];
+    written to ``dst``. Returns (s, the shifts)."""
+    import numpy as np
+
+    from endosr_torch.config import options as option
+    from endosr_torch.data import create_dataloader, create_dataset
+    from endosr_torch.models import create_model
+
+    opt = option.dict_to_nonedict(option.parse(test_yaml, is_train=False))
+    opt["precision"] = "fp32"
+    opt["path"]["pretrain_model_G"] = str(src)
+    model = create_model(opt)
+    model.netG.clamp_min, model.netG.clamp_max = -1e4, 1e4
+    ds_opt = opt["datasets"]["test_1"]
+    outs = []
+    for batch in create_dataloader(create_dataset(ds_opt), ds_opt):
+        model.feed_data(batch)
+        model.test()
+        outs.append(model.fake_SR.float().reshape(-1, 3).cpu().numpy())
+    del model
+    lo, med, hi = np.percentile(np.concatenate(outs), [1, 50, 99], axis=0)
+    half = float(np.max(np.maximum(med - lo, hi - med)))
+    scale = min(1.0, 0.4 / half) if half > 0 else 1.0
+    sd = torch.load(str(src), map_location="cpu", weights_only=True)
+    shift = torch.as_tensor(0.5 - scale * med, dtype=sd["conv_output.bias"].dtype)
+    sd["conv_output.weight"] = sd["conv_output.weight"] * scale
+    sd["conv_output.bias"] = sd["conv_output.bias"] * scale + shift
+    torch.save(sd, str(dst))
+    return scale, shift.tolist()
+
+
+def entry_points(torch, counters):
+    """Phase 7: ``python -m endosr_torch.train`` and ``.test`` as a user
+    runs them (through ``main``), on a synthetic Kvasir tree at full size,
+    from the repo's own ×8 training YAML and test YAML. Returns
+    ({path label: launches}, the readings)."""
+    import shutil
+    from pathlib import Path
+
+    import cv2
+
+    import endosr_torch.test as entry_test
+    import endosr_torch.train as entry_train
+    from endosr_torch.config import options as option
+    from endosr_torch.data import create_dataloader, create_dataset
+    from endosr_torch.models import create_model
+
+    def imread(path):
+        return cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+
+    repo = Path(__file__).resolve().parent
+    root = repo / ENTRY_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_kvasir(root / "data")
+    log(f"[entry] synthetic Kvasir tree ({ENTRY_N['train']} train pairs at "
+        f"LR {ENTRY_LR['train']}, {ENTRY_N['test']} test pairs at LR "
+        f"{ENTRY_LR['test']}, ×8) written in {time.perf_counter() - t0:.1f} s")
+
+    def roots(split):
+        return {"dataroot_GT": str(root / "data/HR" / split),
+                "dataroot_LQ": str(root / "data/LR" / split),
+                "dataroot_depthMap": str(root / "data/depth" / split)}
+
+    train_changes = {
+        **{f"datasets.train.{k}": v for k, v in roots("train").items()},
+        **{f"datasets.val.{k}": v for k, v in roots("test").items()},
+        "datasets.train.data_num": 16, "path.root": str(root / "run"),
+        "train.niter": 4, "train.val_freq": 4,
+        "logger.save_checkpoint_freq": 2, "logger.print_freq": 1}
+    src = repo / "options/train/train_depthNet_SEAN_depthMask_x8.yml"
+    train_yaml = _derive(src, root / "train.yml", train_changes)
+    resume_yaml = _derive(root / "train.yml", root / "resume.yml", {
+        "path.root": str(root / "resumed"), "path.resume_state": "auto"})
+    latest = root / "run" / EXP / "models/latest_G.pth"
+    centred = root / "eval_G.pth"       # latest_G.pth, output conv centred
+    test_yaml = _derive(repo / "options/test/test_depthNet.yml",
+                        root / "test.yml", {
+                            **{f"datasets.test_1.{k}": v
+                               for k, v in roots("test").items()},
+                            "path.root": str(root / "eval"),
+                            "path.pretrain_model_G": str(centred)})
+
+    rates = _loader_rate(train_yaml)
+    log(f"[entry] training loader (batch 8, 4 workers, cache_data, "
+        f"u8_pipeline, flips and rotations, pinned): {rates['epoch0']:.1f} "
+        f"images/s in epoch 0, {rates['fill_s']:.2f} s of it to fill the "
+        f"cache and start the workers; on the cache, "
+        f"{rates['first_batch_s']:.2f} s to the first batch (workers "
+        f"start), then {rates['steady']:.1f} images/s over "
+        f"{rates['steady_images']} images; cache_data off: "
+        f"{rates['no_cache']:.1f} images/s over 128 images (workers' start "
+        f"included)")
+
+    taps = EntryTaps(torch, counters)
+    uninstall = taps.install()
+    try:
+        taps.serving = "val entry"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        entry_train.main(["-opt_F", train_yaml])
+        train_secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        first = list(taps.calls["train entry"])
+        first_val = list(taps.calls["val entry"])
+
+        # resume from step 2 (the end of epoch 0) in a copy of the run
+        # without its step-4 files
+        shutil.copytree(root / "run", root / "resumed", ignore=lambda d, names: [
+            n for n in names if n.startswith(("4", "latest"))])
+        entry_train.main(["-opt_F", resume_yaml])
+        resumed = taps.calls["train entry"][len(first):]
+        resumed_val = taps.calls["val entry"][len(first_val):]
+
+        # the resume rule (the saved epoch again from its first batch)
+        # through the model API, from the first run's 2.state
+        taps.training = "train replay"
+        _replay_resume(resume_yaml, root / "run" / EXP
+                       / "training_state/2.state", len(resumed))
+        replay = taps.calls["train replay"]
+
+        taps.serving = "eval probe"
+        scale, shift = _centred_weights(torch, test_yaml, latest, centred)
+        log(f"[entry] eval weights: latest_G.pth with conv_output scaled by "
+            f"{scale:.6g} and its bias shifted by {shift} (fp32 output "
+            f"median 0.5, 1st-99th percentiles within [0.1, 0.9])")
+        taps.serving = "eval entry"
+        t = time.perf_counter()
+        eval_model = entry_test.main(["-opt_F", test_yaml])
+        eval_secs = time.perf_counter() - t
+        evals = list(taps.calls["eval entry"])
+        precision = eval_model.opt["precision"]
+        del eval_model
+
+        # the same weights served in fp32, for the bf16 PSNR
+        taps.serving = "eval fp32"
+        opt32 = option.dict_to_nonedict(option.parse(test_yaml, is_train=False))
+        opt32["precision"] = "fp32"
+        ds_opt = opt32["datasets"]["test_1"]
+        m32 = create_model(opt32)
+        for batch in create_dataloader(create_dataset(ds_opt), ds_opt):
+            m32.feed_data(batch)
+            m32.test()
+        ref32 = [r["sr"] for r in taps.calls["eval fp32"]]
+        del m32
+    finally:
+        uninstall()
+    torch.cuda.empty_cache()
+
+    # training: counts and routes a step, finite losses, files and logs
+    taps.check("train entry", first + resumed, TRAIN_WANT, ENTRY_TRAIN_ROUTES)
+    taps.check("val entry", first_val + resumed_val, ENTRY_SERVE_WANT,
+               ENTRY_VAL_ROUTES)
+    if (len(first), len(resumed), len(first_val), len(resumed_val)) != (4, 2, 2, 2):
+        raise AssertionError(
+            f"[entry] {len(first)} + {len(resumed)} steps and {len(first_val)}"
+            f" + {len(resumed_val)} validation images, want 4 + 2 and 2 + 2")
+    losses = [r["logs"]["l_all"] for r in first + resumed]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[entry] losses {losses}")
+    exp = root / "run" / EXP
+    for rel in ("models/2_G.pth", "models/4_G.pth", "models/latest_G.pth",
+                "training_state/2.state", "training_state/4.state"):
+        if not (exp / rel).is_file():
+            raise AssertionError(f"[entry] {rel} was not written")
+    test_hw = tuple(8 * x for x in ENTRY_LR["test"]) + (3,)
+    for name in ("f00", "f01"):
+        img = imread(exp / "val_images" / name / f"{name}_4.png")
+        if img is None or img.shape != test_hw:
+            raise AssertionError(f"[entry] val image {name}: {img.shape}")
+    text = "".join(p.read_text() for p in exp.glob("train_*.log"))
+    val_text = "".join(p.read_text() for p in exp.glob("val_*.log"))
+    for want in ("iter:       1,", "iter:       4,", "# Validation # PSNR",
+                 "Saving the final model."):
+        if want not in text:
+            raise AssertionError(f"[entry] the training log lacks {want!r}")
+    if "iter:       4> psnr:" not in val_text:
+        raise AssertionError("[entry] the validation log lacks step 4's line")
+
+    # resume: step 2's state reloads bit-equal; steps 3-4 rerun epoch 0,
+    # as the replay of that rule does
+    if taps.step2 is None or taps.resumed is None or not _tree_equal(
+            torch, taps.step2, taps.resumed):
+        raise AssertionError("[entry] the state resumed from 2.state is not "
+                             "step 2's (Adam state, weights, K-vector, step)")
+    if len(replay) != len(resumed):
+        raise AssertionError(f"[entry] the replay took {len(replay)} steps")
+    worst = 0.0
+    for a, b in zip(replay, resumed):
+        for k in ("l_pix", "l_dynamic", "l_all"):
+            worst = max(worst, abs(b["logs"][k] - a["logs"][k])
+                        / abs(a["logs"][k]))
+    rtext = "".join(p.read_text() for p in (root / "resumed" / EXP).glob(
+        "train_*.log"))
+    if ("Start training from epoch: 0, iter: 2" not in rtext
+            or "<epoch:  0, iter:       3," not in rtext):
+        raise AssertionError("[entry] the resumed run did not rerun epoch 0 "
+                             "from step 3")
+    log(f"[entry] resumed from 2.state: Adam state, weights and K-vector "
+        f"bit-equal to step 2's; steps 3-4 rerun epoch 0, losses within "
+        f"{worst:.3g} relative of the replay's (tol {RESUME_REL:g})")
+    if not worst <= RESUME_REL:
+        raise AssertionError(f"[entry] resumed losses {worst} apart")
+
+    # evaluation: precision, counts, TSV, PNGs, PSNR against fp32
+    if precision != "bf16":
+        raise AssertionError(f"[entry] eval precision {precision}, want bf16")
+    taps.check("eval entry", evals, ENTRY_SERVE_WANT, ENTRY_EVAL_ROUTES)
+    res = root / "eval/results/DepthNet_test"
+    rows = (res / "result_x8.tsv").read_text().splitlines()
+    if (rows[0] != "Name\tPSNR\tSSIM\tPSNR_Y\tSSIM_Y"
+            or [r.split("\t")[0] for r in rows[1:]] != ["f00", "f01", "Average"]
+            or not all(math.isfinite(float(v)) for r in rows[1:]
+                       for v in r.split("\t")[1:])):
+        raise AssertionError(f"[entry] result_x8.tsv: {rows}")
+    pngs = sorted((res / "x8").glob("*.png"))
+    if [p.name for p in pngs] != ["f00.png", "f01.png"] or any(
+            getattr(imread(p), "shape", None) != test_hw for p in pngs):
+        raise AssertionError(f"[entry] eval PNGs {pngs}")
+    dbs, shares = zip(*(_psnr_unclamped(e["sr"].numpy(), r.numpy())
+                        for e, r in zip(evals, ref32)))
+    if len(dbs) != 2 or not min(shares) >= 0.9 or not min(dbs) >= 40.0:
+        raise AssertionError(f"[entry] eval bf16 vs fp32 PSNR {dbs} dB over "
+                             f"the unclamped shares {shares} (min 40 dB, "
+                             "0.9)")
+
+    step_ms = sum(r["secs"] for r in first[1:]) / 3 * 1e3
+    numbers = {
+        "train_ms_per_step": step_ms, "train_peak_gib": peak,
+        "train_main_s": train_secs,
+        "loader": rates,
+        "val_forward_ms": [r["secs"] * 1e3 for r in first_val],
+        "eval_forward_ms": [r["secs"] * 1e3 for r in evals],
+        "eval_main_s": eval_secs, "eval_psnr_vs_fp32_db": dbs,
+        "eval_unclamped_share": shares, "eval_conv_output_scale": scale,
+        "replay_losses": [r["logs"]["l_all"] for r in replay],
+        "losses": losses, "resume_worst_rel": worst, "tsv": rows}
+    log(f"[entry] train.main (×8 YAML, fp32, batch 8, GT 1024²): "
+        f"{step_ms:.1f} ms a step (mean of steps 2-4, host clock, "
+        f"synchronised), peak device memory {peak:.2f} GiB, "
+        f"{train_secs:.1f} s in all; l_all {losses}; validation "
+        + ", ".join(f"{x:.1f}" for x in numbers["val_forward_ms"])
+        + " ms an image (forward); test.main (bf16): "
+        + ", ".join(f"{x:.1f}" for x in numbers["eval_forward_ms"])
+        + f" ms an image (forward), {eval_secs:.1f} s in all; bf16 vs fp32 "
+        f"PSNR {', '.join(f'{d:.2f}' for d in dbs)} dB over the unclamped "
+        f"{', '.join(f'{x:.4f}' for x in shares)} of the values; "
+        f"{gpu_line()}")
+    launches = {label: {c.__name__: sum(r["launches"][c.__name__]
+                                        for r in taps.calls[label])
+                        for c in counters}
+                for label in ("train entry", "val entry", "eval entry")}
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -1771,6 +2318,9 @@ def main() -> int:
     parity = train_parity(torch)
     grads = kernel_gradients(torch, counters)
     log(f"[train] summary: {json.dumps({'ms_per_step': train_ms, 'peak_gib': train_peak, 'bf16': bf16, **parity})}")
+    entry, numbers = entry_points(torch, counters)
+    by_path.update(entry)
+    log(f"[entry] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

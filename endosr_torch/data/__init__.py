@@ -1,0 +1,151 @@
+"""Datasets and loaders (counterpart of ``endosr/data/__init__.py``).
+
+:func:`create_dataset` maps the YAML ``mode`` to a dataset class;
+:func:`create_dataloader` gives a ``torch.utils.data.DataLoader`` whose
+batches come in the JAX ``ShardedLoader``'s order on one shard: the index
+space ``len(dataset) × dataset_enlarge_ratio`` permuted by
+``numpy.random.default_rng(seed + epoch)``, the last partial batch dropped,
+for training; batch 1 in file order for validation and testing. Batches are
+dicts of stacked CPU tensors (the path strings as lists).
+
+Worker processes are forked each epoch from a parent whose ``cache_data``
+cache was filled once before the first fork, so they inherit it
+copy-on-write; each reseeds the dataset's augmentation RNG with
+``(seed + epoch) · 1000003 + worker id``, as the JAX workers do. A torch
+loader hands batch i to worker i mod n, so a run's augmentation does not
+depend on timing. Workers never touch CUDA.
+"""
+
+from __future__ import annotations
+
+import logging
+import random
+
+import numpy as np
+import torch
+from torch.utils.data import DataLoader, Sampler, get_worker_info
+
+__all__ = ["create_dataset", "create_dataloader", "EpochBatchSampler",
+           "EpochLoader"]
+
+
+def create_dataset(dataset_opt):
+    mode = dataset_opt["mode"]
+    if mode == "LQGTker_Depth":
+        from endosr_torch.data.datasets import LQGTKerDepthDataset as D
+    else:
+        raise NotImplementedError(
+            f"Dataset mode [{mode}] is not ported (the port has "
+            "LQGTker_Depth only)")
+    dataset = D(dataset_opt)
+    logging.getLogger("base").info(
+        "Dataset [%s - %s] is created.", dataset.__class__.__name__,
+        dataset_opt.get("name"))
+    return dataset
+
+
+class EpochBatchSampler(Sampler):
+    """Batches of dataset indices in ``ShardedLoader._indices()`` order for
+    one shard; :meth:`set_epoch` picks the epoch's permutation."""
+
+    def __init__(self, n: int, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, ratio: int = 1, drop_last: bool = True):
+        self.n = n
+        self.batch_size = max(1, batch_size)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.ratio = max(1, ratio)
+        self.drop_last = drop_last
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def indices(self) -> np.ndarray:
+        total = self.n * self.ratio
+        if self.shuffle:
+            idx = np.random.default_rng(self.seed + self.epoch).permutation(total)
+        else:
+            idx = np.arange(total)
+        return idx % self.n
+
+    def __len__(self):
+        total = self.n * self.ratio
+        if self.drop_last:
+            return total // self.batch_size
+        return -(-total // self.batch_size)
+
+    def __iter__(self):
+        idx = self.indices().tolist()
+        for i in range(len(self)):
+            yield idx[i * self.batch_size:(i + 1) * self.batch_size]
+
+
+def collate(items: list[dict]) -> dict:
+    """Samples → one batch: arrays stacked into CPU tensors, the rest
+    (path strings) as lists."""
+    out = {}
+    for k, v0 in items[0].items():
+        if isinstance(v0, np.ndarray):
+            out[k] = torch.from_numpy(np.stack([it[k] for it in items]))
+        else:
+            out[k] = [it[k] for it in items]
+    return out
+
+
+class _SeedWorker:
+    """``worker_init_fn``: reseed the worker's copy of the dataset's
+    augmentation RNG for the sampler's current epoch."""
+
+    def __init__(self, sampler: EpochBatchSampler):
+        self.sampler = sampler
+
+    def __call__(self, wid: int) -> None:
+        s = self.sampler
+        get_worker_info().dataset.rng = random.Random(
+            (s.seed + s.epoch) * 1000003 + wid)
+
+
+class EpochLoader(DataLoader):
+    """A ``DataLoader`` over an :class:`EpochBatchSampler`, with
+    :meth:`set_epoch`; with workers, it fills the dataset's cache in this
+    process before the first epoch's workers fork."""
+
+    def set_epoch(self, epoch: int) -> None:
+        self.batch_sampler.set_epoch(epoch)
+
+    def __iter__(self):
+        ds = self.dataset
+        if (self.num_workers and getattr(ds, "_cache", None) is not None
+                and not getattr(ds, "_cache_warmed", False)):
+            prep = getattr(ds, "_prepared_train", None)
+            for i in range(len(ds)):
+                prep(i) if prep is not None else ds[i]
+            ds._cache_warmed = True
+        return super().__iter__()
+
+
+def create_dataloader(dataset, dataset_opt, opt=None, pin_memory=False):
+    """The loader of one dataset block: training batches of ``batch_size``
+    (shuffled by ``use_shuffle`` with ``train.manual_seed``, the index
+    space enlarged by ``dataset_enlarge_ratio``, ``n_workers`` processes);
+    otherwise batch 1 in order, in this process. ``pin_memory``: pin the
+    batches (the model runs on CUDA)."""
+    if dataset_opt["phase"] == "train":
+        seed = 0
+        if opt and opt.get("train") and opt["train"].get("manual_seed") is not None:
+            seed = int(opt["train"]["manual_seed"])
+        sampler = EpochBatchSampler(
+            len(dataset), dataset_opt["batch_size"],
+            shuffle=dataset_opt.get("use_shuffle", True), seed=seed,
+            ratio=dataset_opt.get("dataset_enlarge_ratio") or 1,
+            drop_last=True)
+        workers = int(dataset_opt.get("n_workers") or 0)
+        return EpochLoader(
+            dataset, batch_sampler=sampler, num_workers=workers,
+            collate_fn=collate, pin_memory=pin_memory,
+            worker_init_fn=_SeedWorker(sampler) if workers else None,
+            multiprocessing_context="fork" if workers else None)
+    sampler = EpochBatchSampler(len(dataset), 1, shuffle=False, drop_last=False)
+    return EpochLoader(dataset, batch_sampler=sampler, num_workers=0,
+                       collate_fn=collate, pin_memory=pin_memory)

@@ -1,0 +1,232 @@
+"""The flagship dataset (counterpart of ``endosr/data/datasets.py``:
+``_Base`` and ``LQGTKerDepthDataset``).
+
+A sample is a dict of numpy arrays in NHWC order: 'LQ' and 'GT' HWC RGB
+float32 in [0, 1] (uint8 with ``u8_pipeline``), 'Depth' HW1 float32,
+'DepthMaskList' HWK float32 (uint8 with ``u8_pipeline``), and the
+'LQ_path' and 'GT_path' strings. Depth maps are ``<stem>_disp.npy`` of
+shape [1, 1, H, W] (monodepth2's convention).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+
+import numpy as np
+
+from endosr_torch.data import util
+from endosr_torch.ops.color import channel_convert, modcrop
+from endosr_torch.ops.masks import depth_masks_np
+from endosr_torch.ops.resize import imresize_np
+
+__all__ = ["LQGTKerDepthDataset"]
+
+
+class _Base:
+    def __init__(self, opt):
+        self.opt = opt
+        # augmentation draws; a loader's workers reseed it per epoch
+        self.rng = random.Random()
+        # ``cache_data``: decoded images and arrays kept in host memory
+        self._cache = {} if opt.get("cache_data") else None
+        self._envs: dict = {}            # LMDB environments by root
+        self.GT_sizes = self.LR_sizes = None
+
+    def _img(self, root, paths, sizes, index):
+        """Image ``index`` from files or an LMDB archive (``data_type``)."""
+        if self.opt["data_type"] == "lmdb":
+            from endosr_torch.data.lmdb_io import open_lmdb
+
+            env = self._envs.get(root)
+            if env is None:
+                env = self._envs[root] = open_lmdb(root)
+            h, w, c = (int(s) for s in sizes[index].split("_"))
+            return util.read_img(env, paths[index], (h, w, c))
+        return self._read_img(paths[index])
+
+    def _read_img(self, path):
+        if self._cache is None:
+            return util.read_img(None, path)
+        img = self._cache.get(path)
+        if img is None:
+            img = self._cache[path] = util.read_img(None, path)
+        return img
+
+    def _load_npy(self, path):
+        if self._cache is None:
+            return np.load(path)
+        arr = self._cache.get(path)
+        if arr is None:
+            arr = self._cache[path] = np.load(path)
+        return arr
+
+    def __len__(self):
+        return len(self.GT_paths)
+
+    def _is_train(self):
+        return self.opt["phase"] == "train"
+
+    @staticmethod
+    def _rgb_u8(img_f32_bgr):
+        """Decoded float32 BGR [0, 1] → RGB uint8 when that is exact (8-bit
+        sources: (u / 255) · 255 == u in float32), else RGB float32."""
+        rgb = util.bgr_to_rgb_f32(img_f32_bgr)
+        u8 = (rgb * 255.0).astype(np.uint8)
+        if np.array_equal(u8.astype(np.float32) / 255.0, rgb):
+            return u8
+        return rgb
+
+
+class LQGTKerDepthDataset(_Base):
+    """LR and GT pairs, the depth map and its K binary depth masks.
+
+    With ``data_augment`` a second set of LR images (``<stem>_DA.jpg`` under
+    ``dataroot_LQ_Aug``) is appended; without ``dataroot_LQ`` the LR image
+    is made from GT with the MATLAB bicubic (:func:`imresize_np`).
+    """
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.LR_paths = util.get_image_paths(opt["data_type"], opt.get("dataroot_LQ"))
+        self.GT_paths = util.get_image_paths(opt["data_type"], opt.get("dataroot_GT"))
+        if opt["data_type"] == "lmdb":
+            if self.LR_paths is not None:
+                self.LR_paths, self.LR_sizes = self.LR_paths
+            self.GT_paths, self.GT_sizes = self.GT_paths
+
+        if self._is_train() and opt.get("data_num"):
+            if self.LR_paths:
+                self.LR_paths = self.LR_paths[: opt["data_num"]]
+            self.GT_paths = self.GT_paths[: opt["data_num"]]
+
+        origin_LR_paths = list(self.LR_paths or [])
+        if self._is_train() and opt.get("data_augment"):
+            aug_paths = []
+            for imagepath in self.LR_paths:
+                imgname = os.path.basename(imagepath).split(".")[0] + "_DA.jpg"
+                aug_paths.append(os.path.join(opt["dataroot_LQ_Aug"], imgname))
+            self.LR_paths = self.LR_paths + aug_paths
+            self.GT_paths = self.GT_paths + self.GT_paths
+
+        base = origin_LR_paths if (self._is_train() and opt.get("data_augment")) else (
+            self.LR_paths or self.GT_paths)
+        self.Depth_paths = [
+            os.path.join(opt["dataroot_depthMap"],
+                         os.path.basename(p).split(".")[0] + "_disp.npy")
+            for p in base]
+        if self._is_train() and opt.get("data_augment"):
+            self.Depth_paths = self.Depth_paths + self.Depth_paths
+
+        if not self.GT_paths:
+            raise ValueError("GT paths are empty")
+        if self.LR_paths and not (len(self.LR_paths) == len(self.GT_paths)
+                                  == len(self.Depth_paths)):
+            raise ValueError(
+                f"GT, LR and Depth datasets have different number of images - "
+                f"{len(self.LR_paths)}, {len(self.GT_paths)}, {len(self.Depth_paths)}.")
+
+    def _prepared_train(self, index):
+        """The cached, fully prepared training sample (``cache_data``): RGB
+        uint8 LR and GT, float32 depth, uint8 masks, so that a sample costs
+        only its augmentation and the uint8 → float32 conversion. The
+        channel reversal and the / 255 commute with the flips, so a batch
+        equals the uncached path's bit for bit. None where the sample needs
+        ``channel_convert`` (the slow path then serves it)."""
+        key = ("prep", index)
+        if key in self._cache:
+            return self._cache[key]
+        opt = self.opt
+        scale = opt["scale"]
+        lmdb = opt["data_type"] == "lmdb"
+
+        img_GT = (self._img(opt.get("dataroot_GT"), self.GT_paths,
+                            self.GT_sizes, index) if lmdb
+                  else util.read_img(None, self.GT_paths[index]))
+        if self.LR_paths:
+            img_LR = (self._img(opt.get("dataroot_LQ"), self.LR_paths,
+                                self.LR_sizes, index) if lmdb
+                      else util.read_img(None, self.LR_paths[index]))
+        else:
+            img_LR = imresize_np(img_GT, 1 / scale, True)
+            if img_LR.ndim == 2:
+                img_LR = np.expand_dims(img_LR, axis=2)
+
+        if (img_LR.ndim != 3 or img_LR.shape[2] != 3
+                or img_GT.ndim != 3 or img_GT.shape[2] != 3):
+            self._cache[key] = None
+            return None
+        depth_map = np.squeeze(np.load(self.Depth_paths[index]), axis=1)[0]
+        mask_list = depth_masks_np(
+            depth_map, opt.get("depthFixedRange", True),
+            opt.get("depthMaskNum", 10))
+        got = (self._rgb_u8(img_LR), self._rgb_u8(img_GT),
+               np.ascontiguousarray(depth_map[..., None], np.float32),
+               mask_list.astype(np.uint8))
+        self._cache[key] = got
+        return got
+
+    def __getitem__(self, index):
+        opt = self.opt
+        scale = opt["scale"]
+
+        prep = (self._prepared_train(index)
+                if (self._cache is not None and self._is_train()
+                    and opt.get("color") in (None, "RGB")) else None)
+        if prep is not None:
+            lr, gt, dep, masks = util.augment(
+                list(prep), opt.get("use_flip", False),
+                opt.get("use_rot", False), self.rng)
+            paths = {"LQ_path": (self.LR_paths or self.GT_paths)[index],
+                     "GT_path": self.GT_paths[index]}
+            if opt.get("u8_pipeline"):
+                # uint8 to the model, which divides by 255 exactly as here
+                return {"LQ": np.ascontiguousarray(lr),
+                        "GT": np.ascontiguousarray(gt),
+                        "Depth": np.ascontiguousarray(dep, np.float32),
+                        "DepthMaskList": np.ascontiguousarray(masks), **paths}
+            return {"LQ": util.to_f32_01(lr), "GT": util.to_f32_01(gt),
+                    "Depth": np.ascontiguousarray(dep, np.float32),
+                    "DepthMaskList": np.ascontiguousarray(masks, np.float32),
+                    **paths}
+
+        GT_path = self.GT_paths[index]
+        img_GT = self._img(opt.get("dataroot_GT"), self.GT_paths, self.GT_sizes,
+                           index)
+        if not self._is_train():
+            img_GT = modcrop(img_GT, scale)
+
+        if self.LR_paths:
+            LR_path = self.LR_paths[index]
+            img_LR = self._img(opt.get("dataroot_LQ"), self.LR_paths,
+                               self.LR_sizes, index)
+        else:
+            LR_path = GT_path
+            img_LR = imresize_np(img_GT, 1 / scale, True)
+            if img_LR.ndim == 2:
+                img_LR = np.expand_dims(img_LR, axis=2)
+
+        depth_map = self._load_npy(self.Depth_paths[index])
+        depth_map = np.squeeze(depth_map, axis=1)[0]          # [1,1,H,W] → HW
+        mask_list = depth_masks_np(
+            depth_map, opt.get("depthFixedRange", True),
+            opt.get("depthMaskNum", 10))                      # HWK
+        depth_map = depth_map[..., None].astype(np.float32)   # HW1
+
+        if self._is_train():
+            if opt["LR_size"] != opt["GT_size"] // scale:
+                raise ValueError(f"GT_size {opt['GT_size']} does not match "
+                                 f"LR_size {opt['LR_size']} at ×{scale}")
+            img_LR, img_GT, depth_map, mask_list = util.augment(
+                [img_LR, img_GT, depth_map, mask_list],
+                opt.get("use_flip", False), opt.get("use_rot", False), self.rng)
+
+        if opt.get("color"):
+            img_LR = channel_convert(img_LR.shape[2], opt["color"], [img_LR])[0]
+            img_GT = channel_convert(img_GT.shape[2], opt["color"], [img_GT])[0]
+
+        return {"LQ": util.bgr_to_rgb_f32(img_LR),
+                "GT": util.bgr_to_rgb_f32(img_GT),
+                "Depth": np.ascontiguousarray(depth_map, np.float32),
+                "DepthMaskList": np.ascontiguousarray(mask_list, np.float32),
+                "LQ_path": LR_path, "GT_path": GT_path}

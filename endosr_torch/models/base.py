@@ -2,21 +2,52 @@
 ``endosr/models/base.py``).
 
 The reference's model API (``feed_data / optimize_parameters / test /
-get_current_log / update_learning_rate / ...``) over torch modules and a
-``torch.optim`` optimizer. The LR schedule is a closed-form function of
-the update count (``models/lr_schedule.py``), set into the optimizer
-before every update, so ``update_learning_rate`` is a query. Checkpoint
-save and resume come with ``train.py`` and raise until then.
+get_current_log / update_learning_rate / save / resume_training ...``)
+over torch modules and a ``torch.optim`` optimizer. The LR schedule is a
+closed-form function of the update count (``models/lr_schedule.py``), set
+into the optimizer before every update, so ``update_learning_rate`` is a
+query.
+
+Checkpoints keep the JAX package's two-file scheme with torch files: the
+weights as ``{iter}_{label}.pth`` (the ``state_dict`` under the reference
+checkpoint's keys, which the JAX package's porter loads) in
+``path.models``, and the trainer state as ``{iter}.state`` in
+``path.training_state`` (epoch, iteration, updates made, the optimizer's
+``state_dict``, the generator's ``state_dict`` and the dynamic loss's
+weights). Both are written to a temporary file and renamed into place.
 """
 
 from __future__ import annotations
 
+import os
+
+import torch
+
 from endosr_torch.models.lr_schedule import build_schedule
+from endosr_torch.utils.port_params import load_params
 
 __all__ = ["BaseModel"]
 
 
+def _save_atomic(obj, path: str) -> str:
+    """``torch.save(obj)`` to ``path`` through a temporary file, so that a
+    crash while saving never leaves a torn file at ``path``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def _host(sd):
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
 class BaseModel:
+    """The training-state checkpoints act on ``self.netG``,
+    ``self.optimizer_G`` and ``self.dyn_weight`` (None without the dynamic
+    loss)."""
+
     def __init__(self, opt):
         self.opt = opt
         self.is_train = bool(opt.get("is_train"))
@@ -48,17 +79,47 @@ class BaseModel:
             return 0.0
         return self.schedule(self.step if cur_iter is None else cur_iter)
 
-    def save_network(self, *args, **kwargs):
-        raise NotImplementedError(
-            "save_network: checkpoint saving is not ported yet (it comes "
-            "with train.py)")
+    def save_network(self, network, network_label, iter_label) -> str:
+        """``network``'s weights → ``path.models/{iter}_{label}.pth``."""
+        return _save_atomic(_host(network.state_dict()), os.path.join(
+            self.opt["path"]["models"], f"{iter_label}_{network_label}.pth"))
 
-    def save_training_state(self, *args, **kwargs):
-        raise NotImplementedError(
-            "save_training_state: checkpoint saving is not ported yet (it "
-            "comes with train.py)")
+    def load_network(self, load_path, network, strict=True):
+        """Load ``.npz`` (JAX parameters) or ``.pth`` (a ``state_dict``)
+        weights into ``network``."""
+        if load_path.endswith(".ckpt"):
+            raise NotImplementedError(
+                f"{load_path}: a flax .ckpt is not read by the port; export "
+                "the JAX parameters as a .npz (flax paths joined by '/') and "
+                "load that")
+        network.load_state_dict(load_params(load_path), strict=strict)
 
-    def resume_training(self, *args, **kwargs):
-        raise NotImplementedError(
-            "resume_training: resuming from a training state is not ported "
-            "yet (it comes with train.py)")
+    def save_training_state(self, epoch, iter_step) -> str:
+        """The trainer state → ``path.training_state/{iter}.state``."""
+        state = {"epoch": int(epoch), "iter": int(iter_step),
+                 "step": int(self.step),
+                 "optimizer": self.optimizer_G.state_dict(),
+                 "netG": _host(self.netG.state_dict()),
+                 "dyn_weight": (None if self.dyn_weight is None
+                                else self.dyn_weight.detach().cpu())}
+        return _save_atomic(state, os.path.join(
+            self.opt["path"]["training_state"], f"{iter_step}.state"))
+
+    def resume_training(self, resume_path):
+        """Restore a ``.state`` file; returns (epoch, iter)."""
+        state = torch.load(resume_path, map_location="cpu", weights_only=True)
+        self.netG.load_state_dict(state["netG"])
+        if (state["dyn_weight"] is None) != (self.dyn_weight is None):
+            raise ValueError(f"{resume_path}: the dynamic loss's weights do "
+                             "not match this model's train options")
+        if self.dyn_weight is not None:
+            with torch.no_grad():
+                self.dyn_weight.copy_(state["dyn_weight"])
+        self.optimizer_G.load_state_dict(state["optimizer"])
+        self.step = state["step"]
+        return state["epoch"], state["iter"]
+
+    def get_network_description(self, network):
+        """(description, number of parameters) of ``network``."""
+        n = sum(p.numel() for p in network.parameters())
+        return f"{network.__class__.__name__} with {n:,d} parameters", n

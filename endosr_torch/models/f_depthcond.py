@@ -23,11 +23,13 @@ its trainable K-vector), the gradient through every kernel's backward, and
 options, ε 1e-8) at the schedule's LR of that update. uint8 batches (the
 ``u8_pipeline``) are normalized inside the step through the 256-entry
 table; masks are cast without scaling. The depth and VGG losses (they need
-monodepth2 and VGG19 weights), checkpoint save and resume, and
-``spatial_shard`` are still to be ported and raise.
+monodepth2 and VGG19 weights) and ``spatial_shard`` are still to be ported
+and raise.
 
 Weights come from ``path.pretrain_model_G`` (a ``.npz`` of JAX parameters
-or a ``state_dict`` file) or from the port's seeded init.
+or a ``state_dict`` file, :meth:`load`) or from the port's seeded init;
+:meth:`save` writes them as ``{iter}_G.pth``, and the trainer state
+(``models/base.py``) saves and resumes the optimizer with them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from endosr_torch.models.lr_schedule import clear_state_at
 from endosr_torch.nn.networks import define_G
 from endosr_torch.ops.masks import pool_mask_np
 from endosr_torch.utils.device import device_constant, resolve_device
-from endosr_torch.utils.port_params import load_params, seeded_init
+from endosr_torch.utils.port_params import seeded_init
 
 __all__ = ["FModelDepthCond", "chunked_serving_fn", "u8_image_norm",
            "u8_cast"]
@@ -123,11 +125,7 @@ class FModelDepthCond(BaseModel):
         seed = int((opt.get("train") or {}).get("manual_seed") or 0)
         # the host RNG of the mask loss's bin, as the JAX model seeds it
         self._np_rng = np.random.default_rng(seed)
-        path = (opt.get("path") or {}).get("pretrain_model_G")
-        if path:
-            strict = (opt.get("path") or {}).get("strict_load", True)
-            self.netG.load_state_dict(load_params(path), strict=strict)
-        else:
+        if not self.load():
             seeded_init(self.netG, seed)
         self.netG.eval()
         chunk = opt.get("serve_batch_chunk")
@@ -278,10 +276,29 @@ class FModelDepthCond(BaseModel):
             i += n
         return self.log_dict
 
+    def load(self) -> bool:
+        """Load ``path.pretrain_model_G`` (with ``path.strict_load``) if it
+        is set; returns whether it was."""
+        path = self.opt.get("path") or {}
+        if not path.get("pretrain_model_G"):
+            return False
+        logger.info("Loading model for G [%s] ...", path["pretrain_model_G"])
+        self.load_network(path["pretrain_model_G"], self.netG,
+                          path.get("strict_load", True))
+        return True
+
     def save(self, iter_label):
-        raise NotImplementedError(
-            "save: checkpoint saving is not ported yet (it comes with "
-            "train.py)")
+        """The generator's weights → ``path.models/{iter_label}_G.pth``."""
+        return self.save_network(self.netG, "G", iter_label)
+
+    def get_current_visuals(self):
+        """The first image of the last batch served: LQ, SR, Depth and GT
+        (when fed) as tensors, and the whole SR batch as ``Batch_SR``."""
+        out = {"LQ": self.batch["LQ"][0], "SR": self.fake_SR[0],
+               "Batch_SR": self.fake_SR, "Depth": self.batch["Depth"][0]}
+        if "GT" in self.batch:
+            out["GT"] = self.batch["GT"][0]
+        return out
 
     def _bucket(self) -> int:
         """The bucket multiple of :meth:`test`: unset means 32; 0 for the

@@ -43,9 +43,10 @@ variants (L2 or Charbonnier pixel loss, the mask loss, SSIM, weight decay,
   (measured ≤ 5.3e-5) for the same reason.
 
 Also: serve → train → serve in one process (constants first made under
-inference mode are saved for backward later), the refusals by name
-(depth and VGG losses, checkpoints, ``remat_blocks``, gradients of the
-two kernels that have none), and the LR queries.
+inference mode are saved for backward later), checkpoints saved and read
+back (weights, trainer state, a resumed update), the refusals by name
+(depth and VGG losses, ``remat_blocks``, gradients of the two kernels
+that have none), and the LR queries.
 """
 
 import copy
@@ -537,12 +538,78 @@ def test_losses_without_weights_refuse_by_name(what):
         FModelDepthCond(_opt(train), device="cpu")
 
 
+def _ckpt_opt(tmp_path, **path):
+    opt = _opt(FLAGSHIP)
+    opt["path"] = {"models": str(tmp_path / "models"),
+                   "training_state": str(tmp_path / "training_state"), **path}
+    return opt
+
+
+def _state_equal(a, b):
+    """Two nested checkpoint structures hold equal values (tensors bit for
+    bit)."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_state_equal, a, b))
+    return a == b
+
+
 @pytest.mark.parametrize("call", ["save", "save_network",
                                   "save_training_state", "resume_training"])
-def test_checkpoints_refuse_by_name(call):
-    tm = FModelDepthCond(_opt(FLAGSHIP), device="cpu")
-    with pytest.raises(NotImplementedError, match=call):
-        getattr(tm, call)("x")
+def test_checkpoints_round_trip(call, tmp_path):
+    """Each checkpoint call writes a file that reads back into an equal
+    model: the weights (``{iter}_G.pth``, under the reference keys), the
+    trainer state (``{iter}.state``: epoch, iteration, updates, Adam, the
+    weights, the dynamic loss's K-vector), and a resumed model whose next
+    update equals the uninterrupted one's bit for bit."""
+    tm = FModelDepthCond(_ckpt_opt(tmp_path), device="cpu")
+    tm.feed_data(_train_batch(False))
+    tm.optimize_parameters()
+    sd = {k: v.detach().clone() for k, v in tm.netG.state_dict().items()}
+    if call == "save":
+        path = tm.save(7)
+        assert path == str(tmp_path / "models" / "7_G.pth")
+        again = FModelDepthCond(_ckpt_opt(tmp_path, pretrain_model_G=path),
+                                device="cpu")
+        assert _state_equal(again.netG.state_dict(), sd)
+    elif call == "save_network":
+        path = tm.save_network(tm.netG, "G", "latest")
+        assert path.endswith("latest_G.pth") and not list(
+            (tmp_path / "models").glob("*.tmp"))
+        assert _state_equal(torch.load(path, weights_only=True), sd)
+    elif call == "save_training_state":
+        path = tm.save_training_state(3, 9)
+        assert path == str(tmp_path / "training_state" / "9.state")
+        st = torch.load(path, weights_only=True)
+        assert (st["epoch"], st["iter"], st["step"]) == (3, 9, 1)
+        assert _state_equal(st["netG"], sd)
+        assert _state_equal(st["optimizer"], tm.optimizer_G.state_dict())
+        assert torch.equal(st["dyn_weight"], tm.dyn_weight.detach())
+    else:
+        path = tm.save_training_state(0, 1)
+        resumed = FModelDepthCond(_ckpt_opt(tmp_path), device="cpu")
+        assert resumed.resume_training(path) == (0, 1)
+        assert resumed.step == 1 and _state_equal(resumed.netG.state_dict(), sd)
+        assert _state_equal(resumed.optimizer_G.state_dict(),
+                            tm.optimizer_G.state_dict())
+        resumed.feed_data(_train_batch(False))
+        # one thread: with several, the CPU backward's sums vary by run
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            tm.optimize_parameters()
+            logs = resumed.optimize_parameters()
+        finally:
+            torch.set_num_threads(threads)
+        assert logs == tm.log_dict
+        for (k, a), (_, b) in zip(tm.named_train_parameters(),
+                                  resumed.named_train_parameters()):
+            assert torch.equal(a, b), k
+        assert _state_equal(resumed.optimizer_G.state_dict(),
+                            tm.optimizer_G.state_dict())
 
 
 def test_remat_blocks_and_serving_models_refuse_training():
