@@ -171,9 +171,54 @@ exits non-zero):
    peak device memory, the loader's images/s (its first epoch fills the
    cache), validation and eval ms an image.
 
+8. ×2 / ×3 serving — (a) every kernel call of the ×2 and ×3 paths at its
+   path's shape and type (``X23_CALLS``: ``style_dot_hwbm`` bf16 ``tc``
+   at [8,512,512,90]×[8,90,1792 / 1536] and [1,191,166,90]×[1,90,1792 /
+   1536], ``style_blend_dot`` fp32 ``cuda_core`` and bf16 ``tc`` at the ×2
+   groups, ``output_stage`` r = 2 at [8,512,512,12] fp32 and bf16
+   ``vec16``, r = 3 at [1,191,166,27] fp32 ``v1``), its route asserted,
+   against its plain version on the same inputs (the dots image by image,
+   fp32 against float64 ≤ 1e-5, bf16 ≤ 1e-2 of max |ref|; the output
+   stages bit for bit); the errors join the JSON rows' ``max_abs_err``.
+   (b) ``centered_conv`` on one trunk conv
+   ([8,512,512,64]×[3,3,64,64], an offset-carrying stream): the same bits
+   with the process's TF32 flag on and off (its exact-product passes allow
+   TF32 locally), 1 / 2 / 3 passes against the float64 conv (3 passes
+   ≤ 2e-5, 1 pass ≤ 2e-2 of max |ref|), and the ms of 1, 2 and 3 passes,
+   of the bf16 conv and of the fp32 conv (TF32 off). (c) The ×2 YAML's
+   network (nb 16, every block a depth block, latent 32; its training
+   field ``remat_blocks`` dropped, logged as ``reduced``), batch 8, LQ 512²
+   → SR 1024², ``eval_bucket_multiple: 0``, seeded weights; the reference
+   is fp32 ``preset: plain`` on the same weights and requests (no kernel
+   launched, asserted; TF32 off; run 2 images at a time), then fp32,
+   bf16c3, bf16c, mixed and bf16: each precision a warm-up request, then 2
+   with the counts set to 0 just before and read just after: fp32
+   ``style_blend_dot`` 2 (``cuda_core``) and ``output_stage`` 1
+   (``vec16``) a request; bf16 the same on ``tc``; mixed, bf16c and bf16c3
+   ``style_dot_hwbm`` 2 (``tc``; JAX's blend kernel does not fit LQ 512²
+   at batch 8, so the style groups go where the JAX module sends them) and
+   ``output_stage`` 1 (``vec16``); host ms, device busy ms
+   (``torch.profiler``, one request), peak memory; SR finite, fp32, in
+   [0, 1]; fp32 within 2e-4 of the plain reference, the others'
+   mismatch-PSNR against it over all values ≥ the JAX package's floors
+   (bf16c3 50 dB, mixed 45, bf16c 40, bf16 25;
+   ``tests/test_bf16_quality.py``), also logged over the unclamped values.
+   (d) ``python -m endosr_torch.test`` through ``main`` at ×3: the test
+   YAML with the ×3 YAML's network and EndoScene dataset block on a
+   synthetic CVC-EndoSceneStill split under ``build/endoscene/`` (4 frames
+   of GT 574×500, LR 191×166 under ``x3/``, a split file), ``precision``
+   unset: ``bf16c3`` auto-selected, unbucketed; each image's ``test`` with
+   the counts set to 0 just before and read just after:
+   ``style_dot_hwbm`` 2 (``tc``), ``output_stage`` 1 (route ``v1``: a
+   row of 166·27 values is no multiple of 16 bytes); the TSV, 4 PNGs of
+   573×498, each SR ≥ 40 dB against an fp32 ``preset: plain`` serve (no
+   kernel launched, asserted) over the values neither run clamps; ms an
+   image. The phase's seconds are logged.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
-``val entry`` and ``eval entry``, ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
+``val entry`` and ``eval entry`` and phase 8's ``x2 <precision>`` and
+``x3 eval``, ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
 ``mid_shuffle`` is a kernel no forward calls, in the JAX package as here, so
@@ -2258,6 +2303,489 @@ def entry_points(torch, counters):
     return launches, numbers
 
 
+X2_YAML = "options/train/train_depthNet_SEAN_depthMask_x2.yml"
+X3_YAML = "options/train/train_depthNet_SEAN_depthMask_endoscene_x3.yml"
+X2_LR = (512, 512)          # Kvasir ×2 (the ×2 YAML's): LQ 512² → SR 1024²
+# mismatch-PSNR floors against fp32 on the same weights: the JAX package's
+# (``tests/test_bf16_quality.py``; plain bf16 at ×2 is its 25 dB regime)
+X2_FLOOR = {"bf16c3": 50.0, "bf16c": 40.0, "mixed": 45.0, "bf16": 25.0}
+X2_PLAIN_TOL = 2e-4         # fp32 against fp32 plain: the repo's parity bar
+X2_PLAIN_BATCH = 2          # images a plain reference forward holds
+# launches a ×2 request makes: with bf16 maps in an fp32 net the style groups
+# go where the JAX module sends them, and its blend kernel does not fit LQ
+# 512² at batch 8 (``nn/depthnet.py::_jax_blend_fits``): ``style_dot_hwbm``
+X2_WANT = {
+    "fp32": ({"style_blend_dot": 2, "output_stage": 1},
+             {"style_blend_dot": "cuda_core", "output_stage": "vec16"}),
+    "bf16": ({"style_blend_dot": 2, "output_stage": 1},
+             {"style_blend_dot": "tc", "output_stage": "vec16"}),
+    **{p: ({"style_dot_hwbm": 2, "output_stage": 1},
+           {"style_dot_hwbm": "tc", "output_stage": "vec16"})
+       for p in ("mixed", "bf16c", "bf16c3")},
+}
+X3_ROOT = "build/endoscene"     # under the repository root, git-ignored
+X3_GT = (574, 500)              # a CVC-EndoSceneStill frame
+X3_N = 4
+# an ×3 image: LQ 191×166 (of the modcropped 573×498 frame); its width is
+# no multiple of 8, so the style groups take ``style_dot_hwbm``, and its
+# rows of 166·27 values are no multiple of 16 bytes, so ``output_stage``
+# takes route ``v1``
+X3_WANT = {"style_dot_hwbm": 2, "output_stage": 1}
+X3_ROUTES = {"style_dot_hwbm": "tc", "output_stage": "v1"}
+
+
+# the kernel calls of phase 8's paths: (kernel, storage type, route,
+# (B, H, W, M) of a dot or (B, H, W, r) of an output stage): the ×2 requests (batch 8, LQ 512²; style groups of 7 and 6
+# blocks, M = 1792 / 1536: mixed, bf16c and bf16c3 dot them, fp32 and bf16
+# blend them; the tail's r = 2 stage in fp32, and in bf16 at bf16) and the
+# ×3 frame (LQ 191×166; bf16c3 dots both groups; the r = 3 stage in fp32)
+X23_CALLS = (
+    *(("style_dot_hwbm", "bfloat16", "tc", (8, 512, 512, m)) for m in (1792, 1536)),
+    *(("style_blend_dot", dt, route, (8, 512, 512, m)) for m in (1792, 1536)
+      for dt, route in (("float32", "cuda_core"), ("bfloat16", "tc"))),
+    *(("output_stage", dt, "vec16", (8, 512, 512, 2)) for dt in ("float32", "bfloat16")),
+    *(("style_dot_hwbm", "bfloat16", "tc", (1, 191, 166, m)) for m in (1792, 1536)),
+    ("output_stage", "float32", "v1", (1, 191, 166, 3)),
+)
+
+
+def path_kernel_checks(torch):
+    """Phase 8a: every kernel call of ``X23_CALLS`` on the card at its
+    path's shape and type, its route asserted, against its plain version on
+    the same inputs: the dots image by image (a ×2 map holds 3.8·10⁹
+    values), fp32 against the float64 plain version (max |Δ| ≤ 1e-5 of max
+    |ref|), bf16 against the bf16 plain version (1e-2), as phase 3 holds
+    them; the output stages bit for bit. Returns {kernel: {type: max |Δ|}}."""
+    from endosr_torch.kernels.output_stage import output_stage, output_stage_plain
+    from endosr_torch.kernels.style_dot import (style_blend_dot,
+                                                style_blend_plain,
+                                                style_dot_hwbm, style_dot_plain)
+
+    fns = {"style_dot_hwbm": style_dot_hwbm, "style_blend_dot": style_blend_dot,
+           "output_stage": output_stage}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errs = {}
+
+    def rn(*shape, s=1.0, mean=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * s
+                + mean).to(dtype)
+
+    def plain_image(name, args, k, dt):
+        """The plain version on image ``k`` of ``args`` (float64 for fp32)."""
+        one = [a[k:k + 1] for a in args[:2]]
+        if name == "style_blend_dot":
+            one += [tuple(c[:, :, k:k + 1] for c in args[2]), args[3]]
+        if dt == torch.float32:
+            one = [tuple(c.double() for c in a) if isinstance(a, tuple)
+                   else a.double() for a in one]
+        return (style_blend_plain if name == "style_blend_dot"
+                else style_dot_plain)(*one)
+
+    def check(name, dt, route, b, h, w, m):
+        fn = fns[name]
+        if name == "output_stage":
+            args = (rn(b, h, w, 3 * m * m, s=0.6, mean=0.5, dtype=dt), m, 0.0, 1.0)
+        else:
+            args = ((torch.rand((b, h, w, 90), generator=gen, device="cuda")
+                     > 0.8).to(dt), rn(b, 90, m, s=0.05, dtype=dt))
+            if name == "style_blend_dot":
+                args += (tuple(rn(b, h, w, 128, s=0.3, dtype=dt).permute(1, 2, 0, 3)
+                               for _ in range(m // 128)), rn(m, s=0.1))
+        fn.routes = dict.fromkeys(fn.routes, 0)
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if fn.routes != {**dict.fromkeys(fn.routes, 0), route: 1}:
+            raise AssertionError(f"[x2/x3] {name} {dt} {(b, h, w, m)}: routes "
+                                 f"{fn.routes}, want one launch on {route}")
+        if name == "output_stage":
+            want = output_stage_plain(*args)
+            if not torch.equal(got, want):
+                raise AssertionError(f"[x2/x3] {name} {dt} {(b, h, w, m)}: not "
+                                     f"bit-identical (max |Δ| "
+                                     f"{rel_err(got, want)[0]})")
+            return 0.0, 0.0, None
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        per = [rel_err(got[:, :, k:k + 1], plain_image(name, args, k, dt))
+               for k in range(b)]
+        err, rel = max(e[0] for e in per), max(e[1] for e in per)
+        if not rel <= tol:
+            raise AssertionError(f"[x2/x3] {name} {dt} {(b, h, w, m)}: rel err "
+                                 f"{rel} > {tol}")
+        return err, rel, tol
+
+    for name, dts, route, (b, h, w, m) in X23_CALLS:
+        err, rel, tol = check(name, getattr(torch, dts), route, b, h, w, m)
+        torch.cuda.empty_cache()
+        what = (f"[{b},{h},{w},{3 * m * m}] r={m}" if name == "output_stage"
+                else f"[{b},{h},{w},90]×[{b},90,{m}]")
+        log(f"[x2/x3] {name} {dts} {what}: route {route}, max|Δ| {err:.3e} "
+            f"rel {rel:.3e} against the plain version "
+            + ("(bit-identical)" if tol is None else
+               f"(image by image, tol {tol:g})"))
+        slot = errs.setdefault(name, {})
+        slot[dts] = max(slot.get(dts, 0.0), err)
+    return errs
+
+
+def centered_conv_times(torch):
+    """Phase 8b: ``centered_conv`` on one trunk conv ([8, 512, 512, 64] by
+    [3, 3, 64, 64], an offset-carrying stream): its result does not depend
+    on the process's TF32 flag (its exact-product passes set TF32 locally),
+    each pass count against the float64 conv of the same operands, and the
+    ms of 1, 2 and 3 passes beside the bf16 conv's and the fp32 conv's (TF32
+    off)."""
+    from endosr_torch.nn.layers import centered_conv, conv2d_nhwc
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((8, 512, 512, 64), generator=gen, device="cuda") * 0.3 + 2.0
+    w = torch.randn((3, 3, 64, 64), generator=gen, device="cuda") * 0.05
+    b = torch.randn((64,), generator=gen, device="cuda")
+    with torch.inference_mode():
+        flag = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            on = centered_conv(x, w, b, torch.bfloat16, 3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = flag
+        off = centered_conv(x, w, b, torch.bfloat16, 3)
+        if not torch.equal(on, off):
+            raise AssertionError("centered_conv depends on the TF32 flag: "
+                                 f"{float((on - off).abs().max())}")
+        ref = (conv2d_nhwc(x[:2].double(), w.double(), 1, torch.float64)
+               + b.double())
+        out = {"max_rel_err_vs_f64": {}, "ms": {}}
+        for p in (1, 2, 3):
+            y = centered_conv(x[:2], w, b, torch.bfloat16, p).double()
+            out["max_rel_err_vs_f64"][p] = float(
+                (y - ref).abs().max() / ref.abs().max())
+        del ref, on, off
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        for p in (1, 2, 3):
+            out["ms"][f"centered_{p}"] = cuda_ms(
+                lambda p=p: centered_conv(x, w, b, torch.bfloat16, p), 10)
+        out["ms"]["bf16"] = cuda_ms(
+            lambda: conv2d_nhwc(xb, wb, 1) + b.to(torch.bfloat16), 10)
+        out["ms"]["fp32"] = cuda_ms(lambda: conv2d_nhwc(x, w, 1) + b, 10)
+    errs = out["max_rel_err_vs_f64"]
+    log("[x2/x3] centered_conv [8,512,512,64]×[3,3,64,64], bf16 passes: "
+        f"the same bits with the process's TF32 on and off; max |Δ|/max|ref| "
+        f"against float64: " + ", ".join(f"{p} pass {e:.3e}"
+                                         for p, e in errs.items())
+        + "; ms: " + ", ".join(f"{k} {v:.3f}" for k, v in out["ms"].items())
+        + f" (fp32: TF32 off); {gpu_line()}")
+    if not (errs[3] <= 2e-5 and errs[1] <= 2e-2):
+        raise AssertionError(f"centered_conv errors {errs}")
+    return out
+
+
+def _x2_opt(precision, net):
+    return {"is_train": False, "model": "sftmd_depthCond", "scale": 2,
+            "precision": precision, "eval_bucket_multiple": 0,
+            "datasets": {"test": {"depthMaskNum": 10}}, "network_G": net,
+            "path": {}, "train": {"manual_seed": 0}}
+
+
+def serve_x2(torch, counters):
+    """Phase 8c: the ×2 Kvasir network at full width (the ×2 YAML's
+    ``network_G``: nb 16, every block a depth block, latent 32), batch 8 of
+    LQ 512² → SR 1024², unbucketed, seeded weights, against a reference
+    of fp32 ``preset: plain`` (no kernel launched, asserted; TF32 off) on
+    the same weights and requests, in fp32 (max |Δ| ≤ ``X2_PLAIN_TOL``),
+    bf16c3, bf16c, mixed and bf16 (mismatch-PSNR over all values, as the
+    JAX package measures it, at least ``X2_FLOOR``; also logged over the
+    values neither run clamps). Per precision: a warm-up request, then 2
+    requests with the
+    launch counts set to 0 just before and read just after (counts and
+    routes asserted), host ms; one more request under ``torch.profiler``
+    (device busy ms); SR finite, fp32, of the right shape, in [0, 1].
+    Returns ({path label: launches}, readings)."""
+    from pathlib import Path
+
+    import yaml
+
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.ops.masks import depth_masks
+    from endosr_torch.tools.profile_serving import device_kernels
+
+    net = yaml.safe_load((Path(__file__).resolve().parent / X2_YAML)
+                         .read_text())["network_G"]
+    log(f"[x2] reduced: {X2_YAML} network_G.remat_blocks: "
+        f"{net.pop('remat_blocks')!r} → unset (a training field; serving)")
+    h, w = X2_LR
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    reqs = []
+    for _ in range(2):
+        dep = torch.rand((8, h, w, 1), generator=gen, device="cuda")
+        reqs.append({"LQ": torch.rand((8, h, w, 3), generator=gen,
+                                      device="cuda"),
+                     "Depth": dep,
+                     "DepthMaskList": depth_masks(dep[..., 0], True, 10)})
+    # the reference: fp32 ``preset: plain`` (no kernel), TF32 off, in
+    # slices of X2_PLAIN_BATCH images (the forward is per image)
+    plain = FModelDepthCond(_x2_opt("fp32", {**net, "preset": "plain"}))
+    sd = {k: v.clone() for k, v in plain.netG.state_dict().items()}
+    zero_counts(counters)
+    t0, ref = time.perf_counter(), []
+    for r in reqs:
+        parts = []
+        for k in range(0, 8, X2_PLAIN_BATCH):
+            plain.feed_data({key: x[k:k + X2_PLAIN_BATCH]
+                             for key, x in r.items()})
+            parts.append(plain.test().cpu())
+        ref.append(torch.cat(parts))
+    plain_s = time.perf_counter() - t0
+    del plain
+    torch.cuda.empty_cache()
+    if any(c.launches for c in counters):
+        raise AssertionError("[x2] the preset: plain reference launched "
+                             + ", ".join(f"{c.__name__} {c.launches}"
+                                         for c in counters if c.launches))
+    log(f"[x2] reference: fp32 preset: plain, no kernel launched, "
+        f"{len(reqs)} requests in slices of {X2_PLAIN_BATCH} images, "
+        f"{plain_s:.1f} s")
+    launches, numbers = {}, {"plain_reference_s": plain_s}
+    for precision in ("fp32", "bf16c3", "bf16c", "mixed", "bf16"):
+        label = f"x2 {precision}"
+        model = FModelDepthCond(_x2_opt(precision, net))
+        model.netG.load_state_dict(sd)
+
+        def request(r):
+            model.feed_data(r)
+            return model.test()
+
+        request(reqs[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        lat, outs = [], []
+        for r in reqs:
+            t = time.perf_counter()
+            outs.append(request(r).clone())
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+        got = {c.__name__: c.launches for c in counters}
+        routes = {c.__name__: dict(c.routes) for c in counters
+                  if hasattr(c, "routes")}
+        want, want_routes = X2_WANT[precision]
+        for c in counters:
+            if got[c.__name__] != want.get(c.__name__, 0) * len(reqs):
+                raise AssertionError(f"[{label}] {c.__name__}: "
+                                     f"{got[c.__name__]} launches in "
+                                     f"{len(reqs)} requests, want "
+                                     f"{want.get(c.__name__, 0)} each")
+        for name, route in want_routes.items():
+            took = {**dict.fromkeys(routes[name], 0), route: got[name]}
+            if routes[name] != took:
+                raise AssertionError(f"[{label}] {name} routes "
+                                     f"{routes[name]}, want {took}")
+        wall, rows = device_kernels(torch, lambda: request(reqs[0]), 1)
+        busy = sum(r[0] for r in rows) / 1e3
+        sr = outs[0]
+        if (tuple(sr.shape) != (8, 2 * h, 2 * w, 3) or sr.dtype != torch.float32
+                or not bool(torch.isfinite(sr).all())
+                or float(sr.min()) < 0.0 or float(sr.max()) > 1.0):
+            raise AssertionError(f"[{label}] SR {tuple(sr.shape)} {sr.dtype} "
+                                 f"[{float(sr.min())}, {float(sr.max())}]")
+        rec = {"ms": [x * 1e3 for x in lat], "profiled_wall_ms": wall * 1e3,
+               "device_ms": busy,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        host = [o.cpu() for o in outs]
+        rec["max_abs_vs_plain"] = max(float((a - b).abs().max())
+                                      for a, b in zip(host, ref))
+        rec["psnr_db"] = [psnr(a, b) for a, b in zip(host, ref)]
+        rec["psnr_unclamped_db"] = [_psnr_unclamped(a.numpy(), b.numpy())
+                                    for a, b in zip(host, ref)]
+        numbers[precision] = rec
+        launches[label] = got
+        log(f"[{label}] batch 8, LQ {h}×{w} → SR {2 * h}×{2 * w}: "
+            + ", ".join(f"{c}: {n}" for c, n in got.items() if n)
+            + f" launches in {len(reqs)} requests ("
+            + ", ".join(f"{k} {v}" for k, v in want_routes.items())
+            + "); host ms " + ", ".join(f"{x:.2f}" for x in rec["ms"])
+            + f"; device busy {busy:.3f} ms of a profiled {wall * 1e3:.3f} ms"
+            + f"; peak {rec['peak_gib']:.2f} GiB"
+            + "; vs fp32 plain " + ", ".join(f"{d:.2f}" for d in rec["psnr_db"])
+            + " dB (unclamped: " + ", ".join(
+                f"{d:.2f} dB over {f:.3f}" for d, f in rec["psnr_unclamped_db"])
+            + f"), max|Δ| {rec['max_abs_vs_plain']:.3e}")
+        top = ", ".join(f"{k[:60]} {us / 1e3:.3f}" for us, _, k in rows[:6])
+        log(f"[{label}] first device items (ms): {top}")
+        del model, outs
+        torch.cuda.empty_cache()
+        if precision == "fp32":
+            if not rec["max_abs_vs_plain"] <= X2_PLAIN_TOL:
+                raise AssertionError(f"[{label}] max|Δ| against fp32 plain "
+                                     f"{rec['max_abs_vs_plain']} > "
+                                     f"{X2_PLAIN_TOL}")
+        elif not min(rec["psnr_db"]) >= X2_FLOOR[precision]:
+            raise AssertionError(f"[{label}] PSNR against fp32 plain "
+                                 f"{rec['psnr_db']} dB < "
+                                 f"{X2_FLOOR[precision]} dB")
+    return launches, numbers
+
+
+def write_endoscene(root):
+    """Phase 8d's synthetic CVC-EndoSceneStill test split, written with
+    ``cv2``: ``X3_N`` frames of GT 574×500, LR under ``LR/x3/`` the MATLAB
+    bicubic of the frame cropped to a multiple of 3 (191×166),
+    ``<stem>_disp.npy`` depth, and ``test.txt`` naming the frames."""
+    import numpy as np
+
+    import cv2
+
+    from endosr_torch.ops.color import modcrop
+    from endosr_torch.ops.resize import imresize_np
+
+    rng = np.random.default_rng(11)
+    for sub in ("HR", "LR/x3", "depth"):
+        (root / sub).mkdir(parents=True)
+    names = [f"{i + 1}.png" for i in range(X3_N)]
+    for name in names:
+        gt = _smooth_u8(np, rng, *X3_GT)
+        lr = imresize_np(modcrop(gt, 3).astype(np.float32) / 255.0, 1 / 3)
+        lr = np.clip(lr * 255.0, 0, 255).round().astype(np.uint8)
+        cv2.imwrite(str(root / "HR" / name), gt)
+        cv2.imwrite(str(root / "LR/x3" / name), lr)
+        np.save(root / "depth" / f"{name[:-4]}_disp.npy",
+                rng.random((1, 1) + lr.shape[:2], dtype=np.float32))
+    (root / "test.txt").write_text("".join(n + "\n" for n in names))
+
+
+def eval_x3(torch, counters):
+    """Phase 8d: ``python -m endosr_torch.test`` through ``main`` on the ×3
+    EndoScene network (the ×3 YAML's ``network_G``: nb 16, every block a
+    depth block, latent 256) and its dataset block (``EndoScene_Depth``, a
+    split file, LR under ``x3/``) on a synthetic frame set, ``precision``
+    unset: ``bf16c3`` auto-selected, bucketing off. Each image's ``test``
+    runs with the launch counts set to 0 just before and read just after
+    (counts and routes asserted); the TSV, the PNGs at the frame size, and
+    each SR against an fp32 serve of the same weights over the values
+    neither run clamps. The fp32 serve is ``preset: plain`` (no kernel
+    launched, asserted), so the floor holds the kernels against their plain
+    versions. Returns ({path label: launches}, readings)."""
+    import shutil
+    from pathlib import Path
+
+    import cv2
+    import yaml
+
+    import endosr_torch.test as entry_test
+    from endosr_torch.config import options as option
+    from endosr_torch.data import create_dataloader, create_dataset
+    from endosr_torch.models import create_model
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+
+    repo = Path(__file__).resolve().parent
+    root = repo / X3_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    write_endoscene(root / "data")
+    src = yaml.safe_load((repo / X3_YAML).read_text())
+    net = {**src["network_G"]}
+    weights = FModelDepthCond({"model": "sftmd_depthCond", "scale": 3,
+                               "network_G": net,
+                               "path": {"models": str(root / "init")}}).save(0)
+    data = root / "data"
+    ds = {**src["datasets"]["val"], "name": "EndoScene_x3_test",
+          "dataset_split_list": str(data / "test.txt"),
+          "dataroot_GT": str(data / "HR"), "dataroot_LQ": str(data / "LR"),
+          "dataroot_depthMap": str(data / "depth")}
+    y = yaml.safe_load((repo / "options/test/test_depthNet.yml").read_text())
+    log(f"[x3] options/test/test_depthNet.yml with scale 8 → 3, datasets "
+        f"the ×3 YAML's val block (data roots on the synthetic tree), "
+        f"network_G the ×3 YAML's, path.root and pretrain_model_G set; "
+        f"precision unset")
+    y.update(scale=3, datasets={"test_1": ds}, network_G=net)
+    y["path"].update(root=str(root / "eval"), pretrain_model_G=weights)
+    test_yaml = root / "test_x3.yml"
+    test_yaml.write_text(yaml.safe_dump(y))
+
+    taps = EntryTaps(torch, counters)
+    taps.serving = "x3 eval"
+    uninstall = taps.install()
+    t0 = time.perf_counter()
+    try:
+        model = entry_test.main(["-opt_F", str(test_yaml)])
+    finally:
+        uninstall()
+    secs = time.perf_counter() - t0
+    precision = model.opt["precision"]
+    centered, bucket = model.netG.centered_convs, model._bucket()
+    del model
+    calls = taps.calls["x3 eval"]
+    if precision != "bf16c3" or centered != 3 or bucket != 0:
+        raise AssertionError(f"[x3] precision {precision}, centered "
+                             f"{centered}, bucket {bucket}")
+    taps.check("x3 eval", calls, X3_WANT, X3_ROUTES)
+    res = root / "eval/results/DepthNet_test"
+    names = [f"{i + 1}" for i in range(X3_N)]
+    rows = (res / "result_x3.tsv").read_text().splitlines()
+    if (rows[0] != "Name\tPSNR\tSSIM\tPSNR_Y\tSSIM_Y"
+            or [r.split("\t")[0] for r in rows[1:]] != names + ["Average"]
+            or not all(math.isfinite(float(v)) for r in rows[1:]
+                       for v in r.split("\t")[1:])):
+        raise AssertionError(f"[x3] result_x3.tsv: {rows}")
+    crop = (X3_GT[0] // 3 * 3, X3_GT[1] // 3 * 3, 3)
+    pngs = sorted((res / "x3").glob("*.png"))
+    if ([p.stem for p in pngs] != names or any(
+            getattr(cv2.imread(str(p), cv2.IMREAD_UNCHANGED), "shape", None)
+            != crop for p in pngs)):
+        raise AssertionError(f"[x3] PNGs {pngs}")
+
+    opt = option.dict_to_nonedict(option.parse(str(test_yaml), is_train=False))
+    opt["precision"] = "fp32"
+    opt["network_G"]["preset"] = "plain"
+    m32 = create_model(opt)
+    ref = []
+    ds_opt = opt["datasets"]["test_1"]
+    zero_counts(counters)
+    for batch in create_dataloader(create_dataset(ds_opt), ds_opt):
+        m32.feed_data(batch)
+        ref.append(m32.test().float().cpu())
+    del m32
+    if any(c.launches for c in counters):
+        raise AssertionError("[x3] the preset: plain reference launched "
+                             + ", ".join(f"{c.__name__} {c.launches}"
+                                         for c in counters if c.launches))
+    dbs, shares = zip(*(_psnr_unclamped(c["sr"].numpy(), r.numpy())
+                        for c, r in zip(calls, ref)))
+    ms = [c["secs"] * 1e3 for c in calls]
+    log(f"[x3] test.main, EndoScene ×3, {X3_N} frames of GT "
+        f"{X3_GT[0]}×{X3_GT[1]} (SR {crop[0]}×{crop[1]}), bf16c3 "
+        f"unbucketed: " + ", ".join(f"{x:.1f}" for x in ms)
+        + f" ms an image (forward, host clock), {secs:.1f} s in all; "
+        f"bf16c3 vs fp32 plain " + ", ".join(f"{d:.2f}" for d in dbs)
+        + " dB over the unclamped " + ", ".join(f"{x:.4f}" for x in shares)
+        + f" of the values; TSV {rows[-1]}; {gpu_line()}")
+    if not min(dbs) >= 40.0:
+        raise AssertionError(f"[x3] bf16c3 vs fp32 {dbs} dB")
+    launches = {"x3 eval": {c.__name__: sum(r["launches"][c.__name__]
+                                            for r in calls)
+                            for c in counters}}
+    return launches, {"ms_per_image": ms, "main_s": secs,
+                      "psnr_unclamped_db": dbs, "unclamped_share": shares,
+                      "tsv": rows}
+
+
+def serving_x2_x3(torch, counters):
+    """Phase 8: ×2 / ×3 serving (8a–8d). Returns ({path label:
+    launches}, readings)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[x2/x3] device memory held at the start: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    t0 = time.perf_counter()
+    numbers = {"kernel_max_abs_err": path_kernel_checks(torch),
+               "centered_conv": centered_conv_times(torch)}
+    launches, numbers["x2"] = serve_x2(torch, counters)
+    x3, numbers["x3"] = eval_x3(torch, counters)
+    launches.update(x3)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[x2/x3] phase 8 took {numbers['seconds']:.1f} s")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2321,6 +2849,13 @@ def main() -> int:
     entry, numbers = entry_points(torch, counters)
     by_path.update(entry)
     log(f"[entry] summary: {json.dumps(numbers)}")
+    x23, numbers = serving_x2_x3(torch, counters)
+    by_path.update(x23)
+    for kname, errs in numbers["kernel_max_abs_err"].items():
+        for dts, err in errs.items():
+            have = rows[kname]["max_abs_err"]
+            have[dts] = max(have[dts], err)
+    log(f"[x2/x3] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

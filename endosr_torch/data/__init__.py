@@ -33,10 +33,12 @@ def create_dataset(dataset_opt):
     mode = dataset_opt["mode"]
     if mode == "LQGTker_Depth":
         from endosr_torch.data.datasets import LQGTKerDepthDataset as D
+    elif mode == "EndoScene_Depth":
+        from endosr_torch.data.datasets import EndoSceneDepthDataset as D
     else:
         raise NotImplementedError(
             f"Dataset mode [{mode}] is not ported (the port has "
-            "LQGTker_Depth only)")
+            "LQGTker_Depth and EndoScene_Depth)")
     dataset = D(dataset_opt)
     logging.getLogger("base").info(
         "Dataset [%s - %s] is created.", dataset.__class__.__name__,

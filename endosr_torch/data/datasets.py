@@ -1,5 +1,5 @@
-"""The flagship dataset (counterpart of ``endosr/data/datasets.py``:
-``_Base`` and ``LQGTKerDepthDataset``).
+"""The flagship datasets (counterpart of ``endosr/data/datasets.py``:
+``_Base``, ``LQGTKerDepthDataset`` and ``EndoSceneDepthDataset``).
 
 A sample is a dict of numpy arrays in NHWC order: 'LQ' and 'GT' HWC RGB
 float32 in [0, 1] (uint8 with ``u8_pipeline``), 'Depth' HW1 float32,
@@ -20,7 +20,7 @@ from endosr_torch.ops.color import channel_convert, modcrop
 from endosr_torch.ops.masks import depth_masks_np
 from endosr_torch.ops.resize import imresize_np
 
-__all__ = ["LQGTKerDepthDataset"]
+__all__ = ["LQGTKerDepthDataset", "EndoSceneDepthDataset"]
 
 
 class _Base:
@@ -230,3 +230,145 @@ class LQGTKerDepthDataset(_Base):
                 "Depth": np.ascontiguousarray(depth_map, np.float32),
                 "DepthMaskList": np.ascontiguousarray(mask_list, np.float32),
                 "LQ_path": LR_path, "GT_path": GT_path}
+
+
+class EndoSceneDepthDataset(_Base):
+    """CVC-EndoSceneStill: image names from the ``dataset_split_list`` text
+    file (one a line; without it, every image under ``dataroot_GT``), LR
+    images under ``dataroot_LQ/x<scale>/`` (or ``dataroot_LQ/`` itself when
+    the first is not there; without an LR root, the MATLAB bicubic of GT),
+    ``<stem>_disp.npy`` depth and, with ``dataroot_seglabel``, a one-hot
+    polyp mask (pixels > 127) as 'SegLabel' / 'Seg_onehot' (HW2 float32)
+    and 'Seg' (HW int64). Training takes whole frames (no crop), flipped
+    and rotated; ``cache_data`` and ``u8_pipeline`` as for
+    :class:`LQGTKerDepthDataset`. Validation and test crop GT to a multiple
+    of the scale."""
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        scale = opt["scale"]
+        split_list = opt.get("dataset_split_list")
+        if split_list:
+            with open(split_list) as f:
+                names = [line.strip() for line in f if line.strip()]
+        else:
+            names = [os.path.basename(p)
+                     for p in util.get_image_paths("img", opt["dataroot_GT"])]
+        self.names = names
+        self.GT_paths = [os.path.join(opt["dataroot_GT"], n) for n in names]
+        lq_root = opt.get("dataroot_LQ")
+        self.LR_paths = ([os.path.join(lq_root, f"x{scale}", n) for n in names]
+                         if lq_root else None)
+        if self.LR_paths and not os.path.exists(self.LR_paths[0]):
+            self.LR_paths = [os.path.join(lq_root, n) for n in names]
+        self.Depth_paths = [
+            os.path.join(opt["dataroot_depthMap"],
+                         n.split(".")[0] + "_disp.npy") for n in names]
+        self.Seg_paths = None
+        if opt.get("dataroot_seglabel"):
+            self.Seg_paths = [os.path.join(opt["dataroot_seglabel"], n)
+                              for n in names]
+
+    def _seg(self, index):
+        """The polyp mask of image ``index`` as integer labels (HW)."""
+        import cv2
+
+        raw = cv2.imread(self.Seg_paths[index], cv2.IMREAD_GRAYSCALE)
+        return (raw > 127).astype(np.int64)
+
+    def _prepared_train(self, index):
+        """The cached training sample (``cache_data``): RGB uint8 LR and GT,
+        float32 depth, uint8 masks and one-hot segmentation; None where an
+        image is not 3-channel (the slow path then serves it)."""
+        key = ("prep", index)
+        if key in self._cache:
+            return self._cache[key]
+        opt = self.opt
+        img_GT = util.read_img(None, self.GT_paths[index])
+        if self.LR_paths:
+            img_LR = util.read_img(None, self.LR_paths[index])
+        else:
+            img_LR = imresize_np(img_GT, 1 / opt["scale"], True)
+        if (img_LR.ndim != 3 or img_LR.shape[2] != 3
+                or img_GT.ndim != 3 or img_GT.shape[2] != 3):
+            self._cache[key] = None
+            return None
+        depth_map = np.squeeze(np.load(self.Depth_paths[index]), axis=1)[0]
+        mask_list = depth_masks_np(
+            depth_map, opt.get("depthFixedRange", True),
+            opt.get("depthMaskNum", 10))
+        seg = None
+        if self.Seg_paths is not None:
+            seg = util.get_one_hot(self._seg(index), 2).astype(np.uint8)
+        got = (self._rgb_u8(img_LR), self._rgb_u8(img_GT),
+               np.ascontiguousarray(depth_map[..., None], np.float32),
+               mask_list.astype(np.uint8), seg)
+        self._cache[key] = got
+        return got
+
+    def _paths(self, index):
+        return {"LQ_path": (self.LR_paths or self.GT_paths)[index],
+                "GT_path": self.GT_paths[index]}
+
+    @staticmethod
+    def _seg_keys(seg):
+        """'SegLabel' and its alias 'Seg_onehot' (one-hot, float32) and
+        'Seg' (the labels, int64) of an HW2 one-hot array."""
+        onehot = np.ascontiguousarray(seg, np.float32)
+        return {"SegLabel": onehot, "Seg_onehot": onehot,
+                "Seg": np.ascontiguousarray(np.argmax(onehot, axis=-1),
+                                            np.int64)}
+
+    def __getitem__(self, index):
+        opt = self.opt
+        scale = opt["scale"]
+        prep = (self._prepared_train(index)
+                if self._cache is not None and self._is_train() else None)
+        if prep is not None:
+            lr, gt, dep, masks, seg = prep
+            arrays = util.augment(
+                [lr, gt, dep, masks] + ([seg] if seg is not None else []),
+                opt.get("use_flip", False), opt.get("use_rot", False),
+                self.rng)
+            u8 = bool(opt.get("u8_pipeline"))
+
+            def im(x):
+                return np.ascontiguousarray(x) if u8 else util.to_f32_01(x)
+
+            out = {"LQ": im(arrays[0]), "GT": im(arrays[1]),
+                   "Depth": np.ascontiguousarray(arrays[2], np.float32),
+                   "DepthMaskList": np.ascontiguousarray(
+                       arrays[3], None if u8 else np.float32),
+                   **self._paths(index)}
+            if seg is not None:
+                out.update(self._seg_keys(arrays[4]))
+            return out
+
+        img_GT = self._read_img(self.GT_paths[index])
+        if not self._is_train():
+            img_GT = modcrop(img_GT, scale)
+        if self.LR_paths:
+            img_LR = self._read_img(self.LR_paths[index])
+        else:
+            img_LR = imresize_np(img_GT, 1 / scale, True)
+        depth_map = np.squeeze(self._load_npy(self.Depth_paths[index]),
+                               axis=1)[0]
+        mask_list = depth_masks_np(
+            depth_map, opt.get("depthFixedRange", True),
+            opt.get("depthMaskNum", 10))
+        depth_map = depth_map[..., None].astype(np.float32)
+        seg = (util.get_one_hot(self._seg(index), 2)
+               if self.Seg_paths is not None else None)
+        arrays = [img_LR, img_GT, depth_map, mask_list] + (
+            [seg] if seg is not None else [])
+        if self._is_train():
+            arrays = util.augment(arrays, opt.get("use_flip", False),
+                                  opt.get("use_rot", False), self.rng)
+        out = {"LQ": util.bgr_to_rgb_f32(arrays[0]),
+               "GT": util.bgr_to_rgb_f32(arrays[1]),
+               "Depth": np.ascontiguousarray(arrays[2], np.float32),
+               "DepthMaskList": np.ascontiguousarray(arrays[3], np.float32),
+               **self._paths(index)}
+        if seg is not None:
+            out.update(self._seg_keys(arrays[4]))
+        return out

@@ -10,9 +10,12 @@ unset ``eval_bucket_multiple`` means 32: inputs are zero-padded on the host
 to the next multiple and the network runs its exact valid-masked forward as
 one program for the whole batch, so the cropped output equals the unpadded
 forward up to fp32 summation order. ``eval_bucket_multiple: 0`` (and the
-``fused_epilogue`` network, which the masked forward does not support)
-serves unpadded, splitting batches larger than ``serve_batch_chunk``
-(default 8) into chunk-sized forwards.
+``fused_epilogue`` network, which the masked forward does not support, and
+the centered precisions ``bf16c`` / ``bf16c3``, as in JAX) serves
+unpadded, splitting batches larger than ``serve_batch_chunk`` (default 8)
+into chunk-sized forwards. ``precision`` is read as in JAX: ``fp32``
+(unset), ``bf16``, ``mixed`` (fp32 net, bf16 SEAN branches), ``bf16c`` and
+``bf16c3`` (``mixed`` with 1- / 3-pass centered bf16 convs).
 
 A training step (the JAX train step, ``f_depthcond.py:257-330``) runs the
 forward with ``pallas_output`` on, every loss ``opt["train"]`` turns on
@@ -56,8 +59,16 @@ __all__ = ["FModelDepthCond", "chunked_serving_fn", "u8_image_norm",
 
 logger = logging.getLogger("base")
 
-_PRECISIONS = {None: torch.float32, "fp32": torch.float32,
-               "bf16": torch.bfloat16}
+# ``precision`` → (stream dtype, modulation dtype, centered-conv passes), as
+# the JAX model reads it: ``mixed`` is an fp32 net with bf16 SEAN branches,
+# ``bf16c`` / ``bf16c3`` add 1- / 3-pass centered bf16 convs
+_PRECISIONS = {
+    None: (torch.float32, None, 0), "fp32": (torch.float32, None, 0),
+    "bf16": (torch.bfloat16, None, 0),
+    "mixed": (torch.float32, torch.bfloat16, 0),
+    "bf16c": (torch.float32, torch.bfloat16, 1),
+    "bf16c3": (torch.float32, torch.bfloat16, 3),
+}
 
 
 def _u8_table() -> np.ndarray:
@@ -117,8 +128,9 @@ class FModelDepthCond(BaseModel):
             raise NotImplementedError(f"precision [{precision}] is not ported")
         if int(opt.get("spatial_shard") or 0) > 1:
             raise NotImplementedError("spatial_shard is not ported yet")
-        self.netG = define_G(opt, dtype=_PRECISIONS[precision],
-                             device=self.device)
+        dtype, mod_dtype, passes = _PRECISIONS[precision]
+        self.netG = define_G(opt, dtype=dtype, modulation_dtype=mod_dtype,
+                             centered_convs=passes, device=self.device)
         ds = opt.get("datasets") or {}
         self.mask_num = (ds.get("train") or ds.get("test") or {}).get(
             "depthMaskNum") or 10
@@ -302,15 +314,18 @@ class FModelDepthCond(BaseModel):
 
     def _bucket(self) -> int:
         """The bucket multiple of :meth:`test`: unset means 32; 0 for the
-        network configurations the masked forward does not support."""
+        network configurations the masked forward does not support (the
+        fused epilogue) or that JAX serves unpadded (centered convs, whose
+        mean compensation holds on the unpadded image)."""
         bucket = self.opt.get("eval_bucket_multiple")
         bucket = 32 if bucket is None else int(bucket)
-        if bucket and self.netG.fused_epilogue:
+        if bucket and (self.netG.fused_epilogue or self.netG.centered_convs):
             bucket = 0
             if not self._warned_bucket_fallback:
                 self._warned_bucket_fallback = True
                 logger.warning("eval bucketing disabled for this network "
-                               "config (fused epilogue): serving unpadded")
+                               "config (fused epilogue / centered bf16c): "
+                               "serving unpadded")
         return -(-bucket // 4) * 4       # the masked forward needs H, W % 4 == 0
 
     @torch.inference_mode()

@@ -31,9 +31,11 @@ off; ``preset: plain`` turns them all off and launches no kernel.
 Activations are NHWC; depth masks [B,H,W,K]; the style matrix [B,K,L].
 Parameter names follow the reference PyTorch checkpoint
 (``depth-residual3.norm1.mlp_mask.0.weight``, ``head.0.weight_v``, ...), and
-every configuration shares the one parameter tree. The baseline without
-depth blocks, the ablations, ``remat_blocks`` and precisions other than
-fp32/bf16 are still to be ported and raise ``NotImplementedError``.
+every configuration shares the one parameter tree. The stream runs in fp32
+or bf16; ``modulation_dtype`` and ``centered_convs`` give the precisions
+``mixed``, ``bf16c`` and ``bf16c3`` of an fp32 net. The baseline without
+depth blocks, the ablations and ``remat_blocks`` are still to be ported and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from endosr_torch.nn.layers import (
     Conv,
     WNConv,
     WNConvTranspose,
+    centered_conv,
     chained_instance_norm,
     clip,
     compose_pixel_shuffle_perm,
@@ -151,12 +154,30 @@ def _edge_gate(hp: int, wc: int) -> np.ndarray:
     return g
 
 
+def _jax_blend_fits(shape, m: int, n_conv: int, itemsize: int) -> bool:
+    """Whether the JAX module runs a style group of ``n_conv`` SEANs (M =
+    ``m`` map channels) on a [B,H,W,J] mask stack through its blend kernel
+    (``endosr/kernels/style_dot.py::style_blend_supported``, a model of the
+    TPU kernel's VMEM: 4-row blocks, W a multiple of 8, at most 8 images and
+    an even count in bf16, a 95 MiB budget with 512-channel slices)."""
+    b, h, w, j = shape
+    c2 = m // n_conv
+    mc = next((c for c in (512, 256, 128) if m % c == 0), None)
+    if mc is None or mc % c2:
+        return False
+    vmem = (2 * b * 4 * w * j * itemsize + 2 * b * j * m * itemsize
+            + 2 * n_conv * 4 * w * b * c2 * itemsize
+            + 2 * 4 * w * b * m * itemsize + 2 * b * 4 * w * mc * 4 * 2)
+    return (h % 4 == 0 and w % 8 == 0 and b <= 8
+            and (itemsize != 2 or b % 2 == 0) and vmem <= 95 * 1024 * 1024)
+
+
 # DepthNet fields of the JAX module that the port serves at one value only;
 # another value raises NotImplementedError by name
 _JAX_ONLY = {
     "ablate_depth_matrix": False, "ablate_depth_block": False,
-    "remat_blocks": False, "modulation_dtype": None, "centered_convs": 0,
-    "chain_in": True, "blend_fold": False, "lazy_o_chunk": 0,
+    "remat_blocks": False, "chain_in": True, "blend_fold": False,
+    "lazy_o_chunk": 0,
     "pallas_packed_chain": "auto", "obranch_body": "conv",
     "tail_defer_act": True, "mask_stack_conv": True,
 }
@@ -249,20 +270,24 @@ class DepthResidualBlock(nn.Module):
     except under ``fused_epilogue``, where the block's norm is a plain
     ``instance_norm`` (sums from the ``in_stats`` kernel with
     ``in_stats="kernel"``) and the SEAN normalizes and modulates in the
-    ``fused_in_mod`` kernel."""
+    ``fused_in_mod`` kernel. ``centered`` = N > 0: both convs are N-pass
+    centered bf16 convs with an fp32 output (bf16c / bf16c3 serving)."""
 
     def __init__(self, nf=64, depth_latent_ch=256, depth_range_num=10,
                  use_trainable_params=True, norm_gamma=0.1, norm_beta=0.1,
-                 fused_epilogue=False, in_stats="default", device=None):
+                 fused_epilogue=False, in_stats="default", centered=0,
+                 device=None):
         super().__init__()
         self.fused_epilogue, self.in_stats = bool(fused_epilogue), in_stats
         kw = dict(label_nc=depth_range_num, norm_nc=nf,
                   len_latent=depth_latent_ch,
                   use_trainable_params=use_trainable_params,
                   norm_gamma=norm_gamma, norm_beta=norm_beta, device=device)
-        self.conv1 = nn.ModuleDict({"0": Conv(nf, nf, 3, device=device)})
+        conv = functools.partial(Conv, nf, nf, 3, centered=centered,
+                                 device=device)
+        self.conv1 = nn.ModuleDict({"0": conv()})
         self.norm1 = SEAN(**kw)
-        self.conv2 = nn.ModuleDict({"0": Conv(nf, nf, 3, device=device)})
+        self.conv2 = nn.ModuleDict({"0": conv()})
         self.norm2 = SEAN(**kw)
 
     def init_(self, gen):
@@ -300,12 +325,13 @@ class DepthResidualBlock(nn.Module):
 class ClassicResidualBlock(nn.Module):
     """wn-conv → ReLU → wn-conv → +res → ReLU. Between upscale stages the
     tails use its effective weights (folded or phase-packed) instead of
-    calling it."""
+    calling it. ``centered`` as for :class:`DepthResidualBlock`."""
 
-    def __init__(self, nf=64, device=None):
+    def __init__(self, nf=64, centered=0, device=None):
         super().__init__()
-        self.block = nn.ModuleDict({"0": WNConv(nf, nf, 3, device=device),
-                                    "2": WNConv(nf, nf, 3, device=device)})
+        conv = functools.partial(WNConv, nf, nf, 3, centered=centered,
+                                 device=device)
+        self.block = nn.ModuleDict({"0": conv(), "2": conv()})
 
     def init_(self, gen):
         self.block["0"].init_(gen)
@@ -340,7 +366,16 @@ class DepthNet(nn.Module):
     instead of ``head_dot`` + ``output_stage_x8``; ``pallas_head`` /
     ``pallas_output`` off replace those two by plain convs and shuffles.
     ``fold_tail`` / ``fold_output_conv`` off run the tail with real
-    PixelShuffles (the only tail for a depth block at nb-1 when scale ≥ 4)."""
+    PixelShuffles (the only tail for a depth block at nb-1 when scale ≥ 4).
+
+    The precisions beside ``dtype`` (the stream's): ``modulation_dtype``
+    computes the trunk's hoisted and lazy SEAN branches in that dtype (bf16
+    maps in an fp32 net: ``precision: mixed``), and ``centered_convs`` = N
+    runs the residual blocks' convs, and at scale ≥ 4 the tail's, as N-pass
+    :func:`~endosr_torch.nn.layers.centered_conv` in bf16 with an fp32
+    output (``bf16c`` N = 1, ``bf16c3`` N = 3); below ×4 the tail and its
+    classic blocks stay in ``dtype``, and at ×8 the tail takes its dense
+    folds."""
 
     def __init__(self, which_resblk_depth=tuple(range(14)), in_nc=3, out_nc=3,
                  nf=64, nb=16, scale=4, clamp_min=0.0, clamp_max=1.0,
@@ -352,7 +387,8 @@ class DepthNet(nn.Module):
                  pallas_style="auto", pallas_style_blend="auto",
                  packed_tail=True, packed_up1=True, pallas_tail=False,
                  pallas_head="auto", pallas_output="auto", fold_tail=True,
-                 fold_output_conv=True, dtype=torch.float32, device=None,
+                 fold_output_conv=True, modulation_dtype=None,
+                 centered_convs=0, dtype=torch.float32, device=None,
                  **jax_only):
         super().__init__()
         which = set(which_resblk_depth)
@@ -367,8 +403,9 @@ class DepthNet(nn.Module):
         if not which:
             raise NotImplementedError("the baseline (no depth blocks) path "
                                       "is not ported")
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise NotImplementedError(f"precision {dtype} is not ported")
+        for dt in (dtype, modulation_dtype or dtype):
+            if dt not in (torch.float32, torch.bfloat16):
+                raise NotImplementedError(f"precision {dt} is not ported")
         if in_stats not in ("default", "kernel"):
             raise ValueError(f"in_stats must be 'default' or 'kernel', got "
                              f"{in_stats!r}")
@@ -389,6 +426,10 @@ class DepthNet(nn.Module):
         self.fold_tail = bool(fold_tail)
         self.fold_output_conv = bool(fold_output_conv)
         self.dtype = dtype
+        self.mod_dtype = modulation_dtype or dtype
+        self.centered_convs = cc = int(centered_convs)
+        # the tail's convs are centered at scale ≥ 4 only
+        self.tail_cc = cc if scale >= 4 else 0
         # ×8: the trailing 2 blocks at 32 ch; ×4: 1; ×2/×3: all at nf
         num_last_block = 1 if scale == 3 else int(math.log2(scale))
         self.final_scale = fs = 3 if scale == 3 else 2
@@ -404,10 +445,12 @@ class DepthNet(nn.Module):
                 blk = DepthResidualBlock(ch, depth_latent_ch, depth_range_num,
                                          use_trainable_params, norm_gamma,
                                          norm_beta, self.fused_epilogue,
-                                         in_stats, device=device)
+                                         in_stats, cc, device=device)
             else:
                 name = f"classic-residual{i + 1}"
-                blk = ClassicResidualBlock(ch, device=device)
+                tail_blk = i >= nb - 2 and scale < 4
+                blk = ClassicResidualBlock(ch, 0 if tail_blk else cc,
+                                           device=device)
             self.add_module(name, blk)
             self.block_names[i] = name
         if scale == 8:
@@ -454,7 +497,7 @@ class DepthNet(nn.Module):
         ``ops.masks.pool_mask_np``; the [:hv·s, :wv·s] crop of the output
         equals the forward of the unpadded input up to fp32 summation
         order."""
-        dt, nb = self.dtype, self.nb
+        dt, mdt, nb = self.dtype, self.mod_dtype, self.nb
         if valid_hw is not None and self.fused_epilogue:
             raise ValueError("exact bucketed eval (valid_hw) does not support "
                              "the fused epilogue")
@@ -484,12 +527,12 @@ class DepthNet(nn.Module):
             norms = [n for i in trunk_depth
                      for n in (self.block(i).norm1, self.block(i).norm2)]
             o_w = [n.depth_branch_weights() for n in norms]
-            actv = precompute_o_actv(o_w, dmap, dt, vr.mask_for(dmap))
+            actv = precompute_o_actv(o_w, dmap, mdt, vr.mask_for(dmap))
             slot = {i: k for k, i in enumerate(trunk_depth)}
             if want_style:
                 s_w = [n.style_branch_weights() for n in norms]
-                shifted = shifted_mask_stack(dmask, dt)
-                v_chunks = precompute_style_v(s_w, depth_vec, dt)
+                shifted = shifted_mask_stack(dmask, mdt)
+                v_chunks = precompute_style_v(s_w, depth_vec, mdt)
                 style_groups = by(self.style_chunk)
         elif trunk_depth:
             hoist_groups = by(self.hoist_chunk if self.hoist_chunk > 0
@@ -509,14 +552,14 @@ class DepthNet(nn.Module):
                 # lazy without the blend kernel: conv2 runs per block
                 kw["ob"] = tuple(
                     o_branch_from_actv(actv[2 * slot[i] + half],
-                                       o_w[2 * slot[i] + half], dt)
+                                       o_w[2 * slot[i] + half], mdt)
                     for half in (0, 1))
             fea_in = self._run_block(i, fea_in, depth, vr, **kw)
         feat_add1 = fea_in + fea_bef                         # global skip
 
         if (self.scale == 8 and self.fold_tail and self.fold_output_conv
                 and (nb - 2) not in self.which and (nb - 1) not in self.which):
-            packed = self.packed_tail and not vr.on
+            packed = self.packed_tail and not vr.on and not self.tail_cc
             if packed and self.packed_up1:
                 z_g4, pre_bias = self._packed_up1(feat_add1)
                 return self._packed_tail(z_g4=z_g4, pre_bias=pre_bias)
@@ -541,8 +584,8 @@ class DepthNet(nn.Module):
         (``pallas_obranch``, unmasked) or ``hoisted_o_branch`` ({"ob": ...})
         and, with ``want_style``, the style branch from
         ``hoisted_style_branch`` ({"sb": ...}); a SEAN computes a missing
-        branch itself and blends."""
-        dt = self.dtype
+        branch itself and blends. In ``modulation_dtype``."""
+        dt = self.mod_dtype
         norms = [n for i in ids
                  for n in (self.block(i).norm1, self.block(i).norm2)]
         o_w = [n.depth_branch_weights() for n in norms]
@@ -567,17 +610,32 @@ class DepthNet(nn.Module):
                 out[i]["sb"] = sb
         return out
 
+    def _blends(self, shifted, ks, v_chunks):
+        """Whether an unmasked style group takes ``style_blend_dot``. In a
+        net of one dtype always (both routes round alike). With bf16 maps
+        in an fp32 net only where the JAX module blends
+        (:func:`_jax_blend_fits`): there the route sets the rounding, since
+        the blend rounds the finished (γ, β) to bf16 and the SEAN's 1 + γ
+        then rounds in bf16, while the other route blends the two bf16
+        halves in fp32."""
+        if self.mod_dtype == self.dtype:
+            return True
+        return _jax_blend_fits(tuple(shifted.shape),
+                               sum(v_chunks[k].shape[-1] for k in ks),
+                               len(ks), shifted.element_size())
+
     def _group_mods(self, ids, slot, actv, o_w, s_w, v_chunks, shifted,
                     masked):
         """The lazy trunk: modulations of both SEANs of every block in
         ``ids`` from one launch: unmasked, the finished (γ, β) through
-        ``style_blend_dot`` ({"mod": ...}); masked or with
-        ``pallas_style_blend`` off, where the blend cannot run, the style
-        halves ({"sb": ...}) through ``style_dot_hwbm`` (a plain matmul
-        with ``pallas_style`` off)."""
-        dt = self.dtype
+        ``style_blend_dot`` ({"mod": ...}); masked, with
+        ``pallas_style_blend`` off or where :meth:`_blends` says no, the
+        style halves ({"sb": ...}) through ``style_dot_hwbm`` (a plain
+        matmul with ``pallas_style`` off). In ``modulation_dtype``."""
+        dt = self.mod_dtype
         ks = [2 * slot[i] + half for i in ids for half in (0, 1)]
-        if masked or not self.pallas_style_blend:
+        if (masked or not self.pallas_style_blend
+                or not self._blends(shifted, ks, v_chunks)):
             outs = style_chunk_dot(shifted, [v_chunks[k] for k in ks],
                                    [s_w[k] for k in ks], dt, self.pallas_style)
             return {i: {"sb": (outs[2 * n], outs[2 * n + 1])}
@@ -593,6 +651,15 @@ class DepthNet(nn.Module):
         return {i: {"mod": (outs[2 * n], outs[2 * n + 1])}
                 for n, i in enumerate(ids)}
 
+    def _tconv(self, x, w, b, passes=None):
+        """A SAME tail conv with an fp32 (HWIO kernel, bias): centered in
+        ``passes`` passes (default: ``centered_convs`` at scale ≥ 4) or in
+        the stream's dtype."""
+        passes = self.tail_cc if passes is None else passes
+        if passes:
+            return centered_conv(x, w, b, torch.bfloat16, passes)
+        return _conv_b(x, w, b, self.dtype)
+
     def _emit(self, pre, r):
         """clamp → PixelShuffle(r) → fp32 [B, H·r, W·r, out_nc]: the
         ``output_stage`` kernel, or plain ops with ``pallas_output`` off."""
@@ -604,32 +671,29 @@ class DepthNet(nn.Module):
 
     def _folded_classic(self, blk, z, r, vr):
         """A classic block on a PS(r)-pending tensor: both convs folded."""
-        dt = self.dtype
         (w0, b0), (w2, b2) = blk.effective_weights()
-        t = torch.relu(_conv_b(vr.zero(z), *_fold_wb(w0, b0, r), dt))
-        return torch.relu(z + _conv_b(vr.zero(t), *_fold_wb(w2, b2, r), dt))
+        t = torch.relu(self._tconv(vr.zero(z), *_fold_wb(w0, b0, r)))
+        return torch.relu(z + self._tconv(vr.zero(t), *_fold_wb(w2, b2, r)))
 
     def _dense_fold1(self, feat_add1, vr):
         """The first half of the dense ×8 tail (the masked forward, or
         ``packed_up1`` / ``packed_tail`` off): upscale1_3, block nb-2 and
         upscale2_0 as dense PS(2) folds at LR², then the one real
         PixelShuffle(2)."""
-        dt, nb = self.dtype, self.nb
         wn = wn_effective_kernel
-        h = leaky_relu(self.upscale1["0"](feat_add1, dt))
-        z = leaky_relu(_conv_b(vr.zero(h), *_fold_wb(*wn(self.upscale1["3"]), 2),
-                               dt))
-        z = self._folded_classic(self.block(nb - 2), z, 2, vr)
-        z = leaky_relu(_conv_b(vr.zero(z), *_fold_wb(*wn(self.upscale2["0"]), 2),
-                               dt))
+        h = leaky_relu(self.upscale1["0"](feat_add1, self.dtype))
+        z = leaky_relu(self._tconv(vr.zero(h),
+                                   *_fold_wb(*wn(self.upscale1["3"]), 2)))
+        z = self._folded_classic(self.block(self.nb - 2), z, 2, vr)
+        z = leaky_relu(self._tconv(vr.zero(z),
+                                   *_fold_wb(*wn(self.upscale2["0"]), 2)))
         return pixel_shuffle(z, 2)
 
     def _dense_fold2_tail(self, z, vr):
         """The second half of the dense ×8 tail: upscale2_3 and block nb-1
         folded by 2, and the folded head."""
-        dt = self.dtype
         w23, b23 = _fold_wb(*wn_effective_kernel(self.upscale2["3"]), 2)
-        z = leaky_relu(_conv_b(vr.zero(z), w23, b23, dt))
+        z = leaky_relu(self._tconv(vr.zero(z), w23, b23))
         z = self._folded_classic(self.block(self.nb - 1), z, 2, vr)
         return self._folded_head(z, 2, vr)
 
@@ -652,13 +716,14 @@ class DepthNet(nn.Module):
         r = 1
         if self.scale >= 4:
             # the conv's output channels are already in canonical PS(2) order
-            z = leaky_relu(self.upscale2["0"](z, dt))
+            z = leaky_relu(self._tconv(z, *wn_effective_kernel(
+                self.upscale2["0"])))
             if fold:
                 r = 2
             else:
                 z = pixel_shuffle(z, 2)
             w23, b23 = _fold_wb(*wn_effective_kernel(self.upscale2["3"]), r)
-            z = leaky_relu(_conv_b(vr.zero(z), w23, b23, dt))
+            z = leaky_relu(self._tconv(vr.zero(z), w23, b23))
             if fold:
                 z = self._folded_classic(self.block(nb - 1), z, r, vr)
             else:
@@ -667,12 +732,12 @@ class DepthNet(nn.Module):
             z = self._run_block(nb - 1, z, depth, vr)
         if fold:
             return self._folded_head(z, r, vr)
-        h = self.upscale3["0"](z, dt)
+        h = self._tconv(z, *wn_effective_kernel(self.upscale3["0"]))
         if self.fold_output_conv:
             # only the head is folded through the final shuffle
             wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
                               self.conv_output.bias.float(), fs)
-            out = pixel_shuffle(_conv_b(vr.zero(leaky_relu(h)), wh, bh, dt), fs)
+            out = pixel_shuffle(self._tconv(vr.zero(leaky_relu(h)), wh, bh), fs)
         else:
             out = self.conv_output(vr.zero(leaky_relu(pixel_shuffle(h, fs))), dt)
         return clip(out.float(), self.clamp_min, self.clamp_max)
@@ -682,8 +747,9 @@ class DepthNet(nn.Module):
         holds PS(r)-pending features in canonical order; upscale3_0 and the
         head are folded through the pending shuffles and one output stage
         emits the clamped fp32 image. With r = 2 the folded upscale3_0 runs
-        phase-split (:meth:`_phase_split_head`)."""
-        dt, fs = self.dtype, self.final_scale
+        phase-split (:meth:`_phase_split_head`), unless the tail's convs are
+        centered."""
+        fs = self.final_scale
         vmask = vr.mask_for(z)
         w30, b30 = _fold_wb(*wn_effective_kernel(self.upscale3["0"]), r)
         # defer upscale3's shuffle too: canonical PS(r·fs) channel order
@@ -691,13 +757,17 @@ class DepthNet(nn.Module):
                                (r, fs, 32 * fs * fs * r * r), torch.int64,
                                w30.device)
         w30, b30 = w30[..., perm], b30[perm]
-        if r == 2:
+        if r == 2 and not self.tail_cc:
             return self._phase_split_head(_mul(z, vmask), w30, b30, vmask)
-        z = _conv_b(_mul(z, vmask), w30, b30, dt)
+        # JAX's folded head takes ``bool(centered_convs)`` as its pass count
+        # (``endosr/nn/depthnet.py:1553``): one pass under bf16c3 too
+        passes = min(self.tail_cc, 1)
+        z = self._tconv(_mul(z, vmask), w30, b30, passes)
         rt = r * fs
         wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
                           self.conv_output.bias.float(), rt)
-        return self._emit(_conv_b(_mul(leaky_relu(z), vmask), wh, bh, dt), rt)
+        return self._emit(
+            self._tconv(_mul(leaky_relu(z), vmask), wh, bh, passes), rt)
 
     def _phase_split_head(self, z, w30, b30, vmask):
         """The r = 2 folded head: a 3×3 conv folded through PS(2) is 75 %

@@ -15,6 +15,7 @@ no copy).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -30,7 +31,7 @@ __all__ = [
     "wn_effective_kernel", "conv2d_nhwc", "hwio", "instance_norm",
     "chained_instance_norm", "masked_instance_norm",
     "masked_chained_instance_norm", "valid_mask", "pixel_shuffle",
-    "leaky_relu", "clip",
+    "leaky_relu", "clip", "centered_conv",
     "fold_kernel_through_pixel_shuffle", "packed_stage_kernel",
     "packed_gate", "compose_pixel_shuffle_perm",
 ]
@@ -100,13 +101,120 @@ def clip(x, lo: float, hi: float):
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
+@contextlib.contextmanager
+def _tf32_convs(device):
+    """cuDNN's convolutions on ``device`` may use TF32 inside the block,
+    whatever the process-wide flag says; it is restored on leaving. The
+    flag is the process's, so other threads see it set meanwhile."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _exact_product_conv(a, w, pad):
+    """SAME conv of NHWC ``a`` with HWIO ``w``, both holding bf16 values:
+    fp32 products (exact: 8-bit by 8-bit significands), fp32 sums and an
+    fp32 result, as JAX's bf16 conv with ``preferred_element_type=f32``.
+    ``F.conv2d`` of the bf16 tensors would round the result to bf16, so the
+    operands are widened to fp32; on CUDA cuDNN may take TF32 tensor cores
+    for them, whose 10-bit operands still hold a bf16 value exactly."""
+    with _tf32_convs(a.device):
+        return conv2d_nhwc(a.float(), w.float(), pad, torch.float32)
+
+
+def _border_index(n: int, p: int) -> np.ndarray:
+    """[n]: the border case of every row (or column) of an n-long axis for
+    a (2p+1)-tap SAME conv: 0..p-1 the first p, p inside, p+1..2p the last
+    p."""
+    idx = np.full(n, p, np.int64)
+    idx[:p] = np.arange(p)
+    idx[n - p:] = np.arange(p + 1, 2 * p + 1)
+    return idx
+
+
+def _constant_image_conv(m, w32, h: int, wd: int):
+    """The exact fp32 SAME conv of the constant image m·1 [B, h, wd, Cin]
+    by HWIO ``w32``: an output row sees a contiguous tap range, so there
+    are (2p+1)² border cases, taken from two cumulative sums of the
+    kernel. Returns [B, h, wd, Cout]."""
+    k = w32.shape[0]
+    p = k // 2
+    zero = w32.new_zeros((1,) + tuple(w32.shape[1:]))
+    cs_r = torch.cat([zero, w32]).cumsum(0)
+    rows = ([cs_r[k] - cs_r[p - c] for c in range(p)] + [cs_r[k] - cs_r[0]]
+            + [cs_r[2 * p - c] - cs_r[0] for c in range(p)])
+    s_r = torch.stack(rows)                              # [2p+1, k, Cin, Cout]
+    cs_c = torch.cat([s_r.new_zeros((2 * p + 1, 1) + tuple(s_r.shape[2:])),
+                      s_r], dim=1).cumsum(1)
+    cols = ([cs_c[:, k] - cs_c[:, p - c] for c in range(p)]
+            + [cs_c[:, k] - cs_c[:, 0]]
+            + [cs_c[:, 2 * p - c] - cs_c[:, 0] for c in range(p)])
+    s = torch.stack(cols, dim=1)                   # [2p+1, 2p+1, Cin, Cout]
+    # in float64, then rounded: an fp32 einsum is a matmul, which
+    # ``torch.set_float32_matmul_precision`` may turn into TF32
+    v = torch.einsum("bi,rcio->brco", m.double(), s.double()).float()
+    ridx = device_constant(_border_index, (h, p), torch.int64, m.device)
+    cidx = device_constant(_border_index, (wd, p), torch.int64, m.device)
+    return v[:, ridx][:, :, cidx]
+
+
+def centered_conv(x, w, b, dtype, passes: int = 1):
+    """Mean-compensated low-precision conv (``layers.centered_conv`` of the
+    JAX package): stride 1, odd k×k HWIO kernel ``w``, SAME zero padding,
+    NHWC. conv(x) = conv(x − m) + conv(m·1) with m the per-(sample,
+    in-channel) mean: the first term in ``dtype`` on the centred data
+    d = x − m (its rounding relative to the signal, not the offset), in
+    ``passes`` exact-product passes d_hi·w_hi, + d_lo·w_hi, + d_hi·w_lo
+    (d_lo and w_lo the parts bf16 rounding drops), the second exact in
+    fp32. Returns fp32; a plain fp32 conv when ``dtype`` is fp32 or the
+    image is smaller than the kernel. On CUDA the passes set cuDNN's
+    process-wide TF32 flag for their length (:func:`_tf32_convs`), so an
+    fp32 conv that another thread runs meanwhile may take TF32: the call
+    is not thread-safe in that respect."""
+    k = w.shape[0]
+    p = k // 2
+    h, wd = x.shape[1], x.shape[2]
+    if dtype == torch.float32 or h < k or wd < k:
+        y = conv2d_nhwc(x.float(), w.float(), p, torch.float32)
+        return y if b is None else y + b.float()
+    x32 = x.float()
+    m = x32.mean(dim=(1, 2))                             # [B, Cin]
+    d32 = x32 - m[:, None, None, :]
+    d_hi, w_hi = d32.to(dtype), w.to(dtype)
+    y = _exact_product_conv(d_hi, w_hi, p)
+    if passes >= 2:
+        d_lo = (d32 - d_hi.float()).to(dtype)
+        y = y + _exact_product_conv(d_lo, w_hi, p)
+    if passes >= 3:
+        w_lo = (w.float() - w_hi.float()).to(dtype)
+        y = y + _exact_product_conv(d_hi, w_lo, p)
+    y = y + _constant_image_conv(m, w.float(), h, wd)
+    return y if b is None else y + b.float()
+
+
+def _check_centered(centered, k, stride, padding):
+    if centered and (stride != 1 or padding != k // 2 or k % 2 == 0):
+        raise ValueError("a centered conv needs stride 1, an odd kernel and "
+                         "SAME padding")
+
+
 class Conv(nn.Module):
-    """Plain conv (torch ``Conv2d`` parameters), NHWC in and out."""
+    """Plain conv (torch ``Conv2d`` parameters), NHWC in and out.
+    ``centered`` = N > 0 runs it as an N-pass :func:`centered_conv` in bf16
+    (fp32 out; stride 1, SAME padding), whatever dtype the caller asks."""
 
     def __init__(self, in_ch, out_ch, k=3, stride=1, padding=1, bias=True,
-                 device=None):
+                 centered=0, device=None):
         super().__init__()
+        _check_centered(centered, k, stride, padding)
         self.stride, self.padding = stride, padding
+        self.centered = int(centered)
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k,
                                                device=device))
         self.bias = (nn.Parameter(torch.empty(out_ch, device=device))
@@ -119,17 +227,23 @@ class Conv(nn.Module):
             torch_conv_init_(self.bias, fan_in, gen)
 
     def forward(self, x, dtype):
+        if self.centered:
+            return centered_conv(x, hwio(self.weight), self.bias,
+                                 torch.bfloat16, self.centered)
         y = conv2d_nhwc(x, hwio(self.weight), self.padding, dtype, self.stride)
         return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class WNConv(nn.Module):
     """Weight-normalized conv: w = g · v/‖v‖ per output channel (torch
-    ``weight_norm`` dim=0)."""
+    ``weight_norm`` dim=0). ``centered`` as for :class:`Conv`."""
 
-    def __init__(self, in_ch, out_ch, k=3, stride=1, padding=1, device=None):
+    def __init__(self, in_ch, out_ch, k=3, stride=1, padding=1, centered=0,
+                 device=None):
         super().__init__()
+        _check_centered(centered, k, stride, padding)
         self.stride, self.padding = stride, padding
+        self.centered = int(centered)
         self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch, k, k,
                                                  device=device))
         self.weight_g = nn.Parameter(torch.empty(out_ch, 1, 1, 1,
@@ -146,6 +260,8 @@ class WNConv(nn.Module):
 
     def forward(self, x, dtype):
         w, b = wn_effective_kernel(self)
+        if self.centered:
+            return centered_conv(x, w, b, torch.bfloat16, self.centered)
         return conv2d_nhwc(x, w, self.padding, dtype, self.stride) + b.to(dtype)
 
 

@@ -41,7 +41,8 @@ def _dataset_block(opt):
     return next(iter(ds.values())) if ds else {}
 
 
-def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
+def define_G(opt, dtype=torch.float32, modulation_dtype=None,
+             centered_convs=0, device=None) -> DepthNet:
     """The generator of ``opt["network_G"]``, read as the JAX package reads
     it. ``preset`` sets a named knob combination and ``net_kw`` (raw
     DepthNet fields, ``fused_epilogue`` among them) is applied last, over
@@ -54,7 +55,9 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
     is another reduction order of the same sums, served as ``"default"``.
     ``net_kw: {in_stats: kernel}`` is a port-only field that sets it too.
 
-    ``device``: None means CUDA, and raises where there is none."""
+    ``dtype``, ``modulation_dtype`` and ``centered_convs`` are the
+    precision's (``models/f_depthcond.py``). ``device``: None means CUDA,
+    and raises where there is none."""
     opt_net = opt["network_G"]
     which_model = opt_net["which_model_G"]
     if which_model != "DepthNet":
@@ -73,6 +76,7 @@ def define_G(opt, dtype=torch.float32, device=None) -> DepthNet:
         ablate_depth_matrix=bool(opt_net.get("ablate_depth_matrix", False)),
         ablate_depth_block=bool(opt_net.get("ablate_depth_block", False)),
         remat_blocks=bool(opt_net.get("remat_blocks", False)),
+        modulation_dtype=modulation_dtype, centered_convs=int(centered_convs),
         in_stats=("kernel" if os.environ.get("ENDOSR_IN_STATS") == "pallas"
                   else "default"))
     preset = opt_net.get("preset")

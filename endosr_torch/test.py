@@ -9,8 +9,8 @@ through ``FModelDepthCond.test`` (bucketed unless the YAML sets
 ``results/<name>/result_x<scale>.tsv``: a header, one row an image (PSNR
 and SSIM on RGB and on Y, a ``scale`` border cropped, MATLAB protocol) and
 an ``Average`` row. Without ``precision`` in the YAML, ×4 and ×8 serve in
-bf16 and ×2 and ×3 in ``bf16c3``, as the JAX ``test.py`` selects; the port
-has no ``bf16c3`` yet and refuses it by name.
+bf16 and ×2 and ×3 in ``bf16c3`` (3-pass centered bf16 convs, unbucketed),
+as the JAX ``test.py`` selects.
 
 It runs on CUDA, and raises without a CUDA device; ``--device cpu`` runs the
 plain PyTorch path on the CPU.

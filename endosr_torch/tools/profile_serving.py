@@ -17,6 +17,8 @@ warm-up step, then ``--requests`` steps; it also prints the peak device
 memory of the steps.
 
 ``--config``: ``x8`` — ×8, ``eval_bucket_multiple: 0``, LQ 128² → SR 1024²;
+``x2`` — the ×2 YAML's network (all 16 blocks depth blocks, latent 32),
+``eval_bucket_multiple: 0``, LQ 512² → SR 1024²;
 ``x8_bucketed`` — ×8 with the key unset (bucket 32), LQ 120×112 fed from
 the host → SR 960×896 through the masked forward; ``x4_fused`` — ×4 with
 ``net_kw: {fused_epilogue: true, in_stats: kernel}``, LQ 128² → SR 512²;
@@ -25,7 +27,8 @@ and the ×8 request of ``x8`` through ``net_kw``: ``x8_obranch``
 hoisted trunk through ``fused_o_branch``), ``x8_fused_mod``
 (``fused_modulation``), ``x8_fused_tail`` (``pallas_tail``), ``x8_hoisted``
 (``lazy_branches: false``, the hoisted trunk in plain PyTorch),
-and ``x8_plain`` (``preset: plain``).
+and ``x8_plain`` (``preset: plain``). ``--precision`` (default ``bf16``):
+``fp32``, ``bf16``, ``mixed``, ``bf16c`` or ``bf16c3``.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ _CONFIGS = {
     "x8_bucketed": (8, (120, 112), True, {}, {}),
     "x4_fused": (4, (128, 128), False, {},
                  {"net_kw": {"fused_epilogue": True, "in_stats": "kernel"}}),
+    "x2": (2, (512, 512), False, {"eval_bucket_multiple": 0},
+           {"depth_latent_ch": 32, "which_ResBlk_depth": list(range(16))}),
     "train_x8": None,
 }
 
@@ -71,10 +76,37 @@ def _train_model(torch):
     return model, model.optimize_parameters
 
 
-def main(argv=None) -> int:
-    import torch
+def device_kernels(torch, run, n):
+    """``run()`` ``n`` times under ``torch.profiler``, synchronised. Returns
+    (host seconds per call, [(device µs, calls, kernel name)] of the device
+    kernels, largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+    rows = []
+    for e in prof.key_averages():
+        # device kernels only: a user annotation's row (the optimizer's
+        # ``Optimizer.step#Adam.step``) spans kernels already counted
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            continue
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    rows.sort(reverse=True)
+    return wall, rows
+
+
+def main(argv=None) -> int:
+    import torch
 
     from endosr_torch.models.f_depthcond import FModelDepthCond
     from endosr_torch.ops.masks import depth_masks
@@ -83,6 +115,8 @@ def main(argv=None) -> int:
     ap.add_argument("--config", default="x8", choices=sorted(_CONFIGS))
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--precision", default="bf16",
+                    choices=["fp32", "bf16", "mixed", "bf16c", "bf16c3"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
@@ -92,7 +126,8 @@ def main(argv=None) -> int:
         model, run = _train_model(torch)
     else:
         scale, (h, w), on_host, top, net = _CONFIGS[args.config]
-        opt = {"is_train": False, "scale": scale, "precision": "bf16", **top,
+        opt = {"is_train": False, "scale": scale,
+               "precision": args.precision, **top,
                "datasets": {"test": {"depthMaskNum": 10}},
                "network_G": {"which_model_G": "DepthNet", "nf": 64, "nb": 16,
                              "depth_latent_ch": 256,
@@ -115,28 +150,10 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
 
     n = args.requests
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n
-
-    rows = []
-    for e in prof.key_averages():
-        # device kernels only: a user annotation's row (the optimizer's
-        # ``Optimizer.step#Adam.step``) spans kernels already counted
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.key.startswith("Optimizer.")):
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    wall, rows = device_kernels(torch, run, n)
     total = sum(r[0] for r in rows) / n / 1e3
-    print(f"config {args.config}; device {torch.cuda.get_device_name(0)}; "
+    print(f"config {args.config} {args.precision}; device "
+          f"{torch.cuda.get_device_name(0)}; "
           f"per {what}: wall "
           f"{wall * 1e3:.3f} ms, device busy {total:.3f} ms, idle share "
           f"{max(0.0, 1 - total / (wall * 1e3)):.3f}; peak device memory "

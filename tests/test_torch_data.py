@@ -10,6 +10,11 @@
   on and off, ``u8_pipeline`` on and off, with and without an LR root, flips
   and rotations under equally seeded ``rng``; validation with ``modcrop``;
   LMDB archives.
+- ``EndoSceneDepthDataset`` (``EndoScene_Depth``) samples equal JAX's on a
+  synthetic CVC-EndoSceneStill tree: names from the split file or the GT
+  listing, the ``x3/`` LR subdirectory or the flat layout or no LR root,
+  polyp masks, training cached or not and u8 or not, validation with
+  ``modcrop``, and a worker's batches.
 - The loader's batches come in ``ShardedLoader``'s order over two epochs for
   several seeds, ratios and shuffles; with one worker process, the batches
   (augmentation included) equal the JAX loader's one-worker batches.
@@ -238,7 +243,117 @@ def test_lmdb_dataset_equals_jax_and_the_image_files(tree, tmp_path):
             np.testing.assert_array_equal(got[k], files_ds[i][k])
 
 
-@pytest.mark.parametrize("mode", ["EndoScene_Depth", "EndoScene_Depthnew",
+# ------------------------------------------------------------ EndoScene
+
+ES_SCALE = 3
+ES_NAMES = ["p3.png", "p0.png", "p2.png"]       # the split file's order
+
+
+@pytest.fixture(scope="module")
+def endoscene(tmp_path_factory):
+    """A CVC-EndoSceneStill-style tree written by cv2: four frames a split
+    (GT 50×46, so modcrop by 3 cuts validation GT to 48×45; LR 16×15 =
+    ``imresize_np(GT, 1/3)`` under ``LR/<split>/x3/``, and a flat copy under
+    ``LR_flat/<split>/``), ``<stem>_disp.npy`` depth, polyp masks, and a
+    split file naming three of the train frames out of order."""
+    root = tmp_path_factory.mktemp("endoscene")
+    rng = np.random.default_rng(12)
+    for split in ("train", "test"):
+        for sub in (f"HR/{split}", f"LR/{split}/x{ES_SCALE}",
+                    f"LR_flat/{split}", f"D/{split}", f"seg/{split}"):
+            (root / sub).mkdir(parents=True)
+        for i in range(4):
+            gt = _smooth(rng, 50, 46, 3)
+            lr = imresize_np(gt / 255.0, 1 / ES_SCALE)
+            lr = np.clip(lr * 255.0, 0, 255).round().astype(np.uint8)
+            name = f"p{i}.png"
+            cv2.imwrite(str(root / "HR" / split / name), gt)
+            cv2.imwrite(str(root / "LR" / split / f"x{ES_SCALE}" / name), lr)
+            cv2.imwrite(str(root / "LR_flat" / split / name), lr)
+            cv2.imwrite(str(root / "seg" / split / name),
+                        (rng.random((50, 46)) > 0.7).astype(np.uint8) * 255)
+            np.save(root / "D" / split / f"p{i}_disp.npy",
+                    rng.random((1, 1) + lr.shape[:2]).astype(np.float32))
+    (root / "train.txt").write_text("".join(n + "\n" for n in ES_NAMES))
+    return root
+
+
+def _endoscene_opt(root, split="train", lr="LR", split_list=True, seg=False,
+                   **kw):
+    opt = {"name": split, "mode": "EndoScene_Depth", "phase": split,
+           "scale": ES_SCALE, "data_type": "img",
+           "dataset_split_list": (str(root / "train.txt")
+                                  if split_list else None),
+           "dataroot_GT": str(root / "HR" / split),
+           "dataroot_LQ": str(root / lr / split) if lr else None,
+           "dataroot_depthMap": str(root / "D" / split),
+           "dataroot_seglabel": str(root / "seg" / split) if seg else None,
+           "use_flip": True, "use_rot": True, "depthMaskNum": 10,
+           "depthFixedRange": False, "batch_size": 2}
+    opt.update(kw)
+    return opt
+
+
+@pytest.mark.parametrize("seg", [False, True], ids=["no_seg", "seg"])
+@pytest.mark.parametrize("u8", [True, False], ids=["u8", "f32"])
+@pytest.mark.parametrize("cache", [True, False], ids=["cache", "nocache"])
+def test_endoscene_train_samples_equal_jax(endoscene, cache, u8, seg):
+    """Whole frames from the split file's names, flipped and rotated under
+    equally seeded ``rng``: bit for bit JAX's, cached or not."""
+    got_ds, want_ds = _both(_endoscene_opt(endoscene, cache_data=cache,
+                                           u8_pipeline=u8, seg=seg))
+    assert got_ds.names == want_ds.names == ES_NAMES
+    assert got_ds.LR_paths[0].endswith(f"x{ES_SCALE}/p3.png")
+    got_ds.rng, want_ds.rng = random.Random(4), random.Random(4)
+    for _ in range(2):
+        for i in range(len(want_ds)):
+            _assert_sample_equal(got_ds[i], want_ds[i])
+    s = got_ds[0]
+    assert {s["GT"].shape[:2], s["LQ"].shape[:2]} <= {(50, 46), (46, 50),
+                                                      (17, 16), (16, 17)}
+    assert ("Seg" in s) == seg
+
+
+@pytest.mark.parametrize("lr", ["LR", "LR_flat", None],
+                         ids=["x3_subdir", "flat", "lr_made"])
+def test_endoscene_val_samples_equal_jax(endoscene, lr):
+    """Without a split file the names are the sorted GT listing; the LR
+    root's ``x3/`` subdirectory, else the root itself, else the bicubic of
+    GT; validation GT cut by modcrop."""
+    got_ds, want_ds = _both(_endoscene_opt(endoscene, "test", lr=lr,
+                                           split_list=False, seg=True))
+    assert got_ds.names == want_ds.names == [f"p{i}.png" for i in range(4)]
+    assert got_ds.LR_paths == want_ds.LR_paths
+    for i in range(len(want_ds)):
+        s = got_ds[i]
+        _assert_sample_equal(s, want_ds[i])
+        assert s["GT"].shape == (48, 45, 3) and s["Seg"].shape == (50, 46)
+
+
+def test_endoscene_loader_batches_equal_jax(endoscene):
+    """One worker process on each side, flips on (a rotated frame would
+    not stack with an upright one: training takes whole, non-square
+    frames): the same batches over two epochs."""
+    dopt = _endoscene_opt(endoscene, cache_data=True, u8_pipeline=True,
+                          n_workers=1, use_rot=False)
+    opt = {"train": {"manual_seed": 3}}
+    got = tdata.create_dataloader(tdata.create_dataset(dict(dopt)), dopt, opt)
+    want = jdata.create_dataloader(jdata.create_dataset(dict(dopt)), dopt, opt)
+    for epoch in range(2):
+        got.set_epoch(epoch)
+        want.set_epoch(epoch)
+        pairs = list(zip(got, want, strict=True))
+        assert len(pairs) == len(ES_NAMES) // 2
+        for g, w in pairs:
+            assert g.keys() == w.keys()
+            for k, v in w.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(g[k].numpy(), v, err_msg=k)
+                else:
+                    assert g[k] == v
+
+
+@pytest.mark.parametrize("mode", ["EndoScene_Depthnew",
                                   "LQ", "LQGTker", "SRker", "LQker",
                                   "LRHR_seg_bg"])
 def test_unported_dataset_modes_raise_by_name(mode):

@@ -248,7 +248,7 @@ def test_valid_hw_with_fused_epilogue_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scale=4, which_resblk_depth=(0, 1, 4), centered_convs=1),
+    dict(scale=4, which_resblk_depth=(0, 1, 4), remat_blocks=True),
     dict(scale=8, which_resblk_depth=(0, 4), blend_fold=True),
     dict(scale=4, which_resblk_depth=()),
     dict(scale=16, which_resblk_depth=(0,)),

@@ -22,14 +22,19 @@ written with ``cv2``.
 - **Resume.** Both packages' two-step runs save at step 2 (the end of
   epoch 0) and resume with ``resume_state: auto`` to step 4: steps 3–4
   rerun epoch 0 from its first batch, as the JAX ``train.py`` does, and
-  their losses agree to ≤ 1e-5 relative. With flips and rotations on and
+  their losses agree to ≤ 1e-5 relative (measured ≤ 2.1e-7). Both resume
+  from one state, the port's step-2 weights, K-vector and Adam moments
+  carried into the JAX copy, on one CPU thread. With flips and rotations on and
   one worker process, a resumed port run equals bit for bit a replay of
   that rule through the model API (``resume_training``, then epoch 0's
   batches): logs and final weights.
 - ``logger.profile_iter`` writes a ``torch.profiler`` trace; tensorboardX
   is optional (its absence is logged).
-- The entry points default to CUDA and raise without it; unported models,
-  a flax ``.ckpt`` and ×2/×3's ``bf16c3`` raise by name.
+- **×2 and ×3.** The repo's test YAML at ×2 (Kvasir layout) and ×3 (the
+  EndoScene dataset) with ``precision`` unset: both ``test.main`` serve
+  ``bf16c3`` unbucketed, and their TSV rows and PNGs agree.
+- The entry points default to CUDA and raise without it; unported models
+  and a flax ``.ckpt`` raise by name.
 """
 
 import copy
@@ -45,11 +50,13 @@ import pytest
 import torch
 import cv2
 import yaml
+from flax import serialization
 
 import endosr.models as jmodels
 import endosr.models.f_depthcond as jfdc
 import endosr.parallel.mesh as jmesh
 import endosr.utils.cache as jcache
+import endosr.utils.port_torch as jport
 import endosr_torch.test as ttest
 import endosr_torch.train as ttrain
 from endosr_torch.config import options as toptions
@@ -221,8 +228,42 @@ def _slice(tmp, data, monkeypatch):
             "latest": str(tmp / "port_train" / EXP / "models/latest_G.pth")}
 
 
+def _carry_port_state(port_state, jax_state, names):
+    """Overwrite the JAX run's step-2 training state with the port's: the
+    weights, the dynamic loss's K-vector and Adam's moments (``names``:
+    the port optimizer's parameter names in order), carried into JAX's
+    layout by the JAX package's own porter."""
+    st = torch.load(str(port_state), map_location="cpu", weights_only=True)
+    raw = serialization.msgpack_restore(Path(jax_state).read_bytes())
+    adam = st["optimizer"]["state"]
+    (moments,) = [s for s in raw["opt_state"].values()
+                  if isinstance(s, dict) and "mu" in s]
+    assert int(moments["count"]) == st["step"] == 2
+
+    def tree(by_name, like):
+        out = {"netG": jport.port_state_dict(
+            {k[len("netG."):]: np.asarray(v) for k, v in by_name.items()
+             if k.startswith("netG.")}, like["netG"])}
+        if "dyn" in like:
+            out["dyn"] = {"trainable_weight": np.asarray(
+                by_name["dyn.trainable_weight"], np.float32)}
+        return out
+
+    weights = {f"netG.{k}": v for k, v in st["netG"].items()}
+    weights["dyn.trainable_weight"] = st["dyn_weight"]
+    raw["params"] = tree(weights, raw["params"])
+    for key, slot in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        moments[key] = tree({n: adam[i][slot] for i, n in enumerate(names)},
+                            moments[key])
+    Path(jax_state).write_bytes(serialization.msgpack_serialize(raw))
+
+
 def _slice_resumed(slice_run, data, monkeypatch):
-    """Copies of both slice runs resumed from their step-2 state to step 4."""
+    """Copies of both slice runs resumed to step 4 from one step-2 state,
+    the port's (carried into the JAX copy), on one CPU thread: the two
+    packages then differ only by the steps compared. From their own
+    step-2 states (≤ 5e-7 apart), two Adam updates of near-zero gradients
+    drew the losses up to 9.3e-6 apart, close to the bar."""
     tmp = slice_run["tmp"]
     logs = {"jax": [], "port": []}
     opts = []
@@ -230,7 +271,16 @@ def _slice_resumed(slice_run, data, monkeypatch):
         shutil.copytree(tmp / f"{side}_train", tmp / f"{side}_resumed")
         opts.append(_train_yaml(tmp, data, f"{side}_resumed", 4, save_freq=2,
                                 pretrain=slice_run["weights"], resume="auto"))
-    _train_both(monkeypatch, logs, *opts)
+    state = Path(EXP) / "training_state/2.state"
+    names = [n for n, _ in slice_run["model"].named_train_parameters()]
+    _carry_port_state(tmp / "port_resumed" / state,
+                      tmp / "jax_resumed" / state, names)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _train_both(monkeypatch, logs, *opts)
+    finally:
+        torch.set_num_threads(threads)
     text = "".join(p.read_text() for p in sorted(
         (tmp / "port_resumed" / EXP).glob("train_*.log")))
     return {"logs": logs, "port_log": _logs_by_step(text)}
@@ -465,11 +515,103 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path, data):
     assert not (tmp_path / "t").exists() and not (tmp_path / "e").exists()
 
 
+X23_LR = (15, 14)             # the frames' LR size at ×2 and ×3
+
+
+def _x23_tree(root, scale):
+    """Two test frames for ×``scale``: at ×2 a Kvasir tree (HR, LR, D), at
+    ×3 a CVC-EndoSceneStill tree (the LR under ``x3/``, a split file naming
+    the frames out of order)."""
+    rng = np.random.default_rng(20 + scale)
+    lr_dir = root / "LR" / (f"x{scale}" if scale == 3 else "")
+    for d in (root / "HR", lr_dir, root / "D"):
+        d.mkdir(parents=True, exist_ok=True)
+    names = ["f1.png", "f0.png"]
+    for name in names:
+        gt = _smooth(rng, X23_LR[0] * scale, X23_LR[1] * scale)
+        lr = imresize_np(gt / 255.0, 1 / scale)
+        cv2.imwrite(str(root / "HR" / name), gt)
+        cv2.imwrite(str(lr_dir / name),
+                    np.clip(lr * 255.0, 0, 255).round().astype(np.uint8))
+        np.save(root / "D" / f"{name[:-4]}_disp.npy",
+                rng.random((1, 1) + X23_LR).astype(np.float32))
+    (root / "test.txt").write_text("".join(n + "\n" for n in names))
+
+
+def _x23_yaml(tmp, scale, run, weights):
+    """The repo's test YAML at ×``scale``, ``precision`` unset; at ×3 the
+    dataset block is the ×3 training YAML's EndoScene one."""
+    y = yaml.safe_load(TEST_YAML.read_text())
+    root = tmp / f"tree_x{scale}"
+    ds = y["datasets"]["test_1"]
+    ds.update(dataroot_GT=str(root / "HR"), dataroot_LQ=str(root / "LR"),
+              dataroot_depthMap=str(root / "D"))
+    if scale == 3:
+        ds.update(mode="EndoScene_Depth", name="EndoScene_x3_test",
+                  dataset_split_list=str(root / "test.txt"))
+    y["scale"] = scale
+    y["network_G"].update(NET)
+    y["path"].update(root=str(tmp / run), pretrain_model_G=weights)
+    path = tmp / f"{run}.yml"
+    path.write_text(yaml.safe_dump(y))
+    return str(path)
+
+
 @pytest.mark.parametrize("scale", [2, 3])
-def test_x2_x3_eval_raises_on_bf16c3(tmp_path, data, scale):
-    opt = _test_yaml(tmp_path, data, "e", None, scale=scale)
-    with pytest.raises(NotImplementedError, match="bf16c3"):
-        ttest.main(["-opt_F", opt, "--device", "cpu"])
+def test_x2_x3_eval_serves_bf16c3_like_jax(tmp_path, jax_env, scale, caplog):
+    """The ×2 and ×3 test YAMLs with ``precision`` unset: both ``test.main``
+    auto-select ``bf16c3`` and serve unbucketed with one warning, on the
+    same weights; the TSV rows agree to ≤ 1e-3 dB and ≤ 1e-4 SSIM
+    (measured ≤ 1.2e-4 dB, ≤ 3.8e-5) and the PNGs to one level (the port's
+    and JAX's bf16c3 forwards differ by fp32 summation order, ≤ 2e-4 at
+    this size, ``tests/test_torch_precision.py``; a rounding at a half moves
+    a level: 5–23 pixels here).
+    At ×3 the frames come through ``EndoScene_Depth``."""
+    _x23_tree(tmp_path / f"tree_x{scale}", scale)
+    init = FModelDepthCond({"model": "sftmd_depthCond", "scale": scale,
+                            "network_G": {**yaml.safe_load(
+                                TEST_YAML.read_text())["network_G"], **NET},
+                            "path": {"models": str(tmp_path / "init")}},
+                           device="cpu")
+    weights = init.save(0)
+    models = []
+    orig = jmodels.create_model
+
+    def keep(*a, **k):
+        models.append(orig(*a, **k))
+        return models[-1]
+
+    jax_env.setattr(jmodels, "create_model", keep)
+    with caplog.at_level(logging.INFO, logger="base"):
+        _run_jax(jax_env, "test", _x23_yaml(tmp_path, scale, "jax", weights))
+        models.append(ttest.main(["-opt_F", _x23_yaml(tmp_path, scale, "port",
+                                                      weights),
+                                  "--device", "cpu"]))
+    jm, pm = models
+    assert jm.opt["precision"] == pm.opt["precision"] == "bf16c3"
+    assert pm.netG.centered_convs == 3 and pm._bucket() == 0
+    text = caplog.text
+    assert text.count("precision auto-selected: bf16c3") == 2
+    assert text.count("eval bucketing disabled") == 2
+    out = {}
+    for side in ("jax", "port"):
+        res = tmp_path / side / "results/DepthNet_test"
+        out[side] = ((res / f"result_x{scale}.tsv").read_text().splitlines(),
+                     {p.name: _imread(p)
+                      for p in sorted((res / f"x{scale}").glob("*.png"))})
+    (got, gpng), (want, wpng) = out["port"], out["jax"]
+    assert [r.split("\t")[0] for r in got] == [r.split("\t")[0] for r in want]
+    assert len(got) == 4 and got[-1].startswith("Average")
+    for g_row, w_row in zip(got[1:], want[1:]):
+        g = [float(x) for x in g_row.split("\t")[1:]]
+        w = [float(x) for x in w_row.split("\t")[1:]]
+        assert max(abs(g[0] - w[0]), abs(g[2] - w[2])) <= 1e-3, (g, w)
+        assert max(abs(g[1] - w[1]), abs(g[3] - w[3])) <= 1e-4, (g, w)
+    assert gpng.keys() == wpng.keys() == {"f0.png", "f1.png"}
+    for name, img in gpng.items():
+        assert img.shape == wpng[name].shape == (X23_LR[0] * scale,
+                                                 X23_LR[1] * scale, 3)
+        assert int(np.abs(img.astype(int) - wpng[name]).max()) <= 1
 
 
 @pytest.mark.parametrize("model", ["sr", "srgan", "sftgan", "predictor",

@@ -374,7 +374,7 @@ def test_model_serves_every_preset_like_jax_default_fields(preset):
 @pytest.mark.parametrize("net_kw,exc,match", [
     ({"blend_fold": True}, NotImplementedError, "blend_fold"),
     ({"lazy_o_chunk": 2}, NotImplementedError, "lazy_o_chunk"),
-    ({"centered_convs": 3}, NotImplementedError, "centered_convs"),
+    ({"mask_stack_conv": False}, NotImplementedError, "mask_stack_conv"),
     ({"chain_in": False}, NotImplementedError, "chain_in"),
     ({"obranch_body": "dot"}, NotImplementedError, "obranch_body"),
     ({"remat_blocks": True}, NotImplementedError, "remat_blocks"),

@@ -228,21 +228,22 @@ def _net(**kw):
 @pytest.mark.parametrize("change", [
     {"eval_bucket_multiple": 32, "spatial_shard": 2},
     {"eval_bucket_multiple": None, "spatial_shard": 4},
-    {"precision": "bf16c3"},
+    {"precision": "fp16"},
     {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
                         ablate_depth_matrix=True)},
     {"is_train": True, "train": {"lr_G": 1e-3, "pixel_criterion": "l1",
                                  "pixel_weight": 1.0,
                                  "depth_loss": {"use_depth_criterion": True}}},
-    {"precision": "mixed"}, {"precision": "bf16c"},
+    _net(net_kw={"lazy_o_chunk": 2}), _net(net_kw={"chain_in": False}),
     _net(preset="plain", net_kw={"remat_blocks": True}),
     _net(net_kw={"blend_fold": True}),
     _net(ablate_depth_block=True), _net(remat_blocks=True),
-], ids=["bucketed", "bucketed_default", "bf16c3", "x4", "train", "mixed",
-        "bf16c", "preset_plain", "net_kw", "ablation", "remat_blocks"])
+], ids=["bucketed", "bucketed_default", "fp16", "x4", "train",
+        "lazy_o_chunk", "chain_in", "preset_plain", "net_kw", "ablation",
+        "remat_blocks"])
 def test_unported_options_raise(change):
     """What still waits: sharded bucketed eval (``spatial_shard``, with the
-    bucket set or left at its default), the centered and mixed precisions,
+    bucket set or left at its default), a precision JAX does not name,
     training with the depth loss (its monodepth2 weights are not in the
     repo), the ablations (also on a ×4 network with a depth block after
     upscale2, which is served now), ``remat_blocks`` (also over
