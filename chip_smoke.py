@@ -119,16 +119,19 @@ exits non-zero):
    ``preset: plain``: step 1's loss and gradients (norm-relative over all)
    no farther from the fp32 step's than 2× plain PyTorch bf16's are.
    (b) One fp32 step, batch 2, full width, of the default configuration
-   against ``preset: plain`` on the same weights and batch: logs ≤ 1e-5
-   relative; the conv biases before an InstanceNorm (zero true gradient)
-   ≤ 1e-7 of the largest gradient; all other gradients as one vector
-   ≤ 2e-4 norm-relative; each tensor's norm-relative difference ≤ 4× the
-   largest change that four one-ulp nudges of the plain path (LQ up and
-   down, every weight up or down at random, twice) make in that tensor,
-   + 2e-4; the updated parameters' difference over their move ≤ 4× the
-   largest nudge's (the clamp at 0, the ReLUs and the backward's
-   nondeterministic reductions move the small SEAN gradients by percents;
-   ``train_parity``). (c) Each of the nine kernels with a
+   against ``preset: plain`` on the same weights and batch, each clause
+   held to what four one-ulp nudges of the plain path (LQ up and down,
+   every weight up or down at random, twice) move (the clamp at 0, the
+   ReLUs move the small SEAN gradients by percents; ``parity_readings``;
+   the steps take cuDNN's deterministic algorithms, so a reading is the
+   same from run to run): logs ≤ 1e-5
+   relative; each tensor's norm-relative difference ≤ 4× the largest
+   change the nudges make in it + 2e-4; all gradients as one vector ≤ the
+   larger of 2e-4 and 4× the nudges' change of it; the conv biases before
+   an InstanceNorm (zero true gradient) ≤ the larger of 1e-7 and 4× what
+   the plain path and its nudges hold, of the largest gradient; the
+   updated parameters' difference over their move ≤ 4× the largest
+   nudge's. (c) Each of the nine kernels with a
    gradient, bf16 and fp32, at the full-width shapes: every input's
    gradient through the wrapper (kernel forward, ``*_vjp`` backward)
    against autograd of the plain version, max |Δ| / max |ref| ≤ 1e-4 in
@@ -138,7 +141,7 @@ exits non-zero):
 7. entry points — ``python -m endosr_torch.train`` and ``.test`` through
    their ``main``, as a user runs them. A synthetic Kvasir-style tree under
    ``build/entry/`` (written with ``cv2``; 16 train pairs of smooth
-   random GT 1024² and LR 128² = ``imresize_np(GT, 1/8)``, 2 test pairs
+   random GT 1024² and LR 128², the MATLAB bicubic of GT, 2 test pairs
    of GT 960×896 / LR 120×112 so that bucketing pads, ``<stem>_disp.npy``
    depth), and YAMLs derived from the repo's ×8 training YAML and test
    YAML with only the data roots, ``path.root``, ``data_num``, ``niter``,
@@ -215,10 +218,63 @@ exits non-zero):
    kernel launched, asserted) over the values neither run clamps; ms an
    image. The phase's seconds are logged.
 
+9. ×2 / ×3 / ×4 training, ``remat_blocks``, the ablations, TF32 — (a)
+   ``python -m endosr_torch.train`` through ``main`` on each shipped
+   training YAML but ×8 (phase 7's), fp32 as they leave it, at their own
+   batch, sizes and ``remat_blocks``: ×2 Kvasir (batch 2, LQ 512² → GT
+   1024², ``remat_blocks``: ``output_stage`` 1 a step, ``vec16``), ×4
+   Kvasir (batch 8, LQ 256², ``remat_blocks``: ``output_stage_x8`` 1,
+   ``vec16``), EndoScene ×2 / ×3 / ×4 (batch 8 / 4 / 8, whole 574×500
+   frames cut to the scale: ``style_blend_dot`` 2, ``cuda_core``, and
+   ``output_stage`` 1 (×3: ``v1``) or ``output_stage_x8`` 1), 3 steps on
+   synthetic trees under ``build/train9/`` (16 pairs or frames), with the
+   data roots, ``path.root``, ``data_num``, ``niter``, ``val_freq``,
+   ``save_checkpoint_freq``, ``print_freq`` and, for EndoScene, a
+   ``manual_seed`` at which no batch mixes upright and transposed frames
+   (JAX's loader raises there too, C7) changed, each logged as
+   ``reduced``; each step with the counts set to 0 just before and read
+   just after (counts and routes asserted), losses finite; ms a step,
+   peak memory, the loader's images/s over the run's batches. (b) The ×2
+   Kvasir YAML's step (batch 2, LQ 512², fp32) with and without
+   ``remat_blocks`` from the same weights and batch: the peak with it
+   below the peak without it, and the two held to each other by phase
+   6b's rule. (c) Each of the ×2 (``remat_blocks``), ×3 EndoScene (LQ
+   191×166) and ×4 (``remat_blocks``, LQ 256²) nets' fp32 step, batch 2,
+   against ``preset: plain`` of the same net by phase 6b's rule; at ×3
+   also the ×3 step again with each of two wrong ``style_blend_dot``
+   backwards in its place (``vjp_controls``), held to plain by the same
+   rule: the one without its bias term must be rejected, the bf16 one is
+   read (``step_controls``); and the plain step again, its gradients
+   equal to the first run's (cuDNN's deterministic algorithms; with its
+   default ones, two runs' differing tensors are counted:
+   ``rerun_check``). (d)
+   ``ablate_depth_matrix``, ``ablate_depth_block`` and the baseline on
+   the ×4 YAML's net: an fp32 request (batch 8, LQ 127²) within 2e-4 of
+   its ``preset: plain`` twin, a bf16 request ≥ 40 dB against it, an fp32
+   training step (batch 2, LQ 63²) against ``preset: plain`` by phase
+   6b's rule; ``output_stage_x8`` 1 a request or step. (e) TF32 (C6): one
+   ×8 fp32 request (phase 5's net) and one ×2 ``bf16c3`` request (phase
+   8's) with PyTorch's default TF32 and with it off: ms, max |Δ| and PSNR
+   against fp32 ``preset: plain``. (f) Every kernel call that 9a–9d
+   made, recorded by ``KernelTap`` (kernel, type, route, shape, clamp,
+   whether an input required a gradient), again on the card at that
+   shape against its plain version (``kernel_call_check``, as 8a: the
+   blends image by image, fp32 against float64 ≤ 1e-5 of max |ref|, the
+   output stages bit for bit), and so is its gradient where the path took
+   one (the blend's per input ≤ 1e-5 of max |ref| against float64, the
+   output stages' bit for bit); the errors join the JSON rows'
+   ``max_abs_err``. Then the gradient check of the smallest fp32 blend
+   call with each wrong backward in place must fail. The phase's seconds
+   are logged.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
-``val entry`` and ``eval entry`` and phase 8's ``x2 <precision>`` and
-``x3 eval``, ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
+``val entry`` and ``eval entry``, phase 8's ``x2 <precision>`` and
+``x3 eval``, and phase 9's ``x2 train``, ``x4 train``, ``x2 endoscene
+train``, ``x3 endoscene train``, ``x4 endoscene train``, ``x2 remat``,
+``x2 hoisted``, ``x3 endoscene grads``, ``x4 remat grads``,
+``ablate_depth_matrix``, ``ablate_depth_block`` and ``baseline``,
+``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
 ``mid_shuffle`` is a kernel no forward calls, in the JAX package as here, so
@@ -229,6 +285,8 @@ device is present or when run outside the repository.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -1343,7 +1401,8 @@ TRAIN_WANT = {"packed_g123": 2, "style_blend_dot": 2, "head_dot": 1,
 BF16_VS_PLAIN = 2      # × plain PyTorch bf16's own distance from the fp32 step
 GRAD_NOISE = 4         # × the plain version's own change under a one-ulp move
 GRAD_FLOOR = 2e-4      # the repo's parity bar, norm-relative
-GRAD_NREL_ALL = 2e-4    # all gradients as one vector
+GRAD_NREL_ALL = 2e-4   # all gradients as one vector, at least
+ZERO_GRAD_FLOOR = 1e-7  # a zero true gradient's residue, of the largest, at least
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
 
 
@@ -1503,100 +1562,168 @@ def _nudge_weights(torch, start, seed):
     return out
 
 
-def parity_runs(torch):
-    """Phase 6b's steps: one fp32 step (batch 2, full width) of the default
-    configuration and of ``preset: plain`` on the same weights and batch,
-    then four of ``preset: plain`` nudged by one fp32 ulp: LQ up, LQ down,
-    every weight up or down at random (two draws). Each: logs, gradients,
-    start and updated parameters, which output pixels were clamped."""
-    from endosr_torch.models.f_depthcond import FModelDepthCond, u8_cast
+def parity_batch(torch, scale, lr_hw, b=2, seed=4):
+    """Phase 6b's fp32 batch: ``b`` images of seeded LQ ``lr_hw``, depth,
+    GT at ``scale``× and masks drawn per bin (with one-hot bins the SEAN
+    style gradients are sums that cancel to ~1e-6 of the largest)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, w = lr_hw
+    dep = torch.rand((b, h, w, 1), generator=gen, device="cuda")
+    lq = torch.rand((b, h, w, 3), generator=gen, device="cuda")
+    return {"LQ": lq,
+            "GT": torch.rand((b, h * scale, w * scale, 3), generator=gen,
+                             device="cuda"),
+            "Depth": dep,
+            "DepthMaskList": (torch.rand((b, h, w, 10), generator=gen,
+                                         device="cuda") > 0.6).float()}
+
+
+def parity_runs(torch, opt_of=None, batch=None, variants=None, plain=None,
+                counters=None):
+    """Phase 6b's steps: one fp32 step of each of ``variants`` ({label:
+    ``network_G`` keys}; default: the default configuration as
+    "kernels") and of ``preset: plain`` on the same weights and batch, then
+    four of ``preset: plain`` nudged by one fp32 ulp: LQ up, LQ down,
+    every weight up or down at random (two draws). ``opt_of(**net)``: the
+    options (default: the ×8 recipe, fp32); ``batch`` (default: batch 2,
+    LQ 128²); ``plain``: the ``network_G`` keys of the plain path (default
+    ``preset: plain``). Each: logs, gradients, start and updated
+    parameters, which output pixels were clamped, the step's peak device
+    memory (GiB) and, with ``counters``, the launches and routes of the
+    step (the counts set to 0 just before it and read just after)."""
     from endosr_torch.models.recipes import x8_train_opt
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    dep = torch.rand((2, 128, 128, 1), generator=gen, device="cuda")
-    lq = torch.rand((2, 128, 128, 3), generator=gen, device="cuda")
-    batch = {"LQ": lq,
-             "GT": torch.rand((2, 1024, 1024, 3), generator=gen,
-                              device="cuda"),
-             "Depth": dep,
-             # drawn per bin (with one-hot bins the SEAN style gradients
-             # are sums that cancel to ~1e-6 of the largest)
-             "DepthMaskList": (torch.rand((2, 128, 128, 10), generator=gen,
-                                          device="cuda") > 0.6).float()}
+    if opt_of is None:
+        opt_of = functools.partial(x8_train_opt, "fp32")
+    if batch is None:
+        batch = parity_batch(torch, 8, (128, 128))
+    lq = batch["LQ"]
+    plain = plain or {"preset": "plain"}
     runs, start = {}, None
     for label, net, feed, seed in (
-            ("kernels", {}, batch, None),
-            ("plain", {"preset": "plain"}, batch, None),
-            ("LQ + 1 ulp", {"preset": "plain"},
+            *((lab, kw, batch, None)
+              for lab, kw in (variants or {"kernels": {}}).items()),
+            ("plain", plain, batch, None),
+            ("LQ + 1 ulp", plain,
              dict(batch, LQ=torch.nextafter(lq, lq + 1.0)), None),
-            ("LQ - 1 ulp", {"preset": "plain"},
+            ("LQ - 1 ulp", plain,
              dict(batch, LQ=torch.nextafter(lq, lq - 1.0)), None),
-            ("weights ± 1 ulp (a)", {"preset": "plain"}, batch, 7),
-            ("weights ± 1 ulp (b)", {"preset": "plain"}, batch, 8)):
-        m = FModelDepthCond(x8_train_opt("fp32", **net))
-        if start is None:
-            start = {k: p.detach().clone()
-                     for k, p in m.named_train_parameters()}
-        w0 = start if seed is None else _nudge_weights(torch, start, seed)
-        with torch.no_grad():
-            for k, p in m.named_train_parameters():
-                p.copy_(w0[k])
-            sr = m.netG(feed["LQ"], feed["Depth"],
-                        u8_cast(feed["DepthMaskList"]))
-        m.feed_data(feed)
-        logs = m.optimize_parameters()
-        torch.cuda.synchronize()
-        runs[label] = dict(
-            logs=logs, start=w0, clamped=(sr == 0) | (sr == 1), grads=_grads(m),
-            params={k: p.detach().clone()
-                    for k, p in m.named_train_parameters()})
-        del m, sr
-        torch.cuda.empty_cache()
+            ("weights ± 1 ulp (a)", plain, batch, 7),
+            ("weights ± 1 ulp (b)", plain, batch, 8)):
+        runs[label] = parity_step(
+            torch, opt_of(**net), start if seed is None
+            else _nudge_weights(torch, start, seed), feed, counters)
+        start = start or runs[label]["start"]
     return runs
 
 
-def train_parity(torch):
-    """Phase 6b: the default configuration's fp32 step against ``preset:
-    plain``'s (``parity_runs``): the logs, every gradient and the updated
-    parameters. The output is clamped to [0, 1] and, at random weights,
-    mostly near 0, so a pixel whose pre-clamp value the two forwards (≤
-    5.2e-7 apart) put on two sides of 0 passes its gradient in one and not
-    in the other; ReLUs do the same inside, and the small SEAN gradients
-    (sums that cancel) move most. The yardstick of each tensor: the largest
-    change of its gradient in the plain path itself under the four one-ulp
-    nudges. Each tensor's norm-relative difference may be ``GRAD_NOISE``×
-    that plus ``GRAD_FLOOR``; all gradients together ``GRAD_NREL_ALL``; the
-    updated parameters ``GRAD_NOISE``× the largest nudge's change (both as
-    the norm of the difference over the norm of the plain step's move)."""
-    runs = parity_runs(torch)
-    k_, p_ = runs.pop("kernels"), runs.pop("plain")
+def parity_step(torch, opt, start, feed, counters=None, deterministic=True):
+    """One step of ``FModelDepthCond(opt)`` from the parameters ``start``
+    (None: its own seeded ones) on ``feed``, as ``parity_runs`` takes it.
+    cuDNN takes its deterministic algorithms for the step unless
+    ``deterministic`` is false: with its default ones two runs of the
+    same step differ in their gradients (:func:`rerun_check`), and a
+    reading of :func:`parity_readings` moves from one run to the next."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic
+    cudnn.deterministic = deterministic
+    try:
+        return _parity_step(torch, opt, start, feed, counters)
+    finally:
+        cudnn.deterministic = was
+
+
+def _parity_step(torch, opt, start, feed, counters):
+    from endosr_torch.models.f_depthcond import FModelDepthCond, u8_cast
+
+    m = FModelDepthCond(opt)
+    w0 = start or {k: p.detach().clone() for k, p in m.named_train_parameters()}
+    with torch.no_grad():
+        for k, p in m.named_train_parameters():
+            p.copy_(w0[k])
+        sr = m.netG(feed["LQ"], feed["Depth"], u8_cast(feed["DepthMaskList"]))
+    m.feed_data(feed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters or [])
+    t = time.perf_counter()
+    logs = m.optimize_parameters()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = dict(
+        logs=logs, start=w0, clamped=(sr == 0) | (sr == 1), grads=_grads(m),
+        params={k: p.detach().clone() for k, p in m.named_train_parameters()},
+        secs=secs, peak_gib=peak,
+        launches={c.__name__: c.launches for c in counters or []},
+        routes={c.__name__: dict(c.routes) for c in counters or []
+                if hasattr(c, "routes")})
+    del m, sr
+    torch.cuda.empty_cache()
+    return run
+
+
+def parity_readings(torch, runs, label, ref="plain", got="kernels"):
+    """Phase 6b's rule on ``parity_runs``' steps: the step ``got`` against
+    the step ``ref`` (the logs, every gradient and the updated parameters),
+    each held to what four one-ulp nudges of the plain step move. The
+    output is clamped to [0, 1] and, at random weights, mostly near 0, so
+    a pixel whose pre-clamp value two forwards (≤ 5.2e-7 apart) put on two
+    sides of 0 passes its gradient in one and not in the other; ReLUs do
+    the same inside, and the small SEAN gradients (sums that cancel) move
+    most. Each tensor's norm-relative difference may be ``GRAD_NOISE``×
+    the largest change the nudges make in it, + ``GRAD_FLOOR``; all
+    gradients together (as one vector) the larger of ``GRAD_NREL_ALL`` and
+    ``GRAD_NOISE``× the nudges' change of that vector; the updated
+    parameters ``GRAD_NOISE``× the largest nudge's change (both as the
+    norm of the difference over the norm of the plain step's move). The
+    conv biases before an InstanceNorm (a zero true gradient) may hold, on
+    both sides, the larger of ``ZERO_GRAD_FLOOR`` and ``GRAD_NOISE``× what
+    the plain step and its nudges hold, of the largest gradient. Returns
+    (readings, the failed clauses)."""
+    k_, r_, p_ = runs[got], runs[ref], runs["plain"]
+    nudged = {lab: r for lab, r in runs.items() if "ulp" in lab}
     fails = []
-    if any(not torch.equal(k_["start"][k], p_["start"][k]) for k in k_["start"]):
+    if any(not torch.equal(k_["start"][k], r_["start"][k]) for k in k_["start"]):
         fails.append("the two models did not start from the same weights")
     worst_log = max(abs(k_["logs"][k] - v) / max(abs(v), 1e-12)
-                    for k, v in p_["logs"].items())
-    if sorted(k_["logs"]) != sorted(p_["logs"]) or not worst_log <= 1e-5:
+                    for k, v in r_["logs"].items())
+    if sorted(k_["logs"]) != sorted(r_["logs"]) or not worst_log <= 1e-5:
         fails.append(f"logs differ: {worst_log:.3g} relative")
-    flips = int((k_["clamped"] ^ p_["clamped"]).sum())
+    flips = int((k_["clamped"] ^ r_["clamped"]).sum())
     flips_n = {lab: int((r["clamped"] ^ p_["clamped"]).sum())
-               for lab, r in runs.items()}
-    gp = p_["grads"]
+               for lab, r in nudged.items()}
+    gp = r_["grads"]
     top = max(float(g.abs().max()) for g in gp.values())
+    zero = [k for k in gp if _before_instance_norm(k)]
+
+    def zero_share(run):
+        return max((float(run["grads"][k].abs().max()) for k in zero),
+                   default=0.0) / top
+
+    zero_plain = max(zero_share(r) for r in (p_, *nudged.values()))
+    zero_tol = max(ZERO_GRAD_FLOOR, GRAD_NOISE * zero_plain)
+    zero_got = max(zero_share(k_), zero_share(r_))
+    if not zero_got <= zero_tol:
+        fails.append(f"zero-gradient biases: |g| {zero_got:.3g} of the "
+                     f"largest > {zero_tol:.3g}")
     rows, num, den = [], 0.0, 0.0
-    for k, ref in gp.items():
-        d = k_["grads"][k] - ref
-        if _before_instance_norm(k):
-            worst = max(float(ref.abs().max()),
-                        float(k_["grads"][k].abs().max()))
-            if not worst <= 1e-7 * top:
-                fails.append(f"{k}: |g| {worst:.3g} > 1e-7 of the largest")
+    num_n = dict.fromkeys(nudged, 0.0)
+    den_p = 0.0
+    for k, refg in gp.items():
+        if k in zero:
             continue
+        d = k_["grads"][k] - refg
         num += float(d.square().sum())
-        den += float(ref.square().sum())
-        norm = float(ref.norm().clamp_min(1e-30))
+        den += float(refg.square().sum())
+        den_p += float(p_["grads"][k].square().sum())
+        for lab, r in nudged.items():
+            num_n[lab] += float((r["grads"][k] - p_["grads"][k]).square().sum())
+        norm = float(refg.norm().clamp_min(1e-30))
         err = float(d.norm()) / norm
-        noise = max(float((r["grads"][k] - ref).norm()) / norm
-                    for r in runs.values())
+        pnorm = float(p_["grads"][k].norm().clamp_min(1e-30))
+        noise = max(float((r["grads"][k] - p_["grads"][k]).norm()) / pnorm
+                    for r in nudged.values())
         tol = GRAD_NOISE * noise + GRAD_FLOOR
         rows.append((err / tol, err, noise, k))
         if not err <= tol:
@@ -1605,39 +1732,58 @@ def train_parity(torch):
                          f"{GRAD_FLOOR:g}")
     rows.sort(reverse=True)
     nrel_all = (num / den) ** 0.5
-    if not nrel_all <= GRAD_NREL_ALL:
+    noise_all = max(v / den_p for v in num_n.values()) ** 0.5
+    tol_all = max(GRAD_NREL_ALL, GRAD_NOISE * noise_all)
+    if not nrel_all <= tol_all:
         fails.append(f"all gradients: norm-relative {nrel_all:.3g} > "
-                     f"{GRAD_NREL_ALL}")
+                     f"{tol_all:.3g}")
 
-    def apart(a):
-        num = sum(float((a["params"][k] - p_["params"][k]).square().sum())
+    def apart(a, b):
+        num = sum(float((a["params"][k] - b["params"][k]).square().sum())
                   for k in gp)
-        den = sum(float((p_["params"][k] - p_["start"][k]).square().sum())
+        den = sum(float((b["params"][k] - b["start"][k]).square().sum())
                   for k in gp)
         return (num / den) ** 0.5
 
-    prel = apart(k_)
-    prel_n = max(apart(r) for r in runs.values())
+    prel = apart(k_, r_)
+    prel_n = max(apart(r, p_) for r in nudged.values())
     if not prel <= GRAD_NOISE * prel_n:
         fails.append(f"updated parameters {prel:.3g} of the move apart, > "
                      f"{GRAD_NOISE}× the largest one-ulp change {prel_n:.3g}")
-    log(f"[train parity] fp32 batch 2 full width, default vs preset: plain: "
+    log(f"[{label}] fp32 batch {k_['clamped'].shape[0]} full width: "
         f"logs ≤ {worst_log:.3g} relative (tol 1e-5); output pixels clamped "
         f"in one and not the other: {flips} (plain vs plain nudged: "
         + ", ".join(f"{lab} {n}" for lab, n in flips_n.items())
-        + f"); gradients: all norm-relative {nrel_all:.3g} (tol "
-        f"{GRAD_NREL_ALL:g}); per tensor (norm-relative, tol {GRAD_NOISE}× "
-        f"its largest one-ulp change + {GRAD_FLOOR:g}), nearest the bound: "
+        + f"); zero-gradient biases ≤ {zero_got:.3g} of the largest gradient "
+        f"(tol {zero_tol:.3g}; plain and nudged {zero_plain:.3g}); "
+        f"gradients: all norm-relative {nrel_all:.3g} (tol {tol_all:.3g}; "
+        f"the largest one-ulp change of all {noise_all:.3g}); per tensor "
+        f"(norm-relative, tol {GRAD_NOISE}× its largest one-ulp change + "
+        f"{GRAD_FLOOR:g}), nearest the bound: "
         + ", ".join(f"{k} {e:.3g} (one-ulp {n:.3g}, {q:.2f} of tol)"
                     for q, e, n, k in rows[:8])
         + f" ({len(rows)} tensors, largest difference "
         f"{max(r[1] for r in rows):.3g}); updated parameters {prel:.3g} of "
         f"the move apart (largest one-ulp change {prel_n:.3g})")
-    if fails:
-        raise AssertionError("[train parity] " + "; ".join(fails))
-    return {"grad_nrel": nrel_all, "grad_nrel_worst": max(r[1] for r in rows),
+    return {"grad_nrel": nrel_all, "grad_nrel_noise": noise_all,
+            "grad_nrel_tol": tol_all, "grad_nrel_worst": max(r[1] for r in rows),
             "grad_worst_of_tol": rows[0][0], "params_rel": prel,
-            "logs_rel": worst_log, "clamp_flips": flips}
+            "logs_rel": worst_log, "clamp_flips": flips,
+            "zero_grad": zero_got, "zero_grad_plain": zero_plain,
+            "zero_grad_tol": zero_tol}, fails
+
+
+def train_parity(torch, runs=None, label="train parity: default vs preset: "
+                 "plain", ref="plain", got="kernels"):
+    """Phase 6b: the default configuration's fp32 step against ``preset:
+    plain``'s (``parity_runs``; or, given ``runs``, the step ``got``
+    against the step ``ref``) by :func:`parity_readings`' rule; raises if
+    a clause fails. Returns the readings."""
+    runs = parity_runs(torch) if runs is None else runs
+    readings, fails = parity_readings(torch, runs, label, ref, got)
+    if fails:
+        raise AssertionError(f"[{label}] " + "; ".join(fails))
+    return readings
 
 
 def grad_cases(torch, dt, gen):
@@ -1820,24 +1966,36 @@ def _smooth_u8(np, rng, h, w):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def write_kvasir(root):
+def _bicubic(np, img, scale):
+    """``imresize_np(img, scale)`` of the port (MATLAB bicubic) as two
+    BLAS matrix products with the same resample matrices: its einsums take
+    seconds on a 1024² image; the sums run in another order."""
+    from endosr_torch.ops.resize import resize_matrix
+
+    h, w = img.shape[:2]
+    m_h = resize_matrix(h, math.ceil(h * scale), scale, True)
+    m_w = resize_matrix(w, math.ceil(w * scale), scale, True)
+    x = np.ascontiguousarray(img.astype(np.float32).transpose(2, 0, 1))
+    return np.ascontiguousarray((m_h @ x @ m_w.T).transpose(1, 2, 0))
+
+
+def write_kvasir(root, scale=8, lr_hw=None, n=None):
     """Phase 7's synthetic Kvasir-style tree, written with ``cv2`` (which
-    picks each row's PNG filter, as it does for a real dataset): 16 train pairs (GT 1024², LR 128² = ``imresize_np(GT, 1/8)``)
+    picks each row's PNG filter, as it does for a real dataset): 16 train pairs (GT 1024², LR 128², the MATLAB bicubic, ``_bicubic``)
     and 2 test pairs (GT 960×896, LR 120×112, so that bucketing pads),
-    each with ``<stem>_disp.npy`` [1, 1, h, w]."""
+    each with ``<stem>_disp.npy`` [1, 1, h, w]. ``scale``, ``lr_hw`` and
+    ``n`` ({split: LR size / pairs}) give another tree (phase 9a)."""
     import numpy as np
 
     import cv2
 
-    from endosr_torch.ops.resize import imresize_np
-
     rng = np.random.default_rng(7)
-    for split, (lh, lw) in ENTRY_LR.items():
+    for split, (lh, lw) in (lr_hw or ENTRY_LR).items():
         for sub in ("HR", "LR", "depth"):
             (root / sub / split).mkdir(parents=True)
-        for i in range(ENTRY_N[split]):
-            gt = _smooth_u8(np, rng, lh * 8, lw * 8)
-            lr = imresize_np(gt.astype(np.float32) / 255.0, 1 / 8)
+        for i in range((n or ENTRY_N)[split]):
+            gt = _smooth_u8(np, rng, lh * scale, lw * scale)
+            lr = _bicubic(np, gt.astype(np.float32) / 255.0, 1 / scale)
             lr = np.clip(lr * 255.0, 0, 255).round().astype(np.uint8)
             cv2.imwrite(str(root / "HR" / split / f"f{i:02d}.png"), gt)
             cv2.imwrite(str(root / "LR" / split / f"f{i:02d}.png"), lr)
@@ -1845,7 +2003,7 @@ def write_kvasir(root):
                     rng.random((1, 1, lh, lw), dtype=np.float32))
 
 
-def _derive(src, dst, changes):
+def _derive(src, dst, changes, tag="entry"):
     """Write ``src`` (a YAML of the repo) with ``changes`` ({dotted key:
     value}) as ``dst``, logging each change as a ``reduced`` line."""
     import yaml
@@ -1856,7 +2014,7 @@ def _derive(src, dst, changes):
         node = y
         for p in parents:
             node = node[p]
-        log(f"[entry] reduced: {src.name} {key}: {node.get(leaf)!r} → "
+        log(f"[{tag}] reduced: {src.name} {key}: {node.get(leaf)!r} → "
             f"{value!r}")
         node[leaf] = value
     dst.write_text(yaml.safe_dump(y))
@@ -1904,7 +2062,7 @@ class EntryTaps:
                            "netG": model.netG.state_dict(),
                            "dyn": model.dyn_weight, "step": model.step})
 
-    def _call(self, label, model, fn, args, kwargs):
+    def _call(self, label, model, fn, args, kwargs, training=False):
         torch = self.torch
         torch.cuda.synchronize()
         zero_counts(self.counters)
@@ -1915,7 +2073,7 @@ class EntryTaps:
                "launches": {c.__name__: c.launches for c in self.counters},
                "routes": {c.__name__: dict(c.routes) for c in self.counters
                           if hasattr(c, "routes")}}
-        if label.startswith("train"):
+        if training:
             rec["logs"] = dict(model.log_dict)
             if model.step == 2 and self.step2 is None:
                 self.step2 = self._state(model)
@@ -1931,7 +2089,7 @@ class EntryTaps:
         opt, test, resume = saved
 
         def optimize_parameters(model, *a, **k):
-            return self._call(self.training, model, opt, a, k)
+            return self._call(self.training, model, opt, a, k, True)
 
         def test_(model, *a, **k):
             return self._call(self.serving, model, test, a, k)
@@ -2334,11 +2492,142 @@ X3_WANT = {"style_dot_hwbm": 2, "output_stage": 1}
 X3_ROUTES = {"style_dot_hwbm": "tc", "output_stage": "v1"}
 
 
+def kernel_call_check(torch, gen, name, dt, route, shape, extra=(),
+                      grad=False):
+    """One call of the kernel ``name`` on the card at a path's shape and
+    storage type ``dt``, against its plain version on the same inputs: it
+    must take ``route``; its output is held image by image for the dots
+    (fp32 against float64 ≤ 1e-5 of max |ref|, bf16 against the bf16 plain
+    version ≤ 1e-2, as phase 3 holds them) and bit for bit for the output
+    stages. With ``grad``, so is the gradient of every input through the
+    wrapper (the kernel's forward, its ``*_vjp`` backward) against
+    autograd of the plain version: a dot's per input, fp32 against
+    float64 ≤ 1e-5 of max |ref|, bf16 ≤ ``GRAD_TOL``; an output stage's
+    bit for bit. ``shape``: (B, H, W, J, M) of a dot, the input's of an
+    output stage; ``extra``: a blend's conv width 2C; (r, clamp min, clamp
+    max) of ``output_stage``; (order, clamp min, clamp max) of
+    ``output_stage_x8``. Returns (readings, the failed clauses)."""
+    from endosr_torch.kernels.output_stage import (output_stage,
+                                                   output_stage_plain,
+                                                   output_stage_x8,
+                                                   output_stage_x8_plain)
+    from endosr_torch.kernels.style_dot import (style_blend_dot,
+                                                style_blend_plain,
+                                                style_dot_hwbm, style_dot_plain)
+
+    def rn(*shape, s=1.0, mean=0.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device="cuda") * s
+                + mean).to(dtype)
+
+    def hwnc(t):
+        return t.permute(1, 2, 0, 3)
+
+    fails, batched = [], 0
+    if name == "output_stage":
+        r, lo, hi = extra
+        fn, leaves = output_stage, [rn(*shape, s=0.6, mean=0.5)]
+        call = functools.partial(output_stage, r=r, clamp_min=lo, clamp_max=hi)
+        plain = functools.partial(output_stage_plain, r=r, clamp_min=lo,
+                                  clamp_max=hi)
+    elif name == "output_stage_x8":
+        order, lo, hi = extra
+        fn, leaves = output_stage_x8, [rn(*shape, s=0.6, mean=0.5)]
+        call = functools.partial(output_stage_x8, clamp_min=lo, clamp_max=hi,
+                                 order=order)
+        plain = functools.partial(output_stage_x8_plain, clamp_min=lo,
+                                  clamp_max=hi, order=order)
+    else:
+        b, h, w, j, m = shape
+        leaves = [(torch.rand((b, h, w, j), generator=gen, device="cuda")
+                   > 0.8).to(dt), rn(b, j, m, s=0.05)]
+        fn, call, plain = style_dot_hwbm, style_dot_hwbm, style_dot_plain
+        if name == "style_blend_dot":
+            leaves += [rn(b, h, w, extra[0], s=0.3)
+                       for _ in range(m // extra[0])]
+            leaves.append(rn(m, s=0.1, dtype=torch.float32))
+            fn = style_blend_dot
+
+            def call(s, v, *r):
+                return style_blend_dot(s, v, tuple(map(hwnc, r[:-1])), r[-1])
+
+            def plain(s, v, *r):
+                return style_blend_plain(s, v, tuple(map(hwnc, r[:-1])), r[-1])
+        batched = len(leaves) - (name == "style_blend_dot")
+    before = dict(fn.routes)
+    got = call(*leaves)
+    torch.cuda.synchronize()
+    took = {k: n - before[k] for k, n in fn.routes.items()}
+    if took != {**dict.fromkeys(took, 0), route: 1}:
+        fails.append(f"routes {took}, want one launch on {route}")
+    out = {}
+    if not batched:
+        want = plain(*leaves)
+        out["max_abs"] = rel_err(got, want)[0]
+        if not torch.equal(got, want):
+            fails.append(f"not bit-identical (max |Δ| {out['max_abs']:.3g})")
+    else:
+        ref_dt = torch.float64 if dt == torch.float32 else dt
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        per = []
+        for k in range(shape[0]):
+            one = [t[k:k + 1] if i < batched else t
+                   for i, t in enumerate(leaves)]
+            per.append(rel_err(got[:, :, k:k + 1],
+                               plain(*(t.to(ref_dt) for t in one))))
+        out["max_abs"] = max(e[0] for e in per)
+        out["rel"] = max(e[1] for e in per)
+        if not out["rel"] <= tol:
+            fails.append(f"rel err {out['rel']:.3g} > {tol:g}")
+    out_shape, out_dt = tuple(got.shape), got.dtype
+    del got
+    if grad:
+        g = torch.randn(out_shape, generator=gen, device="cuda").to(out_dt)
+        xs = [t.detach().requires_grad_(True) for t in leaves]
+        gk = torch.autograd.grad(call(*xs), xs, g)
+        del xs
+        if not batched:
+            xs = [t.detach().requires_grad_(True) for t in leaves]
+            gp = torch.autograd.grad(plain(*xs), xs, g)
+            out["grad_rel"] = max(rel_err(a, b_)[1] for a, b_ in zip(gk, gp))
+            if not all(torch.equal(a, b_) for a, b_ in zip(gk, gp)):
+                fails.append(f"gradient not bit-identical (max |Δ| / max "
+                             f"|ref| {out['grad_rel']:.3g})")
+        else:
+            tol = 1e-5 if dt == torch.float32 else GRAD_TOL["bfloat16"]
+            num, den = [0.0] * len(leaves), [0.0] * len(leaves)
+            acc = [None] * len(leaves)
+            for k in range(shape[0]):
+                xk = [(t[k:k + 1] if i < batched else t).detach().to(ref_dt)
+                      .requires_grad_(True) for i, t in enumerate(leaves)]
+                gr = torch.autograd.grad(plain(*xk), xk,
+                                         g[:, :, k:k + 1].to(ref_dt))
+                for i, a in enumerate(gr):
+                    if i < batched:
+                        d = (gk[i][k:k + 1].to(ref_dt) - a).abs().max()
+                        num[i] = max(num[i], float(d))
+                        den[i] = max(den[i], float(a.abs().max()))
+                    else:
+                        acc[i] = a if acc[i] is None else acc[i] + a
+            for i in range(batched, len(leaves)):
+                num[i] = float((gk[i].to(ref_dt) - acc[i]).abs().max())
+                den[i] = float(acc[i].abs().max())
+            rels = [n / max(d, 1e-30) for n, d in zip(num, den)]
+            out["grad_rel"] = max(rels)
+            out["grad_rel_per_input"] = rels
+            if not out["grad_rel"] <= tol:
+                fails.append("gradient max |Δ| / max |ref| per input "
+                             + ", ".join(f"{e:.3g}" for e in rels)
+                             + f" > {tol:g}")
+        del gk
+    return out, fails
+
+
 # the kernel calls of phase 8's paths: (kernel, storage type, route,
-# (B, H, W, M) of a dot or (B, H, W, r) of an output stage): the ×2 requests (batch 8, LQ 512²; style groups of 7 and 6
-# blocks, M = 1792 / 1536: mixed, bf16c and bf16c3 dot them, fp32 and bf16
-# blend them; the tail's r = 2 stage in fp32, and in bf16 at bf16) and the
-# ×3 frame (LQ 191×166; bf16c3 dots both groups; the r = 3 stage in fp32)
+# (B, H, W, M) of a dot or (B, H, W, r) of an output stage): the ×2
+# requests (batch 8, LQ 512²; style groups of 7 and 6 blocks, M = 1792 /
+# 1536: mixed, bf16c and bf16c3 dot them, fp32 and bf16 blend them; the
+# tail's r = 2 stage in fp32, and in bf16 at bf16) and the ×3 frame (LQ
+# 191×166; bf16c3 dots both groups; the r = 3 stage in fp32)
 X23_CALLS = (
     *(("style_dot_hwbm", "bfloat16", "tc", (8, 512, 512, m)) for m in (1792, 1536)),
     *(("style_blend_dot", dt, route, (8, 512, 512, m)) for m in (1792, 1536)
@@ -2351,79 +2640,31 @@ X23_CALLS = (
 
 def path_kernel_checks(torch):
     """Phase 8a: every kernel call of ``X23_CALLS`` on the card at its
-    path's shape and type, its route asserted, against its plain version on
-    the same inputs: the dots image by image (a ×2 map holds 3.8·10⁹
-    values), fp32 against the float64 plain version (max |Δ| ≤ 1e-5 of max
-    |ref|), bf16 against the bf16 plain version (1e-2), as phase 3 holds
-    them; the output stages bit for bit. Returns {kernel: {type: max |Δ|}}."""
-    from endosr_torch.kernels.output_stage import output_stage, output_stage_plain
-    from endosr_torch.kernels.style_dot import (style_blend_dot,
-                                                style_blend_plain,
-                                                style_dot_hwbm, style_dot_plain)
-
-    fns = {"style_dot_hwbm": style_dot_hwbm, "style_blend_dot": style_blend_dot,
-           "output_stage": output_stage}
+    path's shape and type, by :func:`kernel_call_check` (a style group's
+    J = 90 shifted mask channels, its convs 2C = 128 wide; clamp [0, 1]).
+    Returns {kernel: {type: max |Δ|}}."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     errs = {}
-
-    def rn(*shape, s=1.0, mean=0.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=gen, device="cuda") * s
-                + mean).to(dtype)
-
-    def plain_image(name, args, k, dt):
-        """The plain version on image ``k`` of ``args`` (float64 for fp32)."""
-        one = [a[k:k + 1] for a in args[:2]]
-        if name == "style_blend_dot":
-            one += [tuple(c[:, :, k:k + 1] for c in args[2]), args[3]]
-        if dt == torch.float32:
-            one = [tuple(c.double() for c in a) if isinstance(a, tuple)
-                   else a.double() for a in one]
-        return (style_blend_plain if name == "style_blend_dot"
-                else style_dot_plain)(*one)
-
-    def check(name, dt, route, b, h, w, m):
-        fn = fns[name]
-        if name == "output_stage":
-            args = (rn(b, h, w, 3 * m * m, s=0.6, mean=0.5, dtype=dt), m, 0.0, 1.0)
-        else:
-            args = ((torch.rand((b, h, w, 90), generator=gen, device="cuda")
-                     > 0.8).to(dt), rn(b, 90, m, s=0.05, dtype=dt))
-            if name == "style_blend_dot":
-                args += (tuple(rn(b, h, w, 128, s=0.3, dtype=dt).permute(1, 2, 0, 3)
-                               for _ in range(m // 128)), rn(m, s=0.1))
-        fn.routes = dict.fromkeys(fn.routes, 0)
-        got = fn(*args)
-        torch.cuda.synchronize()
-        if fn.routes != {**dict.fromkeys(fn.routes, 0), route: 1}:
-            raise AssertionError(f"[x2/x3] {name} {dt} {(b, h, w, m)}: routes "
-                                 f"{fn.routes}, want one launch on {route}")
-        if name == "output_stage":
-            want = output_stage_plain(*args)
-            if not torch.equal(got, want):
-                raise AssertionError(f"[x2/x3] {name} {dt} {(b, h, w, m)}: not "
-                                     f"bit-identical (max |Δ| "
-                                     f"{rel_err(got, want)[0]})")
-            return 0.0, 0.0, None
-        tol = 1e-5 if dt == torch.float32 else 1e-2
-        per = [rel_err(got[:, :, k:k + 1], plain_image(name, args, k, dt))
-               for k in range(b)]
-        err, rel = max(e[0] for e in per), max(e[1] for e in per)
-        if not rel <= tol:
-            raise AssertionError(f"[x2/x3] {name} {dt} {(b, h, w, m)}: rel err "
-                                 f"{rel} > {tol}")
-        return err, rel, tol
-
     for name, dts, route, (b, h, w, m) in X23_CALLS:
-        err, rel, tol = check(name, getattr(torch, dts), route, b, h, w, m)
+        if name == "output_stage":
+            shape, extra = (b, h, w, 3 * m * m), (m, 0.0, 1.0)
+            what = f"[{b},{h},{w},{3 * m * m}] r={m}"
+        else:
+            shape, extra = (b, h, w, 90, m), (128,)
+            what = f"[{b},{h},{w},90]×[{b},90,{m}]"
+        out, fails = kernel_call_check(torch, gen, name, getattr(torch, dts),
+                                       route, shape, extra)
         torch.cuda.empty_cache()
-        what = (f"[{b},{h},{w},{3 * m * m}] r={m}" if name == "output_stage"
-                else f"[{b},{h},{w},90]×[{b},90,{m}]")
-        log(f"[x2/x3] {name} {dts} {what}: route {route}, max|Δ| {err:.3e} "
-            f"rel {rel:.3e} against the plain version "
-            + ("(bit-identical)" if tol is None else
-               f"(image by image, tol {tol:g})"))
+        if fails:
+            raise AssertionError(f"[x2/x3] {name} {dts} {what}: "
+                                 + "; ".join(fails))
+        log(f"[x2/x3] {name} {dts} {what}: route {route}, max|Δ| "
+            f"{out['max_abs']:.3e} "
+            + ("(bit-identical)" if "rel" not in out else
+               f"rel {out['rel']:.3e} against the plain version (image by "
+               "image)"))
         slot = errs.setdefault(name, {})
-        slot[dts] = max(slot.get(dts, 0.0), err)
+        slot[dts] = max(slot.get(dts, 0.0), out["max_abs"])
     return errs
 
 
@@ -2624,31 +2865,33 @@ def serve_x2(torch, counters):
     return launches, numbers
 
 
-def write_endoscene(root):
+def write_endoscene(root, scale=3, n=X3_N, split="test.txt", crop=False):
     """Phase 8d's synthetic CVC-EndoSceneStill test split, written with
-    ``cv2``: ``X3_N`` frames of GT 574×500, LR under ``LR/x3/`` the MATLAB
-    bicubic of the frame cropped to a multiple of 3 (191×166),
-    ``<stem>_disp.npy`` depth, and ``test.txt`` naming the frames."""
+    ``cv2``: ``n`` frames of GT 574×500, LR under ``LR/x<scale>/`` the
+    MATLAB bicubic of the frame cropped to a multiple of ``scale`` (×3:
+    191×166), ``<stem>_disp.npy`` depth, and ``split`` naming the frames.
+    ``crop``: the GT file holds the cropped frame (training takes whole
+    frames, and its loss needs GT = ``scale`` × LR; phase 9a)."""
     import numpy as np
 
     import cv2
 
     from endosr_torch.ops.color import modcrop
-    from endosr_torch.ops.resize import imresize_np
 
     rng = np.random.default_rng(11)
-    for sub in ("HR", "LR/x3", "depth"):
+    for sub in ("HR", f"LR/x{scale}", "depth"):
         (root / sub).mkdir(parents=True)
-    names = [f"{i + 1}.png" for i in range(X3_N)]
+    names = [f"{i + 1}.png" for i in range(n)]
     for name in names:
         gt = _smooth_u8(np, rng, *X3_GT)
-        lr = imresize_np(modcrop(gt, 3).astype(np.float32) / 255.0, 1 / 3)
+        lr = _bicubic(np, modcrop(gt, scale).astype(np.float32) / 255.0,
+                      1 / scale)
         lr = np.clip(lr * 255.0, 0, 255).round().astype(np.uint8)
-        cv2.imwrite(str(root / "HR" / name), gt)
-        cv2.imwrite(str(root / "LR/x3" / name), lr)
+        cv2.imwrite(str(root / "HR" / name), modcrop(gt, scale) if crop else gt)
+        cv2.imwrite(str(root / f"LR/x{scale}" / name), lr)
         np.save(root / "depth" / f"{name[:-4]}_disp.npy",
                 rng.random((1, 1) + lr.shape[:2], dtype=np.float32))
-    (root / "test.txt").write_text("".join(n + "\n" for n in names))
+    (root / split).write_text("".join(n + "\n" for n in names))
 
 
 def eval_x3(torch, counters):
@@ -2786,6 +3029,687 @@ def serving_x2_x3(torch, counters):
     return launches, numbers
 
 
+TRAIN9_ROOT = "build/train9"    # under the repository root, git-ignored
+TRAIN9_STEPS = 3
+TRAIN9_N = 16                   # training pairs (Kvasir) or frames (EndoScene)
+TRAIN9_GT = 1024                # the Kvasir YAMLs' GT_size
+_T = "options/train/train_depthNet_SEAN_depthMask_"
+# each shipped training YAML but ×8's (phase 7's): (the YAML, its scale,
+# the seed it trains with, the launches of a step, their routes). The
+# EndoScene YAMLs train on whole 574×500 frames, and with ``use_rot`` a
+# batch that mixes upright and transposed frames does not stack (C7, in
+# the JAX loader as here): their seed is the first at which no batch of
+# the run's 3 steps mixes them (4 loader workers, 16 frames; found by
+# replaying the workers' augmentation draws). None: the YAML's own seed.
+TRAIN9 = {
+    "x2 train": (_T + "x2.yml", 2, None, {"output_stage": 1},
+                 {"output_stage": "vec16"}),
+    "x4 train": (_T + "x4.yml", 4, None, {"output_stage_x8": 1},
+                 {"output_stage_x8": "vec16"}),
+    "x2 endoscene train": (
+        _T + "endoscene_x2.yml", 2, 234137,
+        {"style_blend_dot": 2, "output_stage": 1},
+        {"style_blend_dot": "cuda_core", "output_stage": "vec16"}),
+    # a row of 166·27 values is no multiple of 16 bytes: route v1
+    "x3 endoscene train": (
+        _T + "endoscene_x3.yml", 3, 232,
+        {"style_blend_dot": 2, "output_stage": 1},
+        {"style_blend_dot": "cuda_core", "output_stage": "v1"}),
+    "x4 endoscene train": (
+        _T + "endoscene_x4.yml", 4, 234137,
+        {"style_blend_dot": 2, "output_stage_x8": 1},
+        {"style_blend_dot": "cuda_core", "output_stage_x8": "vec16"}),
+}
+# the ablations at ×4 (the ×4 YAML's network_G with the field set)
+ABL9 = {"ablate_depth_matrix": {"ablate_depth_matrix": True},
+        "ablate_depth_block": {"ablate_depth_block": True},
+        "baseline": {"which_ResBlk_depth": []}}
+# phase 9c: (label, the YAML, LQ of the batch-2 step, the plain path's
+# network_G keys, the step's launches and routes)
+_REMAT_PLAIN = {"preset": "plain", "net_kw": {"remat_blocks": True}}
+GRADS9 = (
+    ("x2", ("kvasir", 2), (512, 512), _REMAT_PLAIN,
+     ({"output_stage": 1}, {"output_stage": "vec16"})),
+    ("x3 endoscene", ("endoscene", 3), (191, 166), None,
+     ({"style_blend_dot": 2, "output_stage": 1},
+      {"style_blend_dot": "cuda_core", "output_stage": "v1"})),
+    ("x4", ("kvasir", 4), (256, 256), _REMAT_PLAIN,
+     ({"output_stage_x8": 1}, {"output_stage_x8": "vec16"})))
+ABL9_LR = (127, 127)        # a request; the depth-matrix ablation's encoder
+ABL9_TRAIN_LR = (63, 63)    # gives the feature's size back for odd sizes
+ABL9_WANT = ({"output_stage_x8": 1}, {"output_stage_x8": "vec16"})
+ABL9_BF16_FLOOR = 40.0      # bf16 vs fp32 on the same weights (§2)
+
+
+def _run_rate(yaml_path, steps):
+    """The training loader of ``yaml_path`` over the batches of a run of
+    ``steps`` steps (its epochs in order, the cache filled first and the
+    workers started each epoch): images/s."""
+    from endosr_torch.config import options as option
+    from endosr_torch.data import create_dataloader, create_dataset
+
+    opt = option.dict_to_nonedict(option.parse(yaml_path, is_train=True))
+    ds_opt = opt["datasets"]["train"]
+    loader = create_dataloader(create_dataset(ds_opt), ds_opt, opt,
+                               pin_memory=True)
+    t, n, epoch = time.perf_counter(), 0, 0
+    while n < steps:
+        loader.set_epoch(epoch)
+        for b in loader:
+            n += 1
+            if n == steps:
+                images = n * b["LQ"].shape[0]
+                break
+        epoch += 1
+    return images / (time.perf_counter() - t)
+
+
+def train_yamls(torch, counters):
+    """Phase 9a: ``python -m endosr_torch.train`` (through ``main``) on
+    each shipped training YAML other than ×8 (phase 7's), fp32 as they
+    leave it, at their own batch, sizes and ``remat_blocks``: ×2 Kvasir
+    (batch 2, LQ 512² → GT 1024², ``remat_blocks``), ×4 Kvasir (batch 8,
+    LQ 256², ``remat_blocks``), and EndoScene ×2 / ×3 / ×4 (batch 8 / 4 /
+    8, whole 574×500 frames cut to the scale). Each YAML's data roots,
+    ``path.root``, ``data_num``, ``niter``, ``val_freq``,
+    ``save_checkpoint_freq``, ``print_freq`` and (EndoScene, see
+    ``TRAIN9``) ``manual_seed`` are changed, each logged as ``reduced``.
+    Every step runs with the launch counts set to 0 just before it and
+    read just after: counts and routes asserted, losses finite. Logged: ms
+    a step (steps 2–3), peak device memory, the loader's images/s over the
+    run's batches. Returns ({label: launches}, readings)."""
+    import gc
+    import shutil
+    from pathlib import Path
+
+    import endosr_torch.train as entry_train
+
+    repo = Path(__file__).resolve().parent
+    root = repo / TRAIN9_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    taps = EntryTaps(torch, counters)
+    launches, numbers = {}, {}
+    for label, (src, scale, seed, want, routes) in TRAIN9.items():
+        tag = label.replace(" ", "_")
+        data = root / f"data_{tag}"
+        t0 = time.perf_counter()
+        changes = {}
+        if "endoscene" in label:
+            write_endoscene(data, scale, TRAIN9_N, "train.txt", crop=True)
+            tree = {"dataroot_GT": str(data / "HR"),
+                    "dataroot_LQ": str(data / "LR"),
+                    "dataroot_depthMap": str(data / "depth"),
+                    "dataset_split_list": str(data / "train.txt")}
+            changes["train.manual_seed"] = seed
+        else:
+            lr = TRAIN9_GT // scale
+            write_kvasir(data, scale, {"train": (lr, lr)},
+                         {"train": TRAIN9_N})
+            tree = {"dataroot_GT": str(data / "HR/train"),
+                    "dataroot_LQ": str(data / "LR/train"),
+                    "dataroot_depthMap": str(data / "depth/train")}
+        write_s = time.perf_counter() - t0
+        changes.update({f"datasets.{ph}.{k}": v for ph in ("train", "val")
+                        for k, v in tree.items()})
+        changes.update({
+            "datasets.train.data_num": TRAIN9_N, "path.root": str(root / tag),
+            "train.niter": TRAIN9_STEPS, "train.val_freq": 1000,
+            "logger.save_checkpoint_freq": TRAIN9_STEPS,
+            "logger.print_freq": 1})
+        yml = _derive(repo / src, root / f"{tag}.yml", changes, "train9")
+        rate = _run_rate(yml, TRAIN9_STEPS)
+        taps.training = label
+        uninstall = taps.install()
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            model = entry_train.main(["-opt_F", yml])
+            main_s = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            remat = model.netG.remat_blocks
+            del model
+        finally:
+            uninstall()
+        gc.collect()
+        torch.cuda.empty_cache()
+        calls = taps.calls[label]
+        taps.check(label, calls, want, routes)
+        losses = [r["logs"]["l_all"] for r in calls]
+        if len(calls) != TRAIN9_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"[{label}] {len(calls)} steps, losses "
+                                 f"{losses}")
+        exp = next((root / tag / "experiments").iterdir())
+        if not (exp / "models" / f"{TRAIN9_STEPS}_G.pth").is_file():
+            raise AssertionError(f"[{label}] no checkpoint at step "
+                                 f"{TRAIN9_STEPS}")
+        ms = [r["secs"] * 1e3 for r in calls]
+        step_ms = sum(ms[1:]) / (len(ms) - 1)
+        numbers[label] = {"ms": ms, "ms_per_step": step_ms, "peak_gib": peak,
+                          "loader_images_per_s": rate, "losses": losses,
+                          "main_s": main_s, "data_s": write_s,
+                          "remat_blocks": remat}
+        launches[label] = {c.__name__: sum(r["launches"][c.__name__]
+                                           for r in calls)
+                           for c in counters}
+        log(f"[{label}] train.main, fp32, remat_blocks {remat}: "
+            + ", ".join(f"{k} {v}" for k, v in want.items())
+            + " launches a step (" + ", ".join(f"{k} {v}"
+                                               for k, v in routes.items())
+            + f"); step ms " + ", ".join(f"{x:.1f}" for x in ms)
+            + f" ({step_ms:.1f} a step after the first, host clock, "
+            f"synchronised); peak {peak:.2f} GiB; loader {rate:.1f} images/s "
+            f"over the run's batches (cache fill and workers' start "
+            f"included); l_all {losses}; {main_s:.1f} s in main, data "
+            f"{write_s:.1f} s; {gpu_line()}")
+    return launches, numbers
+
+
+def _yaml_net(name):
+    """The ``network_G`` block of the repo's YAML ``name``."""
+    from pathlib import Path
+
+    import yaml
+
+    path = Path(__file__).resolve().parent / name
+    return yaml.safe_load(path.read_text())["network_G"]
+
+
+def _check_step(label, run, want, routes):
+    """A ``parity_runs`` step launched ``want`` (others 0) on ``routes``."""
+    for name, n in run["launches"].items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"[{label}] {name} {n} launches, want "
+                                 f"{want.get(name, 0)}")
+    for name, route in routes.items():
+        took = {**dict.fromkeys(run["routes"][name], 0),
+                route: run["launches"][name]}
+        if run["routes"][name] != took:
+            raise AssertionError(f"[{label}] {name} routes "
+                                 f"{run['routes'][name]}, want {took}")
+
+
+def remat_and_gradients(torch, counters):
+    """Phase 9b and 9c. (b) The ×2 Kvasir YAML's step (batch 2, LQ 512² →
+    GT 1024², fp32) with its ``remat_blocks`` and without it, from the
+    same weights and batch: the peak device memory with it below the peak
+    without it; the two held to each other by phase 6b's rule (the graphs
+    differ: per-block branches against the hoisted lazy ones). (c) The
+    kernel path's step at full width against ``preset: plain`` of the
+    same net (``remat_blocks`` kept) by phase 6b's rule with the one-ulp
+    nudges on the plain side: ×2 (that batch), ×3 EndoScene (the ×3 YAML's
+    net, batch 2 of a frame's LQ 191×166) and ×4 Kvasir (``remat_blocks``,
+    batch 2, LQ 256²); at ×3 also :func:`step_controls` and
+    :func:`rerun_check`. Returns ({label:
+    launches}, readings)."""
+    from endosr_torch.models.recipes import TRAIN_YAMLS, train_opt
+
+    launches, numbers = {}, {}
+    for label, key, lr_hw, plain, want in GRADS9:
+        variants = {"kernels": {}}
+        if label == "x2":
+            variants["hoisted"] = {"remat_blocks": False}
+        t0 = time.perf_counter()
+        opt_of = functools.partial(train_opt, TRAIN_YAMLS[key], "fp32")
+        batch = parity_batch(torch, key[1], lr_hw)
+        runs = parity_runs(torch, opt_of, batch, variants, plain, counters)
+        secs = time.perf_counter() - t0
+        _check_step(f"{label} grads", runs["kernels"], *want)
+        for lab, r in runs.items():
+            if lab != "kernels" and lab != "hoisted" and any(
+                    r["launches"].values()):
+                raise AssertionError(f"[{label} grads] {lab} launched "
+                                     f"{r['launches']}")
+        rec = {"grads": train_parity(
+            torch, runs, f"{label} grads: ×{key[1]} YAML's net, kernels vs "
+            "preset: plain"),
+            "step_ms": {lab: r["secs"] * 1e3 for lab, r in runs.items()},
+            "peak_gib": {lab: r["peak_gib"] for lab, r in runs.items()},
+            "seconds": secs}
+        name = {"x2": "x2 remat", "x3 endoscene": "x3 endoscene grads",
+                "x4": "x4 remat grads"}[label]
+        launches[name] = runs["kernels"]["launches"]
+        if label == "x3 endoscene":
+            rec["controls"] = step_controls(torch, runs, opt_of(), batch,
+                                            f"{label} grads")
+            rec["rerun"] = rerun_check(torch, runs, opt_of(preset="plain"),
+                                       batch, f"{label} grads")
+        if label == "x2":
+            _check_step("x2 hoisted", runs["hoisted"],
+                        {"style_blend_dot": 2, "output_stage": 1},
+                        {"style_blend_dot": "cuda_core",
+                         "output_stage": "vec16"})
+            launches["x2 hoisted"] = runs["hoisted"]["launches"]
+            rec["remat_vs_hoisted"] = train_parity(
+                torch, runs, "x2 remat: remat_blocks off (hoisted lazy "
+                "branches) vs on", ref="kernels", got="hoisted")
+            on, off = (runs[k]["peak_gib"] for k in ("kernels", "hoisted"))
+            log(f"[x2 remat] ×2 YAML step, batch 2, LQ 512² → GT 1024², "
+                f"fp32: peak {on:.2f} GiB with remat_blocks, {off:.2f} GiB "
+                f"without ({(1 - on / off) * 100:.1f} % less); step "
+                f"{runs['kernels']['secs'] * 1e3:.1f} ms with, "
+                f"{runs['hoisted']['secs'] * 1e3:.1f} ms without (one step "
+                f"each, host clock); {gpu_line()}")
+            if not on < off:
+                raise AssertionError(f"[x2 remat] peak {on:.2f} GiB with "
+                                     f"remat_blocks, {off:.2f} without")
+        numbers[label] = rec
+        del runs
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def rerun_check(torch, runs, opt, batch, label):
+    """The plain step of ``runs`` again from the same weights on
+    ``batch``: once as ``parity_step`` takes it, every gradient equal to
+    the first run's (asserted: a reading of phase 6b's rule is then the
+    same from run to run); twice with cuDNN's default algorithms, the
+    count of gradient tensors that differ between the two (read).
+    Returns {"deterministic": tensors differing, "default": ...}."""
+    first, start = runs["plain"]["grads"], runs["plain"]["start"]
+    again = parity_step(torch, opt, start, batch)["grads"]
+    one, two = (parity_step(torch, opt, start, batch, deterministic=False)
+                ["grads"] for _ in range(2))
+    out = {"deterministic": sum(not torch.equal(first[k], again[k])
+                                for k in first),
+           "default": sum(not torch.equal(one[k], two[k]) for k in one)}
+    log(f"[{label} rerun] the plain step again: {out['deterministic']} of "
+        f"{len(first)} gradient tensors differ with cuDNN's deterministic "
+        f"algorithms, {out['default']} between two runs with its default "
+        "ones")
+    if out["deterministic"]:
+        raise AssertionError(f"[{label} rerun] {out['deterministic']} "
+                             "gradient tensors differ between two runs of "
+                             "the same step")
+    return out
+
+
+def vjp_controls(torch):
+    """Two wrong backwards of ``style_blend_dot`` that the checks are
+    shown against: {label: a stand-in for ``style_blend_vjp``}. "bf16":
+    the backward's products from bf16-rounded operands (the bias's sum
+    from the rounded g); "no bias term": the bias's gradient dropped."""
+    from endosr_torch.kernels import style_dot
+
+    right = style_dot.style_blend_vjp
+
+    def bf16(shifted, v, n_conv, conv_dtype, bias_dtype, g):
+        b = torch.bfloat16
+        gs, gv, gc, gb = right(shifted.to(b), v.to(b), n_conv, b, bias_dtype,
+                               g.to(b))
+        return (gs.to(shifted.dtype), gv.to(v.dtype),
+                tuple(c.to(conv_dtype) for c in gc), gb)
+
+    def no_bias(*args):
+        gs, gv, gc, gb = right(*args)
+        return gs, gv, gc, torch.zeros_like(gb)
+
+    return {"bf16": bf16, "no bias term": no_bias}
+
+
+@contextlib.contextmanager
+def vjp_swapped(vjp):
+    """``style_blend_dot``'s backward is ``vjp`` inside the block."""
+    from endosr_torch.kernels import style_dot
+
+    right, style_dot.style_blend_vjp = style_dot.style_blend_vjp, vjp
+    try:
+        yield
+    finally:
+        style_dot.style_blend_vjp = right
+
+
+def step_controls(torch, runs, opt, batch, label):
+    """What phase 6b's rule sees of a wrong ``style_blend_dot`` backward
+    (``vjp_controls``): the kernel step of ``runs`` again, from the same
+    weights on ``batch``, with each control as the backward, held to the
+    plain step by :func:`parity_readings`. "no bias term" must be
+    rejected; "bf16" is read, not asserted: its distance sits near the
+    per-tensor bounds (the nudges' reach), and 9f holds the backward's
+    precision. Returns {control: readings, with its distance from the
+    right kernel step (all gradients, norm-relative) and the failed
+    clauses}."""
+    out = {}
+    for name, vjp in vjp_controls(torch).items():
+        with vjp_swapped(vjp):
+            run = parity_step(torch, opt, runs["kernels"]["start"], batch)
+        readings, fails = parity_readings(
+            torch, {**runs, "control": run}, f"{label} control: {name}",
+            got="control")
+        readings["vs_kernels"] = _nrel(run["grads"], runs["kernels"]["grads"])
+        readings["rejected_by"] = fails
+        log(f"[{label} control: {name}] all gradients "
+            f"{readings['vs_kernels']:.3g} norm-relative from the right "
+            f"kernel step; against plain: {readings['grad_nrel']:.3g} (tol "
+            f"{readings['grad_nrel_tol']:.3g}); "
+            + (f"rejected: {'; '.join(fails)[:600]}" if fails
+               else "accepted"))
+        out[name] = readings
+        del run
+        torch.cuda.empty_cache()
+    if not out["no bias term"]["rejected_by"]:
+        raise AssertionError(f"[{label}] phase 6b's rule accepts a "
+                             "style_blend_dot backward without its bias term")
+    return out
+
+
+def ablations(torch, counters):
+    """Phase 9d: ``ablate_depth_matrix``, ``ablate_depth_block`` and the
+    baseline (no depth block) at ×4 on the ×4 YAML's network (nb 16,
+    latent 256, its ``remat_blocks``), seeded weights: one fp32 request
+    (batch 8, LQ 127², unbucketed) within ``X2_PLAIN_TOL`` of its ``preset:
+    plain`` twin (no kernel launched, asserted); one bf16 request, its PSNR
+    against the fp32 one at least ``ABL9_BF16_FLOOR``; one fp32 training
+    step (the ×4 YAML's ``train:`` block, batch 2, LQ 63²) against
+    ``preset: plain`` by phase 6b's rule. Counts set to 0 just before each
+    request and step and read just after: ``output_stage_x8`` 1 each
+    (``vec16``), nothing else. Returns ({variant: launches}, readings)."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.models.recipes import TRAIN_YAMLS, train_opt
+    from endosr_torch.ops.masks import depth_masks
+
+    net4 = _yaml_net(_T + "x4.yml")
+    h, w = ABL9_LR
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dep = torch.rand((8, h, w, 1), generator=gen, device="cuda")
+    req = {"LQ": torch.rand((8, h, w, 3), generator=gen, device="cuda"),
+           "Depth": dep, "DepthMaskList": depth_masks(dep[..., 0], True, 10)}
+    launches, numbers = {}, {}
+    for variant, fields in ABL9.items():
+        net = {**net4, **fields}
+
+        def serve_opt(precision, **more):
+            return {"is_train": False, "model": "sftmd_depthCond", "scale": 4,
+                    "precision": precision, "eval_bucket_multiple": 0,
+                    "datasets": {"test": {"depthMaskNum": 10}},
+                    "network_G": {**net, **more}, "path": {},
+                    "train": {"manual_seed": 0}}
+
+        got = dict.fromkeys((c.__name__ for c in counters), 0)
+        outs, ms = {}, {}
+        sd = None
+        for precision, more in (("plain", {"preset": "plain"}), ("fp32", {}),
+                                ("bf16", {})):
+            m = FModelDepthCond(serve_opt("fp32" if precision == "plain"
+                                          else precision, **more))
+            if sd is None:
+                sd = {k: v.clone() for k, v in m.netG.state_dict().items()}
+            m.netG.load_state_dict(sd)
+            m.feed_data(req)
+            m.test()                              # warm-up
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            t = time.perf_counter()
+            m.feed_data(req)
+            sr = m.test().clone()
+            torch.cuda.synchronize()
+            ms[precision] = (time.perf_counter() - t) * 1e3
+            run = {"launches": {c.__name__: c.launches for c in counters},
+                   "routes": {c.__name__: dict(c.routes) for c in counters
+                              if hasattr(c, "routes")}}
+            _check_step(f"{variant} {precision}", run,
+                        *(({}, {}) if precision == "plain" else ABL9_WANT))
+            for k, v in run["launches"].items():
+                got[k] += v
+            if (tuple(sr.shape) != (8, 4 * h, 4 * w, 3)
+                    or not bool(torch.isfinite(sr).all())):
+                raise AssertionError(f"[{variant} {precision}] SR "
+                                     f"{tuple(sr.shape)}")
+            outs[precision] = sr
+            del m
+            torch.cuda.empty_cache()
+        err = float((outs["fp32"] - outs["plain"]).abs().max())
+        db = psnr(outs["bf16"], outs["fp32"])
+        unclamped = float(((outs["fp32"] > 0) & (outs["fp32"] < 1))
+                          .float().mean())
+        runs = parity_runs(
+            torch, functools.partial(train_opt, TRAIN_YAMLS[("kvasir", 4)],
+                                     "fp32", **fields),
+            parity_batch(torch, 4, ABL9_TRAIN_LR), None, _REMAT_PLAIN,
+            counters)
+        _check_step(f"{variant} step", runs["kernels"], *ABL9_WANT)
+        for k, v in runs["kernels"]["launches"].items():
+            got[k] += v
+        grads = train_parity(torch, runs, f"{variant} step: ×4 {variant}, "
+                             "kernels vs preset: plain")
+        launches[variant] = got
+        numbers[variant] = {"fp32_vs_plain_max_abs": err, "bf16_psnr_db": db,
+                            "unclamped_share": unclamped, "request_ms": ms,
+                            "step_ms": runs["kernels"]["secs"] * 1e3,
+                            "grads": grads}
+        log(f"[{variant}] ×4 YAML's net, batch 8, LQ {h}×{w} → SR "
+            f"{4 * h}×{4 * w}: fp32 vs preset: plain max|Δ| {err:.3e} (tol "
+            f"{X2_PLAIN_TOL:g}; {unclamped:.3f} of the values unclamped), "
+            f"bf16 vs fp32 {db:.2f} dB (min {ABL9_BF16_FLOOR:g}); request ms "
+            + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+            + f"; training step (batch 2, LQ {ABL9_TRAIN_LR[0]}²) "
+            f"{runs['kernels']['secs'] * 1e3:.1f} ms; launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+        del runs, outs
+        torch.cuda.empty_cache()
+        if not err <= X2_PLAIN_TOL:
+            raise AssertionError(f"[{variant}] fp32 vs plain max|Δ| {err}")
+        if not db >= ABL9_BF16_FLOOR:
+            raise AssertionError(f"[{variant}] bf16 vs fp32 {db} dB")
+    return launches, numbers
+
+
+TF32_X8_LR = (128, 128)     # phase 5's flagship request
+
+
+def _set_tf32(torch, on):
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def tf32_readings(torch):
+    """Phase 9e (C6): PyTorch's default TF32 for fp32 convolutions against
+    TF32 off, which the entry points now set. One ×8 fp32 request (phase
+    5's flagship net, batch 8, LQ 128²) and one ×2 ``bf16c3`` request
+    (phase 8's ×2 net, batch 8, LQ 512²) with TF32 on and with it off, each
+    a warm-up then a timed request: ms, max |Δ| and PSNR against fp32
+    ``preset: plain`` (TF32 off) on the same weights. Leaves TF32 off.
+    Returns the readings."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.ops.masks import depth_masks
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    net2 = {k: v for k, v in _yaml_net(X2_YAML).items() if k != "remat_blocks"}
+    for label, opt_of, lr_hw, precision in (
+            ("x8 fp32", lambda p, **n: flagship_opt(p, **n), TF32_X8_LR,
+             "fp32"),
+            ("x2 bf16c3", lambda p, **n: _x2_opt(p, {**net2, **n}), X2_LR,
+             "bf16c3")):
+        h, w = lr_hw
+        dep = torch.rand((8, h, w, 1), generator=gen, device="cuda")
+        req = {"LQ": torch.rand((8, h, w, 3), generator=gen, device="cuda"),
+               "Depth": dep,
+               "DepthMaskList": depth_masks(dep[..., 0], True, 10)}
+        _set_tf32(torch, False)
+        plain = FModelDepthCond(opt_of("fp32", preset="plain"))
+        sd = {k: v.clone() for k, v in plain.netG.state_dict().items()}
+        parts = []
+        for k in range(0, 8, X2_PLAIN_BATCH):
+            plain.feed_data({key: x[k:k + X2_PLAIN_BATCH]
+                             for key, x in req.items()})
+            parts.append(plain.test().clone())
+        ref = torch.cat(parts)
+        del plain, parts
+        torch.cuda.empty_cache()
+        m = FModelDepthCond(opt_of(precision))
+        m.netG.load_state_dict(sd)
+        rec = {}
+        for tf32 in (True, False):
+            _set_tf32(torch, tf32)
+            m.feed_data(req)
+            m.test()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m.feed_data(req)
+            sr = m.test()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            rec["on" if tf32 else "off"] = {
+                "ms": ms, "max_abs_vs_plain": float((sr - ref).abs().max()),
+                "psnr_db": psnr(sr, ref),
+                "psnr_unclamped_db": _psnr_unclamped(sr.cpu().numpy(),
+                                                     ref.cpu().numpy())}
+        _set_tf32(torch, False)
+        del m, sr, ref
+        torch.cuda.empty_cache()
+        out[label] = rec
+        log(f"[tf32] {label}, batch 8, LQ {h}×{w}, against fp32 preset: "
+            f"plain (TF32 off): " + "; ".join(
+                f"TF32 {k}: {r['ms']:.1f} ms, max|Δ| "
+                f"{r['max_abs_vs_plain']:.3e}, {r['psnr_db']:.2f} dB "
+                f"(unclamped {r['psnr_unclamped_db'][0]:.2f} dB over "
+                f"{r['psnr_unclamped_db'][1]:.3f})" for k, r in rec.items())
+            + f"; {gpu_line()}")
+    return out
+
+
+class KernelTap:
+    """While installed, records every launch of ``style_blend_dot``,
+    ``style_dot_hwbm``, ``output_stage`` and ``output_stage_x8``:
+    ``calls`` maps (kernel, storage type, route, shape, extra) as
+    :func:`kernel_call_check` takes them to {"grad": whether an input
+    required a gradient, "where": {``self.where``: launches}}."""
+
+    def __init__(self):
+        self.calls, self.where = {}, None
+
+    def install(self):
+        from endosr_torch.kernels import output_stage as ost
+        from endosr_torch.kernels import style_dot as sd
+
+        taps = (
+            (sd, "_blend", sd.style_blend_dot,
+             lambda s, v, convs, bias: (tuple(s.shape) + (v.shape[2],),
+                                        (convs[0].shape[3],),
+                                        (s, v, *convs, bias))),
+            (sd, "_dot", sd.style_dot_hwbm,
+             lambda s, v: (tuple(s.shape) + (v.shape[2],), (), (s, v))),
+            (ost, "_forward", ost.output_stage,
+             lambda p, r, lo, hi: (tuple(p.shape), (r, lo, hi), (p,))),
+            (ost, "_forward_x8", ost.output_stage_x8,
+             lambda p, lo, hi, order: (tuple(p.shape), (order, lo, hi), (p,))))
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, *_ in taps]
+        for (mod, attr, counter, describe), (*_, orig) in zip(taps, saved):
+            def tapped(*args, orig=orig, counter=counter, describe=describe):
+                before = dict(counter.routes)
+                out = orig(*args)
+                shape, extra, tensors = describe(*args)
+                route = next(k for k, n in counter.routes.items()
+                             if n != before[k])
+                rec = self.calls.setdefault(
+                    (counter.__name__, str(tensors[0].dtype)[6:], route,
+                     shape, extra), {"grad": False, "where": {}})
+                rec["grad"] |= any(t.requires_grad for t in tensors)
+                rec["where"][self.where] = rec["where"].get(self.where, 0) + 1
+                return out
+
+            setattr(mod, attr, tapped)
+
+        def uninstall():
+            for mod, attr, orig in saved:
+                setattr(mod, attr, orig)
+
+        return uninstall
+
+
+def phase9_kernel_checks(torch, calls):
+    """Phase 9f: every kernel call that phase 9's paths (9a–9d) made, as
+    :class:`KernelTap` recorded it, on the card at its shape, type, route
+    and clamp by :func:`kernel_call_check`, its gradient too where the
+    path took one. Then the checks' control: with each of
+    ``vjp_controls``' wrong backwards in place, the gradient check of the
+    smallest fp32 ``style_blend_dot`` call must fail. Returns ({kernel:
+    {type: max |Δ|}}, readings)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    errs, numbers = {}, {}
+    for key in sorted(calls, key=str):
+        name, dts, route, shape, extra = key
+        grad = calls[key]["grad"]
+        out, fails = kernel_call_check(torch, gen, name, getattr(torch, dts),
+                                       route, shape, extra, grad)
+        torch.cuda.empty_cache()
+        what = (f"{name} {dts} {list(shape)} {extra} route {route}"
+                f"{' + gradient' if grad else ''}")
+        log(f"[phase 9 kernels] {what} (launches "
+            + ", ".join(f"{k} {n}" for k, n in calls[key]["where"].items())
+            + f"): max|Δ| {out['max_abs']:.3e}"
+            + (f", rel {out['rel']:.3e}" if "rel" in out else
+               " (bit-identical)")
+            + (f"; gradient max |Δ| / max |ref| {out['grad_rel']:.3e}"
+               if grad else "") + " against the plain version")
+        if fails:
+            raise AssertionError(f"[phase 9 kernels] {what}: "
+                                 + "; ".join(fails))
+        numbers[str(key)] = out
+        slot = errs.setdefault(name, {})
+        slot[dts] = max(slot.get(dts, 0.0), out["max_abs"])
+    blends = [k for k in calls if k[0] == "style_blend_dot"
+              and k[1] == "float32" and calls[k]["grad"]]
+    if blends:
+        key = min(blends, key=lambda k: math.prod(k[3]))
+        for label, vjp in vjp_controls(torch).items():
+            with vjp_swapped(vjp):
+                out, fails = kernel_call_check(
+                    torch, gen, key[0], getattr(torch, key[1]), key[2], key[3],
+                    key[4], True)
+            numbers[f"control: {label}"] = out
+            log(f"[phase 9 kernels] control, style_blend_dot backward "
+                f"{label} at {list(key[3])}: gradient max |Δ| / max |ref| "
+                f"{out['grad_rel']:.3e}: "
+                + ("rejected" if fails else "accepted"))
+            if not fails:
+                raise AssertionError(f"[phase 9 kernels] the gradient check "
+                                     f"accepts a {label} style_blend_dot "
+                                     "backward")
+    return errs, numbers
+
+
+def phase9(torch, counters):
+    """Phase 9: training at ×2, ×3 and ×4 from every shipped YAML,
+    ``remat_blocks``, the ablations and TF32 (9a–9e), and the kernel
+    calls of 9a–9d against their plain versions (9f). Returns ({path
+    label: launches}, readings)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, numbers = {}, {}
+    tap = KernelTap()
+    uninstall = tap.install()
+    try:
+        for key, phase in (("train", train_yamls),
+                           ("remat_grads", remat_and_gradients),
+                           ("ablations", ablations)):
+            tap.where = key
+            t = time.perf_counter()
+            got, numbers[key] = phase(torch, counters)
+            launches.update(got)
+            numbers[key + "_s"] = time.perf_counter() - t
+            log(f"[phase 9] {key}: {numbers[key + '_s']:.1f} s")
+    finally:
+        uninstall()
+    t = time.perf_counter()
+    numbers["tf32"] = tf32_readings(torch)
+    numbers["tf32_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    numbers["kernel_max_abs_err"], numbers["kernels"] = phase9_kernel_checks(
+        torch, tap.calls)
+    numbers["kernels_s"] = time.perf_counter() - t
+    log(f"[phase 9] kernel calls: {numbers['kernels_s']:.1f} s")
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 9] took {numbers['seconds']:.1f} s")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2856,6 +3780,13 @@ def main() -> int:
             have = rows[kname]["max_abs_err"]
             have[dts] = max(have[dts], err)
     log(f"[x2/x3] summary: {json.dumps(numbers)}")
+    p9, numbers = phase9(torch, counters)
+    by_path.update(p9)
+    for kname, errs in numbers["kernel_max_abs_err"].items():
+        for dts, err in errs.items():
+            have = rows[kname]["max_abs_err"]
+            have[dts] = max(have[dts], err)
+    log(f"[phase 9] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

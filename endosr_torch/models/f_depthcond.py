@@ -10,12 +10,12 @@ unset ``eval_bucket_multiple`` means 32: inputs are zero-padded on the host
 to the next multiple and the network runs its exact valid-masked forward as
 one program for the whole batch, so the cropped output equals the unpadded
 forward up to fp32 summation order. ``eval_bucket_multiple: 0`` (and the
-``fused_epilogue`` network, which the masked forward does not support, and
-the centered precisions ``bf16c`` / ``bf16c3``, as in JAX) serves
-unpadded, splitting batches larger than ``serve_batch_chunk`` (default 8)
-into chunk-sized forwards. ``precision`` is read as in JAX: ``fp32``
-(unset), ``bf16``, ``mixed`` (fp32 net, bf16 SEAN branches), ``bf16c`` and
-``bf16c3`` (``mixed`` with 1- / 3-pass centered bf16 convs).
+ablations and the ``fused_epilogue`` network, which the masked forward does
+not support, and the centered precisions ``bf16c`` / ``bf16c3``, as in
+JAX) serves unpadded, splitting batches larger than ``serve_batch_chunk``
+(default 8) into chunk-sized forwards. ``precision`` is read as in JAX:
+``fp32`` (unset), ``bf16``, ``mixed`` (fp32 net, bf16 SEAN branches),
+``bf16c`` and ``bf16c3`` (``mixed`` with 1- / 3-pass centered bf16 convs).
 
 A training step (the JAX train step, ``f_depthcond.py:257-330``) runs the
 forward with ``pallas_output`` on, every loss ``opt["train"]`` turns on
@@ -315,17 +315,20 @@ class FModelDepthCond(BaseModel):
     def _bucket(self) -> int:
         """The bucket multiple of :meth:`test`: unset means 32; 0 for the
         network configurations the masked forward does not support (the
-        fused epilogue) or that JAX serves unpadded (centered convs, whose
-        mean compensation holds on the unpadded image)."""
+        ablations, the fused epilogue) or that JAX serves unpadded
+        (centered convs, whose mean compensation holds on the unpadded
+        image)."""
         bucket = self.opt.get("eval_bucket_multiple")
         bucket = 32 if bucket is None else int(bucket)
-        if bucket and (self.netG.fused_epilogue or self.netG.centered_convs):
+        net = self.netG
+        if bucket and (net.ablate_depth_matrix or net.ablate_depth_block
+                       or net.fused_epilogue or net.centered_convs):
             bucket = 0
             if not self._warned_bucket_fallback:
                 self._warned_bucket_fallback = True
                 logger.warning("eval bucketing disabled for this network "
-                               "config (fused epilogue / centered bf16c): "
-                               "serving unpadded")
+                               "config (ablation / fused epilogue / centered "
+                               "bf16c): serving unpadded")
         return -(-bucket // 4) * 4       # the masked forward needs H, W % 4 == 0
 
     @torch.inference_mode()

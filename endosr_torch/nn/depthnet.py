@@ -33,9 +33,15 @@ Parameter names follow the reference PyTorch checkpoint
 (``depth-residual3.norm1.mlp_mask.0.weight``, ``head.0.weight_v``, ...), and
 every configuration shares the one parameter tree. The stream runs in fp32
 or bf16; ``modulation_dtype`` and ``centered_convs`` give the precisions
-``mixed``, ``bf16c`` and ``bf16c3`` of an fp32 net. The baseline without
-depth blocks, the ablations and ``remat_blocks`` are still to be ported and
-raise ``NotImplementedError``.
+``mixed``, ``bf16c`` and ``bf16c3`` of an fp32 net.
+
+``remat_blocks`` (the ×2 and ×4 training YAMLs) hoists no SEAN branch:
+every depth block computes its own two at the stream's dtype, and under
+autograd each depth block runs in ``torch.utils.checkpoint``, so the
+backward recomputes its insides instead of keeping them. The paper's
+ablations (``ablate_depth_matrix``, ``ablate_depth_block``; see
+``nn/sean.py``) and the baseline without depth blocks (the encoder's first
+conv only, no style matrix) are the JAX module's too.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import math
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from endosr_torch.kernels.fused_tail import fused_tail
 from endosr_torch.kernels.head_dot import head_dot
@@ -89,8 +96,9 @@ from endosr_torch.nn.sean import (
 from endosr_torch.ops.resize import interpolate_bilinear, interpolate_nearest
 from endosr_torch.utils.device import device_constant
 
-__all__ = ["DepthNet", "Encoder", "region_wise_avg_pooling",
-           "DepthResidualBlock", "ClassicResidualBlock"]
+__all__ = ["DepthNet", "Encoder", "EncoderNoDepthMatrix",
+           "region_wise_avg_pooling", "DepthResidualBlock",
+           "ClassicResidualBlock"]
 
 
 def _fold_wb(w, b, r):
@@ -175,9 +183,7 @@ def _jax_blend_fits(shape, m: int, n_conv: int, itemsize: int) -> bool:
 # DepthNet fields of the JAX module that the port serves at one value only;
 # another value raises NotImplementedError by name
 _JAX_ONLY = {
-    "ablate_depth_matrix": False, "ablate_depth_block": False,
-    "remat_blocks": False, "chain_in": True, "blend_fold": False,
-    "lazy_o_chunk": 0,
+    "chain_in": True, "blend_fold": False, "lazy_o_chunk": 0,
     "pallas_packed_chain": "auto", "obranch_body": "conv",
     "tail_defer_act": True, "mask_stack_conv": True,
 }
@@ -227,11 +233,16 @@ def region_wise_avg_pooling(feature_map, mask):
 
 class Encoder(nn.Module):
     """Depth-matrix encoder: (stride-1 32-ch trunk feature, [B,K,L] style
-    matrix)."""
+    matrix). ``is_baseline`` (a net without depth blocks): ``layer1`` only,
+    and None for the style matrix."""
 
-    def __init__(self, in_nc=3, latent_ch=256, device=None):
+    def __init__(self, in_nc=3, latent_ch=256, is_baseline=False,
+                 device=None):
         super().__init__()
+        self.is_baseline = bool(is_baseline)
         self.layer1 = WNConv(in_nc, 32, 3, 1, 1, device=device)
+        if self.is_baseline:
+            return
         self.layer2 = WNConv(32, 64, 3, 2, 1, device=device)
         self.layer3 = WNConv(64, 128, 3, 2, 1, device=device)
         self.layer4 = WNConvTranspose(128, latent_ch, 3, 2, 1, device=device)
@@ -255,6 +266,8 @@ class Encoder(nn.Module):
             # the transposed conv gives 2n − 1
             m4 = vm((h // 2 - 1, w // 2 - 1), 2 * v3h - 1, 2 * v3w - 1)
         feat = self.layer1(x, dtype)
+        if self.is_baseline:
+            return _mul(leaky_relu(feat), m1), None
         out = self.layer2(_mul(leaky_relu(feat), m1), dtype)
         out = self.layer3(_mul(leaky_relu(out), m2), dtype)
         out = self.layer4(_mul(leaky_relu(out), m3), dtype)
@@ -262,6 +275,29 @@ class Encoder(nn.Module):
         style = region_wise_avg_pooling(
             out, depth_mask if pool_mask is None else pool_mask)
         return _mul(leaky_relu(feat), m1), style
+
+
+class EncoderNoDepthMatrix(nn.Module):
+    """The depth-matrix ablation's encoder (``endosr/nn/depthnet.py``
+    ``EncoderNoDepthMatrix``): (the raw stride-1 32-ch trunk feature, a
+    spatial latent [B,H',W',L]); no pooling. ``layer4`` gives 2n − 1, so
+    H' = H only for odd H (as in JAX, whose SEAN then adds maps of both
+    sizes)."""
+
+    def __init__(self, in_nc=3, latent_ch=256, device=None):
+        super().__init__()
+        self.layer1 = WNConv(in_nc, 32, 3, 1, 1, device=device)
+        self.layer2 = WNConv(32, 64, 3, 1, 1, device=device)
+        self.layer3 = WNConv(64, 128, 3, 2, 1, device=device)
+        self.layer4 = WNConvTranspose(128, 256, 3, 2, 1, device=device)
+        self.layer5 = WNConv(256, latent_ch, 3, 1, 1, device=device)
+
+    def forward(self, x, dtype):
+        feat = self.layer1(x, dtype)
+        out = self.layer2(leaky_relu(feat), dtype)
+        out = self.layer3(leaky_relu(out), dtype)
+        out = self.layer4(leaky_relu(out), dtype)
+        return feat, self.layer5(leaky_relu(out), dtype)
 
 
 class DepthResidualBlock(nn.Module):
@@ -276,13 +312,16 @@ class DepthResidualBlock(nn.Module):
     def __init__(self, nf=64, depth_latent_ch=256, depth_range_num=10,
                  use_trainable_params=True, norm_gamma=0.1, norm_beta=0.1,
                  fused_epilogue=False, in_stats="default", centered=0,
+                 ablate_depth_matrix=False, ablate_depth_block=False,
                  device=None):
         super().__init__()
         self.fused_epilogue, self.in_stats = bool(fused_epilogue), in_stats
         kw = dict(label_nc=depth_range_num, norm_nc=nf,
                   len_latent=depth_latent_ch,
                   use_trainable_params=use_trainable_params,
-                  norm_gamma=norm_gamma, norm_beta=norm_beta, device=device)
+                  norm_gamma=norm_gamma, norm_beta=norm_beta,
+                  ablate_depth_matrix=ablate_depth_matrix,
+                  ablate_depth_block=ablate_depth_block, device=device)
         conv = functools.partial(Conv, nf, nf, 3, centered=centered,
                                  device=device)
         self.conv1 = nn.ModuleDict({"0": conv()})
@@ -375,7 +414,13 @@ class DepthNet(nn.Module):
     :func:`~endosr_torch.nn.layers.centered_conv` in bf16 with an fp32
     output (``bf16c`` N = 1, ``bf16c3`` N = 3); below ×4 the tail and its
     classic blocks stay in ``dtype``, and at ×8 the tail takes its dense
-    folds."""
+    folds.
+
+    ``remat_blocks``, ``ablate_depth_matrix``, ``ablate_depth_block`` and
+    an empty ``which_resblk_depth`` (the baseline) are the JAX module's
+    fields of those names (see the module's docstring); under
+    ``remat_blocks`` and ``ablate_depth_block`` no branch is hoisted, and
+    every SEAN computes its own at ``dtype``."""
 
     def __init__(self, which_resblk_depth=tuple(range(14)), in_nc=3, out_nc=3,
                  nf=64, nb=16, scale=4, clamp_min=0.0, clamp_max=1.0,
@@ -388,8 +433,9 @@ class DepthNet(nn.Module):
                  packed_tail=True, packed_up1=True, pallas_tail=False,
                  pallas_head="auto", pallas_output="auto", fold_tail=True,
                  fold_output_conv=True, modulation_dtype=None,
-                 centered_convs=0, dtype=torch.float32, device=None,
-                 **jax_only):
+                 centered_convs=0, remat_blocks=False,
+                 ablate_depth_matrix=False, ablate_depth_block=False,
+                 dtype=torch.float32, device=None, **jax_only):
         super().__init__()
         which = set(which_resblk_depth)
         for name, value in jax_only.items():
@@ -400,9 +446,6 @@ class DepthNet(nn.Module):
                     f"DepthNet {name}={value!r} is not ported")
         if scale not in (2, 3, 4, 8):
             raise NotImplementedError(f"scale {scale} is not ported")
-        if not which:
-            raise NotImplementedError("the baseline (no depth blocks) path "
-                                      "is not ported")
         for dt in (dtype, modulation_dtype or dtype):
             if dt not in (torch.float32, torch.bfloat16):
                 raise NotImplementedError(f"precision {dt} is not ported")
@@ -425,6 +468,9 @@ class DepthNet(nn.Module):
         self.pallas_output = _on(pallas_output)
         self.fold_tail = bool(fold_tail)
         self.fold_output_conv = bool(fold_output_conv)
+        self.remat_blocks = bool(remat_blocks)
+        self.ablate_depth_matrix = bool(ablate_depth_matrix)
+        self.ablate_depth_block = bool(ablate_depth_block)
         self.dtype = dtype
         self.mod_dtype = modulation_dtype or dtype
         self.centered_convs = cc = int(centered_convs)
@@ -434,7 +480,12 @@ class DepthNet(nn.Module):
         num_last_block = 1 if scale == 3 else int(math.log2(scale))
         self.final_scale = fs = 3 if scale == 3 else 2
 
-        self.encoder = Encoder(in_nc, depth_latent_ch, device=device)
+        if self.ablate_depth_matrix:
+            self.encoder = EncoderNoDepthMatrix(in_nc, depth_latent_ch,
+                                                device=device)
+        else:
+            self.encoder = Encoder(in_nc, depth_latent_ch,
+                                   is_baseline=not which, device=device)
         self.head = nn.ModuleDict({"0": WNConv(32, 64, 3, device=device),
                                    "2": WNConv(64, 64, 3, device=device)})
         self.block_names = {}
@@ -442,10 +493,11 @@ class DepthNet(nn.Module):
             ch = 32 if i > nb - num_last_block else nf
             if i in which:
                 name = f"depth-residual{i + 1}"
-                blk = DepthResidualBlock(ch, depth_latent_ch, depth_range_num,
-                                         use_trainable_params, norm_gamma,
-                                         norm_beta, self.fused_epilogue,
-                                         in_stats, cc, device=device)
+                blk = DepthResidualBlock(
+                    ch, depth_latent_ch, depth_range_num, use_trainable_params,
+                    norm_gamma, norm_beta, self.fused_epilogue, in_stats, cc,
+                    self.ablate_depth_matrix, self.ablate_depth_block,
+                    device=device)
             else:
                 name = f"classic-residual{i + 1}"
                 tail_blk = i >= nb - 2 and scale < 4
@@ -498,24 +550,36 @@ class DepthNet(nn.Module):
         equals the forward of the unpadded input up to fp32 summation
         order."""
         dt, mdt, nb = self.dtype, self.mod_dtype, self.nb
-        if valid_hw is not None and self.fused_epilogue:
-            raise ValueError("exact bucketed eval (valid_hw) does not support "
-                             "the fused epilogue")
+        ablated = self.ablate_depth_matrix or self.ablate_depth_block
+        if valid_hw is not None and (ablated or self.fused_epilogue):
+            raise ValueError("exact bucketed eval (valid_hw) supports the "
+                             "standard DepthNet paths only, not the ablations "
+                             "or the fused epilogue")
         vr = _ValidRegion(x, valid_hw)
-        feat, depth_vec = self.encoder(x, depth_mask, dt, valid_hw, pool_mask)
+        if self.ablate_depth_matrix:
+            feat, depth_vec = self.encoder(x, dt)
+        else:
+            feat, depth_vec = self.encoder(x, depth_mask, dt, valid_hw,
+                                           pool_mask)
         fea = vr.zero(leaky_relu(self.head["0"](feat, dt)))
         fea_bef = vr.zero(leaky_relu(self.head["2"](fea, dt)))
         fea_in = fea_bef
         depth = (depth_map, depth_mask, depth_vec)
 
         trunk_depth = [i for i in range(nb - 3) if i in self.which]
-        # the fused modulation cannot re-zero its activation: unmasked only
-        can_fuse = self.fused_modulation and not vr.on
-        want_style = self.hoist_style or can_fuse
-        lazy = bool(trunk_depth and self.lazy_branches and not can_fuse
+        # remat_blocks and the depth-block ablation hoist no branch
+        hoist = bool(trunk_depth and not self.remat_blocks
+                     and not self.ablate_depth_block)
+        # the fused modulation cannot re-zero its activation: unmasked only;
+        # the depth-matrix ablation hoists its o-branch only
+        can_fuse = (self.fused_modulation and not vr.on
+                    and not self.ablate_depth_matrix)
+        want_style = ((self.hoist_style and not self.ablate_depth_matrix)
+                      or can_fuse)
+        lazy = bool(hoist and self.lazy_branches and not can_fuse
                     and not self.pallas_obranch)
         style_groups, hoist_groups, slot = {}, {}, {}
-        if trunk_depth:
+        if hoist:
             size = (feat.shape[1], feat.shape[2])
             dmap = interpolate_nearest(depth_map, size)
             dmask = interpolate_nearest(depth_mask, size) if want_style else None
@@ -534,7 +598,7 @@ class DepthNet(nn.Module):
                 shifted = shifted_mask_stack(dmask, mdt)
                 v_chunks = precompute_style_v(s_w, depth_vec, mdt)
                 style_groups = by(self.style_chunk)
-        elif trunk_depth:
+        elif hoist:
             hoist_groups = by(self.hoist_chunk if self.hoist_chunk > 0
                               else len(trunk_depth))
         mods = {}
@@ -570,10 +634,17 @@ class DepthNet(nn.Module):
         return self._tail(feat_add1, depth, vr)
 
     def _run_block(self, i, feat, depth, vr, **kw):
+        """Block ``i`` on ``feat``; under ``remat_blocks`` and autograd a
+        depth block runs in ``torch.utils.checkpoint`` (JAX: ``nn.remat``)."""
         blk = self.block(i)
-        if isinstance(blk, DepthResidualBlock):
-            return blk(feat, self.dtype, depth, vmask=vr.mask_for(feat), **kw)
-        return blk(feat, self.dtype, vmask=vr.mask_for(feat))
+        vmask = vr.mask_for(feat)
+        if not isinstance(blk, DepthResidualBlock):
+            return blk(feat, self.dtype, vmask=vmask)
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(
+                lambda f: blk(f, self.dtype, depth, vmask=vmask, **kw), feat,
+                use_reentrant=False)
+        return blk(feat, self.dtype, depth, vmask=vmask, **kw)
 
     def _hoist_group(self, ids, dmap, dmask, depth_vec, vr, can_fuse,
                      want_style):

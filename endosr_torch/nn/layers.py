@@ -27,9 +27,9 @@ import torch.nn.functional as F
 from endosr_torch.utils.device import device_constant
 
 __all__ = [
-    "Conv", "WNConv", "WNConvTranspose", "torch_conv_init_",
-    "wn_effective_kernel", "conv2d_nhwc", "hwio", "instance_norm",
-    "chained_instance_norm", "masked_instance_norm",
+    "Conv", "WNConv", "ConvTranspose", "WNConvTranspose",
+    "torch_conv_init_", "wn_effective_kernel", "conv2d_nhwc", "hwio",
+    "instance_norm", "chained_instance_norm", "masked_instance_norm",
     "masked_chained_instance_norm", "valid_mask", "pixel_shuffle",
     "leaky_relu", "clip", "centered_conv",
     "fold_kernel_through_pixel_shuffle", "packed_stage_kernel",
@@ -273,6 +273,38 @@ def wn_effective_kernel(m: WNConv):
     return hwio(w), m.bias.float()
 
 
+def _conv_transpose_nhwc(x, w_iokk, b, stride, padding, dtype):
+    """torch ``conv_transpose2d`` of NHWC ``x`` with an (I, O, kh, kw)
+    weight, plus bias, in ``dtype``; out = (in−1)·s − 2p + k."""
+    y = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2), w_iokk.to(dtype),
+                           stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1) + b.to(dtype)
+
+
+class ConvTranspose(nn.Module):
+    """ConvTranspose2d (torch parameters: an (I, O, kh, kw) weight and a
+    bias), NHWC in and out; out = (in−1)·s − 2p + k. The JAX package keeps
+    the kernel as (kh, kw, I, O) and flips it spatially when it is called;
+    ``utils/port_params.py`` maps one to the other."""
+
+    def __init__(self, in_ch, out_ch, k=3, stride=2, padding=1, device=None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, k, k,
+                                               device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+
+    def init_(self, gen):
+        # torch's fan-in convention for a transposed conv: out·kh·kw
+        fan_in = self.weight[0].numel()
+        torch_conv_init_(self.weight, fan_in, gen)
+        torch_conv_init_(self.bias, fan_in, gen)
+
+    def forward(self, x, dtype):
+        return _conv_transpose_nhwc(x, self.weight, self.bias, self.stride,
+                                    self.padding, dtype)
+
+
 class WNConvTranspose(nn.Module):
     """Weight-normalized ConvTranspose2d (norm per INPUT channel, torch
     dim=0 on the (I, O, kh, kw) weight); out = (in−1)·s − 2p + k."""
@@ -298,10 +330,9 @@ class WNConvTranspose(nn.Module):
     def forward(self, x, dtype):
         v32 = self.weight_v.float()
         norm = v32.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
-        w = (v32 * (self.weight_g.float() / norm)).to(dtype)
-        y = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2), w,
-                               stride=self.stride, padding=self.padding)
-        return y.permute(0, 2, 3, 1) + self.bias.to(dtype)
+        w = v32 * (self.weight_g.float() / norm)
+        return _conv_transpose_nhwc(x, w, self.bias, self.stride,
+                                    self.padding, dtype)
 
 
 def instance_norm(x, eps: float = 1e-5, stats: str = "default"):

@@ -11,11 +11,20 @@ per-block ``o_branch_from_actv``. Hoisted: whole [B,H,W,N·2C] maps per
 group, from ``hoisted_o_branch`` (two convs) or ``pallas_o_branch`` (the
 ``fused_o_branch`` kernel) and ``hoisted_style_branch`` (one matmul), or
 the finished blend from ``hoisted_blended_mods`` (the ``fused_modulation``
-kernel). A SEAN outside the trunk (blocks nb-2 / nb-1) runs its own two
-branches. The module then blends and applies the modulation with one of
-three epilogues: pre-normalized input, the fused InstanceNorm+modulation
-kernel (``fused_epilogue``), or masked statistics. The ablation variants
-are not ported.
+kernel). A SEAN outside the trunk (blocks nb-2 / nb-1), and every SEAN
+under ``remat_blocks``, runs its own two branches. The module then blends
+and applies the modulation with one of three epilogues: pre-normalized
+input, the fused InstanceNorm+modulation kernel (``fused_epilogue``), or
+masked statistics.
+
+The paper's two ablations change the module itself (``endosr/nn/sean.py``
+``SEAN.setup`` / ``__call__``): ``ablate_depth_matrix`` takes the style
+branch from two plain convs over the spatial latent of
+``EncoderNoDepthMatrix`` (no ``A_i_j``); ``ablate_depth_block`` drops both
+branches and the blend for ``mlp_depthMatrix`` (a transposed conv of the
+style matrix seen as an L×L image of K channels), ``mlp_before_all`` over
+it and the depth map's activation, and ``mlp_gamma_all`` /
+``mlp_beta_all``.
 
 Weights travel as plain tuples of HWIO fp32 tensors:
 ``depth_branch_weights()`` → (w_mask, b_mask, w_ob, b_ob) with w_ob the
@@ -33,8 +42,8 @@ from endosr_torch.kernels.fused_in_mod import fused_in_mod
 from endosr_torch.kernels.fused_mod import fused_modulation
 from endosr_torch.kernels.fused_obranch import fused_o_branch
 from endosr_torch.kernels.style_dot import style_blend_dot, style_dot_hwbm
-from endosr_torch.nn.layers import (Conv, conv2d_nhwc, hwio, instance_norm,
-                                    masked_instance_norm)
+from endosr_torch.nn.layers import (Conv, ConvTranspose, conv2d_nhwc, hwio,
+                                    instance_norm, masked_instance_norm)
 from endosr_torch.ops.resize import interpolate_nearest
 from endosr_torch.utils.device import device_constant
 
@@ -256,29 +265,43 @@ def _shift_eye(k: int) -> np.ndarray:
 
 
 class SEAN(nn.Module):
-    """SEAN parameters (reference names) and its modulation epilogue."""
+    """SEAN parameters (reference names) and its modulation epilogue; with
+    ``ablate_depth_matrix`` or ``ablate_depth_block`` the ablated module
+    of the JAX package (see the module's docstring)."""
 
     def __init__(self, label_nc=10, norm_nc=64, len_latent=256,
                  use_trainable_params=True, norm_gamma=0.1, norm_beta=0.1,
+                 ablate_depth_matrix=False, ablate_depth_block=False,
                  device=None):
         super().__init__()
         c, k, l = norm_nc, label_nc, len_latent
-        self.use_trainable_params = use_trainable_params
+        self.ablate_depth_matrix = bool(ablate_depth_matrix)
+        self.ablate_depth_block = bool(ablate_depth_block)
+        # the depth-block ablation has no blend, so no α
+        self.use_trainable_params = (use_trainable_params
+                                     and not self.ablate_depth_block)
         self.norm_gamma, self.norm_beta = norm_gamma, norm_beta
         self.mlp_mask = nn.ModuleDict({"0": Conv(1, 2 * c, 3, device=device)})
+        if self.ablate_depth_block:
+            self.mlp_depthMatrix = ConvTranspose(k, k, 3, 2, 1, device=device)
+            self.mlp_before_all = Conv(k + 2 * c, c, 3, device=device)
+            self.mlp_gamma_all = Conv(c, c, 3, device=device)
+            self.mlp_beta_all = Conv(c, c, 3, device=device)
+            return
         self.mlp_gamma_o = Conv(2 * c, c, 3, device=device)
         self.mlp_beta_o = Conv(2 * c, c, 3, device=device)
-        self.A_i_j = Conv(k, k, 1, padding=0, device=device)
+        if not self.ablate_depth_matrix:
+            self.A_i_j = Conv(k, k, 1, padding=0, device=device)
         self.mlp_gamma_s = Conv(l, c, 3, device=device)
         self.mlp_beta_s = Conv(l, c, 3, device=device)
-        if use_trainable_params:
+        if self.use_trainable_params:
             self.alpha_gamma = nn.Parameter(torch.empty(1, device=device))
             self.alpha_beta = nn.Parameter(torch.empty(1, device=device))
 
     def init_(self, gen):
-        for m in (self.mlp_mask["0"], self.mlp_gamma_o, self.mlp_beta_o,
-                  self.A_i_j, self.mlp_gamma_s, self.mlp_beta_s):
-            m.init_(gen)
+        for m in self.children():
+            for leaf in (m.values() if isinstance(m, nn.ModuleDict) else (m,)):
+                leaf.init_(gen)
         if self.use_trainable_params:
             with torch.no_grad():  # torch.rand(1): U[0, 1)
                 self.alpha_gamma.copy_(torch.rand(1, generator=gen))
@@ -299,7 +322,7 @@ class SEAN(nn.Module):
     def blend_alphas(self):
         if self.use_trainable_params:
             return self.alpha_gamma, self.alpha_beta
-        dev = self.A_i_j.weight.device
+        dev = self.mlp_mask["0"].weight.device
         return tuple(device_constant(np.full, ((1,), v), torch.float32, dev)
                      for v in (self.norm_gamma, self.norm_beta))
 
@@ -329,15 +352,22 @@ class SEAN(nn.Module):
         return instance_norm(x) * (1 + gamma) + beta
 
     def _modulation(self, x, depth_map, depth_mask, st, dtype, ob, sb, vmask):
-        """Blended (γ, β) = α·(γ_s, β_s) + (1−α)·(γ_o, β_o)."""
+        """Blended (γ, β) = α·(γ_s, β_s) + (1−α)·(γ_o, β_o); with
+        ``ablate_depth_matrix`` the style branch is two convs over the
+        spatial latent ``st`` [B,h,w,L]; with ``ablate_depth_block`` see
+        :meth:`_depth_block_ablation`."""
         size = (x.shape[1], x.shape[2])
+        if self.ablate_depth_block:
+            return self._depth_block_ablation(size, depth_map, st, dtype)
         if ob is None:
             w_mask, b_mask, w_ob, b_ob = self.depth_branch_weights()
             d = interpolate_nearest(depth_map, size)
             actv, = precompute_o_actv([(w_mask, b_mask, w_ob, b_ob)], d, dtype,
                                       vmask)
             ob = o_branch_from_actv(actv, (w_mask, b_mask, w_ob, b_ob), dtype)
-        if sb is None:
+        if sb is None and self.ablate_depth_matrix:
+            sb = (self.mlp_gamma_s(st, dtype), self.mlp_beta_s(st, dtype))
+        elif sb is None:
             sw = self.style_branch_weights()
             mask = interpolate_nearest(depth_mask, size).to(dtype)
             v, = precompute_style_v([sw], st, dtype)
@@ -348,3 +378,18 @@ class SEAN(nn.Module):
         ag, ab = (a.to(dtype) for a in self.blend_alphas())
         return (ag * sb[0] + (1.0 - ag) * ob[0],
                 ab * sb[1] + (1.0 - ab) * ob[1])
+
+    def _depth_block_ablation(self, size, depth_map, st, dtype):
+        """(γ, β) of the depth-block ablation: the depth map's activation
+        relu(mlp_mask(d)) [B,h,w,2C] beside ``mlp_depthMatrix`` of the style
+        matrix st [B,K,L] read as an L×L image of K channels (row l holds
+        st[:, :, l] in every column), resized nearest to the feature's
+        size; ``mlp_before_all`` over both, then ``mlp_gamma_all`` and
+        ``mlp_beta_all``. No blend."""
+        d = interpolate_nearest(depth_map, size).to(dtype)
+        actv = torch.relu(self.mlp_mask["0"](d, dtype))
+        lat = st.shape[2]
+        dup = st[..., None].expand(*st.shape, lat).permute(0, 2, 3, 1)
+        down = interpolate_nearest(self.mlp_depthMatrix(dup, dtype), size)
+        cat = self.mlp_before_all(torch.cat([down, actv], dim=-1), dtype)
+        return self.mlp_gamma_all(cat, dtype), self.mlp_beta_all(cat, dtype)

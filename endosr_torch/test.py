@@ -13,7 +13,9 @@ bf16 and ×2 and ×3 in ``bf16c3`` (3-pass centered bf16 convs, unbucketed),
 as the JAX ``test.py`` selects.
 
 It runs on CUDA, and raises without a CUDA device; ``--device cpu`` runs the
-plain PyTorch path on the CPU.
+plain PyTorch path on the CPU. On CUDA it turns TF32 off for the process
+before it builds the model (``utils/device.py::true_fp32``), so that fp32
+work is the JAX package's fp32.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from endosr_torch.models import create_model
 from endosr_torch.ops.color import bgr2ycbcr
 from endosr_torch.train import parse_args
 from endosr_torch.utils import misc as util
-from endosr_torch.utils.device import resolve_device
+from endosr_torch.utils.device import resolve_device, true_fp32
 
 __all__ = ["main"]
 
@@ -103,6 +105,7 @@ def main(argv=None):
     """Evaluate from ``-opt_F``; returns the model."""
     args = parse_args(argv, "Evaluate the port from a test YAML.")
     device = resolve_device(args.device)
+    true_fp32(device)
     opt = option.parse(args.opt_F, is_train=False)
     util.mkdirs(
         path for key, path in opt["path"].items()

@@ -22,7 +22,9 @@ into ``<experiment>/profile``. ``use_tb_logger`` writes scalars through
 ``tensorboardX`` when it is installed.
 
 It runs on CUDA, and raises without a CUDA device; ``--device cpu`` runs the
-plain PyTorch path on the CPU. Resume follows the JAX ``train.py``: the
+plain PyTorch path on the CPU. On CUDA it turns TF32 off for the process
+before it builds the model (``utils/device.py::true_fp32``), so that fp32
+work is the JAX package's fp32. Resume follows the JAX ``train.py``: the
 run restarts the saved epoch from its first batch, and the step count
 carries on, so the batches after a resume differ from those of an
 uninterrupted run, even when the save ended its epoch. The host RNG of the
@@ -46,7 +48,7 @@ from endosr_torch.data import create_dataloader, create_dataset
 from endosr_torch.metrics.psnr_ssim import calculate_psnr, ssim
 from endosr_torch.models import create_model
 from endosr_torch.utils import misc as util
-from endosr_torch.utils.device import resolve_device
+from endosr_torch.utils.device import resolve_device, true_fp32
 
 __all__ = ["main", "validate"]
 
@@ -225,6 +227,7 @@ def main(argv=None):
     """Train from ``-opt_F``; returns the trained model."""
     args = parse_args(argv, "Train the port from a training YAML.")
     device = resolve_device(args.device)
+    true_fp32(device)
     opt = option.parse(args.opt_F, is_train=True)
 
     seed = opt["train"].get("manual_seed")

@@ -6,7 +6,7 @@ import functools
 
 import torch
 
-__all__ = ["resolve_device", "device_constant"]
+__all__ = ["resolve_device", "device_constant", "true_fp32"]
 
 
 @functools.lru_cache(maxsize=512)
@@ -36,3 +36,16 @@ def resolve_device(device=None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def true_fp32(device: torch.device) -> None:
+    """On CUDA, turn TF32 off for cuDNN's convolutions and for matmuls,
+    process-wide, so that fp32 work is fp32 (the JAX package's fp32, to
+    which the port is held): PyTorch's default runs fp32 convolutions on
+    TF32 tensor cores (10-bit significands). The entry points call it
+    before they build the model. ``nn/layers.py::centered_conv`` still
+    allows TF32 inside its exact-product passes, whose operands TF32 holds
+    exactly. Nothing changes on the CPU."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

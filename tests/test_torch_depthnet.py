@@ -248,11 +248,11 @@ def test_valid_hw_with_fused_epilogue_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scale=4, which_resblk_depth=(0, 1, 4), remat_blocks=True),
+    dict(scale=4, which_resblk_depth=(0, 1, 4), tail_defer_act=False),
     dict(scale=8, which_resblk_depth=(0, 4), blend_fold=True),
-    dict(scale=4, which_resblk_depth=()),
+    dict(scale=4, which_resblk_depth=(0,), lazy_o_chunk=2),
     dict(scale=16, which_resblk_depth=(0,)),
-], ids=["x4_depth_at_nb1", "x8_depth_at_nb1", "baseline", "x16"])
+], ids=["x4_depth_at_nb1", "x8_depth_at_nb1", "lazy_o_chunk", "x16"])
 def test_unported_depthnet_configurations_raise(kw):
     with pytest.raises(NotImplementedError):
         torch_dn.DepthNet(**SMALL, **kw, device="cpu")

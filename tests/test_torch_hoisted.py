@@ -377,7 +377,8 @@ def test_model_serves_every_preset_like_jax_default_fields(preset):
     ({"mask_stack_conv": False}, NotImplementedError, "mask_stack_conv"),
     ({"chain_in": False}, NotImplementedError, "chain_in"),
     ({"obranch_body": "dot"}, NotImplementedError, "obranch_body"),
-    ({"remat_blocks": True}, NotImplementedError, "remat_blocks"),
+    ({"pallas_packed_chain": False}, NotImplementedError,
+     "pallas_packed_chain"),
     ({"no_such_field": 1}, TypeError, "no_such_field"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_unported_or_unknown_net_kw_field_raises_by_name(net_kw, exc, match):

@@ -230,24 +230,24 @@ def _net(**kw):
     {"eval_bucket_multiple": None, "spatial_shard": 4},
     {"precision": "fp16"},
     {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
-                        ablate_depth_matrix=True)},
+                        net_kw={"tail_defer_act": False})},
     {"is_train": True, "train": {"lr_G": 1e-3, "pixel_criterion": "l1",
                                  "pixel_weight": 1.0,
                                  "depth_loss": {"use_depth_criterion": True}}},
     _net(net_kw={"lazy_o_chunk": 2}), _net(net_kw={"chain_in": False}),
-    _net(preset="plain", net_kw={"remat_blocks": True}),
+    _net(preset="plain", net_kw={"pallas_packed_chain": False}),
     _net(net_kw={"blend_fold": True}),
-    _net(ablate_depth_block=True), _net(remat_blocks=True),
+    _net(which_model_G="SFTMD"), _net(net_kw={"obranch_body": "dot"}),
 ], ids=["bucketed", "bucketed_default", "fp16", "x4", "train",
-        "lazy_o_chunk", "chain_in", "preset_plain", "net_kw", "ablation",
-        "remat_blocks"])
+        "lazy_o_chunk", "chain_in", "preset_plain", "net_kw",
+        "other_generator", "obranch_body"])
 def test_unported_options_raise(change):
     """What still waits: sharded bucketed eval (``spatial_shard``, with the
     bucket set or left at its default), a precision JAX does not name,
     training with the depth loss (its monodepth2 weights are not in the
-    repo), the ablations (also on a ×4 network with a depth block after
-    upscale2, which is served now), ``remat_blocks`` (also over
-    ``preset: plain``) and the ``net_kw`` fields the port lacks."""
+    repo), the generators other than DepthNet, and the ``net_kw`` fields
+    the port lacks (also on a ×4 network with a depth block after
+    upscale2, and over ``preset: plain``)."""
     opt = {**copy.deepcopy(OPT), **change}
     with pytest.raises(NotImplementedError):
         FModelDepthCond(opt, device="cpu")

@@ -45,8 +45,8 @@ variants (L2 or Charbonnier pixel loss, the mask loss, SSIM, weight decay,
 Also: serve → train → serve in one process (constants first made under
 inference mode are saved for backward later), checkpoints saved and read
 back (weights, trainer state, a resumed update), the refusals by name
-(depth and VGG losses, ``remat_blocks``, gradients of the two kernels
-that have none), and the LR queries.
+(depth and VGG losses, a field the port does not take, gradients of the
+two kernels that have none), and the LR queries.
 """
 
 import copy
@@ -613,9 +613,13 @@ def test_checkpoints_round_trip(call, tmp_path):
 
 
 def test_remat_blocks_and_serving_models_refuse_training():
+    """A field the port does not take refuses a training model by name
+    (``lazy_o_chunk``; ``remat_blocks`` trains, see
+    ``tests/test_torch_train_scales.py``), and a serving model refuses a
+    training step."""
     opt = _opt(FLAGSHIP)
-    opt["network_G"]["net_kw"] = {"remat_blocks": True}
-    with pytest.raises(NotImplementedError, match="remat_blocks"):
+    opt["network_G"]["net_kw"] = {"lazy_o_chunk": 2}
+    with pytest.raises(NotImplementedError, match="lazy_o_chunk"):
         FModelDepthCond(opt, device="cpu")
     serving = {**_opt(FLAGSHIP), "is_train": False}
     tm = FModelDepthCond(serving, device="cpu")
