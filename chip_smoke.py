@@ -267,6 +267,41 @@ exits non-zero):
    call with each wrong backward in place must fail. The phase's seconds
    are logged.
 
+10. frames → depth maps → SR, and the depth and VGG losses — seeded
+   weight files under ``build/depth10/`` (a ResNet-18 ``encoder.pth`` at
+   feed 256×320, ``depth.pth``, a VGG19 ``vgg19.pth``) and a synthetic
+   Kvasir tree there (16 pairs, LR 128², GT 1024²). (a) The producer,
+   ``depth/infer.py::run_folder``, on the 16 LR frames on the card
+   (twice): ``f00_disp.npy``… of [1, 1, 256, 320] float32 and the
+   previews; the disparities within 1e-4 of max |ref| of the port's CPU
+   fp32 run; ms a frame. (b) ``python -m endosr_torch.tools.sr_pipeline``
+   through ``main`` with ``--depth_weights``, the ×8 flagship at its
+   defaults, ``--bucket 0``, batch 8, a seeded ``G.pth`` (its output conv
+   centred as phase 7's), ``--precision bf16`` and then fp32: each
+   ``test`` with the counts set to 0 just before and read just after,
+   ``packed_g123`` 2, ``style_blend_dot`` 2, ``head_dot`` 1,
+   ``output_stage_x8`` 1 a batch (bf16: ``wgmma``, ``tc``, ``wgmma``,
+   ``vec16``; fp32: ``fp32``, ``cuda_core``, ``fp32``, ``vec16``); 16
+   PNGs of 1024²; against fp32 ``preset: plain`` (no kernel) on the same
+   inputs, bf16 ≥ 40 dB and fp32 ≤ 2e-4; ms a frame by stage (depth
+   maps, model, serving, reading/masks/PNGs) and end to end. (c) ``python
+   -m endosr_torch.train`` through ``main`` on the ×8 YAML with phase 7's
+   key changes and ``use_depth_criterion``, ``pretrained_model_path``,
+   ``use_vgg_criterion`` and ``vgg_weights_path`` set (each logged as
+   ``reduced``), fp32 (TF32 off), batch 8, GT 1024², 3 steps: the four
+   kernels a step as (b)'s fp32, ``l_depth``/``l_vgg`` and their scales
+   finite; then the model's step 0 with the cwd under ``build/depth10/
+   dump``: ``_dump_disparities`` writes its 8 arrays ([8, 256/2^i,
+   320/2^i, 1]); the frozen networks equal their files, take no gradient,
+   stay in ``eval()`` and are in no optimizer group; ms a step, peak
+   memory. (d) One fp32 batch-2 step of that recipe against ``preset:
+   plain`` by phase 6b's rule. (e) Every kernel call of (b)–(d), recorded
+   by ``KernelTap``, again at its shape against its plain version,
+   forward and gradient, as 9f (``packed_g123`` and ``head_dot`` held
+   whole: fp32 against float64 ≤ 1e-5, bf16 ≤ 1e-2 of max |ref|, their
+   gradients against autograd of the plain version at their type ≤ 1e-4
+   fp32, 2⁻⁴ bf16); the errors join the JSON rows' ``max_abs_err``.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
 ``val entry`` and ``eval entry``, phase 8's ``x2 <precision>`` and
@@ -274,6 +309,8 @@ training steps, ``launches_by_path`` with phase 7's ``train entry``,
 train``, ``x3 endoscene train``, ``x4 endoscene train``, ``x2 remat``,
 ``x2 hoisted``, ``x3 endoscene grads``, ``x4 remat grads``,
 ``ablate_depth_matrix``, ``ablate_depth_block`` and ``baseline``,
+and phase 10's ``x8 pipeline bf16``, ``x8 pipeline fp32``, ``x8 train
+losses``, ``x8 train losses step 0`` and ``x8 losses grads``,
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -286,12 +323,14 @@ device is present or when run outside the repository.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BPS = 3.35e12       # H100 SXM device memory rate
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
@@ -2506,24 +2545,67 @@ def kernel_call_check(torch, gen, name, dt, route, shape, extra=(),
     bit for bit. ``shape``: (B, H, W, J, M) of a dot, the input's of an
     output stage; ``extra``: a blend's conv width 2C; (r, clamp min, clamp
     max) of ``output_stage``; (order, clamp min, clamp max) of
-    ``output_stage_x8``. Returns (readings, the failed clauses)."""
+    ``output_stage_x8``. ``packed_g123`` and ``head_dot`` are held whole
+    (fp32 against float64 ≤ 1e-5 of max |ref|, bf16 against the bf16
+    plain version ≤ 1e-2, as phase 3 holds them; the gradient of every
+    input ≤ ``GRAD_TOL`` of its max |ref| against autograd of the plain
+    version at the storage type, as phase 6c): ``shape`` is x's HWNC shape +
+    (Cin4, C4) of ``packed_g123``, g4's + (Cout,) of ``head_dot``;
+    ``extra`` (pre_act, phases, the weights' and biases' types) and (wout,
+    those types), a pre-bias given when there is a type for it. Returns
+    (readings, the failed clauses)."""
+    from endosr_torch.kernels.head_dot import head_dot, head_dot_plain
     from endosr_torch.kernels.output_stage import (output_stage,
                                                    output_stage_plain,
                                                    output_stage_x8,
                                                    output_stage_x8_plain)
+    from endosr_torch.kernels.packed_chain import packed_g123, packed_g123_plain
     from endosr_torch.kernels.style_dot import (style_blend_dot,
                                                 style_blend_plain,
                                                 style_dot_hwbm, style_dot_plain)
 
     def rn(*shape, s=1.0, mean=0.0, dtype=dt):
         return (torch.randn(shape, generator=gen, device="cuda") * s
-                + mean).to(dtype)
+                + mean).to(getattr(torch, dtype) if isinstance(dtype, str)
+                           else dtype)
 
     def hwnc(t):
         return t.permute(1, 2, 0, 3)
 
-    fails, batched = [], 0
-    if name == "output_stage":
+    fails, batched, dense = [], 0, name in ("packed_g123", "head_dot")
+    if name == "packed_g123":
+        hx, wx, b, c, cin4, c4 = shape
+        pre_act, phases, wdt = extra
+        fn, pb = packed_g123, len(wdt) == 3
+        leaves = [rn(b, hx, wx, c, s=0.5), rn(2, 2, cin4, c4, s=0.03,
+                                              dtype=wdt[0]),
+                  rn(c4, s=0.1, dtype=wdt[1]),
+                  rn(2, 2, c4, c4, s=0.04, dtype=wdt[0]),
+                  rn(c4, s=0.1, dtype=wdt[1]),
+                  rn(2, 2, c4, c4, s=0.04, dtype=wdt[0]),
+                  rn(c4, s=0.1, dtype=wdt[1])]
+        if pb:
+            leaves.append(rn(cin4, s=0.1, dtype=wdt[2]))
+
+        def call(x, *a, f=packed_g123):
+            return f(hwnc(x), *a[:6], pre_act, a[6] if pb else None, phases)
+
+        plain = functools.partial(call, f=packed_g123_plain)
+    elif name == "head_dot":
+        hp, wc, b, c4, cout = shape
+        wout, wdt = extra
+        fn, pb = head_dot, len(wdt) == 3
+        leaves = [rn(b, hp, wc, c4, s=0.5),
+                  rn(3, 3, c4, cout, s=0.02, dtype=wdt[0]),
+                  rn(cout, s=0.1, dtype=wdt[1])]
+        if pb:
+            leaves.append(rn(c4, s=0.1, dtype=wdt[2]))
+
+        def call(g4, w, b_, *p, f=head_dot):
+            return f(hwnc(g4), w, b_, wout, p[0] if pb else None)
+
+        plain = functools.partial(call, f=head_dot_plain)
+    elif name == "output_stage":
         r, lo, hi = extra
         fn, leaves = output_stage, [rn(*shape, s=0.6, mean=0.5)]
         call = functools.partial(output_stage, r=r, clamp_min=lo, clamp_max=hi)
@@ -2560,13 +2642,20 @@ def kernel_call_check(torch, gen, name, dt, route, shape, extra=(),
     if took != {**dict.fromkeys(took, 0), route: 1}:
         fails.append(f"routes {took}, want one launch on {route}")
     out = {}
-    if not batched:
+    ref_dt = torch.float64 if dt == torch.float32 else dt
+    if dense:
+        want = plain(*(t.to(ref_dt) if t.dtype == dt else t for t in leaves))
+        out["max_abs"], out["rel"] = rel_err(got, want)
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        if not out["rel"] <= tol:
+            fails.append(f"rel err {out['rel']:.3g} > {tol:g}")
+        del want
+    elif not batched:
         want = plain(*leaves)
         out["max_abs"] = rel_err(got, want)[0]
         if not torch.equal(got, want):
             fails.append(f"not bit-identical (max |Δ| {out['max_abs']:.3g})")
     else:
-        ref_dt = torch.float64 if dt == torch.float32 else dt
         tol = 1e-5 if dt == torch.float32 else 1e-2
         per = []
         for k in range(shape[0]):
@@ -2585,7 +2674,21 @@ def kernel_call_check(torch, gen, name, dt, route, shape, extra=(),
         xs = [t.detach().requires_grad_(True) for t in leaves]
         gk = torch.autograd.grad(call(*xs), xs, g)
         del xs
-        if not batched:
+        if dense:
+            # the kernel's backward is the plain version's VJP, recomputed
+            # at the storage type (as phase 6c holds it): against float64
+            # the ReLUs' kinks would take other sides
+            xs = [t.detach().requires_grad_(True) for t in leaves]
+            gp = torch.autograd.grad(plain(*xs), xs, g)
+            rels = [rel_err(a, b_)[1] for a, b_ in zip(gk, gp)]
+            out["grad_rel"], out["grad_rel_per_input"] = max(rels), rels
+            tol = GRAD_TOL[str(dt)[6:]]
+            if not out["grad_rel"] <= tol:
+                fails.append("gradient max |Δ| / max |ref| per input "
+                             + ", ".join(f"{e:.3g}" for e in rels)
+                             + f" > {tol:g}")
+            del gp
+        elif not batched:
             xs = [t.detach().requires_grad_(True) for t in leaves]
             gp = torch.autograd.grad(plain(*xs), xs, g)
             out["grad_rel"] = max(rel_err(a, b_)[1] for a, b_ in zip(gk, gp))
@@ -3573,7 +3676,8 @@ def tf32_readings(torch):
 
 class KernelTap:
     """While installed, records every launch of ``style_blend_dot``,
-    ``style_dot_hwbm``, ``output_stage`` and ``output_stage_x8``:
+    ``style_dot_hwbm``, ``output_stage``, ``output_stage_x8``,
+    ``packed_g123`` and ``head_dot``:
     ``calls`` maps (kernel, storage type, route, shape, extra) as
     :func:`kernel_call_check` takes them to {"grad": whether an input
     required a gradient, "where": {``self.where``: launches}}."""
@@ -3582,8 +3686,13 @@ class KernelTap:
         self.calls, self.where = {}, None
 
     def install(self):
+        from endosr_torch.kernels import head_dot as hd
         from endosr_torch.kernels import output_stage as ost
+        from endosr_torch.kernels import packed_chain as pc
         from endosr_torch.kernels import style_dot as sd
+
+        def dts(*ts):
+            return tuple(str(t.dtype)[6:] for t in ts)
 
         taps = (
             (sd, "_blend", sd.style_blend_dot,
@@ -3595,7 +3704,17 @@ class KernelTap:
             (ost, "_forward", ost.output_stage,
              lambda p, r, lo, hi: (tuple(p.shape), (r, lo, hi), (p,))),
             (ost, "_forward_x8", ost.output_stage_x8,
-             lambda p, lo, hi, order: (tuple(p.shape), (order, lo, hi), (p,))))
+             lambda p, lo, hi, order: (tuple(p.shape), (order, lo, hi), (p,))),
+            (pc, "_forward", pc.packed_g123,
+             lambda x, k1, b1, k2, b2, k3, b3, pre_act, pb, phases: (
+                 tuple(x.shape) + tuple(k1.shape[2:]),
+                 (pre_act, phases, dts(k1, b1, *(() if pb is None else (pb,)))),
+                 (x, k1, b1, k2, b2, k3, b3) + (() if pb is None else (pb,)))),
+            (hd, "_forward", hd.head_dot,
+             lambda g4, w, b, wout, pb: (
+                 tuple(g4.shape) + (w.shape[3],),
+                 (wout, dts(w, b, *(() if pb is None else (pb,)))),
+                 (g4, w, b) + (() if pb is None else (pb,)))))
         saved = [(mod, attr, getattr(mod, attr)) for mod, attr, *_ in taps]
         for (mod, attr, counter, describe), (*_, orig) in zip(taps, saved):
             def tapped(*args, orig=orig, counter=counter, describe=describe):
@@ -3620,13 +3739,14 @@ class KernelTap:
         return uninstall
 
 
-def phase9_kernel_checks(torch, calls):
+def phase9_kernel_checks(torch, calls, tag="phase 9 kernels", controls=True):
     """Phase 9f: every kernel call that phase 9's paths (9a–9d) made, as
     :class:`KernelTap` recorded it, on the card at its shape, type, route
     and clamp by :func:`kernel_call_check`, its gradient too where the
     path took one. Then the checks' control: with each of
     ``vjp_controls``' wrong backwards in place, the gradient check of the
-    smallest fp32 ``style_blend_dot`` call must fail. Returns ({kernel:
+    smallest fp32 ``style_blend_dot`` call must fail (without
+    ``controls``, not run). ``tag`` heads the log lines. Returns ({kernel:
     {type: max |Δ|}}, readings)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     errs, numbers = {}, {}
@@ -3638,7 +3758,7 @@ def phase9_kernel_checks(torch, calls):
         torch.cuda.empty_cache()
         what = (f"{name} {dts} {list(shape)} {extra} route {route}"
                 f"{' + gradient' if grad else ''}")
-        log(f"[phase 9 kernels] {what} (launches "
+        log(f"[{tag}] {what} (launches "
             + ", ".join(f"{k} {n}" for k, n in calls[key]["where"].items())
             + f"): max|Δ| {out['max_abs']:.3e}"
             + (f", rel {out['rel']:.3e}" if "rel" in out else
@@ -3646,13 +3766,13 @@ def phase9_kernel_checks(torch, calls):
             + (f"; gradient max |Δ| / max |ref| {out['grad_rel']:.3e}"
                if grad else "") + " against the plain version")
         if fails:
-            raise AssertionError(f"[phase 9 kernels] {what}: "
+            raise AssertionError(f"[{tag}] {what}: "
                                  + "; ".join(fails))
         numbers[str(key)] = out
         slot = errs.setdefault(name, {})
         slot[dts] = max(slot.get(dts, 0.0), out["max_abs"])
     blends = [k for k in calls if k[0] == "style_blend_dot"
-              and k[1] == "float32" and calls[k]["grad"]]
+              and k[1] == "float32" and calls[k]["grad"] and controls]
     if blends:
         key = min(blends, key=lambda k: math.prod(k[3]))
         for label, vjp in vjp_controls(torch).items():
@@ -3707,6 +3827,485 @@ def phase9(torch, counters):
     log(f"[phase 9] kernel calls: {numbers['kernels_s']:.1f} s")
     numbers["seconds"] = time.perf_counter() - t0
     log(f"[phase 9] took {numbers['seconds']:.1f} s")
+    return launches, numbers
+
+
+DEPTH10_ROOT = "build/depth10"  # under the repository root, git-ignored
+DEPTH10_FEED = (256, 320)       # endosr/depth/options.py:39-40 (height, width)
+DEPTH10_N = 16                  # LR frames of 128² (Kvasir ×8: GT 1024²)
+DEPTH10_TOL = 1e-4              # card vs CPU disparities, of max |ref|
+X8_WANT = {"packed_g123": 2, "style_blend_dot": 2, "head_dot": 1,
+           "output_stage_x8": 1}
+X8_ROUTES = {"bf16": {"packed_g123": "wgmma", "style_blend_dot": "tc",
+                      "head_dot": "wgmma", "output_stage_x8": "vec16"},
+             "fp32": {"packed_g123": "fp32", "style_blend_dot": "cuda_core",
+                      "head_dot": "fp32", "output_stage_x8": "vec16"}}
+PIPE10_BF16_FLOOR = 40.0        # dB, bf16 against fp32 plain (§2)
+PIPE10_FP32_TOL = 2e-4          # fp32 against fp32 plain: the parity bar
+TRAIN10_STEPS = 3
+
+
+class PipeTaps(EntryTaps):
+    """:class:`EntryTaps` that also keeps each served batch (the host
+    tensors ``test`` was fed) with its record, and the last model."""
+
+    def _call(self, label, model, fn, args, kwargs, training=False):
+        self.model = model
+        batch = None if training else dict(model.batch)
+        out = super()._call(label, model, fn, args, kwargs, training)
+        if batch is not None:
+            self.calls[label][-1]["batch"] = batch
+        return out
+
+
+def depth_producer(torch, root):
+    """Phase 10a: ``depth/infer.py::run_folder`` on the card over the 16
+    LR frames (seeded ResNet-18 ``encoder.pth`` / ``depth.pth`` at feed
+    256×320 under ``root``): the ``.npy`` names, shape [1, 1, 256, 320]
+    and type, and the disparities within ``DEPTH10_TOL`` of max |ref| of
+    the port's CPU fp32 run on the same files. Twice on the card (the
+    first run loads cuDNN's kernels). Returns the readings."""
+    import numpy as np
+
+    from endosr_torch.depth.infer import run_folder
+
+    frames = root / "data/LR/train"
+    secs = []
+    for run in ("card", "card2"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = run_folder(str(frames), str(root), str(root / run))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    cpu = run_folder(str(frames), str(root), str(root / "cpu"), device="cpu")
+    cpu_s = time.perf_counter() - t
+    names = [f"f{i:02d}_disp.npy" for i in range(DEPTH10_N)]
+    if [Path(p).name for p in card] != names or \
+            [Path(p).name for p in cpu] != names:
+        raise AssertionError(f"[depth10 producer] wrote {card}")
+    err = ref_max = 0.0
+    for a, b in zip(card, cpu):
+        got, want = np.load(a), np.load(b)
+        if got.shape != (1, 1, *DEPTH10_FEED) or got.dtype != np.float32:
+            raise AssertionError(f"[depth10 producer] {a}: {got.shape} "
+                                 f"{got.dtype}")
+        if not (root / "card" / (Path(a).stem + ".jpeg")).is_file():
+            raise AssertionError(f"[depth10 producer] no preview for {a}")
+        err = max(err, float(np.abs(got - want).max()))
+        ref_max = max(ref_max, float(np.abs(want).max()))
+    out = {"ms_per_frame": [s / DEPTH10_N * 1e3 for s in secs],
+           "cpu_ms_per_frame": cpu_s / DEPTH10_N * 1e3,
+           "max_abs_vs_cpu": err, "rel_vs_cpu": err / ref_max}
+    log(f"[depth10 producer] run_folder, 16 frames 128² → {DEPTH10_N} "
+        f"disparities [1,1,{DEPTH10_FEED[0]},{DEPTH10_FEED[1]}] float32 + "
+        f"previews: " + " / ".join(f"{x:.2f}" for x in out["ms_per_frame"])
+        + f" ms a frame on the card (first / second run, loading the "
+        f"weights and writing the files included), {out['cpu_ms_per_frame']:.1f} "
+        f"on the CPU; card vs CPU max |Δ| {err:.3g} ({out['rel_vs_cpu']:.3g} "
+        f"of max |ref|, tol {DEPTH10_TOL:g}); {gpu_line()}")
+    if not out["rel_vs_cpu"] <= DEPTH10_TOL:
+        raise AssertionError(f"[depth10 producer] card vs CPU "
+                             f"{out['rel_vs_cpu']:.3g} > {DEPTH10_TOL:g}")
+    return out
+
+
+def _centred_generator(torch, root, argv):
+    """A seeded flagship generator (``sr_pipeline.build_model``'s init) with
+    its output conv scaled and shifted so that the fp32 output of the first
+    batch of the pipeline's frames (the clamp opened) has its median at 0.5
+    and its 1st–99th percentiles within [0.1, 0.9], as phase 7 centres
+    its checkpoint; written to ``root/G.pth``."""
+    import numpy as np
+
+    from endosr_torch.data import util as dutil
+    from endosr_torch.ops.masks import depth_masks_np
+    from endosr_torch.tools import sr_pipeline as pipe
+
+    args = pipe.parse_args(argv)
+    model = pipe.build_model(args, "cuda")
+    model.netG.clamp_min, model.netG.clamp_max = -1e4, 1e4
+    names = dutil.get_image_paths("img", args.input)[:8]
+    deps = [np.load(root / "card" / (Path(n).stem + "_disp.npy"))[0, 0]
+            for n in names]
+    model.feed_data({
+        "LQ": np.stack([dutil.read_img(None, n)[:, :, ::-1] for n in names]
+                       ).astype(np.float32),
+        "Depth": np.stack(deps)[..., None],
+        "DepthMaskList": np.stack([depth_masks_np(d, True, 10)
+                                   for d in deps])})
+    outs = model.test().float().reshape(-1, 3).cpu().numpy()
+    lo, med, hi = np.percentile(outs, [1, 50, 99], axis=0)
+    half = float(np.max(np.maximum(med - lo, hi - med)))
+    scale = min(1.0, 0.4 / half) if half > 0 else 1.0
+    sd = {k: v.detach().cpu() for k, v in model.netG.state_dict().items()}
+    del model
+    shift = torch.as_tensor(0.5 - scale * med, dtype=torch.float32)
+    sd["conv_output.weight"] = sd["conv_output.weight"] * scale
+    sd["conv_output.bias"] = sd["conv_output.bias"] * scale + shift
+    torch.save(sd, str(root / "G.pth"))
+    return scale, shift.tolist()
+
+
+def pipeline10(torch, counters, root):
+    """Phase 10b: ``python -m endosr_torch.tools.sr_pipeline`` through
+    ``main`` on the 16 frames with ``--depth_weights`` (the producer, then
+    masks, then ``FModelDepthCond.test`` in batches of 8), the flagship ×8
+    at its defaults (nf 64, nb 16, latent 256, blocks 0–13, K 10), ``--bucket
+    0``, a seeded ``G.pth`` centred as phase 7 centres its checkpoint;
+    ``--precision bf16``, then fp32. Each ``test`` with the counts set to
+    0 just before and read just after: ``X8_WANT`` on ``X8_ROUTES``. The
+    SR of each batch against fp32 ``preset: plain`` (no kernel) on the
+    same inputs: bf16 ≥ ``PIPE10_BF16_FLOOR`` dB, fp32 within
+    ``PIPE10_FP32_TOL``. ms a frame by stage (depth maps, model build,
+    serving, the rest: reading frames, masks, PNGs) and end to end.
+    Returns ({path label: launches}, readings)."""
+    import numpy as np
+
+    import cv2
+
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.tools import sr_pipeline as pipe
+
+    base = ["--input", str(root / "data/LR/train"), "--model",
+            str(root / "G.pth"), "--scale", "8", "--bucket", "0",
+            "--batch", "8", "--depth_weights", str(root)]
+    scale, shift = _centred_generator(
+        torch, root, base[:2] + ["--output", str(root / "unused"),
+                                 "--model", "", "--scale", "8"])
+    log(f"[pipeline10] G.pth: seeded flagship, conv_output × {scale:.4g} + "
+        f"{[round(x, 4) for x in shift]}")
+    stage = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage[name] = time.perf_counter() - t
+            return out
+        return wrapper
+
+    taps = PipeTaps(torch, counters)
+    launches, numbers, runs = {}, {}, {}
+    saved = pipe.ensure_depth, pipe.build_model
+    uninstall = taps.install()
+    try:
+        pipe.ensure_depth = timed("depth", pipe.ensure_depth)
+        pipe.build_model = timed("build", pipe.build_model)
+        for prec in ("bf16", "fp32"):
+            label = f"x8 pipeline {prec}"
+            taps.serving = label
+            out = root / f"pipe_{prec}"
+            argv = base + ["--output", str(out)] + (
+                ["--precision", "bf16"] if prec == "bf16" else [])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            written = pipe.main(argv)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t
+            calls = taps.calls[label]
+            taps.check(label, calls, X8_WANT, X8_ROUTES[prec])
+            if sorted(written) != [f"f{i:02d}" for i in range(DEPTH10_N)]:
+                raise AssertionError(f"[{label}] wrote {sorted(written)}")
+            png = cv2.imread(written["f00"])
+            if png.shape != (1024, 1024, 3):
+                raise AssertionError(f"[{label}] PNG {png.shape}")
+            serve = sum(r["secs"] for r in calls)
+            ms = {"depth": stage["depth"], "build": stage["build"],
+                  "serve": serve,
+                  "rest": total - stage["depth"] - stage["build"] - serve,
+                  "end_to_end": total}
+            ms = {k: v / DEPTH10_N * 1e3 for k, v in ms.items()}
+            ms["serve_batches"] = [r["secs"] * 1e3 for r in calls]
+            ms["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs[prec], numbers[label] = calls, ms
+            launches[label] = {c.__name__: sum(r["launches"][c.__name__]
+                                               for r in calls)
+                               for c in counters}
+            log(f"[{label}] {len(calls)} batches of 8, LQ 128² → SR 1024², "
+                + ", ".join(f"{k} {v}" for k, v in X8_WANT.items())
+                + " launches a batch (" + ", ".join(
+                    f"{k} {v}" for k, v in X8_ROUTES[prec].items())
+                + "); ms a frame: depth maps {depth:.2f}, model {build:.2f}, "
+                  "serving {serve:.2f}, reading/masks/PNGs {rest:.2f}, end "
+                  "to end {end_to_end:.2f}; batch ms ".format(**ms)
+                + ", ".join(f"{x:.1f}" for x in ms["serve_batches"])
+                + f"; peak {ms['peak_gib']:.2f} GiB; {gpu_line()}")
+    finally:
+        pipe.ensure_depth, pipe.build_model = saved
+        uninstall()
+    opt = flagship_opt(None, 8, 0, preset="plain")
+    opt["path"] = {"pretrain_model_G": str(root / "G.pth"), "strict_load": True}
+    plain = FModelDepthCond(opt)
+    zero_counts(counters)
+    refs = []
+    for rec in runs["fp32"]:
+        plain.feed_data(rec["batch"])
+        refs.append(plain.test().float().cpu())
+    if any(c.launches for c in counters):
+        raise AssertionError("[pipeline10] preset: plain launched a kernel")
+    del plain
+    torch.cuda.empty_cache()
+    for prec, calls in runs.items():
+        for n, (rec, ref) in enumerate(zip(calls, refs)):
+            if not all(torch.equal(v, runs["fp32"][n]["batch"][k])
+                       for k, v in rec["batch"].items()):
+                raise AssertionError(f"[pipeline10] {prec} batch {n + 1} was "
+                                     "fed other inputs than fp32's")
+    reads = {}
+    for prec, calls in runs.items():
+        sr = torch.cat([r["sr"] for r in calls])
+        ref = torch.cat(refs)
+        d = (sr.double() - ref.double())
+        mse = float(d.square().mean())
+        db = 10 * math.log10(1 / mse) if mse > 0 else float("inf")
+        db_u, share = _psnr_unclamped(sr.numpy(), ref.numpy())
+        reads[prec] = {"max_abs": float(d.abs().max()), "psnr": db,
+                       "psnr_unclamped": db_u, "unclamped_share": share}
+        log(f"[x8 pipeline {prec}] against fp32 preset: plain on the same "
+            f"inputs: max |Δ| {reads[prec]['max_abs']:.3g}, PSNR {db:.2f} dB "
+            f"({db_u:.2f} over the {share:.3f} of values neither clamps)")
+    numbers["vs_plain"] = reads
+    if not reads["bf16"]["psnr"] >= PIPE10_BF16_FLOOR:
+        raise AssertionError(f"[pipeline10] bf16 {reads['bf16']['psnr']:.2f} "
+                             f"dB < {PIPE10_BF16_FLOOR}")
+    if not reads["fp32"]["max_abs"] <= PIPE10_FP32_TOL:
+        raise AssertionError(f"[pipeline10] fp32 max |Δ| "
+                             f"{reads['fp32']['max_abs']:.3g} > "
+                             f"{PIPE10_FP32_TOL:g}")
+    return launches, numbers
+
+
+def _with_losses(opt, root):
+    """``opt`` with the depth loss (``pretrained_model_path``: ``root``)
+    and the VGG loss (``root/vgg19.pth``) turned on."""
+    opt["train"] = copy.deepcopy(opt["train"])
+    opt["train"]["depth_loss"].update(use_depth_criterion=True,
+                                      pretrained_model_path=str(root))
+    opt["train"]["vgg_loss"].update(use_vgg_criterion=True,
+                                    vgg_weights_path=str(root / "vgg19.pth"))
+    return opt
+
+
+def _frozen_unchanged(torch, model, root):
+    """The depth and VGG networks of ``model`` equal their files, take no
+    gradient, are in ``eval()`` and in no optimizer group."""
+    from endosr_torch.utils.port_params import load_monodepth
+
+    enc, dec, _, _ = load_monodepth(str(root))
+    vgg = torch.load(str(root / "vgg19.pth"), weights_only=True)
+    pairs = ((model.depth_loss_fn.encoder, enc.state_dict()),
+             (model.depth_loss_fn.decoder, dec.state_dict()),
+             (model.vgg_loss_fn.model, vgg))
+    in_opt = {id(p) for g in model.optimizer_G.param_groups
+              for p in g["params"]}
+    for net, want in pairs:
+        for k, v in net.state_dict().items():
+            if not torch.equal(v.cpu(), want[k]):
+                raise AssertionError(f"[train10] frozen {k} changed")
+        if net.training or any(p.requires_grad or id(p) in in_opt
+                               for p in net.parameters()):
+            raise AssertionError("[train10] a frozen network trains")
+
+
+def train10(torch, counters, root):
+    """Phase 10c: ``python -m endosr_torch.train`` through ``main`` on the
+    ×8 YAML with phase 7's key changes (the data roots on the 16 pairs
+    under ``root/data``, ``path.root``, ``data_num``, ``niter`` 3,
+    ``val_freq`` 1000, ``save_checkpoint_freq`` 3, ``print_freq`` 1) and
+    both losses on (``use_depth_criterion``, ``pretrained_model_path``:
+    ``root``; ``use_vgg_criterion``, ``vgg_weights_path``), fp32 (TF32
+    off), batch 8, GT 1024², 3 steps; each step with the counts set to 0
+    just before and read just after (``X8_WANT`` on fp32 routes), every
+    loss finite. Then one more step of that model as step 0 with the cwd
+    under ``root/dump``: ``_dump_disparities`` writes its 8 arrays. The
+    frozen networks unchanged after all (:func:`_frozen_unchanged`).
+    Returns ({path label: launches}, readings)."""
+    import gc
+    import os
+
+    import numpy as np
+
+    import endosr_torch.train as entry_train
+    from endosr_torch.ops.masks import depth_masks
+
+    repo = Path(__file__).resolve().parent
+    tree = {"dataroot_GT": str(root / "data/HR/train"),
+            "dataroot_LQ": str(root / "data/LR/train"),
+            "dataroot_depthMap": str(root / "data/depth/train")}
+    changes = {f"datasets.{ph}.{k}": v for ph in ("train", "val")
+               for k, v in tree.items()}
+    changes.update({
+        "datasets.train.data_num": DEPTH10_N, "path.root": str(root / "run"),
+        "train.niter": TRAIN10_STEPS, "train.val_freq": 1000,
+        "logger.save_checkpoint_freq": TRAIN10_STEPS, "logger.print_freq": 1,
+        "train.depth_loss.use_depth_criterion": True,
+        "train.depth_loss.pretrained_model_path": str(root),
+        "train.vgg_loss.use_vgg_criterion": True,
+        "train.vgg_loss.vgg_weights_path": str(root / "vgg19.pth")})
+    yml = _derive(repo / "options/train/train_depthNet_SEAN_depthMask_x8.yml",
+                  root / "train.yml", changes, "train10")
+    label = "x8 train losses"
+    taps = PipeTaps(torch, counters)
+    taps.training = label
+    uninstall = taps.install()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = entry_train.main(["-opt_F", yml])
+        main_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        calls = taps.calls[label]
+        taps.check(label, calls, X8_WANT, X8_ROUTES["fp32"])
+        keys = {"l_pix", "l_depth", "l_vgg", "l_all",
+                *(f"l_{n}_{i}" for n in ("depth", "vgg") for i in range(4))}
+        for n, rec in enumerate(calls):
+            bad = [k for k in keys if not math.isfinite(rec["logs"].get(
+                k, float("nan")))]
+            if bad:
+                raise AssertionError(f"[{label}] step {n + 1}: {bad} not "
+                                     "finite or missing")
+        if len(calls) != TRAIN10_STEPS:
+            raise AssertionError(f"[{label}] {len(calls)} steps")
+        # step 0: the disparity dump, then the step
+        taps.training = label + " step 0"
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        dep = torch.rand((8, 128, 128, 1), generator=gen, device="cuda")
+        model.feed_data({
+            "LQ": torch.randint(0, 256, (8, 128, 128, 3), generator=gen,
+                                device="cuda", dtype=torch.uint8),
+            "GT": torch.randint(0, 256, (8, 1024, 1024, 3), generator=gen,
+                                device="cuda", dtype=torch.uint8),
+            "Depth": dep,
+            "DepthMaskList": depth_masks(dep[..., 0], False, 10).to(
+                torch.uint8)})
+        cwd = os.getcwd()
+        (root / "dump").mkdir()
+        os.chdir(root / "dump")
+        try:
+            model.optimize_parameters(0)
+        finally:
+            os.chdir(cwd)
+        taps.check(label + " step 0", taps.calls[label + " step 0"],
+                   {k: 2 * v for k, v in X8_WANT.items()}, X8_ROUTES["fp32"])
+        dumped = sorted(os.listdir(root / "dump/tmp"))
+        if dumped != sorted(f"{t}_{i}.npy" for t in ("hr", "sr")
+                            for i in range(4)):
+            raise AssertionError(f"[{label}] dumped {dumped}")
+        for t in ("sr", "hr"):
+            for i in range(4):
+                a = np.load(root / f"dump/tmp/{t}_{i}.npy")
+                want = (8, DEPTH10_FEED[0] >> i, DEPTH10_FEED[1] >> i, 1)
+                if a.shape != want or not np.isfinite(a).all():
+                    raise AssertionError(f"[{label}] {t}_{i}.npy {a.shape}")
+        _frozen_unchanged(torch, model, root)
+        del model
+    finally:
+        uninstall()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [r["secs"] * 1e3 for r in calls]
+    logs = [{k: r["logs"][k] for k in sorted(keys)} for r in calls]
+    numbers = {"ms": ms, "ms_per_step": sum(ms[1:]) / (len(ms) - 1),
+               "peak_gib": peak, "main_s": main_s, "logs": logs,
+               "step0_ms": taps.calls[label + " step 0"][0]["secs"] * 1e3}
+    log(f"[{label}] train.main, ×8 YAML, fp32, batch 8, GT 1024², depth + "
+        f"VGG losses: " + ", ".join(f"{k} {v}" for k, v in X8_WANT.items())
+        + " launches a step (fp32 routes); step ms " + ", ".join(
+            f"{x:.1f}" for x in ms) + f" ({numbers['ms_per_step']:.1f} a step "
+        f"after the first, host clock, synchronised); peak {peak:.2f} GiB; "
+        f"step 0 with the dump {numbers['step0_ms']:.1f} ms, 8 arrays "
+        f"written; frozen networks unchanged; logs step 1 {logs[0]}; "
+        f"{main_s:.1f} s in main; {gpu_line()}")
+    launches = {lab: {c.__name__: sum(r["launches"][c.__name__]
+                                      for r in taps.calls[lab])
+                      for c in counters}
+                for lab in (label, label + " step 0")}
+    return launches, numbers
+
+
+def grads10(torch, counters, root):
+    """Phase 10d: one fp32 batch-2 step of 10c's recipe (the ×8 recipe
+    with both losses on, LQ 128² → GT 1024²) against the same step under
+    ``preset: plain`` by phase 6b's rule (``parity_runs``,
+    ``train_parity``). Returns ({path label: launches}, readings)."""
+    from endosr_torch.models.recipes import x8_train_opt
+
+    runs = parity_runs(
+        torch, opt_of=lambda **net: _with_losses(
+            x8_train_opt("fp32", **net), root),
+        batch=parity_batch(torch, 8, (128, 128)), counters=counters)
+    k = runs["kernels"]
+    for name in k["launches"]:
+        if k["launches"][name] != X8_WANT.get(name, 0):
+            raise AssertionError(f"[grads10] {name}: {k['launches'][name]} "
+                                 "launches")
+    if any(runs["plain"]["launches"].values()):
+        raise AssertionError("[grads10] preset: plain launched a kernel")
+    readings = train_parity(torch, runs, "x8 losses parity: default vs "
+                            "preset: plain, depth + VGG losses on")
+    readings.update(step_ms=k["secs"] * 1e3, peak_gib=k["peak_gib"],
+                    logs=k["logs"])
+    return {"x8 losses grads": dict(k["launches"])}, readings
+
+
+def phase10(torch, counters):
+    """Phase 10: frames → depth maps → SR on the card and the ×8 training
+    step with the depth and VGG losses (10a–10d), then every kernel call
+    of 10b–10d, recorded by :class:`KernelTap`, again at its shape against
+    its plain version, forward and gradient (10e,
+    ``phase9_kernel_checks`` without its controls). Seeded weight files
+    (a ResNet-18 ``encoder.pth`` at feed 256×320, ``depth.pth``,
+    ``vgg19.pth``) and a synthetic Kvasir tree (16 pairs, LR 128², GT
+    1024²) are written under ``DEPTH10_ROOT``. Returns ({path label:
+    launches}, readings)."""
+    import gc
+    import shutil
+
+    from endosr_torch.utils.port_params import (write_seeded_monodepth,
+                                                write_seeded_vgg)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / DEPTH10_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    write_seeded_monodepth(str(root), seed=10, height=DEPTH10_FEED[0],
+                           width=DEPTH10_FEED[1])
+    write_seeded_vgg(str(root / "vgg19.pth"), seed=11)
+    write_kvasir(root / "data", 8, {"train": (128, 128)},
+                 {"train": DEPTH10_N})
+    numbers = {"setup_s": time.perf_counter() - t0}
+    launches = {}
+    t = time.perf_counter()
+    numbers["producer"] = depth_producer(torch, root)
+    numbers["producer_s"] = time.perf_counter() - t
+    tap = KernelTap()
+    uninstall = tap.install()
+    try:
+        for key, fn in (("pipeline", pipeline10), ("train", train10),
+                        ("grads", grads10)):
+            tap.where = key
+            t = time.perf_counter()
+            got, numbers[key] = fn(torch, counters, root)
+            launches.update(got)
+            numbers[key + "_s"] = time.perf_counter() - t
+            log(f"[phase 10] {key}: {numbers[key + '_s']:.1f} s")
+    finally:
+        uninstall()
+    t = time.perf_counter()
+    numbers["kernel_max_abs_err"], numbers["kernels"] = phase9_kernel_checks(
+        torch, tap.calls, "phase 10 kernels", controls=False)
+    numbers["kernels_s"] = time.perf_counter() - t
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 10] kernel calls: {numbers['kernels_s']:.1f} s; took "
+        f"{numbers['seconds']:.1f} s")
     return launches, numbers
 
 
@@ -3787,6 +4386,13 @@ def main() -> int:
             have = rows[kname]["max_abs_err"]
             have[dts] = max(have[dts], err)
     log(f"[phase 9] summary: {json.dumps(numbers)}")
+    p10, numbers = phase10(torch, counters)
+    by_path.update(p10)
+    for kname, errs in numbers["kernel_max_abs_err"].items():
+        for dts, err in errs.items():
+            have = rows[kname]["max_abs_err"]
+            have[dts] = max(have[dts], err)
+    log(f"[phase 10] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

@@ -1,1 +1,2 @@
-"""Image metrics of the port (counterpart of ``endosr.metrics``)."""
+"""Image and depth metrics of the port (counterpart of
+``endosr.metrics``)."""

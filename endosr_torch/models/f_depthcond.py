@@ -18,16 +18,20 @@ JAX) serves unpadded, splitting batches larger than ``serve_batch_chunk``
 ``bf16c`` and ``bf16c3`` (``mixed`` with 1- / 3-pass centered bf16 convs).
 
 A training step (the JAX train step, ``f_depthcond.py:257-330``) runs the
-forward with ``pallas_output`` on, every loss ``opt["train"]`` turns on
-(pixel L1/L2/Charbonnier, SSIM added as ``+w·SSIM``, the static mask loss
-on a bin the host RNG draws every step, the dynamic depth-mask loss with
-its trainable K-vector), the gradient through every kernel's backward, and
-``torch.optim.Adam`` (weight decay added to the gradient first, β from the
-options, ε 1e-8) at the schedule's LR of that update. uint8 batches (the
-``u8_pipeline``) are normalized inside the step through the 256-entry
-table; masks are cast without scaling. The depth and VGG losses (they need
-monodepth2 and VGG19 weights) and ``spatial_shard`` are still to be ported
-and raise.
+forward with ``pallas_output`` on, every loss ``opt["train"]`` turns on,
+in JAX's order (pixel L1/L2/Charbonnier; the frozen monodepth2 depth loss
+and the VGG feature loss, ``losses/{depth,perceptual}.py``; SSIM added as
+``+w·SSIM``; the static mask loss on a bin the host RNG draws every step;
+the dynamic depth-mask loss with its trainable K-vector), the gradient
+through every kernel's backward, and ``torch.optim.Adam`` (weight decay
+added to the gradient first, β from the options, ε 1e-8) at the
+schedule's LR of that update. The depth and VGG networks are frozen: they
+are no part of ``netG``, of the optimizer or of a saved ``.pth``. With the
+depth loss, every 1000th step first writes the SR and HR disparity
+pyramids to ``./tmp/{sr,hr}_<i>.npy`` (:meth:`_dump_disparities`). uint8
+batches (the ``u8_pipeline``) are normalized inside the step through the
+256-entry table; masks are cast without scaling. ``spatial_shard`` is
+still to be ported and raises.
 
 Weights come from ``path.pretrain_model_G`` (a ``.npz`` of JAX parameters
 or a ``state_dict`` file, :meth:`load`) or from the port's seeded init;
@@ -39,13 +43,16 @@ from __future__ import annotations
 
 import copy
 import logging
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from endosr_torch.losses.basic import pixel_loss
+from endosr_torch.losses.depth import DepthEstimatorLoss
 from endosr_torch.losses.mask import dynamic_weight_mask_loss, mask_loss
+from endosr_torch.losses.perceptual import VGGDepthLoss
 from endosr_torch.losses.ssim import ssim_value
 from endosr_torch.models.base import BaseModel
 from endosr_torch.models.lr_schedule import clear_state_at
@@ -148,6 +155,7 @@ class FModelDepthCond(BaseModel):
         self._masks_np = None
         self.dyn_weight = None
         self.optimizer_G = None
+        self.depth_loss_fn = self.vgg_loss_fn = None
         if self.is_train:
             self._init_training(opt["train"])
 
@@ -157,13 +165,12 @@ class FModelDepthCond(BaseModel):
         gate = {k: bool((t.get(f"{k}_loss") or {}).get(f"use_{k}_criterion"))
                 for k in ("depth", "vgg", "ssim", "mask", "dynamic")}
         if gate["depth"]:
-            raise NotImplementedError(
-                "train.depth_loss (use_depth_criterion) is not ported: it "
-                "needs the monodepth2 weights, which the repo does not hold")
+            self.depth_loss_fn = DepthEstimatorLoss(t["depth_loss"],
+                                                    self.device)
         if gate["vgg"]:
-            raise NotImplementedError(
-                "train.vgg_loss (use_vgg_criterion) is not ported: it needs "
-                "the VGG19 weights, which the repo does not hold")
+            # without vgg_weights_path the port's own seeded VGG init
+            self.vgg_loss_fn = VGGDepthLoss(
+                t["vgg_loss"], self.device, int(t.get("manual_seed") or 0))
         self.cri_pix = pixel_loss(t["pixel_criterion"])
         self.l_pix_w = float(t["pixel_weight"])
         self.use_ssim_loss = gate["ssim"]
@@ -232,9 +239,10 @@ class FModelDepthCond(BaseModel):
         """One training step on the fed batch: forward, the losses, the
         gradient, one Adam update at ``schedule(n)`` (n: updates made so
         far). ``self.log_dict`` gets every loss as a float, the dynamic
-        loss's weights and per-bin losses as ``dyn_w_i`` / ``dyn_l_i``.
-        ``step`` is the caller's iteration (unused: the depth loss's debug
-        dump is not ported)."""
+        loss's weights and per-bin losses as ``dyn_w_i`` / ``dyn_l_i``, the
+        depth and VGG losses' scales as ``l_depth_i`` / ``l_vgg_i``.
+        ``step`` is the caller's iteration: with the depth loss, a step
+        that is a multiple of 1000 first dumps the disparities."""
         if self.optimizer_G is None:
             raise RuntimeError("optimize_parameters needs is_train: true")
         if "GT" not in self.batch:
@@ -242,6 +250,9 @@ class FModelDepthCond(BaseModel):
                                "DepthMaskList first")
         # drawn every step, used or not, so the stream stays JAX's
         mask_bin = int(self._np_rng.integers(0, self.mask_num))
+        if self.depth_loss_fn is not None and step is not None \
+                and step % 1000 == 0:
+            self._dump_disparities()
         b, dev = self.batch, self.device
         lq = u8_image_norm(b["LQ"].to(dev))
         masks = u8_cast(b["DepthMaskList"].to(dev))
@@ -249,6 +260,13 @@ class FModelDepthCond(BaseModel):
         fake_h = self._train_net(lq, b["Depth"].to(dev), masks)
         logs = {}
         total = logs["l_pix"] = self.l_pix_w * self.cri_pix(fake_h, gt)
+        for name, fn in (("depth", self.depth_loss_fn),
+                         ("vgg", self.vgg_loss_fn)):
+            if fn is not None:
+                loss, parts, *_ = fn(fake_h, gt)
+                logs[f"l_{name}"] = loss
+                logs.update({f"l_{name}_{i}": p for i, p in enumerate(parts)})
+                total = total + loss
         if self.use_ssim_loss:
             logs["l_ssim"] = self.l_ssim_w * ssim_value(fake_h, gt)
             total = total + logs["l_ssim"]
@@ -287,6 +305,24 @@ class FModelDepthCond(BaseModel):
                 self.log_dict[k] = flat[i]
             i += n
         return self.log_dict
+
+    @torch.no_grad()
+    def _dump_disparities(self):
+        """The depth loss's debug dump
+        (``endosr/models/f_depthcond.py:374-392``): the SR of the fed batch
+        (``netG``, the serving forward) and the GT, as the JAX model passes
+        them (a uint8 GT unnormalized), through the frozen depth networks;
+        the four scales of each are written NHWC, as JAX's, to
+        ``./tmp/sr_<i>.npy`` and ``./tmp/hr_<i>.npy``."""
+        b, dev = self.batch, self.device
+        sr = self.netG(u8_image_norm(b["LQ"].to(dev)), b["Depth"].to(dev),
+                       u8_cast(b["DepthMaskList"].to(dev)))
+        logger.info("Saving the depth map for SR and HR images......")
+        os.makedirs("./tmp", exist_ok=True)
+        for tag, img in (("sr", sr), ("hr", b["GT"].to(dev))):
+            for i, d in enumerate(self.depth_loss_fn.get_depth_feature(img)):
+                np.save(f"./tmp/{tag}_{i}.npy",
+                        d.permute(0, 2, 3, 1).cpu().numpy())
 
     def load(self) -> bool:
         """Load ``path.pretrain_model_G`` (with ``path.strict_load``) if it

@@ -15,6 +15,7 @@ same way, and so a gradient tree too.
 
 from __future__ import annotations
 
+import math
 import re
 from collections.abc import Mapping
 
@@ -22,7 +23,9 @@ import numpy as np
 import torch
 
 __all__ = ["from_flax", "from_flax_train", "flax_path_to_torch_key",
-           "load_params", "seeded_init"]
+           "load_params", "seeded_init", "load_monodepth",
+           "from_flax_monodepth", "from_flax_vgg", "write_seeded_monodepth",
+           "write_seeded_vgg"]
 
 _SEQ_IDX = re.compile(r"^(.*)_(\d+)$")
 _TRANSPOSE_CONV_SEGMENTS = {"layer4", "mlp_depthMatrix"}
@@ -116,3 +119,168 @@ def seeded_init(model, seed: int):
     gen = torch.Generator().manual_seed(int(seed))
     model.init_(gen)
     return model
+
+
+# ------------------------------------------------------- monodepth2 and VGG
+
+# what monodepth2's encoder.pth holds besides the trunk: the feed size, the
+# stereo flag and torchvision's classifier, which the encoder does not use
+_ENCODER_EXTRA = ("height", "width", "use_stereo", "encoder.fc.weight",
+                  "encoder.fc.bias")
+
+
+def load_monodepth(model_path: str, num_layers: int = 18, device=None):
+    """monodepth2's ``encoder.pth`` and ``depth.pth`` under ``model_path``
+    → (ResnetEncoder, DepthDecoder, feed height, feed width), in ``eval()``
+    on ``device`` (None: the CPU), as ``endosr/depth/infer.py:35-50``
+    reads them. Every key of the files but :data:`_ENCODER_EXTRA` must
+    load, and every parameter must be loaded."""
+    import os
+
+    from endosr_torch.nn.monodepth import DepthDecoder, ResnetEncoder
+
+    enc_raw = torch.load(os.path.join(model_path, "encoder.pth"),
+                         map_location="cpu", weights_only=True)
+    dec_sd = torch.load(os.path.join(model_path, "depth.pth"),
+                        map_location="cpu", weights_only=True)
+    encoder = ResnetEncoder(num_layers)
+    encoder.load_state_dict({k: v for k, v in enc_raw.items()
+                             if k not in _ENCODER_EXTRA})
+    decoder = DepthDecoder(num_ch_enc=encoder.num_ch_enc)
+    decoder.load_state_dict(dec_sd)
+    return (encoder.to(device).eval(), decoder.to(device).eval(),
+            int(enc_raw["height"]), int(enc_raw["width"]))
+
+
+def _decoder_names():
+    """The JAX DepthDecoder's conv names in ``decoder.N`` order."""
+    names = [f"upconv_{i}_{j}" for i in range(4, -1, -1) for j in (0, 1)]
+    return names + [f"dispconv_{s}" for s in range(4)]
+
+
+def _monodepth_key(path: tuple[str, ...]) -> str:
+    """A JAX ResnetEncoder / DepthDecoder variable path → the port's
+    ``state_dict`` key (the inverse of ``port_resnet_encoder`` /
+    ``port_depth_decoder``'s key functions)."""
+    *mods, leaf = path
+    leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
+            "mean": "running_mean", "var": "running_var"}[leaf]
+    if mods[0].startswith(("upconv", "dispconv")):
+        idx = _decoder_names().index(mods[0])
+        inner = "conv.conv" if mods[0].startswith("upconv") else "conv"
+        return f"decoder.{idx}.{inner}.{leaf}"
+    segs = []
+    for m in mods:
+        segs += m.split("_") if m.startswith(("layer", "downsample")) else [m]
+    return "encoder." + ".".join(segs + [leaf])
+
+
+def from_flax_monodepth(variables: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX ``ResnetEncoder`` or ``DepthDecoder``'s variables
+    (``{"params": ..., "batch_stats": ...}`` of numpy arrays) → the port
+    module's ``state_dict`` (OIHW convs; each BatchNorm's
+    ``num_batches_tracked`` 0)."""
+    sd = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(coll, {})):
+            a = np.asarray(leaf, np.float32)
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            key = _monodepth_key(path)
+            sd[key] = torch.from_numpy(np.array(a))
+            if key.endswith("running_mean"):
+                sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
+                    torch.tensor(0)
+    return sd
+
+
+def from_flax_vgg(params: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX ``VGGFeatures``' params (``features_N/kernel``, ``/bias``) →
+    the port's ``VGGFeatures`` ``state_dict`` (``features.N.weight``,
+    OIHW)."""
+    sd = {}
+    for path, leaf in _flatten(params):
+        *mods, name = path
+        a = np.asarray(leaf, np.float32)
+        if name == "kernel":
+            a = a.transpose(3, 2, 0, 1)
+        seg = [m for m in mods if m != "vgg"][0].replace("features_",
+                                                          "features.")
+        sd[f"{seg}.{'weight' if name == 'kernel' else 'bias'}"] = \
+            torch.from_numpy(np.array(a))
+    return sd
+
+
+def _seeded_bn_(bn, gen):
+    """Seeded BatchNorm statistics and affine parameters (the released
+    files' running statistics are far from 0 / 1; a test must see them)."""
+    with torch.no_grad():
+        for t, lo, hi in ((bn.weight, 0.8, 1.2), (bn.bias, -0.1, 0.1),
+                          (bn.running_mean, -0.1, 0.1),
+                          (bn.running_var, 0.5, 1.5)):
+            t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
+
+
+def write_seeded_monodepth(model_path: str, seed: int = 0,
+                           num_layers: int = 18, height: int = 192,
+                           width: int = 640) -> str:
+    """Write seeded ``encoder.pth`` and ``depth.pth`` under ``model_path``
+    in monodepth2's layouts: the torchvision ResNet keys under
+    ``encoder.`` with its classifier ``encoder.fc``, plus ``height``,
+    ``width`` and ``use_stereo``; ``decoder.N.conv(.conv).{weight,bias}``.
+    Convs take torch's default init from a generator seeded with
+    ``seed``, the BatchNorms :func:`_seeded_bn_`. Returns ``model_path``."""
+    import os
+
+    from endosr_torch.nn.layers import torch_conv_init_
+    from endosr_torch.nn.monodepth import DepthDecoder, ResnetEncoder
+
+    gen = torch.Generator().manual_seed(int(seed))
+    encoder = ResnetEncoder(num_layers)
+    decoder = DepthDecoder(num_ch_enc=encoder.num_ch_enc)
+    for m in (*encoder.modules(), *decoder.modules()):
+        if isinstance(m, torch.nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            torch_conv_init_(m.weight, fan_in, gen)
+            if m.bias is not None:
+                torch_conv_init_(m.bias, fan_in, gen)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            _seeded_bn_(m, gen)
+    enc = dict(encoder.state_dict())
+    cin = enc["encoder.layer4.0.conv1.weight"].shape[0] * (
+        4 if num_layers > 34 else 1)
+    fc_w, fc_b = torch.empty(1000, cin), torch.empty(1000)
+    torch_conv_init_(fc_w, cin, gen)
+    torch_conv_init_(fc_b, cin, gen)
+    enc.update({"encoder.fc.weight": fc_w, "encoder.fc.bias": fc_b,
+                "height": int(height), "width": int(width),
+                "use_stereo": False})
+    os.makedirs(model_path, exist_ok=True)
+    torch.save(enc, os.path.join(model_path, "encoder.pth"))
+    torch.save(decoder.state_dict(), os.path.join(model_path, "depth.pth"))
+    return model_path
+
+
+def write_seeded_vgg(path: str, seed: int = 0, cfg: str = "vgg19") -> str:
+    """Write a seeded torchvision-layout VGG state dict (``features.N.
+    {weight,bias}`` of the whole trunk) to ``path``. The weights are
+    He-uniform, U(±√(6/fan_in)), and the biases U(±0.01), drawn from a
+    generator seeded with ``seed``: activations then keep their scale
+    through the trunk, as a trained VGG's do (torch's default init shrinks
+    them by ≈ 2.4× a conv). Returns ``path``."""
+    import os
+
+    from endosr_torch.nn.vgg import VGGFeatures
+
+    gen = torch.Generator().manual_seed(int(seed))
+    model = VGGFeatures(cfg)
+    with torch.no_grad():
+        for m in model.features.values():
+            bound = math.sqrt(6.0 / m.weight[0].numel())
+            m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                           * (2 * bound) - bound)
+            m.bias.copy_(torch.rand(m.bias.shape, generator=gen) * 0.02
+                         - 0.01)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(model.state_dict(), path)
+    return path

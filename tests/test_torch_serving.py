@@ -231,9 +231,8 @@ def _net(**kw):
     {"precision": "fp16"},
     {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
                         net_kw={"tail_defer_act": False})},
-    {"is_train": True, "train": {"lr_G": 1e-3, "pixel_criterion": "l1",
-                                 "pixel_weight": 1.0,
-                                 "depth_loss": {"use_depth_criterion": True}}},
+    {"is_train": True, "spatial_shard": 2,
+     "train": {"lr_G": 1e-3, "pixel_criterion": "l1", "pixel_weight": 1.0}},
     _net(net_kw={"lazy_o_chunk": 2}), _net(net_kw={"chain_in": False}),
     _net(preset="plain", net_kw={"pallas_packed_chain": False}),
     _net(net_kw={"blend_fold": True}),
@@ -243,9 +242,10 @@ def _net(**kw):
         "other_generator", "obranch_body"])
 def test_unported_options_raise(change):
     """What still waits: sharded bucketed eval (``spatial_shard``, with the
-    bucket set or left at its default), a precision JAX does not name,
-    training with the depth loss (its monodepth2 weights are not in the
-    repo), the generators other than DepthNet, and the ``net_kw`` fields
+    bucket set or left at its default), a precision JAX does not name, a
+    training model with ``spatial_shard`` (the depth loss, which this case
+    used to name, trains: ``tests/test_torch_losses_depth.py``), the
+    generators other than DepthNet, and the ``net_kw`` fields
     the port lacks (also on a ×4 network with a depth block after
     upscale2, and over ``preset: plain``)."""
     opt = {**copy.deepcopy(OPT), **change}

@@ -45,8 +45,9 @@ variants (L2 or Charbonnier pixel loss, the mask loss, SSIM, weight decay,
 Also: serve → train → serve in one process (constants first made under
 inference mode are saved for backward later), checkpoints saved and read
 back (weights, trainer state, a resumed update), the refusals by name
-(depth and VGG losses, a field the port does not take, gradients of the
-two kernels that have none), and the LR queries.
+(depth and VGG losses whose weight files are missing, as JAX's, a field
+the port does not take, gradients of the two kernels that have none), and
+the LR queries.
 """
 
 import copy
@@ -531,10 +532,20 @@ def test_serve_then_train_then_serve_in_one_process():
 
 
 @pytest.mark.parametrize("what", ["depth_loss", "vgg_loss"])
-def test_losses_without_weights_refuse_by_name(what):
+def test_losses_without_weights_refuse_by_name(what, tmp_path):
+    """The YAML's depth / VGG loss turned on with its weights missing: the
+    model refuses, naming the files (with the JAX package's message,
+    ``tests/test_torch_perceptual.py``)."""
     train = copy.deepcopy(FLAGSHIP)
-    train[what] = {f"use_{what.split('_')[0]}_criterion": True}
-    with pytest.raises(NotImplementedError, match=what):
+    name = what.split("_")[0]
+    missing = str(tmp_path / "absent")
+    train[what].update({f"use_{name}_criterion": True},
+                       **({"pretrained_model_path": missing}
+                          if name == "depth" else
+                          {"vgg_weights_path": missing + ".pth"}))
+    match = ("monodepth2 checkpoints not found" if name == "depth"
+             else "VGG weights not found")
+    with pytest.raises(FileNotFoundError, match=match):
         FModelDepthCond(_opt(train), device="cpu")
 
 
