@@ -302,6 +302,30 @@ exits non-zero):
    gradients against autograd of the plain version at their type ≤ 1e-4
    fp32, 2⁻⁴ bf16); the errors join the JSON rows' ``max_abs_err``.
 
+11. the self-supervised depth trainer — a synthetic sequence under
+   ``build/depth11/`` (62 frames 320×400 of a shaded, textured image
+   panned and zoomed a little a frame; a stereo ``image01`` /
+   ``image02`` layout of 14 frames with GT depth PNGs). (a) ``python -m
+   endosr_torch.depth.train`` through ``main`` at the endovis defaults
+   (feed 256×320, batch 12, ResNet-18, ``separate_resnet``, frames [0,
+   -1, 1], scales 0–3, Adam 1e-4, 4 spawned loader workers) with
+   ``num_epochs`` 1 and ``log_frequency`` 1 (logged as ``reduced``): 5
+   steps, ms a step (host clock, synchronised), every loss finite, peak
+   memory, the loader alone over 3 more epochs against the steps' rate.
+   (b) One full-width step (after a warm-up step) of each of ``posecnn``,
+   stereo (``EndovisDataset`` with ``l`` / ``r`` sides and ``'s'``),
+   stereo alone ([0, 's'], no pose network), ``v1_multiscale``,
+   ``avg_reprojection``, ``disable_automasking``, ``no_ssim`` and
+   ``--num_layers 50``: finite losses, ms. (c) One fp32 step (loss and
+   gradients) at batch 2 on the card against the port on the CPU: the
+   same weights, batch and noise; losses ≤ 1e-5 relative, gradients by
+   phase 6b's rule (the one-ulp nudges of both sides); the card's step
+   twice, both readings passing. (d) ``save_model`` → a fresh trainer's
+   ``load_model`` bit-equal (networks, Adam, step); ``run_folder`` on the
+   card reads the trained folder; ``evaluate_depth`` over the stereo
+   layout's frames gives 7 finite metrics. (e) No SR kernel launches in
+   the phase: every count 0, as ``launches_by_path["depth train"]``.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
 ``val entry`` and ``eval entry``, phase 8's ``x2 <precision>`` and
@@ -309,8 +333,9 @@ training steps, ``launches_by_path`` with phase 7's ``train entry``,
 train``, ``x3 endoscene train``, ``x4 endoscene train``, ``x2 remat``,
 ``x2 hoisted``, ``x3 endoscene grads``, ``x4 remat grads``,
 ``ablate_depth_matrix``, ``ablate_depth_block`` and ``baseline``,
-and phase 10's ``x8 pipeline bf16``, ``x8 pipeline fp32``, ``x8 train
-losses``, ``x8 train losses step 0`` and ``x8 losses grads``,
+phase 10's ``x8 pipeline bf16``, ``x8 pipeline fp32``, ``x8 train
+losses``, ``x8 train losses step 0`` and ``x8 losses grads``, and phase
+11's ``depth train`` (0 for every kernel),
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -922,19 +947,27 @@ def make_cases(torch, dt, gen):
     return cases
 
 
-def device_kernels(torch, fn):
+def device_kernels(torch, fn, tries=3):
     """Names of the device kernels one call of ``fn`` launches, read by
-    ``torch.profiler`` (after one call outside it)."""
+    ``torch.profiler`` (after one call outside it). A profile that records
+    no device event at all (the profiler's device tracing did not start:
+    seen once on the card, in the second profile of a process) is taken
+    again, up to ``tries`` profiles."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return names
 
 
 def vec16_checks(torch, dt, name, call, b_view, n_kernels):
@@ -1589,10 +1622,10 @@ def train_flagship(torch, counters):
     return launches, ms, peak, bf
 
 
-def _nudge_weights(torch, start, seed):
-    """``start`` with every parameter moved one fp32 ulp up or down (a
-    seeded random sign each)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+def _nudge_weights(torch, start, seed, device="cuda"):
+    """``start`` (tensors on ``device``) with every parameter moved one
+    fp32 ulp up or down (a seeded random sign each)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for k, p in start.items():
         up = torch.rand(p.shape, generator=gen, device=p.device) < 0.5
@@ -4309,6 +4342,458 @@ def phase10(torch, counters):
     return launches, numbers
 
 
+DEPTH11_ROOT = "build/depth11"  # under the repository root, git-ignored
+DEPTH11_N = 62                  # frames of the synthetic sequence
+DEPTH11_HW = (320, 400)         # frame size on disk (the feed's 1.25 ratio)
+DEPTH11_FEED = (256, 320)       # endosr/depth/options.py:39-40 (height, width)
+DEPTH11_STEREO_N = 14           # frames a camera of the stereo layout
+DEPTH11_LOSS_REL = 1e-5         # card vs CPU losses, relative
+DEPTH11_LOADER_PASSES = 3       # epochs of 11a's loader-alone reading
+DEPTH11_VARIANTS = {            # phase 11b: extra options, stereo dataset
+    "posecnn": (["--pose_model_type", "posecnn"], None),
+    "stereo": (["--use_stereo"], [0, -1, 1, "s"]),
+    "stereo_only": (["--use_stereo", "--frame_ids", "0"], [0, "s"]),
+    "v1_multiscale": (["--v1_multiscale"], None),
+    "avg_reprojection": (["--avg_reprojection"], None),
+    "disable_automasking": (["--disable_automasking"], None),
+    "no_ssim": (["--no_ssim"], None),
+    "resnet50": (["--num_layers", "50"], None),
+}
+
+
+def write_depth11(root):
+    """Phase 11's data under ``root``: ``frames/`` (``DEPTH11_N`` frames
+    of a smooth shaded image with blurred noise as texture, panned 3 px
+    and zoomed 0.4 % a frame, so that the photometric loss has signal) and ``endovis/seq/`` (the
+    stereo layout ``image01`` / ``image02``, the right camera 6 px over,
+    single-camera frames and GT depth PNGs in [5, 70])."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    h, w = DEPTH11_HW
+    base = _smooth_u8(np, rng, h + 96, w + 256).astype(np.float32)
+    # texture at a few pixels' scale over the smooth shading
+    base += cv2.GaussianBlur(rng.normal(0, 60, base.shape).astype(np.float32),
+                             (0, 0), 1.5)
+    base = np.clip(base, 0, 255).astype(np.uint8)
+
+    def frame(i, dx=0):
+        s = 1.0 + 0.004 * i
+        m = np.float32([[s, 0, (1 - s) * (w / 2) + 3 * i + dx + 48],
+                        [0, s, (1 - s) * (h / 2) + 48]])
+        return cv2.warpAffine(base, m, (w, h), flags=cv2.INTER_LINEAR,
+                              borderMode=cv2.BORDER_REFLECT)
+
+    (root / "frames").mkdir(parents=True)
+    for i in range(DEPTH11_N):
+        cv2.imwrite(str(root / f"frames/{i:010d}.jpg"), frame(i))
+    seq = root / "endovis/seq"
+    for sub in ("image01", "image02", "depth"):
+        (seq / sub).mkdir(parents=True)
+    for i in range(DEPTH11_STEREO_N):
+        cv2.imwrite(str(seq / f"image01/{i:010d}.jpg"), frame(i))
+        cv2.imwrite(str(seq / f"image02/{i:010d}.jpg"), frame(i, 6))
+        cv2.imwrite(str(seq / f"{i:010d}.jpg"), frame(i))
+        depth = 5 + 65 * rng.random((h // 8, w // 8))
+        cv2.imwrite(str(seq / f"depth/{i:010d}.png"), cv2.resize(
+            depth, (w, h), interpolation=cv2.INTER_LINEAR).astype(np.uint16))
+
+
+def _depth11_argv(root, *extra):
+    return ["--data_path", str(root / "frames"), "--log_dir",
+            str(root / "logs"), *extra]
+
+
+def _finite_losses(label, losses):
+    bad = [k for k, v in losses.items() if not math.isfinite(float(v))]
+    if bad or "loss" not in losses:
+        raise AssertionError(f"[{label}] losses {bad} not finite or missing")
+
+
+def depth11_train(torch, root):
+    """Phase 11a: ``python -m endosr_torch.depth.train`` through ``main``
+    at the endovis defaults (feed 256×320, batch 12, ResNet-18,
+    ``separate_resnet``, frames [0, -1, 1], scales 0–3, Adam 1e-4, 4
+    loader workers) on the 62 frames, one epoch (5 steps), each step timed
+    on the host clock between two synchronisations, every loss finite;
+    peak memory; then the trainer's loader alone over
+    ``DEPTH11_LOADER_PASSES`` more epochs, its workers started (items and
+    frames a second), and the time of an item made in this process.
+    Returns (trainer, readings)."""
+    import endosr_torch.depth.train as depth_train
+    from endosr_torch.depth import trainer as tmod
+
+    argv = _depth11_argv(root, "--num_epochs", "1", "--log_frequency", "1")
+    reduced = {"num_epochs": "20 → 1", "log_frequency": "250 → 1",
+               "data": f"{DEPTH11_N} synthetic frames "
+               f"{DEPTH11_HW[0]}×{DEPTH11_HW[1]} → 60 items, 5 steps"}
+    log(f"[depth11 train] reduced: {json.dumps(reduced)}")
+    steps, marks = [], []
+    train_step = tmod.Trainer.train_step
+
+    def timed(self, inputs, noise=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, inputs, noise)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t,
+                      {k: float(v) for k, v in out.items()}))
+        marks.append((t, time.perf_counter()))
+        return out
+
+    tmod.Trainer.train_step = timed
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = depth_train.main(argv)
+        main_s = time.perf_counter() - t0
+    finally:
+        tmod.Trainer.train_step = train_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if tr.step < 5 or len(steps) != tr.step:
+        raise AssertionError(f"[depth11 train] {tr.step} steps")
+    for n, (_, losses) in enumerate(steps):
+        _finite_losses(f"depth11 train step {n + 1}", losses)
+    ms = [s * 1e3 for s, _ in steps]
+    waits = [(b[0] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])]
+    bs = tr.opt.batch_size
+    t = time.perf_counter()
+    first, n = None, 0
+    for _ in range(DEPTH11_LOADER_PASSES):
+        for batch in tr.loader():
+            n += batch[("color", 0, 0)].shape[0]
+            first = first or time.perf_counter()
+    end = time.perf_counter()
+    t_item = time.perf_counter()
+    for i in range(bs):
+        tr.dataset[i]
+    item_ms = (time.perf_counter() - t_item) / bs * 1e3
+    steady = sorted(ms[2:])[len(ms[2:]) // 2]
+    out = {"reduced": reduced, "steps": tr.step, "ms": ms,
+           "first_ms": ms[0], "ms_per_step": sum(ms[1:]) / (len(ms) - 1),
+           "steady_ms": steady, "waits_ms": waits, "peak_gib": peak,
+           "main_s": main_s, "loader_items": n,
+           "loader_items_per_s": n / (end - t),
+           "loader_items_per_s_after_first": (n - bs) / max(end - first, 1e-9),
+           "loader_first_batch_s": first - t, "item_ms_in_process": item_ms,
+           "losses": [lo["loss"] for _, lo in steps]}
+    out["step_items_per_s"] = bs / (steady / 1e3)
+    log(f"[depth11 train] depth.train.main, endovis defaults (feed 256×320, "
+        f"batch {bs}, ResNet-18, separate_resnet, frames [0, -1, 1], scales "
+        f"0–3), fp32 with TF32 off: {tr.step} steps, ms "
+        + ", ".join(f"{x:.1f}" for x in ms)
+        + f" ({out['ms_per_step']:.1f} a step after the first, median of "
+        f"steps 3–{tr.step} {steady:.1f}, host clock, synchronised; between "
+        f"steps "
+        + ", ".join(f"{x:.1f}" for x in waits) + " ms); peak "
+        f"{peak:.2f} GiB; losses " + ", ".join(f"{x:.4f}" for x in
+                                                out["losses"])
+        + f"; loader alone, its {tr.opt.num_workers} spawned workers started, "
+        f"{DEPTH11_LOADER_PASSES} epochs ({n} items): "
+        f"{out['loader_items_per_s']:.1f} items/s ({3 * out['loader_items_per_s']:.1f}"
+        f" frames/s; first batch after {out['loader_first_batch_s']:.2f} s, "
+        f"then {out['loader_items_per_s_after_first']:.1f} items/s) against "
+        f"the steps' {out['step_items_per_s']:.1f} (median step); an item "
+        f"made in this process {item_ms:.1f} ms; {main_s:.1f} s in main; "
+        f"{gpu_line()}")
+    return tr, out
+
+
+def _depth11_dataset(root, opts, frame_ids):
+    """The 12 items of a variant step: the sequence folder's frames, or the
+    stereo layout's (``l`` / ``r`` sides in turn) for ``frame_ids``."""
+    from endosr_torch.depth.datasets import EndovisDataset
+    from endosr_torch.depth.train import build_dataset
+
+    if frame_ids is None:
+        return build_dataset(opts)
+    lines = [f"seq {i} {'lr'[i % 2]}" for i in range(1, DEPTH11_STEREO_N - 1)]
+    return EndovisDataset(str(root / "endovis"), lines[:opts.batch_size],
+                          opts.height, opts.width, frame_ids,
+                          num_scales=len(opts.scales), is_train=True)
+
+
+def depth11_variants(torch, root):
+    """Phase 11b: one full-width step (feed 256×320, batch 12) of each of
+    ``DEPTH11_VARIANTS`` after one warm-up step: every loss finite, ms of
+    the step. Returns {variant: readings}."""
+    import gc
+
+    from endosr_torch.depth.options import MonodepthOptions
+    from endosr_torch.depth.trainer import Trainer
+
+    out = {}
+    for name, (extra, frame_ids) in DEPTH11_VARIANTS.items():
+        opts = MonodepthOptions().parse(_depth11_argv(
+            root, "--num_workers", "0", *extra))
+        tr = Trainer(opts, dataset=_depth11_dataset(root, opts, frame_ids),
+                     seed=12)
+        batch = tr.to_device(next(iter(tr.loader())))
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses = tr.train_step(batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            _finite_losses(f"depth11 {name}", losses)
+        out[name] = {"ms": secs[1] * 1e3, "first_ms": secs[0] * 1e3,
+                     "loss": float(losses["loss"]),
+                     "frame_ids": tr.frame_ids, "pose_net": tr.use_pose_net}
+        del tr, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[depth11 variants] one step each, feed 256×320, batch 12, fp32: "
+        + "; ".join(f"{k} {v['ms']:.1f} ms (first {v['first_ms']:.1f}, "
+                    f"loss {v['loss']:.4f}, frames {v['frame_ids']})"
+                    for k, v in out.items()) + f"; {gpu_line()}")
+    if out["stereo_only"]["pose_net"] or out["stereo"]["frame_ids"][-1] != "s":
+        raise AssertionError("[depth11 variants] stereo frames or pose nets")
+    return out
+
+
+def _depth11_grads(torch, tr, weights, batch, noise_seed=5):
+    """The loss and gradients of one fp32 step of ``tr``'s networks from
+    ``weights`` (CPU tensors by ``models.name.key``) on the CPU batch
+    ``batch``, the noise drawn on the CPU (seed ``noise_seed``) and moved
+    to the trainer's device. cuDNN takes its deterministic algorithms."""
+    from endosr_torch.depth.trainer import monodepth_loss
+
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic
+    cudnn.deterministic = True
+    gen = torch.Generator().manual_seed(noise_seed)
+    try:
+        named = {f"{n}.{k}": p for n, m in tr.models.items()
+                 for k, p in m.named_parameters()}
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(weights[k])
+        tr.set_train()
+        for p in named.values():
+            p.grad = None
+        total, losses, _ = monodepth_loss(
+            tr.models, tr.to_device(batch), tr.loss_opt(),
+            lambda shape: torch.randn(shape, generator=gen).to(tr.device))
+        total.backward()
+        return ({k: v.item() for k, v in losses.items()},
+                {k: p.grad.detach().cpu().clone() for k, p in named.items()})
+    finally:
+        cudnn.deterministic = was
+
+
+def depth11_parity(torch, root):
+    """Phase 11c: one fp32 step (loss and gradients) at feed 256×320,
+    batch 2, on the card against the port on the CPU: the same weights,
+    batch and noise. Losses within ``DEPTH11_LOSS_REL``; each gradient by
+    phase 6b's rule (its norm-relative distance within ``GRAD_NOISE`` ×
+    the largest change of either side's own gradient under four one-ulp
+    nudges (every image up, every image down, every weight up or down at
+    random, twice) + ``GRAD_FLOOR``; all gradients as one vector within
+    the larger of ``GRAD_NREL_ALL`` and ``GRAD_NOISE``× the nudges' change
+    of it). The card's step runs twice and both readings must pass.
+    Returns the readings."""
+    import random
+
+    from endosr_torch.data import collate
+    from endosr_torch.depth.options import MonodepthOptions
+    from endosr_torch.depth.trainer import Trainer
+
+    argv = _depth11_argv(root, "--batch_size", "2", "--num_workers", "0")
+    card = Trainer(MonodepthOptions().parse(argv), seed=13)
+    cpu = Trainer(MonodepthOptions().parse(argv + ["--no_cuda"]), seed=13)
+    if cpu.device.type != "cpu":
+        raise AssertionError("[depth11 parity] the reference is not on the CPU")
+    weights = {f"{n}.{k}": p.detach().cpu().clone()
+               for n, m in cpu.models.items() for k, p in m.named_parameters()}
+    for n, m in card.models.items():
+        for k, p in m.named_parameters():
+            if not torch.equal(p.detach().cpu(), weights[f"{n}.{k}"]):
+                raise AssertionError(f"[depth11 parity] {n}.{k} starts apart")
+    from endosr_torch.depth.train import build_dataset
+
+    ds = build_dataset(card.opt)
+    ds.rng = random.Random(3)
+    batch = collate([ds[i] for i in (4, 31)])
+
+    def images(to):
+        return {k: (torch.nextafter(v, torch.full_like(v, to))
+                    if isinstance(k, tuple) and k[0].startswith("color")
+                    else v) for k, v in batch.items()}
+
+    cases = {"images + 1 ulp": (weights, images(2.0)),
+             "images - 1 ulp": (weights, images(-1.0)),
+             "weights ± 1 ulp (a)": (_nudge_weights(torch, weights, 7, "cpu"),
+                                     batch),
+             "weights ± 1 ulp (b)": (_nudge_weights(torch, weights, 8, "cpu"),
+                                     batch)}
+    t = time.perf_counter()
+    ref_logs, ref = _depth11_grads(torch, cpu, weights, batch)
+    nudged = {"cpu " + k: _depth11_grads(torch, cpu, w, b)[1]
+              for k, (w, b) in cases.items()}
+    cpu_s = time.perf_counter() - t
+    runs = [_depth11_grads(torch, card, weights, batch) for _ in range(2)]
+    base = runs[0][1]
+    nudged.update({"card " + k: _depth11_grads(torch, card, w, b)[1]
+                   for k, (w, b) in cases.items()})
+
+    def nrel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    readings = []
+    for r, (logs, grads) in enumerate(runs, start=1):
+        fails, rows = [], []
+        worst_log = max(abs(logs[k] - v) / max(abs(v), 1e-12)
+                        for k, v in ref_logs.items())
+        if sorted(logs) != sorted(ref_logs) or not worst_log <= DEPTH11_LOSS_REL:
+            fails.append(f"losses {worst_log:.3g} relative")
+        num = den = 0.0
+        num_n = dict.fromkeys(nudged, 0.0)
+        for k, g in ref.items():
+            d = grads[k] - g
+            num += float(d.square().sum())
+            den += float(g.square().sum())
+            noise = 0.0
+            for lab, n in nudged.items():
+                mine = ref if lab.startswith("cpu") else base
+                num_n[lab] += float((n[k] - mine[k]).square().sum())
+                noise = max(noise, nrel(n[k], mine[k]))
+            err = nrel(grads[k], g)
+            tol = GRAD_NOISE * noise + GRAD_FLOOR
+            rows.append((err / tol, err, noise, k))
+            if not err <= tol:
+                fails.append(f"{k}: {err:.3g} > {tol:.3g}")
+        rows.sort(reverse=True)
+        nrel_all = (num / den) ** 0.5
+        noise_all = max(v / den for v in num_n.values()) ** 0.5
+        tol_all = max(GRAD_NREL_ALL, GRAD_NOISE * noise_all)
+        if not nrel_all <= tol_all:
+            fails.append(f"all gradients {nrel_all:.3g} > {tol_all:.3g}")
+        reading = {"losses_rel": worst_log, "grad_nrel": nrel_all,
+                   "grad_nrel_tol": tol_all, "grad_noise_all": noise_all,
+                   "worst_of_tol": rows[0][0], "worst": rows[0][3],
+                   "grad_nrel_worst": max(x[1] for x in rows)}
+        log(f"[depth11 parity] card run {r} vs CPU, fp32, feed 256×320, "
+            f"batch 2: losses ≤ {worst_log:.3g} relative (tol "
+            f"{DEPTH11_LOSS_REL:g}); all gradients norm-relative "
+            f"{nrel_all:.3g} (tol {tol_all:.3g}); per tensor nearest the "
+            f"bound: " + ", ".join(f"{k} {e:.3g} (one-ulp {n:.3g}, "
+                                    f"{q:.2f} of tol)"
+                                    for q, e, n, k in rows[:5])
+            + f" ({len(rows)} tensors)")
+        if fails:
+            raise AssertionError(f"[depth11 parity] card run {r}: "
+                                 + "; ".join(fails[:12]))
+        readings.append(reading)
+    moved = max(float((runs[1][1][k] - base[k]).abs().max()) /
+                max(float(base[k].abs().max()), 1e-30) for k in base)
+    log(f"[depth11 parity] the card's two runs: gradients ≤ {moved:.3g} of "
+        f"max |g| apart (grid_sample's backward adds atomically); "
+        f"{cpu_s:.1f} s on the CPU; {gpu_line()}")
+    return {"runs": readings, "card_runs_apart": moved, "cpu_s": cpu_s}
+
+
+def depth11_reload(torch, root, tr):
+    """Phase 11d: the folder 11a's ``save_model`` wrote read by a fresh
+    trainer's ``load_model`` (every tensor, the optimizer state and the
+    step bit-equal), then by ``depth/infer.py::run_folder`` on the card
+    (8 frames → ``_disp.npy`` [1, 1, 256, 320], finite), then
+    ``evaluate_depth`` of that folder's predictor over the stereo layout's
+    frames with their GT depth PNGs (7 finite metrics). Returns the
+    readings."""
+    import numpy as np
+
+    from endosr_torch.depth.datasets import EndovisDataset
+    from endosr_torch.depth.evaluate import evaluate_depth
+    from endosr_torch.depth.infer import DepthPredictor, run_folder
+    from endosr_torch.depth.options import MonodepthOptions
+    from endosr_torch.depth.trainer import Trainer
+
+    folder = Path(tr.log_path) / "models/weights_0"
+    fresh = Trainer(MonodepthOptions().parse(_depth11_argv(
+        root, "--load_weights_folder", str(folder))), seed=99)
+    if fresh.step != tr.step:
+        raise AssertionError(f"[depth11 reload] step {fresh.step}")
+    for name, m in tr.models.items():
+        got = fresh.models[name].state_dict()
+        for k, v in m.state_dict().items():
+            if not torch.equal(got[k], v):
+                raise AssertionError(f"[depth11 reload] {name}.{k} differs")
+    for p, q in zip(tr.parameters, fresh.parameters):
+        for k, v in tr.optimizer.state[p].items():
+            if not torch.equal(fresh.optimizer.state[q][k], v):
+                raise AssertionError(f"[depth11 reload] Adam {k} differs")
+    frames = root / "eval_frames"
+    frames.mkdir()
+    for i in range(8):
+        (frames / f"f{i}.jpg").write_bytes(
+            (root / f"frames/{i * 7:010d}.jpg").read_bytes())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    written = run_folder(str(frames), str(folder), str(root / "disp"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    for p in written:
+        a = np.load(p)
+        if a.shape != (1, 1, *DEPTH11_FEED) or not np.isfinite(a).all():
+            raise AssertionError(f"[depth11 reload] {p}: {a.shape}")
+    if len(written) != 8:
+        raise AssertionError(f"[depth11 reload] {len(written)} maps")
+    ds = EndovisDataset(str(root / "endovis"),
+                        [f"seq {i}" for i in range(1, 9)], *DEPTH11_FEED,
+                        [0], num_scales=1)
+    metrics = evaluate_depth(DepthPredictor(str(folder)).predict_disp, ds)
+    keys = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+    if not all(math.isfinite(metrics[k]) for k in keys):
+        raise AssertionError(f"[depth11 reload] metrics {metrics}")
+    log(f"[depth11 reload] save_model → load_model bit-equal (networks, "
+        f"Adam, step {fresh.step}); run_folder on the card read the trained "
+        f"folder: 8 maps [1,1,256,320] in {run_s:.2f} s; evaluate_depth "
+        f"over 8 frames with GT: " + ", ".join(
+            f"{k} {metrics[k]:.4g}" for k in (*keys, "med_ratio")))
+    return {"run_folder_s": run_s, "metrics": metrics}
+
+
+def phase11(torch, counters):
+    """Phase 11: the self-supervised depth trainer on the card (11a–11d)
+    with every SR kernel's count set to 0 at its start and read at its
+    end (11e: all must read 0). Writes its data under ``DEPTH11_ROOT``.
+    Returns ({"depth train": launches}, readings)."""
+    import gc
+    import shutil
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / DEPTH11_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    write_depth11(root)
+    numbers = {"setup_s": time.perf_counter() - t0}
+    zero_counts(counters)
+    for key, fn in (("train", depth11_train), ("variants", depth11_variants),
+                    ("parity", depth11_parity)):
+        t = time.perf_counter()
+        got = fn(torch, root)
+        if key == "train":
+            trained, got = got
+        numbers[key] = got
+        numbers[key + "_s"] = time.perf_counter() - t
+        log(f"[phase 11] {key}: {numbers[key + '_s']:.1f} s")
+    t = time.perf_counter()
+    numbers["reload"] = depth11_reload(torch, root, trained)
+    numbers["reload_s"] = time.perf_counter() - t
+    trained.close()
+    launches = {c.__name__: c.launches for c in counters}
+    if any(launches.values()):
+        raise AssertionError(f"[phase 11] SR kernels launched: {launches}")
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 11] no SR kernel launched ({len(launches)} counters at 0); "
+        f"took {numbers['seconds']:.1f} s")
+    return {"depth train": launches}, numbers
+
+
 def main() -> int:
     import torch
 
@@ -4393,6 +4878,9 @@ def main() -> int:
             have = rows[kname]["max_abs_err"]
             have[dts] = max(have[dts], err)
     log(f"[phase 10] summary: {json.dumps(numbers)}")
+    p11, numbers = phase11(torch, counters)
+    by_path.update(p11)
+    log(f"[phase 11] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

@@ -1,4 +1,4 @@
-"""monodepth2's inference networks (counterpart of ``endosr/nn/monodepth.py``).
+"""monodepth2's networks (counterpart of ``endosr/nn/monodepth.py``).
 
 * :class:`ResnetEncoder` — a torchvision-layout ResNet-18/34/50 under
   ``encoder.`` with the (x − 0.45)/0.225 input normalization and five
@@ -7,6 +7,13 @@
 * :class:`DepthDecoder` — the skip-connected upconv decoder: reflect-padded
   3×3 convs, ELU, nearest ×2 upsampling and a sigmoid disparity head at
   scales 0–3, in fp32 (``endosr/nn/monodepth.py:142-171``).
+* :class:`PoseDecoder` — the pose head over a ResNet encoder's last
+  feature map: a 1×1 squeeze, two 3×3 convs, a 1×1 conv to 6 values a
+  frame, the spatial mean scaled by 0.01 (``endosr/nn/monodepth.py:
+  177-198``). The pose encoder is a :class:`ResnetEncoder` with
+  ``num_input_images=2``.
+* :class:`PoseCNN` — seven strided convs and a 1×1 ``pose_conv`` on the
+  stacked frames (``endosr/nn/monodepth.py:201-215``).
 
 The submodules carry monodepth2's own names, so its ``encoder.pth`` (less
 ``height``, ``width``, ``use_stereo`` and torchvision's classifier
@@ -16,13 +23,16 @@ through ``load_state_dict`` as they are
 ``encoder.layerL.B.conv1.weight``, ``encoder.layerL.B.downsample.1.
 running_var``, ``decoder.N.conv.conv.weight`` for the upconvs and
 ``decoder.N.conv.weight`` for the heads, N counting the upconvs from scale
-4 down, then the heads from scale 0.
+4 down, then the heads from scale 0. So do ``pose.pth``'s: ``net.0..3``
+for the pose decoder (squeeze, pose 0–2), ``net.0..6`` and ``pose_conv``
+for the PoseCNN.
 
 NCHW inside, plain ``torch.nn`` (cuDNN convolutions on the card: the JAX
 package computes these networks outside any Pallas kernel). BatchNorm runs
-from its running statistics (ε 1e-5) whenever the module is in ``eval()``,
-the mode every user of the port's networks keeps them in; the pose
-networks wait for the depth trainer.
+from its running statistics (ε 1e-5) in ``eval()``; in ``train()`` it
+normalises by the batch's statistics, and the depth trainer keeps its
+running statistics as they are, as JAX's does (``ROADMAP.md`` C8:
+:func:`freeze_running_stats`).
 """
 
 from __future__ import annotations
@@ -33,8 +43,8 @@ import torch.nn.functional as F
 
 from endosr_torch.ops.resize import interpolate_nearest
 
-__all__ = ["ResnetEncoder", "DepthDecoder", "BasicBlock", "Bottleneck",
-           "NUM_CH_DEC"]
+__all__ = ["ResnetEncoder", "DepthDecoder", "PoseDecoder", "PoseCNN",
+           "BasicBlock", "Bottleneck", "NUM_CH_DEC", "freeze_running_stats"]
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -206,3 +216,69 @@ class DepthDecoder(nn.Module):
                 head = self.decoder[10 + self.scales.index(i)]
                 outputs[("disp", i)] = torch.sigmoid(head(x).float())
         return outputs
+
+
+class PoseDecoder(nn.Module):
+    """Pose encoders' features → (axis-angle, translation), each [B,
+    ``num_frames_to_predict_for``, 1, 3] fp32. ``input_features`` is a
+    list of ``num_input_features`` feature lists; each list's last map is
+    used."""
+
+    def __init__(self, num_ch_enc=(64, 64, 128, 256, 512),
+                 num_input_features: int = 1,
+                 num_frames_to_predict_for: int | None = None,
+                 stride: int = 1):
+        super().__init__()
+        self.num_frames = (num_frames_to_predict_for
+                           or num_input_features - 1)
+        self.net = nn.ModuleList([
+            nn.Conv2d(num_ch_enc[-1], 256, 1),
+            nn.Conv2d(num_input_features * 256, 256, 3, stride, 1),
+            nn.Conv2d(256, 256, 3, stride, 1),
+            nn.Conv2d(256, 6 * self.num_frames, 1)])
+
+    def forward(self, input_features):
+        squeeze, pose0, pose1, pose2 = self.net
+        out = torch.cat([F.relu(squeeze(f[-1])) for f in input_features], 1)
+        out = F.relu(pose1(F.relu(pose0(out))))
+        out = pose2(out).mean(dim=(2, 3))
+        out = 0.01 * out.reshape(-1, self.num_frames, 1, 6).float()
+        return out[..., :3], out[..., 3:]
+
+
+_POSECNN_SPECS = ((16, 7, 2, 3), (32, 5, 2, 2), (64, 3, 2, 1), (128, 3, 2, 1),
+                  (256, 3, 2, 1), (256, 3, 2, 1), (256, 3, 2, 1))
+
+
+class PoseCNN(nn.Module):
+    """``num_input_frames`` RGB frames stacked on the channel axis (NCHW)
+    → (axis-angle, translation), each [B, frames − 1, 1, 3] fp32."""
+
+    def __init__(self, num_input_frames: int = 2):
+        super().__init__()
+        self.num_frames = num_input_frames - 1
+        convs, cin = [], 3 * num_input_frames
+        for cout, k, s, p in _POSECNN_SPECS:
+            convs.append(nn.Conv2d(cin, cout, k, s, p))
+            cin = cout
+        self.net = nn.ModuleList(convs)
+        self.pose_conv = nn.Conv2d(cin, 6 * self.num_frames, 1)
+
+    def forward(self, x):
+        for conv in self.net:
+            x = F.relu(conv(x))
+        x = self.pose_conv(x).mean(dim=(2, 3))
+        x = 0.01 * x.reshape(-1, self.num_frames, 1, 6).float()
+        return x[..., :3], x[..., 3:]
+
+
+def freeze_running_stats(module: nn.Module) -> nn.Module:
+    """Set every BatchNorm's momentum under ``module`` to 0: in
+    ``train()`` it still normalises by the batch's statistics, and its
+    running mean and variance stay bit for bit as they are (JAX's depth
+    trainer never writes back the statistics it computes, ``ROADMAP.md``
+    C8). Returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, nn.BatchNorm2d):
+            m.momentum = 0.0
+    return module

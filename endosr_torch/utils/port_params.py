@@ -24,8 +24,9 @@ import torch
 
 __all__ = ["from_flax", "from_flax_train", "flax_path_to_torch_key",
            "load_params", "seeded_init", "load_monodepth",
-           "from_flax_monodepth", "from_flax_vgg", "write_seeded_monodepth",
-           "write_seeded_vgg"]
+           "load_monodepth_file", "from_flax_monodepth", "from_flax_pose",
+           "from_flax_depth_trainer", "from_flax_vgg",
+           "write_seeded_monodepth", "write_seeded_vgg"]
 
 _SEQ_IDX = re.compile(r"^(.*)_(\d+)$")
 _TRANSPOSE_CONV_SEGMENTS = {"layer4", "mlp_depthMatrix"}
@@ -139,17 +140,25 @@ def load_monodepth(model_path: str, num_layers: int = 18, device=None):
 
     from endosr_torch.nn.monodepth import DepthDecoder, ResnetEncoder
 
-    enc_raw = torch.load(os.path.join(model_path, "encoder.pth"),
-                         map_location="cpu", weights_only=True)
-    dec_sd = torch.load(os.path.join(model_path, "depth.pth"),
-                        map_location="cpu", weights_only=True)
     encoder = ResnetEncoder(num_layers)
-    encoder.load_state_dict({k: v for k, v in enc_raw.items()
-                             if k not in _ENCODER_EXTRA})
+    extra = load_monodepth_file(encoder,
+                                os.path.join(model_path, "encoder.pth"))
     decoder = DepthDecoder(num_ch_enc=encoder.num_ch_enc)
-    decoder.load_state_dict(dec_sd)
+    load_monodepth_file(decoder, os.path.join(model_path, "depth.pth"))
     return (encoder.to(device).eval(), decoder.to(device).eval(),
-            int(enc_raw["height"]), int(enc_raw["width"]))
+            int(extra["height"]), int(extra["width"]))
+
+
+def load_monodepth_file(module, path: str) -> dict:
+    """Load one of monodepth2's ``.pth`` files (``encoder.pth``,
+    ``depth.pth``, ``pose_encoder.pth``, ``pose.pth``) into ``module``
+    through ``load_state_dict`` (strict) and return what the file holds
+    besides: the keys of :data:`_ENCODER_EXTRA` it has (an encoder's feed
+    size and stereo flag, torchvision's classifier)."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    module.load_state_dict({k: v for k, v in raw.items()
+                            if k not in _ENCODER_EXTRA})
+    return {k: raw[k] for k in _ENCODER_EXTRA if k in raw}
 
 
 def _decoder_names():
@@ -158,15 +167,16 @@ def _decoder_names():
     return names + [f"dispconv_{s}" for s in range(4)]
 
 
-def _monodepth_key(path: tuple[str, ...]) -> str:
+def _monodepth_key(path: tuple[str, ...], names) -> str:
     """A JAX ResnetEncoder / DepthDecoder variable path → the port's
     ``state_dict`` key (the inverse of ``port_resnet_encoder`` /
-    ``port_depth_decoder``'s key functions)."""
+    ``port_depth_decoder``'s key functions); ``names``: the decoder's conv
+    names in ``decoder.N`` order."""
     *mods, leaf = path
     leaf = {"kernel": "weight", "scale": "weight", "bias": "bias",
             "mean": "running_mean", "var": "running_var"}[leaf]
     if mods[0].startswith(("upconv", "dispconv")):
-        idx = _decoder_names().index(mods[0])
+        idx = names.index(mods[0])
         inner = "conv.conv" if mods[0].startswith("upconv") else "conv"
         return f"decoder.{idx}.{inner}.{leaf}"
     segs = []
@@ -179,19 +189,61 @@ def from_flax_monodepth(variables: Mapping) -> dict[str, torch.Tensor]:
     """A JAX ``ResnetEncoder`` or ``DepthDecoder``'s variables
     (``{"params": ..., "batch_stats": ...}`` of numpy arrays) → the port
     module's ``state_dict`` (OIHW convs; each BatchNorm's
-    ``num_batches_tracked`` 0)."""
+    ``num_batches_tracked`` 0). A decoder's disparity heads are numbered
+    after the upconvs in ascending scale, as a port ``DepthDecoder`` built
+    with those scales in ascending order numbers them."""
+    heads = sorted(k for k in variables.get("params", {})
+                   if k.startswith("dispconv_"))
+    names = _decoder_names()[:10] + heads
     sd = {}
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(coll, {})):
             a = np.asarray(leaf, np.float32)
             if a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
-            key = _monodepth_key(path)
+            key = _monodepth_key(path, names)
             sd[key] = torch.from_numpy(np.array(a))
             if key.endswith("running_mean"):
                 sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                     torch.tensor(0)
     return sd
+
+
+_POSE_DECODER_INDEX = {"squeeze": 0, "pose_0": 1, "pose_1": 2, "pose_2": 3}
+
+
+def from_flax_pose(variables: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX ``PoseDecoder`` or ``PoseCNN``'s variables (``{"params":
+    ...}`` of numpy arrays) → the port module's ``state_dict``, under
+    monodepth2's ``pose.pth`` names: ``squeeze``, ``pose_0..2`` →
+    ``net.0..3``; ``net_i`` → ``net.i``; ``pose_conv`` as it is (the
+    inverse of ``port_pose_decoder``'s key function)."""
+    sd = {}
+    for (mod, leaf), a in _flatten(variables["params"]):
+        a = np.asarray(a, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        if mod in _POSE_DECODER_INDEX:
+            mod = f"net.{_POSE_DECODER_INDEX[mod]}"
+        elif mod.startswith("net_"):
+            mod = "net." + mod[len("net_"):]
+        sd[f"{mod}.{_LEAF_MAP[leaf]}"] = torch.from_numpy(np.array(a))
+    return sd
+
+
+def from_flax_depth_trainer(variables: Mapping) -> dict[str, dict]:
+    """A JAX depth ``Trainer.variables`` (``endosr/depth/trainer.py``:
+    ``encoder``, ``depth`` and, with pose networks, ``pose_encoder`` and
+    ``pose``; numpy leaves) → {name: the port trainer's module
+    ``state_dict``} under the same names, each BatchNorm's statistics
+    carried across."""
+    out = {}
+    for name, v in variables.items():
+        if name == "pose":
+            out[name] = from_flax_pose(v)
+        else:
+            out[name] = from_flax_monodepth(v)
+    return out
 
 
 def from_flax_vgg(params: Mapping) -> dict[str, torch.Tensor]:
@@ -221,24 +273,12 @@ def _seeded_bn_(bn, gen):
             t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
 
-def write_seeded_monodepth(model_path: str, seed: int = 0,
-                           num_layers: int = 18, height: int = 192,
-                           width: int = 640) -> str:
-    """Write seeded ``encoder.pth`` and ``depth.pth`` under ``model_path``
-    in monodepth2's layouts: the torchvision ResNet keys under
-    ``encoder.`` with its classifier ``encoder.fc``, plus ``height``,
-    ``width`` and ``use_stereo``; ``decoder.N.conv(.conv).{weight,bias}``.
-    Convs take torch's default init from a generator seeded with
-    ``seed``, the BatchNorms :func:`_seeded_bn_`. Returns ``model_path``."""
-    import os
-
+def _seeded_(modules, gen):
+    """Convs: torch's default init from ``gen``; BatchNorms:
+    :func:`_seeded_bn_`."""
     from endosr_torch.nn.layers import torch_conv_init_
-    from endosr_torch.nn.monodepth import DepthDecoder, ResnetEncoder
 
-    gen = torch.Generator().manual_seed(int(seed))
-    encoder = ResnetEncoder(num_layers)
-    decoder = DepthDecoder(num_ch_enc=encoder.num_ch_enc)
-    for m in (*encoder.modules(), *decoder.modules()):
+    for m in modules:
         if isinstance(m, torch.nn.Conv2d):
             fan_in = m.weight[0].numel()
             torch_conv_init_(m.weight, fan_in, gen)
@@ -246,18 +286,57 @@ def write_seeded_monodepth(model_path: str, seed: int = 0,
                 torch_conv_init_(m.bias, fan_in, gen)
         elif isinstance(m, torch.nn.BatchNorm2d):
             _seeded_bn_(m, gen)
-    enc = dict(encoder.state_dict())
-    cin = enc["encoder.layer4.0.conv1.weight"].shape[0] * (
+
+
+def _with_classifier(encoder, num_layers, gen) -> dict:
+    """``encoder``'s ``state_dict`` with torchvision's classifier
+    ``encoder.fc`` (seeded from ``gen``), as monodepth2's files hold it."""
+    from endosr_torch.nn.layers import torch_conv_init_
+
+    sd = dict(encoder.state_dict())
+    cin = sd["encoder.layer4.0.conv1.weight"].shape[0] * (
         4 if num_layers > 34 else 1)
     fc_w, fc_b = torch.empty(1000, cin), torch.empty(1000)
     torch_conv_init_(fc_w, cin, gen)
     torch_conv_init_(fc_b, cin, gen)
-    enc.update({"encoder.fc.weight": fc_w, "encoder.fc.bias": fc_b,
-                "height": int(height), "width": int(width),
+    sd.update({"encoder.fc.weight": fc_w, "encoder.fc.bias": fc_b})
+    return sd
+
+
+def write_seeded_monodepth(model_path: str, seed: int = 0,
+                           num_layers: int = 18, height: int = 192,
+                           width: int = 640, pose: bool = False) -> str:
+    """Write seeded ``encoder.pth`` and ``depth.pth`` under ``model_path``
+    in monodepth2's layouts: the torchvision ResNet keys under
+    ``encoder.`` with its classifier ``encoder.fc``, plus ``height``,
+    ``width`` and ``use_stereo``; ``decoder.N.conv(.conv).{weight,bias}``.
+    With ``pose``, also ``pose_encoder.pth`` (a two-image ResNet, with its
+    classifier) and ``pose.pth`` (the pose decoder, ``net.0..3``). Convs
+    take torch's default init from a generator seeded with ``seed``, the
+    BatchNorms :func:`_seeded_bn_`. Returns ``model_path``."""
+    import os
+
+    from endosr_torch.nn.monodepth import (DepthDecoder, PoseDecoder,
+                                           ResnetEncoder)
+
+    gen = torch.Generator().manual_seed(int(seed))
+    encoder = ResnetEncoder(num_layers)
+    decoder = DepthDecoder(num_ch_enc=encoder.num_ch_enc)
+    _seeded_((*encoder.modules(), *decoder.modules()), gen)
+    enc = _with_classifier(encoder, num_layers, gen)
+    enc.update({"height": int(height), "width": int(width),
                 "use_stereo": False})
     os.makedirs(model_path, exist_ok=True)
     torch.save(enc, os.path.join(model_path, "encoder.pth"))
     torch.save(decoder.state_dict(), os.path.join(model_path, "depth.pth"))
+    if pose:
+        pose_enc = ResnetEncoder(num_layers, num_input_images=2)
+        pose_dec = PoseDecoder(pose_enc.num_ch_enc, num_input_features=1,
+                               num_frames_to_predict_for=2)
+        _seeded_((*pose_enc.modules(), *pose_dec.modules()), gen)
+        torch.save(_with_classifier(pose_enc, num_layers, gen),
+                   os.path.join(model_path, "pose_encoder.pth"))
+        torch.save(pose_dec.state_dict(), os.path.join(model_path, "pose.pth"))
     return model_path
 
 
