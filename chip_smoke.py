@@ -326,6 +326,42 @@ exits non-zero):
    layout's frames gives 7 finite metrics. (e) No SR kernel launches in
    the phase: every count 0, as ``launches_by_path["depth train"]``.
 
+12. the other models — fp32 (TF32 off), seeded weights, synthetic data
+   written with ``cv2`` under ``build/models12/`` (deleted after). (a)
+   ``sr`` MSRResNet ×4 (nf 64, nb 16) in BasicSR's recipe
+   (``models/recipes.py::msrresnet_x4_yaml``: batch 16, GT 128², L1,
+   Adam 2e-4, β2 0.99) through ``python -m endosr_torch.train``
+   (``main``), 3 steps (each key changed logged as ``reduced``); ``python
+   -m endosr_torch.test`` on 2 images of GT 512²; ``SRModel.test_x8`` on
+   a batch of 8, LQ 128². (b) RRDBNet (nf 64, nb 23, gc 32): a batch-8
+   request at LQ 128² (its TFLOP from the shapes) and 3 steps at batch
+   16, LQ 32². (c) IKC: ``predictor`` (``LQker`` data), ``sftmd`` with
+   ``SFTMD_kernel`` (nf 64, nb 16, code 10; the batch's ``ker_map``) and
+   ``corrector`` (``SRker`` data), 3 steps each at batch 16, LQ 64², from
+   seeded codes; one chained request Predictor → SFTMD → Corrector at
+   batch 8, LQ 128². (d) ``sftmd`` (the kernel-free SFTMD, ×4) and
+   ``sftmd_depth`` (``SFTMD_upsacle_after_ResBlk_depth``, learned depth
+   maps, 3 SPADE blocks, ×8), 3 steps each at batch 8, LQ 64²; batch-8
+   forwards of ``SFTMD_upsacle_after_ResBlk`` and its ``_depth_condition``
+   variant at LQ 128² → 1024². Each step and request with the counts set
+   to 0 just before and read just after: no kernel launch (these networks
+   have none, in JAX as here), losses finite, outputs finite and of their
+   shape; ms a step (median of steps 2–3) and a request, peak memory.
+   (e) ``sftmd_depthSegNet`` (``models/recipes.py::depthseg_yaml``: the
+   EndoScene ×2 YAML's DepthNet + FCN8s) through ``main`` on 16 frames of
+   384×288 (CVC-ClinicDB's size: whole 574×500 frames fail in the FCN,
+   C11), batch 8, 3 steps, at the first seed whose batches stack under
+   the rotations (C7): ``style_blend_dot`` 2 (``cuda_core``) and
+   ``output_stage`` 1 (``vec16``) a step, the FCN's BatchNorm statistics
+   finite, ``{iter}_segNet.pth`` written; one fp32 batch-2 step against
+   ``preset: plain`` by phase 6b's rule; every kernel call of the phase
+   again alone against its plain version, forward and gradient, as 9f.
+   (f) For each model of (a)–(d) at batch 2, step 1 on the card and on
+   the CPU from the same seeded weights and batch: losses ≤ 1e-5
+   relative, ``test``'s outputs ≤ 2e-4 of max |ref|, the updated
+   parameters apart by no more than 4× the largest change either side's
+   step makes under phase 6b's four one-ulp nudges.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
 ``val entry`` and ``eval entry``, phase 8's ``x2 <precision>`` and
@@ -335,7 +371,8 @@ train``, ``x3 endoscene train``, ``x4 endoscene train``, ``x2 remat``,
 ``ablate_depth_matrix``, ``ablate_depth_block`` and ``baseline``,
 phase 10's ``x8 pipeline bf16``, ``x8 pipeline fp32``, ``x8 train
 losses``, ``x8 train losses step 0`` and ``x8 losses grads``, and phase
-11's ``depth train`` (0 for every kernel),
+11's ``depth train`` (0 for every kernel), and phase 12's ``12e
+depthseg train`` and one label for each run of 12a–12d (0 for every kernel),
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -1485,10 +1522,19 @@ def _before_instance_norm(name):
         (".conv1.0.bias", ".conv2.0.bias"))
 
 
+def _step_params(model):
+    """(name, parameter) of everything a training step updates: the
+    generator and the dynamic loss's weights, and the co-training model's
+    FCN (``segNet.<name>``)."""
+    yield from model.named_train_parameters()
+    if getattr(model, "segNet", None) is not None:
+        yield from model.named_seg_parameters()
+
+
 def _grads(model):
     """The model's gradients, copied to the host (so that keeping them does
     not count in the step's peak device memory)."""
-    return {k: p.grad.cpu() for k, p in model.named_train_parameters()}
+    return {k: p.grad.cpu() for k, p in _step_params(model)}
 
 
 def _nrel(got, want):
@@ -1651,7 +1697,7 @@ def parity_batch(torch, scale, lr_hw, b=2, seed=4):
 
 
 def parity_runs(torch, opt_of=None, batch=None, variants=None, plain=None,
-                counters=None):
+                counters=None, model=None):
     """Phase 6b's steps: one fp32 step of each of ``variants`` ({label:
     ``network_G`` keys}; default: the default configuration as
     "kernels") and of ``preset: plain`` on the same weights and batch, then
@@ -1662,7 +1708,8 @@ def parity_runs(torch, opt_of=None, batch=None, variants=None, plain=None,
     ``preset: plain``). Each: logs, gradients, start and updated
     parameters, which output pixels were clamped, the step's peak device
     memory (GiB) and, with ``counters``, the launches and routes of the
-    step (the counts set to 0 just before it and read just after)."""
+    step (the counts set to 0 just before it and read just after).
+    ``model``: the training model's class (default ``FModelDepthCond``)."""
     from endosr_torch.models.recipes import x8_train_opt
 
     if opt_of is None:
@@ -1684,13 +1731,16 @@ def parity_runs(torch, opt_of=None, batch=None, variants=None, plain=None,
             ("weights ± 1 ulp (b)", plain, batch, 8)):
         runs[label] = parity_step(
             torch, opt_of(**net), start if seed is None
-            else _nudge_weights(torch, start, seed), feed, counters)
+            else _nudge_weights(torch, start, seed), feed, counters,
+            model=model)
         start = start or runs[label]["start"]
     return runs
 
 
-def parity_step(torch, opt, start, feed, counters=None, deterministic=True):
-    """One step of ``FModelDepthCond(opt)`` from the parameters ``start``
+def parity_step(torch, opt, start, feed, counters=None, deterministic=True,
+                model=None):
+    """One step of ``model(opt)`` (default ``FModelDepthCond``) from the
+    parameters ``start``
     (None: its own seeded ones) on ``feed``, as ``parity_runs`` takes it.
     cuDNN takes its deterministic algorithms for the step unless
     ``deterministic`` is false: with its default ones two runs of the
@@ -1700,18 +1750,18 @@ def parity_step(torch, opt, start, feed, counters=None, deterministic=True):
     was = cudnn.deterministic
     cudnn.deterministic = deterministic
     try:
-        return _parity_step(torch, opt, start, feed, counters)
+        return _parity_step(torch, opt, start, feed, counters, model)
     finally:
         cudnn.deterministic = was
 
 
-def _parity_step(torch, opt, start, feed, counters):
+def _parity_step(torch, opt, start, feed, counters, model=None):
     from endosr_torch.models.f_depthcond import FModelDepthCond, u8_cast
 
-    m = FModelDepthCond(opt)
-    w0 = start or {k: p.detach().clone() for k, p in m.named_train_parameters()}
+    m = (model or FModelDepthCond)(opt)
+    w0 = start or {k: p.detach().clone() for k, p in _step_params(m)}
     with torch.no_grad():
-        for k, p in m.named_train_parameters():
+        for k, p in _step_params(m):
             p.copy_(w0[k])
         sr = m.netG(feed["LQ"], feed["Depth"], u8_cast(feed["DepthMaskList"]))
     m.feed_data(feed)
@@ -1725,7 +1775,7 @@ def _parity_step(torch, opt, start, feed, counters):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     run = dict(
         logs=logs, start=w0, clamped=(sr == 0) | (sr == 1), grads=_grads(m),
-        params={k: p.detach().clone() for k, p in m.named_train_parameters()},
+        params={k: p.detach().clone() for k, p in _step_params(m)},
         secs=secs, peak_gib=peak,
         launches={c.__name__: c.launches for c in counters or []},
         routes={c.__name__: dict(c.routes) for c in counters or []
@@ -2181,21 +2231,23 @@ class EntryTaps:
         return uninstall
 
     def check(self, label, calls, want, routes):
-        """Each of ``calls`` launched ``want`` (others 0), all on ``routes``."""
-        for n, rec in enumerate(calls):
-            for c in self.counters:
-                got = rec["launches"][c.__name__]
-                if got != want.get(c.__name__, 0):
-                    raise AssertionError(
-                        f"[{label}] call {n + 1}: {c.__name__} {got} "
-                        f"launches, want {want.get(c.__name__, 0)}")
-            for name, route in routes.items():
-                took = {**dict.fromkeys(rec["routes"][name], 0),
-                        route: rec["launches"][name]}
-                if rec["routes"][name] != took:
-                    raise AssertionError(f"[{label}] call {n + 1}: {name} "
-                                         f"routes {rec['routes'][name]}, "
-                                         f"want {took}")
+        check_launches(label, calls, want, routes)
+
+
+def check_launches(label, calls, want, routes):
+    """Each record of ``calls`` launched ``want`` (every other counter 0),
+    all on ``routes``."""
+    for n, rec in enumerate(calls):
+        for name, got in rec["launches"].items():
+            if got != want.get(name, 0):
+                raise AssertionError(f"[{label}] call {n + 1}: {name} {got} "
+                                     f"launches, want {want.get(name, 0)}")
+        for name, route in routes.items():
+            took = {**dict.fromkeys(rec["routes"][name], 0),
+                    route: rec["launches"][name]}
+            if rec["routes"][name] != took:
+                raise AssertionError(f"[{label}] call {n + 1}: {name} routes "
+                                     f"{rec['routes'][name]}, want {took}")
 
 
 def _loader_rate(yaml_path):
@@ -4794,6 +4846,839 @@ def phase11(torch, counters):
     return {"depth train": launches}, numbers
 
 
+MODELS12_ROOT = "build/models12"  # under the repository root, git-ignored
+DEV12 = "cuda"                  # phase 12's device (a CPU rehearsal: "cpu")
+P12_STEPS = 3
+P12_SR_N = (16, 2)              # 12a: training pairs (GT 128²), test (512²)
+P12_SR_GT = (128, 512)
+P12_REQ = (8, 128)              # a request: batch, LQ side
+P12_RRDB_STEP = (16, 32)        # 12b's step: batch, LQ side
+P12_IKC = (16, 64)              # 12c's steps: batch, LQ side
+P12_DEPTH = (8, 64)             # 12d's steps: batch, LQ side
+P12_SEG_N = 16                  # 12e: frames of CVC-ClinicDB's 384×288
+P12_SEG_GT = (288, 384)
+# 12e trains with the EndoScene ×2 YAML's rotations and 4 loader workers;
+# 384×288 frames rotated and upright do not stack (C7, as in JAX): the
+# seed is the first at which no batch of the run's 3 steps mixes them
+# (16 frames, batch 8: the draws of phase 9a's EndoScene ×2 run, whose
+# seed it is; found by replaying the workers' augmentation draws)
+P12_SEG_SEED = 234137
+P12_SEG_WANT = ({"style_blend_dot": 2, "output_stage": 1},
+                {"style_blend_dot": "cuda_core", "output_stage": "vec16"})
+P12_CPU = {"sr": 32, "rrdb": 16, "predictor": 32, "sftmd_kernel": 32,
+           "corrector": 32, "sftmd": 32, "sftmd_depth": 16}   # 12f LQ sides
+P12_LOSS_REL = 1e-5             # 12f: card vs CPU, the step's losses
+P12_OUT_REL = 2e-4              # 12f: outputs, of max |ref|
+
+
+class ModelTaps:
+    """While installed, wraps ``optimize_parameters`` and ``test`` of the
+    given model classes: every call runs with the launch counts set to 0
+    just before it and read just after it (synchronised, host clock),
+    recorded under ``self.label``."""
+
+    def __init__(self, torch, counters, classes):
+        self.torch, self.counters, self.classes = torch, counters, classes
+        self.label, self.calls = None, {}
+
+    def _sync(self):
+        if DEV12 == "cuda":
+            self.torch.cuda.synchronize()
+
+    def install(self):
+        saved = []
+        for cls in self.classes:
+            for name in ("optimize_parameters", "test"):
+                orig = cls.__dict__.get(name)
+                if orig is None:
+                    continue
+                saved.append((cls, name, orig))
+
+                def wrapped(model, *a, _orig=orig, _name=name, **k):
+                    self._sync()
+                    zero_counts(self.counters)
+                    t = time.perf_counter()
+                    out = _orig(model, *a, **k)
+                    self._sync()
+                    self.calls.setdefault(self.label, []).append({
+                        "what": _name, "secs": time.perf_counter() - t,
+                        "logs": dict(model.log_dict)
+                        if _name == "optimize_parameters" else None,
+                        "launches": {c.__name__: c.launches
+                                     for c in self.counters},
+                        "routes": {c.__name__: dict(c.routes)
+                                   for c in self.counters
+                                   if hasattr(c, "routes")}})
+                    return out
+
+                setattr(cls, name, wrapped)
+
+        def uninstall():
+            for cls, name, orig in saved:
+                setattr(cls, name, orig)
+
+        return uninstall
+
+    def steps(self, label):
+        return [r for r in self.calls.get(label, [])
+                if r["what"] == "optimize_parameters"]
+
+
+def _peak_reset(torch):
+    import gc
+
+    gc.collect()
+    if DEV12 == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(torch):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if DEV12 == "cuda"
+            else float("nan"))
+
+
+def _timed(torch, fn, n=3):
+    """(the result of the first of ``n`` + 1 calls of ``fn``, the median
+    ms of the last ``n``; host clock, synchronised)."""
+    out = fn()
+    ms = []
+    for _ in range(n):
+        if DEV12 == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        if DEV12 == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return out, sorted(ms)[len(ms) // 2]
+
+
+def _no_launches(label, records):
+    """Every record launched no kernel (the generators besides DepthNet
+    have none, as in JAX)."""
+    for r in records:
+        if any(r["launches"].values()):
+            raise AssertionError(f"[{label}] kernel launches "
+                                 f"{r['launches']}, want none")
+
+
+def _finite_step_logs(label, records):
+    losses = [r["logs"] for r in records]
+    bad = [k for lg in losses for k, v in lg.items() if not math.isfinite(v)]
+    if bad or not losses:
+        raise AssertionError(f"[{label}] losses {losses}")
+    return losses
+
+
+def _step_ms(records):
+    """(ms of each step, the median of the steps after the first)."""
+    import statistics
+
+    ms = [r["secs"] * 1e3 for r in records]
+    return ms, statistics.median(ms[1:] or ms)
+
+
+def _write_pairs(root, n, gt, scale, seed):
+    """``n`` square pairs: GT ``gt``² and its MATLAB bicubic LR, as PNGs
+    under ``root/HR`` and ``root/LR``."""
+    import numpy as np
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for sub in ("HR", "LR"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        img = _smooth_u8(np, rng, gt, gt)
+        lr = _bicubic(np, img.astype(np.float32) / 255.0, 1 / scale)
+        cv2.imwrite(str(root / "HR" / f"p{i:02d}.png"), img)
+        cv2.imwrite(str(root / "LR" / f"p{i:02d}.png"),
+                    np.clip(lr * 255.0, 0, 255).round().astype(np.uint8))
+
+
+def _sr_opt(net, train=None, scale=4):
+    """Options of an ``sr``-type model on ``net`` (``network_G``), with
+    BasicSR's PSNR recipe's ``train:`` block (L1, Adam 2e-4, β 0.9 / 0.99)
+    when ``train`` is given (its keys over it)."""
+    opt = {"model": "sr", "scale": scale, "is_train": train is not None,
+           "network_G": net, "path": {}, "datasets": {}}
+    if train is not None:
+        opt["train"] = {"lr_G": 2e-4, "lr_scheme": "MultiStepLR",
+                        "lr_steps": [], "beta1": 0.9, "beta2": 0.99,
+                        "pixel_criterion": "l1", "pixel_weight": 1.0,
+                        "manual_seed": 0, **train}
+    return opt
+
+
+def _rand(torch, gen, *shape):
+    return torch.rand(shape, generator=gen, device=DEV12)
+
+
+def p12_sr(torch, counters, root, taps):
+    """12a: MSRResNet ×4 (nf 64, nb 16) in BasicSR's recipe through
+    ``python -m endosr_torch.train`` (``main``) on 16 pairs of GT 128², 3
+    steps; ``endosr_torch.test`` on 2 images of GT 512²; ``SRModel.test_x8``
+    on a batch of 8 LQ 128²."""
+    import yaml
+
+    import endosr_torch.test as entry_test
+    import endosr_torch.train as entry_train
+    from endosr_torch.models import create_model
+    from endosr_torch.models.recipes import msrresnet_x4_yaml
+
+    data = root / "sr_data"
+    _write_pairs(data / "train", P12_SR_N[0], P12_SR_GT[0], 4, 21)
+    _write_pairs(data / "test", P12_SR_N[1], P12_SR_GT[1], 4, 22)
+    y = msrresnet_x4_yaml(str(root / "sr_run"), str(data / "train/HR"),
+                          str(data / "train/LR"), str(data / "test/HR"),
+                          str(data / "test/LR"))
+    changes = {"train.niter": P12_STEPS, "train.val_freq": 1000,
+               "logger.print_freq": 1,
+               "logger.save_checkpoint_freq": P12_STEPS,
+               "datasets.train.dataset_enlarge_ratio": 1}
+    for key, value in changes.items():
+        *parents, leaf = key.split(".")
+        node = y
+        for part in parents:
+            node = node[part]
+        log(f"[12a] reduced: BasicSR train_MSRResNet_x4 {key}: "
+            f"{node[leaf]!r} → {value!r}")
+        node[leaf] = value
+    yml = root / "sr_x4.yml"
+    yml.write_text(yaml.safe_dump(y))
+    args = ["-opt_F", str(yml)] + ([] if DEV12 == "cuda" else
+                                   ["--device", "cpu"])
+    taps.label = "12a sr train"
+    _peak_reset(torch)
+    model = entry_train.main(args)
+    peak = _peak(torch)
+    steps = taps.steps(taps.label)
+    if len(steps) != P12_STEPS:
+        raise AssertionError(f"[12a] {len(steps)} steps")
+    losses = _finite_step_logs("12a", steps)
+    _no_launches("12a", steps)
+    ms, step_ms = _step_ms(steps)
+    weights = root / "sr_run/experiments/sr_x4/models/latest_G.pth"
+    t = {"name": "sr_x4_test", "model": "sr", "scale": 4,
+         "datasets": {"test_1": {"name": "test", "mode": "LQGTker",
+                                 "data_type": "img",
+                                 "dataroot_GT": str(data / "test/HR"),
+                                 "dataroot_LQ": str(data / "test/LR")}},
+         "network_G": y["network_G"],
+         "path": {"root": str(root / "sr_eval"), "strict_load": True,
+                  "pretrain_model_G": str(weights)}}
+    tyml = root / "sr_x4_test.yml"
+    tyml.write_text(yaml.safe_dump(t))
+    taps.label = "12a sr test"
+    entry_test.main(["-opt_F", str(tyml)] + args[2:])
+    served = taps.calls[taps.label]
+    _no_launches("12a test", served)
+    tsv = next((root / "sr_eval/results").iterdir()) / "result_x4.tsv"
+    rows = tsv.read_text().splitlines()
+    if len(rows) != P12_SR_N[1] + 2 or not rows[-1].startswith("Average"):
+        raise AssertionError(f"[12a] test.main wrote {rows}")
+    psnr = float(rows[-1].split("\t")[1])
+    # the 8-view self-ensemble on a batch
+    m = create_model(dict(_sr_opt(y["network_G"]), path={
+        "pretrain_model_G": str(weights), "strict_load": True}),
+        device=DEV12 if DEV12 == "cpu" else None)
+    gen = torch.Generator(device=DEV12).manual_seed(12)
+    b, side = P12_REQ
+    m.feed_data({"LQ": _rand(torch, gen, b, side, side, 3)})
+    _peak_reset(torch)
+    sr, x8_ms = _timed(torch, m.test_x8, 2)
+    x8_peak = _peak(torch)
+    if tuple(sr.shape) != (b, side * 4, side * 4, 3) or not bool(
+            torch.isfinite(sr).all()):
+        raise AssertionError(f"[12a] test_x8 {tuple(sr.shape)}")
+    req = [r["secs"] * 1e3 for r in served]
+    del model, m, sr
+    out = {"ms": ms, "ms_per_step": step_ms, "peak_gib": peak,
+           "losses": [lg["l_pix"] for lg in losses],
+           "test_ms": req, "test_psnr_db": psnr, "test_x8_ms": x8_ms,
+           "test_x8_peak_gib": x8_peak}
+    log(f"[12a] sr MSRResNet ×4 (nf 64, nb 16), fp32, batch 16, GT 128², "
+        f"train.main: step ms " + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (median of steps 2–3 {step_ms:.1f}); peak {peak:.2f} GiB; "
+        f"l_pix {out['losses']}; test.main, 2 images LQ 128² → 512²: "
+        + ", ".join(f"{x:.1f}" for x in req) + f" ms a request, PSNR "
+        f"{psnr:.2f} dB (3 steps from random weights); test_x8 batch "
+        f"{b}, LQ {side}²: {x8_ms:.1f} ms, peak {x8_peak:.2f} GiB; kernel "
+        f"launches 0; {gpu_line() if DEV12 == 'cuda' else 'cpu'}")
+    return out
+
+
+def p12_rrdb(torch, taps):
+    """12b: RRDBNet (nf 64, nb 23, gc 32, ×4), a batch-8 request at LQ 128²
+    and training steps at batch 16, LQ 32² (GT 128²)."""
+    from endosr_torch.models import create_model
+
+    net = {"which_model_G": "RRDBNet", "nf": 64, "nb": 23}
+    m = create_model(_sr_opt(net, {}), device=None if DEV12 == "cuda"
+                     else DEV12)
+    gen = torch.Generator(device=DEV12).manual_seed(13)
+    b, side = P12_REQ
+    m.feed_data({"LQ": _rand(torch, gen, b, side, side, 3)})
+    taps.label = "12b rrdb request"
+    _peak_reset(torch)
+    sr, req_ms = _timed(torch, m.test)
+    req_peak = _peak(torch)
+    if tuple(sr.shape) != (b, side * 4, side * 4, 3) or not bool(
+            torch.isfinite(sr).all()):
+        raise AssertionError(f"[12b] request {tuple(sr.shape)}")
+    bs, ls = P12_RRDB_STEP
+    m.feed_data({"LQ": _rand(torch, gen, bs, ls, ls, 3),
+                 "GT": _rand(torch, gen, bs, ls * 4, ls * 4, 3)})
+    taps.label = "12b rrdb train"
+    _peak_reset(torch)
+    for n in range(P12_STEPS):
+        m.optimize_parameters(n + 1)
+    peak = _peak(torch)
+    steps = taps.steps(taps.label)
+    losses = _finite_step_logs("12b", steps)
+    _no_launches("12b", taps.calls["12b rrdb request"] + steps)
+    ms, step_ms = _step_ms(steps)
+    # multiply-adds an LQ pixel: the trunk at LQ, the upsampling at 2× and
+    # 4× (upconv1 at 2×, upconv2, HRconv and conv_last at 4×)
+    trunk = 23 * 3 * sum((64 + 32 * i) * (32 if i < 4 else 64) * 9
+                         for i in range(5)) + 2 * 64 * 64 * 9 + 3 * 64 * 9
+    macs = trunk + 4 * 64 * 64 * 9 + 16 * (2 * 64 * 64 * 9 + 64 * 3 * 9)
+    tflop = 2 * macs * b * side * side / 1e12
+    del m, sr
+    out = {"request_ms": req_ms, "request_peak_gib": req_peak,
+           "request_tflop": tflop, "ms": ms, "ms_per_step": step_ms,
+           "peak_gib": peak, "losses": [lg["l_pix"] for lg in losses],
+           "macs_per_lq_pixel": macs}
+    log(f"[12b] RRDBNet ×4 (nf 64, nb 23, gc 32), fp32: request batch {b}, "
+        f"LQ {side}² → {side * 4}²: {req_ms:.1f} ms (median of 3 after one), "
+        f"{macs / 1e6:.2f} M multiply-adds an LQ pixel, {tflop:.2f} TFLOP, "
+        f"{tflop / req_ms * 1e3:.1f} TFLOP/s; peak {req_peak:.2f} GiB; "
+        f"train batch {bs}, LQ {ls}²: step ms "
+        + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (median of steps 2–3 {step_ms:.1f}), peak {peak:.2f} GiB; "
+        f"kernel launches 0; {gpu_line() if DEV12 == 'cuda' else 'cpu'}")
+    return out
+
+
+def _ikc_opts(code=10):
+    t = {"lr_G": 1e-4}
+    return {
+        "predictor": dict(_sr_opt({"which_model_G": "Predictor",
+                                   "code_length": code}, t),
+                          model="predictor"),
+        "sftmd_kernel": dict(_sr_opt({"which_model_G": "SFTMD_kernel",
+                                      "nf": 64, "nb": 16,
+                                      "code_length": code}, t),
+                             model="sftmd"),
+        "corrector": dict(_sr_opt({"which_model_G": "Corrector",
+                                   "code_length": code}, t),
+                          model="corrector"),
+    }
+
+
+def p12_ikc(torch, root, taps):
+    """12c: IKC. The Predictor on the ``LQker`` data (LR images with seeded
+    kernel codes), the kernel-conditioned SFTMD (``SFTMD_kernel`` nf 64,
+    nb 16, code 10, ×4) on LR/GT pairs with codes, the Corrector on the
+    ``SRker`` data (SR images with estimated codes): 3 steps each at batch
+    16, LQ 64²; then one chained request Predictor → SFTMD → Corrector at
+    batch 8, LQ 128²."""
+    import numpy as np
+
+    from endosr_torch.data import create_dataloader
+    from endosr_torch.data.datasets import (LQGTKerDataset, LQKerDataset,
+                                            SRKerDataset)
+    from endosr_torch.models import create_model
+
+    b, side = P12_IKC
+    data = root / "ikc_data"
+    _write_pairs(data, b, side * 4, 4, 23)
+    rng = np.random.default_rng(24)
+    codes = rng.random((b, 10), dtype=np.float32)
+    est = (codes + rng.normal(0, 0.05, codes.shape)).astype(np.float32)
+    ds = {"phase": "train", "data_type": "img", "scale": 4, "batch_size": b,
+          "use_shuffle": False}
+    sets = {
+        "predictor": LQKerDataset(dict(ds, dataroot_LQ=str(data / "LR")),
+                                  codes),
+        "sftmd_kernel": LQGTKerDataset(dict(ds, dataroot_LQ=str(data / "LR"),
+                                            dataroot_GT=str(data / "HR"))),
+        "corrector": SRKerDataset(dict(ds, dataroot_SR=str(data / "HR")),
+                                  est),
+    }
+    out, models = {}, {}
+    for name, opt in _ikc_opts().items():
+        batch = next(iter(create_dataloader(sets[name], ds, opt)))
+        if name == "sftmd_kernel":
+            batch["ker_map"] = torch.from_numpy(codes)
+        elif name == "corrector":
+            batch["real_ker"] = torch.from_numpy(codes)
+        m = models[name] = create_model(
+            opt, device=None if DEV12 == "cuda" else DEV12)
+        m.feed_data(batch)
+        taps.label = f"12c {name}"
+        _peak_reset(torch)
+        for n in range(P12_STEPS):
+            m.optimize_parameters(n + 1)
+        peak = _peak(torch)
+        steps = taps.steps(taps.label)
+        losses = _finite_step_logs(taps.label, steps)
+        _no_launches(taps.label, steps)
+        ms, step_ms = _step_ms(steps)
+        out[name] = {"ms": ms, "ms_per_step": step_ms, "peak_gib": peak,
+                     "losses": [lg["l_pix"] for lg in losses]}
+        log(f"[12c] {name} ({type(m.netG).__name__}), fp32, batch {b}, "
+            f"{'SR ' + str(side * 4) if name == 'corrector' else 'LQ ' + str(side)}²"
+            f": step ms " + ", ".join(f"{x:.1f}" for x in ms)
+            + f" (median of steps 2–3 {step_ms:.1f}); peak {peak:.2f} GiB; "
+            f"l_pix {out[name]['losses']}; kernel launches 0")
+    # one chained request
+    p, f, c = (models[k].netG for k in ("predictor", "sftmd_kernel",
+                                        "corrector"))
+    gen = torch.Generator(device=DEV12).manual_seed(14)
+    rb, rside = P12_REQ
+    lq = _rand(torch, gen, rb, rside, rside, 3)
+
+    @torch.inference_mode()
+    def chain():
+        code = p(lq)
+        sr = f(lq, code)
+        return code, sr, c(sr, code)
+
+    _peak_reset(torch)
+    (code, sr, fixed), ms = _timed(torch, chain)
+    peak = _peak(torch)
+    if (tuple(sr.shape) != (rb, rside * 4, rside * 4, 3)
+            or tuple(fixed.shape) != (rb, 10)
+            or not all(bool(torch.isfinite(t).all())
+                       for t in (code, sr, fixed))):
+        raise AssertionError("[12c] chained request")
+    out["chain_ms"], out["chain_peak_gib"] = ms, peak
+    log(f"[12c] chained request Predictor → SFTMD → Corrector, batch {rb}, "
+        f"LQ {rside}² → {rside * 4}²: {ms:.1f} ms (median of 3 after one), "
+        f"peak {peak:.2f} GiB; {gpu_line() if DEV12 == 'cuda' else 'cpu'}")
+    return out
+
+
+def _depth_opts():
+    t = {"lr_G": 1e-4, "depth_l1_weight": 1.0, "depth_ssim_weight": 1.0}
+    return {
+        "sftmd": dict(_sr_opt({"which_model_G": "SFTMD", "nf": 64, "nb": 16},
+                              t), model="sftmd"),
+        "sftmd_depth": dict(_sr_opt(
+            {"which_model_G": "SFTMD_upsacle_after_ResBlk_depth", "nf": 64,
+             "nb": 16, "predict_depth_map": True, "n_depthResBlk": 3}, t,
+            scale=8), model="sftmd_depth"),
+    }
+
+
+def _depth_batch(torch, gen, b, side, scale):
+    out = {"LQ": _rand(torch, gen, b, side, side, 3),
+           "GT": _rand(torch, gen, b, side * scale, side * scale, 3)}
+    if scale == 8:
+        for k, f in (("Depth_x8", 1), ("Depth_x4", 2), ("Depth_x2", 4)):
+            out[k] = _rand(torch, gen, b, side * f, side * f, 1)
+    return out
+
+
+def p12_depth(torch, taps):
+    """12d: the SFTMD depth line. ``sftmd`` (``SFTMD`` = the kernel-free
+    variant, ×4) and ``sftmd_depth`` (``SFTMD_upsacle_after_ResBlk_depth``,
+    the learned depth maps, 3 SPADE blocks, ×8): 3 steps each at batch 8,
+    LQ 64²; one batch-8 forward each of ``SFTMD_upsacle_after_ResBlk`` and
+    its ``_depth_condition`` variant (every block a depth block) at LQ
+    128² → 1024²."""
+    from endosr_torch.nn.networks import define_G
+    from endosr_torch.utils.port_params import seeded_init
+
+    b, side = P12_DEPTH
+    gen = torch.Generator(device=DEV12).manual_seed(15)
+    out = {}
+    from endosr_torch.models import create_model
+
+    for name, opt in _depth_opts().items():
+        m = create_model(opt, device=None if DEV12 == "cuda" else DEV12)
+        m.feed_data(_depth_batch(torch, gen, b, side, opt["scale"]))
+        taps.label = f"12d {name}"
+        _peak_reset(torch)
+        for n in range(P12_STEPS):
+            m.optimize_parameters(n + 1)
+        peak = _peak(torch)
+        steps = taps.steps(taps.label)
+        losses = _finite_step_logs(taps.label, steps)
+        _no_launches(taps.label, steps)
+        ms, step_ms = _step_ms(steps)
+        out[name] = {"ms": ms, "ms_per_step": step_ms, "peak_gib": peak,
+                     "losses": losses}
+        log(f"[12d] {name} ({type(m.netG).__name__}, ×{opt['scale']}), fp32, "
+            f"batch {b}, LQ {side}²: step ms " + ", ".join(f"{x:.1f}"
+                                                          for x in ms)
+            + f" (median of steps 2–3 {step_ms:.1f}); peak {peak:.2f} GiB; "
+            f"losses {losses[-1]}; kernel launches 0")
+        del m
+    rb, rside = P12_REQ
+    lq = _rand(torch, gen, rb, rside, rside, 3)
+    dep = _rand(torch, gen, rb, rside, rside, 1)
+    for which, extra, args in (
+            ("SFTMD_upsacle_after_ResBlk", {}, (lq,)),
+            ("SFTMD_upsacle_after_ResBlk_depth_condition",
+             {"which_ResBlk_depth": list(range(16))}, (lq, dep))):
+        net = seeded_init(define_G(
+            {"scale": 8, "network_G": {"which_model_G": which, "nf": 64,
+                                       "nb": 16, **extra}},
+            device=None if DEV12 == "cuda" else DEV12), 16).eval()
+        _peak_reset(torch)
+        with torch.inference_mode():
+            sr, ms = _timed(torch, lambda: net(*args))
+        peak = _peak(torch)
+        if tuple(sr.shape) != (rb, rside * 8, rside * 8, 3) or not bool(
+                torch.isfinite(sr).all()) or float(sr.min()) < 0 or float(
+                sr.max()) > 1:
+            raise AssertionError(f"[12d] {which} {tuple(sr.shape)}")
+        out[which] = {"request_ms": ms, "request_peak_gib": peak}
+        log(f"[12d] {which}, fp32, batch {rb}, LQ {rside}² → {rside * 8}²: "
+            f"{ms:.1f} ms (median of 3 after one), peak {peak:.2f} GiB")
+        del net, sr
+    log(f"[12d] {gpu_line() if DEV12 == 'cuda' else 'cpu'}")
+    return out
+
+
+def write_clinicdb(root, n, gt_hw, scale, seed=31):
+    """``n`` synthetic frames of GT ``gt_hw`` (CVC-ClinicDB's 384×288), LR
+    under ``LR/x<scale>/`` the MATLAB bicubic, ``<stem>_disp.npy`` depth
+    at the LR size, polyp masks under ``seg/`` (an ellipse a frame) and
+    ``train.txt`` naming the frames."""
+    import numpy as np
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for sub in ("HR", f"LR/x{scale}", "depth", "seg"):
+        (root / sub).mkdir(parents=True)
+    names = [f"{i + 1}.png" for i in range(n)]
+    h, w = gt_hw
+    for name in names:
+        gt = _smooth_u8(np, rng, h, w)
+        lr = _bicubic(np, gt.astype(np.float32) / 255.0, 1 / scale)
+        lr = np.clip(lr * 255.0, 0, 255).round().astype(np.uint8)
+        cv2.imwrite(str(root / "HR" / name), gt)
+        cv2.imwrite(str(root / f"LR/x{scale}" / name), lr)
+        np.save(root / "depth" / f"{name[:-4]}_disp.npy",
+                rng.random((1, 1) + lr.shape[:2], dtype=np.float32))
+        seg = np.zeros((h, w), np.uint8)
+        cv2.ellipse(seg, (int(rng.integers(w // 4, 3 * w // 4)),
+                          int(rng.integers(h // 4, 3 * h // 4))),
+                    (int(rng.integers(20, w // 4)),
+                     int(rng.integers(20, h // 4))), 0, 0, 360, 255, -1)
+        cv2.imwrite(str(root / "seg" / name), seg)
+    (root / "train.txt").write_text("".join(x + "\n" for x in names))
+
+
+def p12_seg(torch, counters, root, taps, tap):
+    """12e: ``sftmd_depthSegNet`` (the EndoScene ×2 YAML's DepthNet, FCN8s
+    of 2 classes, ``models/recipes.py::depthseg_yaml``) through ``python
+    -m endosr_torch.train`` on 16 frames of 384×288, batch 8, 3 steps:
+    launches and routes of the DepthNet kernels asserted a step (each call
+    recorded by ``tap`` for the kernel checks after), the FCN's BatchNorm
+    statistics finite. Then one fp32 batch-2 step against ``preset:
+    plain`` by phase 6b's rule (``parity_runs`` / ``parity_readings``)."""
+    import yaml
+
+    import endosr_torch.train as entry_train
+    from endosr_torch.models.f_depthseg import FModelDepthSeg
+    from endosr_torch.models.recipes import depthseg_yaml
+
+    data = root / "seg_data"
+    write_clinicdb(data, P12_SEG_N, P12_SEG_GT, 2)
+    y = depthseg_yaml(str(root / "seg_run"), str(data / "HR"),
+                      str(data / "LR"), str(data / "depth"),
+                      str(data / "seg"), str(data / "train.txt"))
+    changes = {"train.niter": P12_STEPS, "train.val_freq": 1000,
+               "train.manual_seed": P12_SEG_SEED, "logger.print_freq": 1,
+               "logger.save_checkpoint_freq": P12_STEPS,
+               "datasets.train.data_num": P12_SEG_N}
+    for key, value in changes.items():
+        *parents, leaf = key.split(".")
+        node = y
+        for part in parents:
+            node = node[part]
+        log(f"[12e] reduced: endoscene_x2 co-training {key}: "
+            f"{node.get(leaf)!r} → {value!r}")
+        node[leaf] = value
+    yml = root / "depthseg_x2.yml"
+    yml.write_text(yaml.safe_dump(y))
+    taps.label = tap.where = "12e depthseg train"
+    _peak_reset(torch)
+    model = entry_train.main(["-opt_F", str(yml)] + (
+        [] if DEV12 == "cuda" else ["--device", "cpu"]))
+    peak = _peak(torch)
+    steps = taps.steps(taps.label)
+    if len(steps) != P12_STEPS:
+        raise AssertionError(f"[12e] {len(steps)} steps")
+    losses = _finite_step_logs("12e", steps)
+    if DEV12 == "cuda":
+        check_launches("12e", steps, *P12_SEG_WANT)
+    stats = {k: v for k, v in model.segNet.state_dict().items()
+             if "running" in k}
+    if not all(bool(torch.isfinite(v).all()) for v in stats.values()):
+        raise AssertionError("[12e] BatchNorm statistics not finite")
+    models = root / "seg_run/experiments/depthseg_x2/models"
+    for f in (f"{P12_STEPS}_segNet.pth", "latest_segNet.pth",
+              "latest_G.pth"):
+        if not (models / f).is_file():
+            raise AssertionError(f"[12e] no {f}")
+    ms, step_ms = _step_ms(steps)
+    launches = {c.__name__: sum(r["launches"][c.__name__] for r in steps)
+                for c in counters}
+    del model
+    out = {"ms": ms, "ms_per_step": step_ms, "peak_gib": peak,
+           "losses": losses}
+    log(f"[12e] sftmd_depthSegNet, EndoScene ×2 DepthNet + FCN8s, fp32, "
+        f"batch 8 of 384×288 (LQ 192×144), train.main: step ms "
+        + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (median of steps 2–3 {step_ms:.1f}); peak {peak:.2f} GiB; "
+        + ", ".join(f"{k} {v}" for k, v in P12_SEG_WANT[0].items())
+        + " launches a step (" + ", ".join(f"{k} {v}" for k, v in
+                                            P12_SEG_WANT[1].items())
+        + f"); l_all {[lg['l_all'] for lg in losses]}, l_segBCE "
+        f"{[lg['l_segBCE'] for lg in losses]}; BatchNorm statistics finite; "
+        f"{gpu_line() if DEV12 == 'cuda' else 'cpu'}")
+    if DEV12 == "cuda":
+        out["parity"] = _seg_parity(torch, y)
+    return launches, out
+
+
+def _seg_parity(torch, y):
+    """12e's fp32 batch-2 step (LQ 144×192, GT 288×384 with segmentation
+    labels) of the default DepthNet against ``preset: plain``, by phase
+    6b's rule."""
+    from endosr_torch.models.f_depthseg import FModelDepthSeg
+
+    def opt_of(**net):
+        return {"is_train": True, "model": "sftmd_depthSegNet", "scale": 2,
+                "precision": None,
+                "datasets": {"train": {"depthMaskNum": 10}},
+                "network_G": {**y["network_G"], **net},
+                "network_SegNet": {"num_classes": 2},
+                "path": {}, "train": copy.deepcopy(y["train"])}
+
+    batch = parity_batch(torch, 2, (P12_SEG_GT[0] // 2, P12_SEG_GT[1] // 2))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    seg = torch.rand(P12_SEG_GT, generator=gen, device="cuda") > 0.5
+    seg = torch.stack([~seg, seg], -1).float()[None].expand(2, -1, -1, -1)
+    batch["SegLabel"] = seg.contiguous()
+    runs = parity_runs(torch, opt_of, batch, model=FModelDepthSeg)
+    return train_parity(torch, runs, "12e parity: sftmd_depthSegNet default "
+                        "vs preset: plain")
+
+
+# 12f's one-ulp nudges (phase 6b's four), run on the card and on the CPU:
+# (label, the input's direction or None, the weights' seed or None)
+P12_NUDGES = (("LQ + 1 ulp", 1.0, None), ("LQ - 1 ulp", -1.0, None),
+              ("weights ± 1 ulp (a)", None, 7), ("weights ± 1 ulp (b)", None,
+                                                 8))
+
+
+def _cpu_twin(torch, name, opt, batch_cuda, lq_key):
+    """12f for one model: step 1 from the same seeded weights on the card
+    and on the CPU, each also under ``P12_NUDGES`` (phase 6b's yardstick,
+    on both sides); the output of ``test`` on both."""
+    from endosr_torch.models import create_model
+
+    def step(dev, feed, nudge_seed, serve):
+        m = create_model(copy.deepcopy(opt), device=dev)
+        start = {k: p.detach().cpu().clone()
+                 for k, p in m.netG.named_parameters()}
+        if nudge_seed is not None:
+            start = _nudge_weights(torch, start, nudge_seed, "cpu")
+            with torch.no_grad():
+                for k, p in m.netG.named_parameters():
+                    p.copy_(start[k])
+        m.feed_data(feed)
+        run = {"logs": dict(m.optimize_parameters(1)), "start": start,
+               "params": {k: p.detach().cpu().clone()
+                          for k, p in m.netG.named_parameters()}}
+        if serve:
+            with torch.no_grad():
+                for k, p in m.netG.named_parameters():
+                    p.copy_(start[k])
+            out = m.test()
+            run["out"] = [t.detach().float().cpu() for t in (
+                out if isinstance(out, tuple) else (out,))] + (
+                [m.depth_x4.cpu(), m.depth_x2.cpu()]
+                if getattr(m, "depth_x4", None) is not None else [])
+        del m
+        return run
+
+    runs = {}
+    for side, dev in (("card", None), ("cpu", "cpu")):
+        base = batch_cuda if dev is None else {k: v.cpu()
+                                                for k, v in batch_cuda.items()}
+        runs[side] = step(dev, base, None, True)
+        for label, to, seed in P12_NUDGES:
+            feed = base
+            if to is not None:
+                x = base[lq_key]
+                feed = dict(base, **{lq_key: torch.nextafter(x, x + to)})
+            runs[f"{side} {label}"] = step(dev, feed, seed, False)
+    return runs
+
+
+def p12_card_vs_cpu(torch):
+    """12f: for each model of 12a–12d (MSRResNet, RRDBNet, the Predictor,
+    the kernel-conditioned SFTMD, the Corrector, the kernel-free SFTMD and
+    the depth variant, full width, batch 2, small LQ: ``P12_CPU``), step 1
+    on the card and on the CPU from the same seeded weights and batch: the
+    losses within ``P12_LOSS_REL`` relative, ``test``'s outputs within
+    ``P12_OUT_REL`` of max |ref|, the updated parameters apart by no more
+    than ``GRAD_NOISE``× the largest change either side's own step makes
+    under phase 6b's four one-ulp nudges (``P12_NUDGES``; norm over all,
+    of the step's move). cuDNN's deterministic algorithms."""
+    import numpy as np
+
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic
+    cudnn.deterministic = True
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    t = {"lr_G": 1e-4}
+    opts = {"sr": _sr_opt({"which_model_G": "MSRResNet", "nf": 64, "nb": 16},
+                          t),
+            "rrdb": _sr_opt({"which_model_G": "RRDBNet", "nf": 64, "nb": 23},
+                            t),
+            **_ikc_opts(), **_depth_opts()}
+    out = {}
+    try:
+        for name, opt in opts.items():
+            s = P12_CPU[name]
+            scale = opt["scale"]
+            lq_key = "SR" if name == "corrector" else "LQ"
+            if name in ("predictor", "corrector"):
+                side = s * 4 if name == "corrector" else s
+                batch = {lq_key: _rand(torch, gen, 2, side, side, 3),
+                         "real_ker": _rand(torch, gen, 2, 10)}
+                if name == "corrector":
+                    batch["est_ker_map"] = _rand(torch, gen, 2, 10)
+            else:
+                batch = _depth_batch(torch, gen, 2, s, scale)
+                if name == "sftmd_kernel":
+                    batch["ker_map"] = _rand(torch, gen, 2, 10)
+            opt = dict(opt, train=dict(opt["train"], manual_seed=19))
+            runs = _cpu_twin(torch, name, opt, batch, lq_key)
+            card, cpu = runs["card"], runs["cpu"]
+            if any(not torch.equal(card["start"][k], v)
+                   for k, v in cpu["start"].items()):
+                raise AssertionError(f"[12f] {name}: the seeded weights differ")
+            loss_rel = max(abs(card["logs"][k] - v) / max(abs(v), 1e-12)
+                           for k, v in cpu["logs"].items())
+            out_rel = max(float((a - b).abs().max())
+                          / max(float(b.abs().max()), 1e-12)
+                          for a, b in zip(card["out"], cpu["out"]))
+
+            def apart(a, b):
+                num = sum(float((a["params"][k] - b["params"][k]).square()
+                                .sum()) for k in b["params"])
+                den = sum(float((b["params"][k] - b["start"][k]).square()
+                                .sum()) for k in b["params"])
+                return (num / den) ** 0.5
+
+            prel = apart(card, cpu)
+            prel_n = max(apart(runs[f"{side} {lab}"], runs[side])
+                         for side in ("card", "cpu")
+                         for lab, *_ in P12_NUDGES)
+            fails = []
+            if sorted(card["logs"]) != sorted(cpu["logs"]) or not (
+                    loss_rel <= P12_LOSS_REL):
+                fails.append(f"losses {loss_rel:.3g} relative")
+            if not out_rel <= P12_OUT_REL:
+                fails.append(f"outputs {out_rel:.3g} of max |ref|")
+            if not prel <= GRAD_NOISE * prel_n:
+                fails.append(f"updated parameters {prel:.3g} of the move "
+                             f"apart > {GRAD_NOISE}× the one-ulp change "
+                             f"{prel_n:.3g}")
+            out[name] = {"loss_rel": loss_rel, "out_rel": out_rel,
+                         "params_rel": prel, "params_rel_ulp": prel_n}
+            log(f"[12f] {name}, batch 2, LQ {s}², card vs CPU: losses "
+                f"{loss_rel:.3g} relative (tol {P12_LOSS_REL:g}); outputs "
+                f"{out_rel:.3g} of max |ref| (tol {P12_OUT_REL:g}); updated "
+                f"parameters {prel:.3g} of the move apart (the largest change "
+                f"under the four one-ulp nudges on either side: "
+                f"{prel_n:.3g}, tol {GRAD_NOISE}× that)"
+                + (f" FAILED: {'; '.join(fails)}" if fails else ""))
+            if fails:
+                raise AssertionError(f"[12f] {name}: " + "; ".join(fails))
+            del runs
+            torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic = was
+    return out
+
+
+def phase12(torch, counters):
+    """Phase 12: the other models (12a–12f), fp32 with TF32 off, seeded
+    weights, synthetic data written with ``cv2`` under ``build/models12``.
+    Returns ({path label: launches}, readings)."""
+    import shutil
+
+    from endosr_torch.models.common import SimpleModel
+    from endosr_torch.models.f_depthseg import FModelDepthSeg
+    from endosr_torch.models.f_depth import FModelDepth
+    from endosr_torch.models.p_model import PModel
+    from endosr_torch.models.c_model import CModel
+    from endosr_torch.models.sr_model import SRModel
+
+    root = Path(__file__).resolve().parent / MODELS12_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    taps = ModelTaps(torch, counters, (SimpleModel, SRModel, PModel, CModel,
+                                       FModelDepth, FModelDepthSeg))
+    tap = KernelTap()
+    numbers, launches = {}, {}
+    uninstall = taps.install()
+    try:
+        for key, fn in (("12a", lambda: p12_sr(torch, counters, root, taps)),
+                        ("12b", lambda: p12_rrdb(torch, taps)),
+                        ("12c", lambda: p12_ikc(torch, root, taps)),
+                        ("12d", lambda: p12_depth(torch, taps))):
+            t = time.perf_counter()
+            numbers[key] = fn()
+            numbers[key + "_s"] = time.perf_counter() - t
+            log(f"[phase 12] {key}: {numbers[key + '_s']:.1f} s")
+        t = time.perf_counter()
+        # (the tap reads the routes a launch took: on the card only)
+        untap = tap.install() if DEV12 == "cuda" else (lambda: None)
+        try:
+            launches["12e depthseg train"], numbers["12e"] = p12_seg(
+                torch, counters, root, taps, tap)
+        finally:
+            untap()
+        numbers["12e_s"] = time.perf_counter() - t
+        log(f"[phase 12] 12e: {numbers['12e_s']:.1f} s")
+    finally:
+        uninstall()
+    for label, recs in taps.calls.items():
+        if label.startswith("12e"):
+            continue
+        launches[label] = {c.__name__: sum(r["launches"][c.__name__]
+                                           for r in recs) for c in counters}
+    if DEV12 == "cuda":
+        t = time.perf_counter()
+        numbers["kernel_max_abs_err"], numbers["kernels"] = \
+            phase9_kernel_checks(torch, tap.calls, "phase 12 kernels",
+                                 controls=False)
+        numbers["kernels_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        numbers["12f"] = p12_card_vs_cpu(torch)
+        numbers["12f_s"] = time.perf_counter() - t
+        log(f"[phase 12] 12f: {numbers['12f_s']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 12] took {numbers['seconds']:.1f} s")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -4881,6 +5766,13 @@ def main() -> int:
     p11, numbers = phase11(torch, counters)
     by_path.update(p11)
     log(f"[phase 11] summary: {json.dumps(numbers)}")
+    p12, numbers = phase12(torch, counters)
+    by_path.update(p12)
+    for kname, errs in numbers["kernel_max_abs_err"].items():
+        for dts, err in errs.items():
+            have = rows[kname]["max_abs_err"]
+            have[dts] = max(have[dts], err)
+    log(f"[phase 12] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

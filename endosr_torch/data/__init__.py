@@ -29,17 +29,24 @@ __all__ = ["create_dataset", "create_dataloader", "EpochBatchSampler",
            "EpochLoader"]
 
 
+# ``mode`` → dataset class of ``endosr_torch.data.datasets``
+MODES = {"LQGTker_Depth": "LQGTKerDepthDataset",
+         "EndoScene_Depth": "EndoSceneDepthDataset",
+         "EndoScene_Depthnew": "EndoSceneDepthnewDataset",
+         "LQGTker": "LQGTKerDataset", "LQ": "LQDataset",
+         "LQker": "LQKerDataset", "SRker": "SRKerDataset"}
+
+
 def create_dataset(dataset_opt):
+    from endosr_torch.data import datasets
+
     mode = dataset_opt["mode"]
-    if mode == "LQGTker_Depth":
-        from endosr_torch.data.datasets import LQGTKerDepthDataset as D
-    elif mode == "EndoScene_Depth":
-        from endosr_torch.data.datasets import EndoSceneDepthDataset as D
-    else:
+    if mode == "LRHR_seg_bg":
         raise NotImplementedError(
-            f"Dataset mode [{mode}] is not ported (the port has "
-            "LQGTker_Depth and EndoScene_Depth)")
-    dataset = D(dataset_opt)
+            f"Dataset mode [{mode}] is not ported yet (the SFT-GAN data)")
+    if mode not in MODES:
+        raise NotImplementedError(f"Dataset [{mode}] is not recognized.")
+    dataset = getattr(datasets, MODES[mode])(dataset_opt)
     logging.getLogger("base").info(
         "Dataset [%s - %s] is created.", dataset.__class__.__name__,
         dataset_opt.get("name"))

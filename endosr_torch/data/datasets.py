@@ -1,5 +1,10 @@
-"""The flagship datasets (counterpart of ``endosr/data/datasets.py``:
-``_Base``, ``LQGTKerDepthDataset`` and ``EndoSceneDepthDataset``).
+"""The datasets (counterpart of ``endosr/data/datasets.py``): the
+flagship ``LQGTKerDepthDataset`` and ``EndoSceneDepthDataset``, the
+EndoScene variant ``EndoSceneDepthnewDataset``, and the depth-free ones of
+the other models — ``LQGTKerDataset`` (LR/GT pairs), ``LQDataset`` (LR
+only), ``LQKerDataset`` (LR + real kernel code) and ``SRKerDataset`` (SR +
+estimated kernel code). ``LRHRSegBGDataset`` (the SFT-GAN data) is still
+to be ported.
 
 A sample is a dict of numpy arrays in NHWC order: 'LQ' and 'GT' HWC RGB
 float32 in [0, 1] (uint8 with ``u8_pipeline``), 'Depth' HW1 float32,
@@ -20,7 +25,9 @@ from endosr_torch.ops.color import channel_convert, modcrop
 from endosr_torch.ops.masks import depth_masks_np
 from endosr_torch.ops.resize import imresize_np
 
-__all__ = ["LQGTKerDepthDataset", "EndoSceneDepthDataset"]
+__all__ = ["LQGTKerDepthDataset", "EndoSceneDepthDataset",
+           "EndoSceneDepthnewDataset", "LQGTKerDataset", "LQDataset",
+           "LQKerDataset", "SRKerDataset"]
 
 
 class _Base:
@@ -372,3 +379,118 @@ class EndoSceneDepthDataset(_Base):
         if seg is not None:
             out.update(self._seg_keys(arrays[4]))
         return out
+
+
+class EndoSceneDepthnewDataset(EndoSceneDepthDataset):
+    """:class:`EndoSceneDepthDataset` whose depth maps are named from the
+    image's stem (``<stem>_disp.npy``, a ``.tif`` frame's too) and come from
+    the ×2 producer: a depth map of another size than the LR image is
+    resized to it (``cv2`` bilinear) and its masks are rebuilt."""
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.Depth_paths = [os.path.join(opt["dataroot_depthMap"],
+                                         n.split(".")[0] + "_disp.npy")
+                            for n in self.names]
+
+    def __getitem__(self, index):
+        import cv2
+
+        item = super().__getitem__(index)
+        lr_h, lr_w = item["LQ"].shape[:2]
+        d = item["Depth"][..., 0]
+        if d.shape != (lr_h, lr_w):
+            d = cv2.resize(d, (lr_w, lr_h), interpolation=cv2.INTER_LINEAR)
+            item["DepthMaskList"] = depth_masks_np(
+                d, self.opt.get("depthFixedRange", True),
+                self.opt.get("depthMaskNum", 10))
+            item["Depth"] = d[..., None].astype(np.float32)
+        return item
+
+
+class LQGTKerDataset(_Base):
+    """LR + GT pairs without depth (the SR / SFTMD models): whole images
+    (no crop), flipped and rotated when training; without an LR root the
+    MATLAB bicubic of GT; validation and test crop GT to a multiple of the
+    scale."""
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.LR_paths = util.get_image_paths(opt["data_type"],
+                                             opt.get("dataroot_LQ"))
+        self.GT_paths = util.get_image_paths(opt["data_type"],
+                                             opt.get("dataroot_GT"))
+
+    def __getitem__(self, index):
+        opt = self.opt
+        scale = opt["scale"]
+        gt_path = self.GT_paths[index]
+        img_GT = self._read_img(gt_path)
+        if not self._is_train():
+            img_GT = modcrop(img_GT, scale)
+        if self.LR_paths:
+            lr_path = self.LR_paths[index]
+            img_LR = self._read_img(lr_path)
+        else:
+            lr_path = gt_path
+            img_LR = imresize_np(img_GT, 1 / scale, True)
+        if self._is_train():
+            img_LR, img_GT = util.augment(
+                [img_LR, img_GT], opt.get("use_flip", False),
+                opt.get("use_rot", False), self.rng)
+        return {"LQ": util.bgr_to_rgb_f32(img_LR),
+                "GT": util.bgr_to_rgb_f32(img_GT),
+                "LQ_path": lr_path, "GT_path": gt_path}
+
+
+class LQDataset(_Base):
+    """LR images alone (the kernel Predictor's input)."""
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.LR_paths = util.get_image_paths(opt["data_type"],
+                                             opt["dataroot_LQ"])
+        self.GT_paths = self.LR_paths
+
+    def __getitem__(self, index):
+        path = self.LR_paths[index]
+        return {"LQ": util.bgr_to_rgb_f32(self._read_img(path)),
+                "LQ_path": path}
+
+
+class LQKerDataset(LQDataset):
+    """LR images and, given ``ker_map_list``, each one's real kernel code
+    as 'real_ker'."""
+
+    def __init__(self, opt, ker_map_list=None):
+        super().__init__(opt)
+        self.ker_map_list = ker_map_list
+
+    def __getitem__(self, index):
+        item = super().__getitem__(index)
+        if self.ker_map_list is not None:
+            item["real_ker"] = np.asarray(self.ker_map_list[index],
+                                          np.float32)
+        return item
+
+
+class SRKerDataset(_Base):
+    """SR images (``dataroot_SR``) and, given ``est_ker_map_list``, each
+    one's estimated kernel code as 'est_ker_map' (the Corrector's
+    input)."""
+
+    def __init__(self, opt, est_ker_map_list=None):
+        super().__init__(opt)
+        self.SR_paths = util.get_image_paths(opt["data_type"],
+                                             opt["dataroot_SR"])
+        self.GT_paths = self.SR_paths
+        self.est_ker_map_list = est_ker_map_list
+
+    def __getitem__(self, index):
+        path = self.SR_paths[index]
+        item = {"SR": util.bgr_to_rgb_f32(util.read_img(None, path)),
+                "SR_path": path}
+        if self.est_ker_map_list is not None:
+            item["est_ker_map"] = np.asarray(self.est_ker_map_list[index],
+                                             np.float32)
+        return item

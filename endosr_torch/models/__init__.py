@@ -4,21 +4,35 @@ its class."""
 
 from __future__ import annotations
 
+import importlib
 import logging
 
 __all__ = ["create_model"]
+
+# ``model:`` → (module under endosr_torch.models, class)
+MODELS = {
+    "sr": ("sr_model", "SRModel"),
+    "sftmd": ("f_model", "FModel"),
+    "predictor": ("p_model", "PModel"),
+    "corrector": ("c_model", "CModel"),
+    "sftmd_depthCond": ("f_depthcond", "FModelDepthCond"),
+    "sftmd_depth": ("f_depth", "FModelDepth"),
+    "sftmd_depthSegNet": ("f_depthseg", "FModelDepthSeg"),
+}
+NOT_PORTED = ("srgan", "sftgan")
 
 
 def create_model(opt, device=None):
     """The model the YAML's ``model:`` names, on ``device`` (None: CUDA,
     which raises without one)."""
     model = opt["model"]
-    if model == "sftmd_depthCond":
-        from endosr_torch.models.f_depthcond import FModelDepthCond as M
-    else:
+    if model in NOT_PORTED:
         raise NotImplementedError(
-            f"Model [{model}] is not ported (the port has sftmd_depthCond "
-            "only)")
+            f"Model [{model}] is not ported yet (the GAN models)")
+    if model not in MODELS:
+        raise NotImplementedError(f"Model [{model}] not recognized.")
+    module, cls = MODELS[model]
+    M = getattr(importlib.import_module(f"endosr_torch.models.{module}"), cls)
     m = M(opt, device=device)
     logging.getLogger("base").info("Model [%s] is created.", m.__class__.__name__)
     return m

@@ -13,8 +13,15 @@ weights as ``{iter}_{label}.pth`` (the ``state_dict`` under the reference
 checkpoint's keys, which the JAX package's porter loads) in
 ``path.models``, and the trainer state as ``{iter}.state`` in
 ``path.training_state`` (epoch, iteration, updates made, the optimizer's
-``state_dict``, the generator's ``state_dict`` and the dynamic loss's
-weights). Both are written to a temporary file and renamed into place.
+``state_dict``, the generator's ``state_dict``, the dynamic loss's weights
+where the model has them, and what a model adds by
+:meth:`BaseModel._extra_training_state`, such as a second network and its
+optimizer). Both are written to a temporary file and renamed into place.
+
+Weights load as the JAX package's porter reads them
+(``utils/port_params.py::fit_state_dict``): keys of modules the network
+does not build are dropped and logged, and ``strict_load`` asks that every
+key of the network be present.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import os
 import torch
 
 from endosr_torch.models.lr_schedule import build_schedule
-from endosr_torch.utils.port_params import load_params
+from endosr_torch.utils.port_params import fit_state_dict, load_params
 
 __all__ = ["BaseModel"]
 
@@ -46,7 +53,9 @@ def _host(sd):
 class BaseModel:
     """The training-state checkpoints act on ``self.netG``,
     ``self.optimizer_G`` and ``self.dyn_weight`` (None without the dynamic
-    loss)."""
+    loss), and on what :meth:`_extra_training_state` adds."""
+
+    dyn_weight = None
 
     def __init__(self, opt):
         self.opt = opt
@@ -86,13 +95,17 @@ class BaseModel:
 
     def load_network(self, load_path, network, strict=True):
         """Load ``.npz`` (JAX parameters) or ``.pth`` (a ``state_dict``)
-        weights into ``network``."""
+        weights into ``network``: keys of modules it does not build are
+        dropped (and logged); with ``strict`` a key it has that the file
+        lacks raises ``KeyError``; shapes must match."""
         if load_path.endswith(".ckpt"):
             raise NotImplementedError(
                 f"{load_path}: a flax .ckpt is not read by the port; export "
                 "the JAX parameters as a .npz (flax paths joined by '/') and "
                 "load that")
-        network.load_state_dict(load_params(load_path), strict=strict)
+        sd = fit_state_dict(load_params(load_path), network, strict,
+                            load_path)
+        network.load_state_dict(sd, strict=strict)
 
     def save_training_state(self, epoch, iter_step) -> str:
         """The trainer state → ``path.training_state/{iter}.state``."""
@@ -100,8 +113,9 @@ class BaseModel:
                  "step": int(self.step),
                  "optimizer": self.optimizer_G.state_dict(),
                  "netG": _host(self.netG.state_dict()),
-                 "dyn_weight": (None if self.dyn_weight is None
-                                else self.dyn_weight.detach().cpu())}
+                 **self._extra_training_state()}
+        if self.dyn_weight is not None:
+            state["dyn_weight"] = self.dyn_weight.detach().cpu()
         return _save_atomic(state, os.path.join(
             self.opt["path"]["training_state"], f"{iter_step}.state"))
 
@@ -109,15 +123,24 @@ class BaseModel:
         """Restore a ``.state`` file; returns (epoch, iter)."""
         state = torch.load(resume_path, map_location="cpu", weights_only=True)
         self.netG.load_state_dict(state["netG"])
-        if (state["dyn_weight"] is None) != (self.dyn_weight is None):
+        if (state.get("dyn_weight") is None) != (self.dyn_weight is None):
             raise ValueError(f"{resume_path}: the dynamic loss's weights do "
                              "not match this model's train options")
         if self.dyn_weight is not None:
             with torch.no_grad():
                 self.dyn_weight.copy_(state["dyn_weight"])
         self.optimizer_G.load_state_dict(state["optimizer"])
+        self._load_extra_training_state(state)
         self.step = state["step"]
         return state["epoch"], state["iter"]
+
+    def _extra_training_state(self) -> dict:
+        """What a model saves in ``{iter}.state`` besides the generator,
+        its optimizer and the dynamic loss's weights."""
+        return {}
+
+    def _load_extra_training_state(self, state: dict) -> None:
+        """Restore what :meth:`_extra_training_state` saved."""
 
     def get_network_description(self, network):
         """(description, number of parameters) of ``network``."""

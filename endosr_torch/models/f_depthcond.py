@@ -135,6 +135,11 @@ class FModelDepthCond(BaseModel):
             raise NotImplementedError(f"precision [{precision}] is not ported")
         if int(opt.get("spatial_shard") or 0) > 1:
             raise NotImplementedError("spatial_shard is not ported yet")
+        which = opt["network_G"]["which_model_G"]
+        if which != "DepthNet":
+            raise NotImplementedError(
+                f"{type(self).__name__} takes the DepthNet generator, not "
+                f"[{which}] (the generator of another model)")
         dtype, mod_dtype, passes = _PRECISIONS[precision]
         self.netG = define_G(opt, dtype=dtype, modulation_dtype=mod_dtype,
                              centered_convs=passes, device=self.device)
@@ -291,8 +296,12 @@ class FModelDepthCond(BaseModel):
             group["lr"] = lr
         self.optimizer_G.step()
         self.step += 1
+        return self._read_logs(logs)
 
-        # one read-back for all the logs
+    def _read_logs(self, logs):
+        """{name: loss tensor} → ``self.log_dict`` of floats, in one
+        read-back; the vectors ``dyn_w`` / ``dyn_l`` as ``dyn_w_i`` /
+        ``dyn_l_i``."""
         flat = torch.cat([v.detach().float().reshape(-1)
                           for v in logs.values()]).cpu().tolist()
         self.log_dict, i = {}, 0

@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from endosr_torch.utils.device import device_constant
 
 __all__ = [
-    "Conv", "WNConv", "ConvTranspose", "WNConvTranspose",
-    "torch_conv_init_", "wn_effective_kernel", "conv2d_nhwc", "hwio",
+    "Conv", "WNConv", "ConvTranspose", "WNConvTranspose", "Dense",
+    "init_leaves_", "torch_conv_init_", "wn_effective_kernel", "conv2d_nhwc", "hwio",
     "instance_norm", "chained_instance_norm", "masked_instance_norm",
     "masked_chained_instance_norm", "valid_mask", "pixel_shuffle",
     "leaky_relu", "clip", "centered_conv",
@@ -45,6 +45,13 @@ def torch_conv_init_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
     v = torch.rand(t.shape, generator=gen, dtype=torch.float32)
     with torch.no_grad():
         t.copy_(v * (2 * bound) - bound)
+
+
+def _norm_on_host(v: torch.Tensor) -> torch.Tensor:
+    """‖v‖ over all but the first axis, [O, 1, 1, 1], computed on the CPU
+    (the seeded init's gains are then the same on every device)."""
+    return v.detach().float().cpu().square().sum(dim=(1, 2, 3),
+                                                 keepdim=True).sqrt()
 
 
 def hwio(w_oihw: torch.Tensor) -> torch.Tensor:
@@ -254,8 +261,7 @@ class WNConv(nn.Module):
         fan_in = self.weight_v[0].numel()
         torch_conv_init_(self.weight_v, fan_in, gen)
         with torch.no_grad():
-            self.weight_g.copy_(self.weight_v.float().square()
-                                .sum(dim=(1, 2, 3), keepdim=True).sqrt())
+            self.weight_g.copy_(_norm_on_host(self.weight_v))
         torch_conv_init_(self.bias, fan_in, gen)
 
     def forward(self, x, dtype):
@@ -263,6 +269,35 @@ class WNConv(nn.Module):
         if self.centered:
             return centered_conv(x, w, b, torch.bfloat16, self.centered)
         return conv2d_nhwc(x, w, self.padding, dtype, self.stride) + b.to(dtype)
+
+
+class Dense(nn.Module):
+    """Linear layer (torch ``Linear`` parameters: an (O, I) weight), torch's
+    default init U(±1/√in) for weight and bias."""
+
+    def __init__(self, in_f, out_f, bias=True, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_f, in_f, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_f, device=device))
+                     if bias else None)
+
+    def init_(self, gen):
+        torch_conv_init_(self.weight, self.weight.shape[1], gen)
+        if self.bias is not None:
+            torch_conv_init_(self.bias, self.weight.shape[1], gen)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+def init_leaves_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Seeded init of every parameter-holding leaf of ``module`` (each
+    module without children that has an ``init_``), in registration
+    order, from ``gen``."""
+    for m in module.modules():
+        if not any(True for _ in m.children()) and hasattr(m, "init_"):
+            m.init_(gen)
+    return module
 
 
 def wn_effective_kernel(m: WNConv):
@@ -323,8 +358,7 @@ class WNConvTranspose(nn.Module):
         fan_in = self.weight_v[0].numel()
         torch_conv_init_(self.weight_v, fan_in, gen)
         with torch.no_grad():
-            self.weight_g.copy_(self.weight_v.float().square()
-                                .sum(dim=(1, 2, 3), keepdim=True).sqrt())
+            self.weight_g.copy_(_norm_on_host(self.weight_v))
         torch_conv_init_(self.bias, fan_in, gen)
 
     def forward(self, x, dtype):

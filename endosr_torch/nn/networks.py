@@ -1,5 +1,9 @@
-"""Network factory (counterpart of ``endosr/nn/networks.py``): the
-``DepthNet`` branch only, read from the same ``opt`` dict."""
+"""Network factory (counterpart of ``endosr/nn/networks.py``):
+:func:`define_G` builds every generator the JAX package's does, from the
+same ``opt`` dict, and :func:`define_SegNet` the segmentation network of
+the co-training model. The discriminator and the perceptual feature
+network of the GAN models (:func:`define_D`, :func:`define_F`) are still
+to be ported and raise by name."""
 
 from __future__ import annotations
 
@@ -10,7 +14,8 @@ import torch
 from endosr_torch.nn.depthnet import DepthNet
 from endosr_torch.utils.device import resolve_device
 
-__all__ = ["define_G", "DEPTHNET_PRESETS"]
+__all__ = ["define_G", "define_D", "define_F", "define_SegNet",
+           "DEPTHNET_PRESETS"]
 
 # ``network_G.preset``: the JAX package's named knob combinations
 # (``endosr/nn/depthnet.py::DEPTHNET_PRESETS``), field for field. A field
@@ -42,9 +47,11 @@ def _dataset_block(opt):
 
 
 def define_G(opt, dtype=torch.float32, modulation_dtype=None,
-             centered_convs=0, device=None) -> DepthNet:
+             centered_convs=0, device=None) -> torch.nn.Module:
     """The generator of ``opt["network_G"]``, read as the JAX package reads
-    it. ``preset`` sets a named knob combination and ``net_kw`` (raw
+    it. Any generator but DepthNet is built fp32 (the JAX package's
+    ``SimpleModel`` builds them so); the rest of this concerns DepthNet.
+    ``preset`` sets a named knob combination and ``net_kw`` (raw
     DepthNet fields, ``fused_epilogue`` among them) is applied last, over
     it. A field or value the port does not serve raises
     ``NotImplementedError`` by name; an unknown field ``TypeError``.
@@ -60,9 +67,10 @@ def define_G(opt, dtype=torch.float32, modulation_dtype=None,
     and raises where there is none."""
     opt_net = opt["network_G"]
     which_model = opt_net["which_model_G"]
-    if which_model != "DepthNet":
-        raise NotImplementedError(f"Generator [{which_model}] is not ported")
     scale = opt.get("scale") or opt_net.get("scale") or opt_net.get("upscale", 4)
+    if which_model != "DepthNet":
+        return _other_generator(opt_net, which_model, int(scale)).to(
+            resolve_device(device))
     ds = _dataset_block(opt)
     kwargs = dict(
         which_resblk_depth=tuple(opt_net.get("which_ResBlk_depth") or ()),
@@ -87,3 +95,67 @@ def define_G(opt, dtype=torch.float32, modulation_dtype=None,
         kwargs.update(DEPTHNET_PRESETS[preset])
     kwargs.update(opt_net.get("net_kw") or {})
     return DepthNet(dtype=dtype, device=resolve_device(device), **kwargs)
+
+
+def _io(opt_net):
+    return dict(in_nc=opt_net.get("in_nc", 3), out_nc=opt_net.get("out_nc", 3),
+                nf=opt_net.get("nf", 64))
+
+
+def _other_generator(opt_net, which_model, scale):
+    """The generators besides DepthNet, fp32, as ``endosr/nn/networks.py``
+    reads their fields (``SFTMD`` is the kernel-free variant, as in the
+    reference; the kernel-conditioned one is ``SFTMD_kernel``)."""
+    from endosr_torch.nn import rrdb, sftmd, sftmd_variants, srresnet
+
+    nb16 = dict(_io(opt_net), nb=opt_net.get("nb", 16))
+    code = opt_net.get("code_length", 10)
+    if which_model == "SFTMD":
+        return sftmd_variants.SFTMDNoKernel(scale=scale, **nb16)
+    if which_model == "SFTMD_kernel":
+        return sftmd.SFTMD(scale=scale, input_para=code, **nb16)
+    if which_model == "SFTMD_DEMO":
+        return sftmd.SFTMDDemo(scale=scale, input_para=code, **nb16)
+    if which_model == "SFTMD_upsacle_after_ResBlk":
+        return sftmd_variants.SFTMDUpscaleAfterResBlk(**nb16)
+    if which_model == "SFTMD_upsacle_after_ResBlk_depth":
+        return sftmd_variants.SFTMDUpscaleAfterResBlkDepth(
+            pred_depth=bool(opt_net.get("predict_depth_map", False)),
+            n_depth_resblk=opt_net.get("n_depthResBlk", 3),
+            use_attention=bool(opt_net.get("use_attention", False)), **nb16)
+    if which_model == "SFTMD_upsacle_after_ResBlk_depth_condition":
+        return sftmd_variants.SFTMDUpscaleAfterResBlkDepthCondition(
+            which_resblk_depth=tuple(opt_net.get("which_ResBlk_depth") or ()),
+            **nb16)
+    if which_model == "Predictor":
+        return sftmd.Predictor(code_len=code)
+    if which_model == "Corrector":
+        return sftmd.Corrector(code_len=code)
+    if which_model in ("MSRResNet", "SRResNet"):
+        return srresnet.MSRResNet(upscale=scale, **nb16)
+    if which_model == "RRDBNet":
+        return rrdb.RRDBNet(nb=opt_net.get("nb", 23), **_io(opt_net))
+    raise NotImplementedError(f"Generator model [{which_model}] not recognized")
+
+
+def define_D(opt, dtype=torch.float32, device=None):
+    """The GAN discriminator: still to be ported."""
+    raise NotImplementedError(
+        f"Discriminator [{opt['network_D']['which_model_D']}] is not ported "
+        "yet (define_D: the srgan / sftgan models)")
+
+
+def define_F(opt, use_bn: bool = False, dtype=torch.float32, device=None):
+    """The GAN models' perceptual feature network: still to be ported."""
+    raise NotImplementedError("define_F (the VGG feature network of the "
+                              "srgan / sftgan models) is not ported yet")
+
+
+def define_SegNet(opt, device=None):
+    """FCN8s with ``network_SegNet.num_classes`` classes (default 2), fp32,
+    on ``device`` (None: CUDA, which raises without one)."""
+    from endosr_torch.nn.fcn import FCN8s
+
+    opt_net = opt.get("network_SegNet") or {}
+    return FCN8s(n_class=opt_net.get("num_classes", 2)).to(
+        resolve_device(device))

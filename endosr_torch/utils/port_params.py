@@ -10,7 +10,11 @@ become reference checkpoint keys (``depth_residual3`` → ``depth-residual3``,
 (D,1,1,1)). The result loads into the port's modules, whose names are the
 reference checkpoint's. :func:`from_flax_train` carries a training
 model's tree (the generator and the dynamic loss's K-vector) across the
-same way, and so a gradient tree too.
+same way, and so a gradient tree too; :func:`from_flax_seg_train` that of
+the co-training model, with the FCN and its BatchNorm statistics.
+:func:`fit_state_dict` reads a checkpoint as the JAX porter does: keys of
+modules the network does not build are dropped, and with ``strict`` every
+key of the network must be present.
 """
 
 from __future__ import annotations
@@ -22,14 +26,18 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_flax", "from_flax_train", "flax_path_to_torch_key",
-           "load_params", "seeded_init", "load_monodepth",
+__all__ = ["from_flax", "from_flax_train", "from_flax_seg_train",
+           "from_flax_variables", "flax_path_to_torch_key", "load_params",
+           "fit_state_dict", "seeded_init", "load_monodepth",
            "load_monodepth_file", "from_flax_monodepth", "from_flax_pose",
            "from_flax_depth_trainer", "from_flax_vgg",
            "write_seeded_monodepth", "write_seeded_vgg"]
 
 _SEQ_IDX = re.compile(r"^(.*)_(\d+)$")
-_TRANSPOSE_CONV_SEGMENTS = {"layer4", "mlp_depthMatrix"}
+# flax module names of transposed convs: their (kh, kw, I, O) kernel becomes
+# torch's (I, O, kh, kw) with no flip (the JAX modules flip it when called)
+_TRANSPOSE_CONV_SEGMENTS = {"layer4", "mlp_depthMatrix", "deconv1", "deconv2",
+                            "deconv3", "deconv4", "deconv5"}
 _LEAF_MAP = {"kernel": "weight", "v": "weight_v", "g": "weight_g",
              "bias": "bias", "scale": "weight",
              "A_i_j_kernel": "A_i_j.weight", "A_i_j_bias": "A_i_j.bias"}
@@ -64,8 +72,9 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
-    """JAX DepthNet parameters (nested dicts of numpy arrays) → the port's
-    ``state_dict`` (reference keys, OIHW layouts, CPU fp32 tensors)."""
+    """A JAX generator's (or FCN's) parameters (nested dicts of numpy
+    arrays) → the port's ``state_dict`` (reference keys, OIHW layouts, a
+    Dense kernel (I, O) as torch's (O, I), CPU fp32 tensors)."""
     sd = {}
     for path, leaf in _flatten(params_np):
         a = np.asarray(leaf, np.float32)
@@ -73,10 +82,59 @@ def from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
         if name in ("v", "kernel", "A_i_j_kernel") and a.ndim == 4:
             tc = any(seg in _TRANSPOSE_CONV_SEGMENTS for seg in path)
             a = a.transpose(2, 3, 0, 1) if tc else a.transpose(3, 2, 0, 1)
+        elif name == "kernel" and a.ndim == 2:
+            a = a.T
         elif name == "g":
             a = a.reshape(-1, 1, 1, 1)
         sd[flax_path_to_torch_key(path)] = torch.from_numpy(np.array(a))
     return sd
+
+
+def from_flax_stats(stats_np: Mapping) -> dict[str, torch.Tensor]:
+    """A flax ``batch_stats`` tree (``bn1/mean``, ``bn1/var``, ...) → the
+    BatchNorm buffers of the port's ``state_dict`` (``bn1.running_mean``,
+    ``bn1.running_var``, ``bn1.num_batches_tracked`` = 0)."""
+    sd = {}
+    for path, leaf in _flatten(stats_np):
+        *mods, name = path
+        prefix = ".".join(_segment_to_torch(m) for m in mods)
+        sd[f"{prefix}.running_{name}"] = torch.from_numpy(
+            np.array(leaf, np.float32))
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX network's variables (``{"params": ..., "batch_stats": ...}``)
+    → the port's ``state_dict``: :func:`from_flax` of the parameters and
+    :func:`from_flax_stats` of the statistics."""
+    return {**from_flax(variables["params"]),
+            **from_flax_stats(variables.get("batch_stats") or {})}
+
+
+def fit_state_dict(sd: Mapping, network: torch.nn.Module, strict: bool = True,
+                   label: str = "") -> dict:
+    """``sd`` cut to the keys ``network``'s ``state_dict`` has, as the JAX
+    package's porter reads a checkpoint (``endosr/utils/port_torch.py``):
+    keys of modules the network does not build (a reference
+    ``latest_G.pth``'s dead ``depth-residual14``) are dropped and their
+    names logged; with ``strict``, every key of the network must be in
+    ``sd``, or it raises ``KeyError`` naming the missing ones. Shapes are
+    checked by ``load_state_dict``."""
+    import logging
+
+    own = network.state_dict()
+    dead = sorted(k for k in sd if k not in own)
+    if dead:
+        logging.getLogger("base").info(
+            "%s: dropping %d keys of modules the network does not build: %s",
+            label or type(network).__name__, len(dead), ", ".join(dead))
+    if strict:
+        missing = [k for k in own if k not in sd]
+        if missing:
+            raise KeyError(f"{label or type(network).__name__}: missing "
+                           f"{len(missing)} keys, e.g. {missing[:5]}")
+    return {k: v for k, v in sd.items() if k in own}
 
 
 def from_flax_train(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -89,6 +147,19 @@ def from_flax_train(tree: Mapping) -> dict[str, torch.Tensor]:
     if "dyn" in tree:
         out["dyn.trainable_weight"] = torch.from_numpy(np.array(
             tree["dyn"]["trainable_weight"], np.float32))
+    return out
+
+
+def from_flax_seg_train(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX ``FModelDepthSeg`` parameter tree (``netG``, ``dyn``,
+    ``segNet`` and ``segNet_stats``; or a gradient tree without the
+    statistics) → {name: tensor}: :func:`from_flax_train`'s names,
+    ``segNet.<key>`` for the FCN's parameters and its BatchNorm
+    statistics."""
+    out = from_flax_train(tree)
+    out.update({f"segNet.{k}": v for k, v in from_flax(tree["segNet"]).items()})
+    out.update({f"segNet.{k}": v for k, v in
+                from_flax_stats(tree.get("segNet_stats") or {}).items()})
     return out
 
 

@@ -17,6 +17,7 @@ from endosr_torch.depth.trainer import monodepth_loss
 from tests.torch_depth_common import (check_losses, jax_loss_fn, jax_noise,
                                       loss_nets, loss_opt, make_batch,
                                       select_nets, to_jax, to_port)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEP = 5
 

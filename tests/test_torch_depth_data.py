@@ -36,6 +36,7 @@ from endosr_torch.depth import kitti as TK
 from endosr_torch.depth import options as TO
 from endosr_torch.depth import train as TT
 from tests.torch_depth_common import write_sequence
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _items_equal(a, b):

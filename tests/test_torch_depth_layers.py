@@ -25,6 +25,7 @@ from endosr.ops import warp as JW
 from endosr_torch.depth import layers as T
 from endosr_torch.ops import warp as TW
 from tests.torch_depth_common import nrel
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 

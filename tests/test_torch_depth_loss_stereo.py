@@ -9,6 +9,7 @@ one-ulp-nudge rule of both packages.
 import pytest
 
 from tests.torch_depth_common import check_loss_and_gradients, loss_nets
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

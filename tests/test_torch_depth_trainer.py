@@ -54,6 +54,7 @@ from endosr_torch.utils.port_params import (from_flax_depth_trainer,
                                             load_monodepth)
 from tests.torch_depth_common import (H, W, fast_flax_init, jax_noise,
                                       jax_trainer, nrel, write_sequence)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 4
 LOSS_REL = 1e-5

@@ -41,6 +41,7 @@ from endosr_torch.models.recipes import x8_train_opt
 from endosr_torch.utils.port_params import (from_flax_train,
                                             write_seeded_monodepth,
                                             write_seeded_vgg)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 NET = {"which_model_G": "DepthNet", "in_nc": 3, "out_nc": 3, "nf": 64,
        "nb": 4, "depth_latent_ch": 16, "which_ResBlk_depth": [0],

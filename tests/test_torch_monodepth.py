@@ -43,6 +43,7 @@ from endosr_torch.nn import monodepth as t_md
 from endosr_torch.utils.port_params import (from_flax_monodepth,
                                             load_monodepth,
                                             write_seeded_monodepth)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FEED_H, FEED_W, B = 64, 96, 2
 

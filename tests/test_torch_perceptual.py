@@ -31,6 +31,7 @@ from endosr_torch.nn.vgg import VGG_CFGS, VGGFeatures, load_vgg_state
 from endosr_torch.utils.port_params import (from_flax_vgg,
                                             write_seeded_monodepth,
                                             write_seeded_vgg)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TAPS = [4, 9, 18, 27]
 

@@ -32,6 +32,7 @@ from endosr_torch.utils.port_params import (from_flax_depth_trainer,
                                             load_monodepth_file,
                                             write_seeded_monodepth)
 from tests.torch_depth_common import B, H, W, nrel, seeded_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

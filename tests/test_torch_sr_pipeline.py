@@ -32,6 +32,7 @@ from endosr_torch.ops.masks import depth_masks_np
 from endosr_torch.tools import sr_pipeline as t_pipe
 from endosr_torch.utils.misc import tensor2img
 from endosr_torch.utils.port_params import write_seeded_monodepth
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
