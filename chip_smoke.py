@@ -362,6 +362,35 @@ exits non-zero):
    parameters apart by no more than 4× the largest change either side's
    step makes under phase 6b's four one-ulp nudges.
 
+13. the GAN models, their data and the degradation toolkit — fp32 (TF32
+   off), seeded weights and a seeded VGG19 file (``write_seeded_vgg``: the
+   repo holds no VGG weights), synthetic data under ``build/gan13/``
+   (deleted after). (a) ESRGAN at its published recipe: ``srgan`` with
+   RRDBNet (nf 64, nb 23, gc 32) and ``discriminator_vgg_128`` (nf 64),
+   batch 16, LR 32² → GT 128², ``ragan``, L1 pixel 1e-2, L1 VGG feature
+   1, GAN 5e-3, D every step: 3 steps, ms a step (median of steps 2–3),
+   the first, peak memory. (b) MSRResNet (nf 64, nb 16) SRGAN at the same
+   sizes with ``D_update_ratio`` 2 for ``gan``, ``lsgan`` and
+   ``wgan-gp``: a D-only and a G + D step (twice), each gate's log keys.
+   (c) ``sftgan`` (SFTNet, ACD_VGG_BN_96), batch 16, LR 24² → HR 96²,
+   pixel 1, feature 1, GAN 5e-3, categories drawn over 0–7: steps 1, 2
+   (the non-SFT parameters unchanged) and 20001 (they move). (d) SFTNet
+   (``SFTGANACDModel.test``) and SFTNetTorch serve a batch-8 request at
+   LR 128² (segmentation 512²). (e) An ``LRHR_seg_bg`` loader (4 workers,
+   batch 16) over 16 PNGs of 480² with segmentation ``.npy`` and 4
+   background images: items/s, an SFT-GAN step on its first batch;
+   ``SRMDPreprocessing`` at batch 16, HR 256², ×4, l 21, anisotropic,
+   with noise: ms a call. Each step and request with the counts set to 0
+   just before and read just after: no kernel launch (these networks have
+   none, in JAX as here), losses finite. (f) ESRGAN, the MSRResNet SRGAN
+   with each loss and SFT-GAN at step 20001, batch 2, LR 32² (SFT 24²),
+   one step on the card and on the CPU from the same seeded weights and
+   batch: losses ≤ 1e-6 relative, ``test``'s outputs ≤ 1e-5 of max |ref|,
+   the updated G and D weights and D's running statistics each within 4×
+   the largest change either side's step makes under phase 6b's four
+   one-ulp nudges; ``SRMDPreprocessing`` and ``IsoGaussian`` on the same
+   draws ≤ 1e-5 of max |ref|.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
 ``val entry`` and ``eval entry``, phase 8's ``x2 <precision>`` and
@@ -373,6 +402,7 @@ phase 10's ``x8 pipeline bf16``, ``x8 pipeline fp32``, ``x8 train
 losses``, ``x8 train losses step 0`` and ``x8 losses grads``, and phase
 11's ``depth train`` (0 for every kernel), and phase 12's ``12e
 depthseg train`` and one label for each run of 12a–12d (0 for every kernel),
+phase 13's one label for each run of 13a–13e (0 for every kernel),
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -5481,49 +5511,72 @@ P12_NUDGES = (("LQ + 1 ulp", 1.0, None), ("LQ - 1 ulp", -1.0, None),
                                                  8))
 
 
-def _cpu_twin(torch, name, opt, batch_cuda, lq_key):
-    """12f for one model: step 1 from the same seeded weights on the card
-    and on the CPU, each also under ``P12_NUDGES`` (phase 6b's yardstick,
-    on both sides); the output of ``test`` on both."""
+def _cpu_twin(torch, opt, batch_card, lq_key, step=1, nets=("netG",),
+              device=None):
+    """12f / 13f for one model: step ``step`` from the same seeded weights
+    on the card (``device``; None: the models' default, CUDA) and on the
+    CPU, each also under ``P12_NUDGES`` (phase 6b's yardstick, on both
+    sides); the output of ``test`` on both. ``nets``: the model's networks
+    whose parameters are seeded alike, nudged and read (keys
+    ``<net>.<name>``); a model with a ``netD`` also gives D's running
+    statistics before (``stats0``) and after (``stats``) the step."""
     from endosr_torch.models import create_model
 
-    def step(dev, feed, nudge_seed, serve):
+    def named(m):
+        return {f"{n}.{k}": p for n in nets
+                for k, p in getattr(m, n).named_parameters()}
+
+    def running(m):
+        return {k: v.detach().cpu().clone()
+                for k, v in m.netD.state_dict().items() if "running" in k}
+
+    def run(dev, feed, nudge_seed, serve):
         m = create_model(copy.deepcopy(opt), device=dev)
-        start = {k: p.detach().cpu().clone()
-                 for k, p in m.netG.named_parameters()}
+        start = {k: p.detach().cpu().clone() for k, p in named(m).items()}
         if nudge_seed is not None:
             start = _nudge_weights(torch, start, nudge_seed, "cpu")
             with torch.no_grad():
-                for k, p in m.netG.named_parameters():
+                for k, p in named(m).items():
                     p.copy_(start[k])
+        has_d = getattr(m, "netD", None) is not None
+        r = {"start": start, **({"stats0": running(m)} if has_d else {})}
         m.feed_data(feed)
-        run = {"logs": dict(m.optimize_parameters(1)), "start": start,
-               "params": {k: p.detach().cpu().clone()
-                          for k, p in m.netG.named_parameters()}}
+        r["logs"] = dict(m.optimize_parameters(step))
+        r["params"] = {k: p.detach().cpu().clone()
+                       for k, p in named(m).items()}
+        if has_d:
+            r["stats"] = running(m)
         if serve:
             with torch.no_grad():
-                for k, p in m.netG.named_parameters():
+                for k, p in named(m).items():
                     p.copy_(start[k])
             out = m.test()
-            run["out"] = [t.detach().float().cpu() for t in (
+            r["out"] = [t.detach().float().cpu() for t in (
                 out if isinstance(out, tuple) else (out,))] + (
                 [m.depth_x4.cpu(), m.depth_x2.cpu()]
                 if getattr(m, "depth_x4", None) is not None else [])
         del m
-        return run
+        return r
 
     runs = {}
-    for side, dev in (("card", None), ("cpu", "cpu")):
-        base = batch_cuda if dev is None else {k: v.cpu()
-                                                for k, v in batch_cuda.items()}
-        runs[side] = step(dev, base, None, True)
+    for side, dev in (("card", device), ("cpu", "cpu")):
+        base = batch_card if side == "card" else {
+            k: v.cpu() for k, v in batch_card.items()}
+        runs[side] = run(dev, base, None, True)
         for label, to, seed in P12_NUDGES:
             feed = base
             if to is not None:
                 x = base[lq_key]
                 feed = dict(base, **{lq_key: torch.nextafter(x, x + to)})
-            runs[f"{side} {label}"] = step(dev, feed, seed, False)
+            runs[f"{side} {label}"] = run(dev, feed, seed, False)
     return runs
+
+
+def _apart(a, b, key="params", start="start"):
+    """‖a − b‖ / ‖b − b's start‖ over the tensors of ``key``."""
+    num = sum(float((a[key][k] - b[key][k]).square().sum()) for k in b[key])
+    den = sum(float((b[key][k] - b[start][k]).square().sum()) for k in b[key])
+    return (num / den) ** 0.5
 
 
 def p12_card_vs_cpu(torch):
@@ -5565,7 +5618,7 @@ def p12_card_vs_cpu(torch):
                 if name == "sftmd_kernel":
                     batch["ker_map"] = _rand(torch, gen, 2, 10)
             opt = dict(opt, train=dict(opt["train"], manual_seed=19))
-            runs = _cpu_twin(torch, name, opt, batch, lq_key)
+            runs = _cpu_twin(torch, opt, batch, lq_key)
             card, cpu = runs["card"], runs["cpu"]
             if any(not torch.equal(card["start"][k], v)
                    for k, v in cpu["start"].items()):
@@ -5575,16 +5628,8 @@ def p12_card_vs_cpu(torch):
             out_rel = max(float((a - b).abs().max())
                           / max(float(b.abs().max()), 1e-12)
                           for a, b in zip(card["out"], cpu["out"]))
-
-            def apart(a, b):
-                num = sum(float((a["params"][k] - b["params"][k]).square()
-                                .sum()) for k in b["params"])
-                den = sum(float((b["params"][k] - b["start"][k]).square()
-                                .sum()) for k in b["params"])
-                return (num / den) ** 0.5
-
-            prel = apart(card, cpu)
-            prel_n = max(apart(runs[f"{side} {lab}"], runs[side])
+            prel = _apart(card, cpu)
+            prel_n = max(_apart(runs[f"{side} {lab}"], runs[side])
                          for side in ("card", "cpu")
                          for lab, *_ in P12_NUDGES)
             fails = []
@@ -5676,6 +5721,551 @@ def phase12(torch, counters):
     shutil.rmtree(root, ignore_errors=True)
     numbers["seconds"] = time.perf_counter() - t0
     log(f"[phase 12] took {numbers['seconds']:.1f} s")
+    return launches, numbers
+
+
+GAN13_ROOT = "build/gan13"     # under the repository root, git-ignored
+DEV13 = "cuda"                  # phase 13's device (a CPU rehearsal: "cpu")
+P13_STEPS = 3
+P13_GAN = (16, 32)              # 13a/13b: batch, LR side (GT 128²)
+P13_SFT = (16, 24)              # 13c: batch, LR side (HR 96²)
+P13_SFT_STEPS = (1, 2, 20001)
+P13_REQ = (8, 128)              # 13d: batch, LR side (segmentation 512²)
+P13_DATA = (16, 480, 4)         # 13e: images 480², background images
+P13_SRMD = (16, 256, 4, 21)     # 13e: batch, HR side, scale, kernel size
+P13_CPU_NB = {"RRDBNet": 2, "MSRResNet": 4}   # 13f: G's depth on the CPU
+P13_LOSS_REL = 1e-6             # 13f: card vs CPU, the step's losses
+# 13f: the logs computed from D's outputs (its logits' means and the GAN
+# terms), also held by the nudge rule
+P13_D_LOGS = ("D_real", "D_fake", "l_g_gan", "l_d_real", "l_d_fake",
+              "l_g_cls", "l_d_cls_real", "l_d_cls_fake")
+P13_OUT_REL = 1e-5              # 13f: outputs, of max |ref|
+P13_DEG_REL = 1e-5              # 13f: degradation on the same draws
+# ESRGAN's published x4 recipe (BasicSR ``train_ESRGAN_x4``): RRDBNet nf
+# 64, nb 23, gc 32; VGG-128 D nf 64; Adam 1e-4, β 0.9 / 0.99 for both;
+# L1 pixel 1e-2, L1 VGG54 feature 1, RaGAN 5e-3, D every step
+ESRGAN_TRAIN = {"lr_G": 1e-4, "lr_D": 1e-4, "beta1": 0.9, "beta2": 0.99,
+                "beta1_D": 0.9, "beta2_D": 0.99, "weight_decay_G": 0,
+                "weight_decay_D": 0, "lr_scheme": "MultiStepLR",
+                "lr_steps": [50000, 100000, 200000, 300000],
+                "lr_gamma": 0.5, "pixel_criterion": "l1",
+                "pixel_weight": 1e-2, "feature_criterion": "l1",
+                "feature_weight": 1.0, "gan_type": "ragan",
+                "gan_weight": 5e-3, "D_update_ratio": 1, "D_init_iters": 0,
+                "manual_seed": 10}
+# SFT-GAN's recipe (the reference's ``train_sftgan.json``): Adam 1e-4,
+# β1 0.9; pixel 1, VGG feature 1, GAN 5e-3
+SFT_TRAIN = {"lr_G": 1e-4, "lr_D": 1e-4, "beta1_G": 0.9, "beta1_D": 0.9,
+             "lr_scheme": "MultiStepLR", "lr_steps": [50000, 100000],
+             "lr_gamma": 0.5, "pixel_criterion": "l1", "pixel_weight": 1.0,
+             "feature_criterion": "l1", "feature_weight": 1.0,
+             "gan_type": "gan", "gan_weight": 5e-3, "D_update_ratio": 1,
+             "D_init_iters": 0, "manual_seed": 10}
+G13_KEYS = {"l_g_pix", "l_g_gan"}
+D13_KEYS = {"l_d_real", "l_d_fake", "D_real", "D_fake"}
+
+
+def _gan13_opt(model, net_g, train, lr_size, vgg=None, net_d=None):
+    t = dict(train)
+    if vgg is None:
+        t["feature_weight"] = 0
+    else:
+        t["vgg_weights_path"] = vgg
+    opt = {"model": model, "scale": 4, "is_train": True,
+           "network_G": net_g, "path": {}, "train": t,
+           "datasets": {"train": {"LR_size": lr_size}}}
+    if net_d:
+        opt["network_D"] = net_d
+    return opt
+
+
+def _dev13():
+    return None if DEV13 == "cuda" else DEV13
+
+
+def _gan13_batch(torch, gen, b, lr, sft=False):
+    gt = torch.rand((b, 4 * lr, 4 * lr, 3), generator=gen, device=DEV13)
+    x = torch.rand((b, lr, lr, 3), generator=gen, device=DEV13)
+    if not sft:
+        return {"LQ": x, "GT": gt}
+    seg = torch.rand((b, 4 * lr, 4 * lr, 8), generator=gen, device=DEV13)
+    cat = torch.randint(0, 8, (b,), generator=gen, device=DEV13)
+    return {"LR": x, "GT": gt, "seg": seg / seg.sum(-1, keepdim=True),
+            "category": cat}
+
+
+def _gan_steps(torch, taps, label, m, batch, steps):
+    """``steps`` of ``m`` on ``batch`` under ``taps`` (label ``label``):
+    (the step records, peak GiB); every loss finite, no kernel launch, the
+    logs' keys those of each step's gate."""
+    taps.label = label
+    m.feed_data(batch)
+    _peak_reset(torch)
+    for step in steps:
+        m.optimize_parameters(step)
+    peak = _peak(torch)
+    recs = taps.steps(label)
+    if len(recs) != len(steps):
+        raise AssertionError(f"[{label}] {len(recs)} steps")
+    _finite_step_logs(label, recs)
+    _no_launches(label, recs)
+    sft = m.lq_key == "LR"
+    for step, r in zip(steps, recs):
+        want = set(D13_KEYS) | ({"l_d_cls_real", "l_d_cls_fake"} if sft
+                                else set())
+        if m._do_g(step):
+            want |= G13_KEYS | ({"l_g_fea"} if m.cri_fea else set()) | (
+                {"l_g_cls"} if sft else set())
+        if set(r["logs"]) != want:
+            raise AssertionError(f"[{label}] step {step} logs "
+                                 f"{sorted(r['logs'])}, want {sorted(want)}")
+    return recs, peak
+
+
+def p13_esrgan(torch, root, taps, vgg):
+    """13a: ESRGAN at its published recipe, 3 steps at batch 16, LR 32²."""
+    from endosr_torch.models import create_model
+
+    b, lr = P13_GAN
+    opt = _gan13_opt("srgan", {"which_model_G": "RRDBNet", "nf": 64,
+                               "nb": 23}, ESRGAN_TRAIN, lr, vgg,
+                     {"which_model_D": "discriminator_vgg_128", "nf": 64})
+    m = create_model(opt, device=_dev13())
+    side = 4 * lr // 32                 # the reference's 128² gives 4
+    if m.netD.linear1.weight.shape[1] != 512 * side * side:
+        raise AssertionError(f"[13a] linear1 {tuple(m.netD.linear1.weight.shape)}")
+    gen = torch.Generator(device=DEV13).manual_seed(131)
+    recs, peak = _gan_steps(torch, taps, "13a esrgan", m,
+                            _gan13_batch(torch, gen, b, lr), (1, 2, 3))
+    ms, step_ms = _step_ms(recs)
+    losses = [r["logs"] for r in recs]
+    log(f"[13a] ESRGAN (RRDBNet nf 64 nb 23 gc 32, VGG-128 D nf 64, VGG19 "
+        f"feature loss), ragan, fp32, batch {b}, LR {lr}² → GT {4 * lr}²: "
+        f"step ms " + ", ".join(f"{x:.1f}" for x in ms) + f" (median of "
+        f"steps 2–3 {step_ms:.1f}); peak {peak:.2f} GiB; step 1 logs "
+        f"{losses[0]}; kernel launches 0; "
+        + (gpu_line() if DEV13 == "cuda" else "cpu"))
+    del m
+    return {"ms": ms, "ms_per_step": step_ms, "first_ms": ms[0],
+            "peak_gib": peak, "logs": losses}
+
+
+def p13_srgan_losses(torch, taps):
+    """13b: MSRResNet SRGAN (nf 64, nb 16) at 13a's sizes,
+    ``D_update_ratio`` 2, for ``gan``, ``lsgan`` and ``wgan-gp``: a D-only
+    step (1) and a G + D step (2)."""
+    from endosr_torch.models import create_model
+
+    b, lr = P13_GAN
+    out = {}
+    for gan_type in ("gan", "lsgan", "wgan-gp"):
+        t = dict(ESRGAN_TRAIN, gan_type=gan_type, D_update_ratio=2)
+        opt = _gan13_opt("srgan", {"which_model_G": "MSRResNet", "nf": 64,
+                                   "nb": 16}, t, lr, None,
+                         {"which_model_D": "discriminator_vgg_128", "nf": 64})
+        m = create_model(opt, device=_dev13())
+        gen = torch.Generator(device=DEV13).manual_seed(132)
+        g0 = {k: p.detach().clone() for k, p in m.netG.named_parameters()}
+        label = f"13b srgan {gan_type}"
+        recs, peak = _gan_steps(torch, taps, label, m,
+                                _gan13_batch(torch, gen, b, lr), (1, 2, 1, 2))
+        moved = [not torch.equal(p, g0[k]) for k, p in
+                 m.netG.named_parameters()]
+        if not all(moved):
+            raise AssertionError(f"[{label}] G did not move on its steps")
+        ms = [r["secs"] * 1e3 for r in recs]
+        out[gan_type] = {"d_only_ms": ms[2], "g_and_d_ms": ms[3],
+                         "peak_gib": peak, "logs": [r["logs"] for r in
+                                                    recs[:2]]}
+        log(f"[13b] SRGAN MSRResNet (nf 64 nb 16) {gan_type}, batch {b}, LR "
+            f"{lr}²: D-only step {ms[2]:.1f} ms, G + D step {ms[3]:.1f} ms "
+            f"(first pair {ms[0]:.1f}, {ms[1]:.1f}); peak {peak:.2f} GiB; "
+            f"G + D logs {recs[1]['logs']}")
+        del m
+    return out
+
+
+def p13_sftgan(torch, taps, vgg):
+    """13c: SFT-GAN (SFTNet, ACD_VGG_BN_96), batch 16, LR 24² → HR 96²,
+    steps 1, 2 (the non-SFT parameters frozen) and 20001 (all move)."""
+    from endosr_torch.models import create_model
+    from endosr_torch.models.sftgan_model import sft_mask
+
+    b, lr = P13_SFT
+    opt = _gan13_opt("sftgan", {"which_model_G": "sft_arch"}, SFT_TRAIN, lr,
+                     vgg)
+    m = create_model(opt, device=_dev13())
+    gen = torch.Generator(device=DEV13).manual_seed(133)
+    g0 = {k: p.detach().clone() for k, p in m.netG.named_parameters()}
+    frozen_ok = []
+    orig = m.optimize_parameters
+
+    def step_and_check(step):
+        out = orig(step)
+        other = [not torch.equal(p, g0[k]) for k, p in
+                 m.netG.named_parameters() if not sft_mask(k)]
+        frozen_ok.append((step, any(other)))
+        return out
+
+    m.optimize_parameters = step_and_check
+    recs, peak = _gan_steps(torch, taps, "13c sftgan", m,
+                            _gan13_batch(torch, gen, b, lr, sft=True),
+                            P13_SFT_STEPS)
+    if [moved for _, moved in frozen_ok] != [False, False, True]:
+        raise AssertionError(f"[13c] the non-SFT parameters moved at "
+                             f"{frozen_ok}, want only at 20001")
+    n_sft = sum(p.numel() for k, p in m.netG.named_parameters()
+                if sft_mask(k))
+    ms = [r["secs"] * 1e3 for r in recs]
+    log(f"[13c] SFT-GAN (SFTNet, ACD_VGG_BN_96, VGG19 feature loss), batch "
+        f"{b}, LR {lr}² → HR {4 * lr}²: steps 1, 2, 20001 ms "
+        + ", ".join(f"{x:.1f}" for x in ms) + f"; peak {peak:.2f} GiB; the "
+        f"non-SFT parameters frozen through step 2, moved at 20001; SFT "
+        f"mask {n_sft:,d} parameters (C15); step 20001 logs {recs[-1]['logs']}")
+    del m
+    return {"ms": ms, "peak_gib": peak, "sft_params": n_sft,
+            "logs": [r["logs"] for r in recs]}
+
+
+def p13_requests(torch, taps):
+    """13d: SFTNet (``SFTGANACDModel.test``) and SFTNetTorch serve a
+    batch-8 request at LR 128² (segmentation 512²)."""
+    from endosr_torch.models import create_model
+    from endosr_torch.nn.sft_arch import SFTNetTorch
+    from endosr_torch.utils.port_params import seeded_init
+
+    b, lr = P13_REQ
+    gen = torch.Generator(device=DEV13).manual_seed(134)
+    batch = _gan13_batch(torch, gen, b, lr, sft=True)
+    m = create_model({"model": "sftgan", "is_train": False, "scale": 4,
+                      "network_G": {"which_model_G": "sft_arch"},
+                      "path": {}, "datasets": {}}, device=_dev13())
+    m.feed_data(batch, need_GT=False)
+    taps.label = "13d sftnet request"
+    _peak_reset(torch)
+    sr, ms = _timed(torch, m.test, 2)
+    peak = _peak(torch)
+    _no_launches(taps.label, taps.calls[taps.label])
+    net = seeded_init(SFTNetTorch().to(DEV13), 11).eval()
+
+    def serve_torch():
+        with torch.inference_mode():
+            return net(batch["LR"], batch["seg"])
+
+    zero = [c.launches for c in taps.counters]
+    _peak_reset(torch)
+    sr_t, ms_t = _timed(torch, serve_torch, 2)
+    peak_t = _peak(torch)
+    if [c.launches for c in taps.counters] != zero:
+        raise AssertionError("[13d] SFTNetTorch launched a kernel")
+    for name, y in (("SFTNet", sr), ("SFTNetTorch", sr_t)):
+        if tuple(y.shape) != (b, 4 * lr, 4 * lr, 3) or not bool(
+                torch.isfinite(y).all()):
+            raise AssertionError(f"[13d] {name} {tuple(y.shape)}")
+    log(f"[13d] requests, batch {b}, LR {lr}² (seg {4 * lr}²) → SR "
+        f"{4 * lr}²: SFTNet {ms:.1f} ms (peak {peak:.2f} GiB), SFTNetTorch "
+        f"{ms_t:.1f} ms (peak {peak_t:.2f} GiB); kernel launches 0")
+    del m, net
+    return {"sftnet_ms": ms, "sftnet_peak_gib": peak, "sftnet_torch_ms": ms_t,
+            "sftnet_torch_peak_gib": peak_t}
+
+
+def write_segbg(root, n, side, n_bg, seed=35):
+    """``n`` smooth images of ``side``² named by the OST categories (three
+    in four with an 8-channel segmentation ``.npy``) and ``n_bg``
+    background images."""
+    import numpy as np
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    cats = ("building", "plant", "mountain", "water", "sky", "grass",
+            "animal", "other")
+    for sub in ("hr", "bg", "seg"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        name = f"{cats[i % len(cats)]}_{i:02d}"
+        cv2.imwrite(str(root / "hr" / f"{name}.png"),
+                    _smooth_u8(np, rng, side, side))
+        if i % 4:
+            seg = rng.random((side, side, 8), dtype=np.float32)
+            np.save(root / "seg" / f"{name}.npy",
+                    seg / seg.sum(-1, keepdims=True))
+    for i in range(n_bg):
+        cv2.imwrite(str(root / "bg" / f"bg_{i}.png"),
+                    _smooth_u8(np, rng, side, side))
+
+
+def p13_data(torch, root, taps):
+    """13e: an ``LRHR_seg_bg`` loader (4 forked workers, batch 16, HR 96²)
+    over 16 images of 480²: items/s; a 13c-sized SFT-GAN step on its first
+    batch; ``SRMDPreprocessing`` at batch 16, HR 256², ×4, l 21,
+    anisotropic, with noise: ms a call."""
+    import numpy as np
+
+    from endosr_torch.data import create_dataloader, create_dataset
+    from endosr_torch.models import create_model
+    from endosr_torch.ops.degradation import (SRMDPreprocessing, pca_matrix,
+                                              random_batch_kernel)
+
+    n, side, n_bg = P13_DATA
+    data = root / "segbg"
+    write_segbg(data, n, side, n_bg)
+    b, lr = P13_SFT
+    dopt = {"name": "segbg", "mode": "LRHR_seg_bg", "phase": "train",
+            "scale": 4, "GT_size": 4 * lr, "use_flip": True, "use_rot": True,
+            "dataroot_GT": str(data / "hr"), "dataroot_GT_bg": str(data / "bg"),
+            "dataroot_seg": str(data / "seg"), "data_type": "img",
+            "batch_size": b, "n_workers": 4, "use_shuffle": True,
+            "dataset_enlarge_ratio": 4}
+    ds = create_dataset(dopt)
+    t = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    item_ms = (time.perf_counter() - t) * 1e3 / n
+    loader = create_dataloader(ds, dopt, {"train": {"manual_seed": 0}})
+    loader.set_epoch(0)
+    t = time.perf_counter()
+    batches = list(loader)
+    secs = time.perf_counter() - t
+    items = sum(len(x["category"]) for x in batches)
+    first = batches[0]
+    shapes = {k: tuple(v.shape) for k, v in first.items()
+              if hasattr(v, "shape")}
+    want = {"LR": (b, lr, lr, 3), "HR": (b, 4 * lr, 4 * lr, 3),
+            "GT": (b, 4 * lr, 4 * lr, 3), "seg": (b, 4 * lr, 4 * lr, 8),
+            "category": (b,)}
+    if shapes != want:
+        raise AssertionError(f"[13e] batch shapes {shapes}")
+    m = create_model(_gan13_opt("sftgan", {"which_model_G": "sft_arch"},
+                                SFT_TRAIN, lr), device=_dev13())
+    _gan_steps(torch, taps, "13e sftgan loader batch", m, first, (1,))
+    del m
+    # the degradation pipeline
+    bs, hr, scale, l = P13_SRMD
+    ks = random_batch_kernel(256, l, rate_iso=0.5,
+                             generator=torch.Generator().manual_seed(5))
+    pre = SRMDPreprocessing(scale, pca_matrix(ks.numpy()), random=True,
+                            kernel=l, noise=True, rate_iso=0.0)
+    gen = torch.Generator(device=DEV13).manual_seed(136)
+    x = torch.rand((bs, hr, hr, 3), generator=gen, device=DEV13)
+    (lr_img, code), srmd_ms = _timed(
+        torch, lambda: pre(x, generator=gen), 5)
+    if tuple(lr_img.shape) != (bs, hr // scale, hr // scale, 3) or tuple(
+            code.shape) != (bs, 11) or not (0 <= float(lr_img.min())
+                                             and float(lr_img.max()) <= 1):
+        raise AssertionError(f"[13e] SRMD {tuple(lr_img.shape)}")
+    log(f"[13e] LRHR_seg_bg: {n} images of {side}² (+{n_bg} background), "
+        f"an item {item_ms:.1f} ms in one process; the loader (4 workers, "
+        f"batch {b}, enlarge ×4): {items} items in {secs:.2f} s = "
+        f"{items / secs:.1f} items/s (worker start included); an SFT-GAN "
+        f"step on its first batch: finite; SRMDPreprocessing batch {bs}, HR "
+        f"{hr}², ×{scale}, l {l}, anisotropic, noise: {srmd_ms:.2f} ms a call")
+    return {"item_ms": item_ms, "loader_items_per_s": items / secs,
+            "loader_items": items, "srmd_ms": srmd_ms}
+
+
+def p13_card_vs_cpu(torch, vgg):
+    """13f: ESRGAN (RRDBNet, ragan, the VGG feature loss), the MSRResNet
+    SRGAN with ``gan``, ``lsgan`` and ``wgan-gp`` (G + D steps) and SFT-GAN
+    at step 20001 (every G parameter moves), at 13a–13c's batch and sizes
+    (16, LR 32²; SFT-GAN 24²) with G's depth cut (``P13_CPU_NB``): a step on
+    the card and on the CPU from the same seeded weights and batch — the
+    pixel and feature losses ≤ ``P13_LOSS_REL`` relative; the logs
+    computed from D's outputs (``P13_D_LOGS``: ``D_real`` / ``D_fake`` and
+    the GAN terms, which under ``lsgan`` and ``wgan-gp`` are the logits'
+    means or mean squares) ≤ ``P13_LOSS_REL`` relative or ``GRAD_NOISE``×
+    their largest move under the four one-ulp nudges on either side;
+    ``test``'s outputs ≤ ``P13_OUT_REL`` of max |ref|; the
+    updated G and D weights and D's running statistics apart by no more
+    than ``GRAD_NOISE``× the largest change either side's step makes under
+    the nudges (norm over all, of the step's move); then
+    ``SRMDPreprocessing`` and ``IsoGaussian`` on the same draws
+    ≤ ``P13_DEG_REL`` of max |ref|. Every case is run and logged; any
+    failure fails the phase. cuDNN's deterministic algorithms."""
+    from endosr_torch.ops.degradation import (IsoGaussian, SRMDPreprocessing,
+                                              pca_matrix, random_batch_kernel)
+
+    cudnn = torch.backends.cudnn
+    was = cudnn.deterministic
+    cudnn.deterministic = True
+    b, lr = P13_GAN
+    d64 = {"which_model_D": "discriminator_vgg_128", "nf": 64}
+    cases = {"esrgan ragan": (_gan13_opt(
+        "srgan", {"which_model_G": "RRDBNet", "nf": 64,
+                  "nb": P13_CPU_NB["RRDBNet"]},
+        ESRGAN_TRAIN, lr, vgg, d64), lr, 1, False)}
+    for gan_type in ("gan", "lsgan", "wgan-gp"):
+        cases[f"srgan {gan_type}"] = (_gan13_opt(
+            "srgan", {"which_model_G": "MSRResNet", "nf": 64,
+                      "nb": P13_CPU_NB["MSRResNet"]},
+            dict(ESRGAN_TRAIN, gan_type=gan_type), lr, None, d64), lr, 1,
+            False)
+    cases["sftgan"] = (_gan13_opt("sftgan", {"which_model_G": "sft_arch"},
+                                  SFT_TRAIN, P13_SFT[1], vgg),
+                       P13_SFT[1], 20001, True)
+    gen = torch.Generator(device=DEV13).manual_seed(137)
+    out, failed = {}, []
+    try:
+        for name, (opt, side, step, sft) in cases.items():
+            t0 = time.perf_counter()
+            batch = _gan13_batch(torch, gen, b, side, sft)
+            lq_key = "LR" if sft else "LQ"
+            runs = _cpu_twin(torch, opt, batch, lq_key, step,
+                             ("netG", "netD"), _dev13())
+            card, cpu = runs["card"], runs["cpu"]
+            if any(not torch.equal(card["start"][k], v)
+                   for k, v in cpu["start"].items()):
+                raise AssertionError(f"[13f] {name}: the seeded weights "
+                                     "differ")
+            out_rel = max(float((a - c).abs().max())
+                          / max(float(c.abs().max()), 1e-12)
+                          for a, c in zip(card["out"], cpu["out"]))
+            nudged = [(runs[f"{sd} {lab}"], runs[sd])
+                      for sd in ("card", "cpu") for lab, *_ in P12_NUDGES]
+            # each log as a share of its bar: P13_LOSS_REL relative; for
+            # P13_D_LOGS also GRAD_NOISE× its move under the nudges
+            rels, ratio = {}, {}
+            for k, v in cpu["logs"].items():
+                d = abs(card["logs"][k] - v)
+                rels[k] = d / max(abs(v), 1e-12)
+                bar = P13_LOSS_REL * abs(v)
+                if k in P13_D_LOGS:
+                    bar = max(bar, GRAD_NOISE * max(
+                        abs(r["logs"][k] - base["logs"][k])
+                        for r, base in nudged))
+                ratio[k] = d / max(bar, 1e-30)
+            worst = max(ratio, key=ratio.get)
+            loss_rel = max(v for k, v in rels.items() if k not in P13_D_LOGS)
+            d_rel = max(v for k, v in rels.items() if k in P13_D_LOGS)
+            prel = _apart(card, cpu)
+            prel_n = max(_apart(r, base) for r, base in nudged)
+            srel = _apart(card, cpu, "stats", "stats0")
+            srel_n = max(_apart(r, base, "stats", "stats0")
+                         for r, base in nudged)
+            fails = []
+            if sorted(card["logs"]) != sorted(cpu["logs"]) or not (
+                    ratio[worst] <= 1):
+                fails.append(f"log {worst} {ratio[worst]:.3g} of its bar")
+            if not out_rel <= P13_OUT_REL:
+                fails.append(f"outputs {out_rel:.3g} of max |ref|")
+            if not prel <= GRAD_NOISE * prel_n:
+                fails.append(f"updated weights {prel:.3g} > {GRAD_NOISE}× "
+                             f"{prel_n:.3g}")
+            if not srel <= GRAD_NOISE * srel_n:
+                fails.append(f"running statistics {srel:.3g} > "
+                             f"{GRAD_NOISE}× {srel_n:.3g}")
+            out[name] = {"loss_rel": loss_rel, "d_log_rel": d_rel,
+                         "log_rels": rels,
+                         "log_bar_ratio": ratio, "out_rel": out_rel,
+                         "params_rel": prel, "params_rel_ulp": prel_n,
+                         "stats_rel": srel, "stats_rel_ulp": srel_n,
+                         "s": time.perf_counter() - t0}
+            net = opt["network_G"]
+            log(f"[13f] {name}, step {step}, batch {b}, LR {side}², G "
+                f"{net['which_model_G']}" + (f" nb {net['nb']}" if "nb" in net
+                                             else "")
+                + f", card vs CPU: pixel and feature losses {loss_rel:.3g} "
+                f"relative at most (tol {P13_LOSS_REL:g}), the logs from D's "
+                f"outputs {d_rel:.3g}; each log relative and as a share of "
+                f"its bar ({P13_LOSS_REL:g} relative; from D's outputs: or "
+                f"{GRAD_NOISE}× their one-ulp nudges' move): " + ", ".join(f"{k} {rels[k]:.2g} ({ratio[k]:.2g})"
+                                       for k in rels) + ";"
+                f" outputs {out_rel:.3g} of max |ref| (tol {P13_OUT_REL:g}); "
+                f"updated G and D weights {prel:.3g} of the move apart (the "
+                f"largest under the one-ulp nudges on either side "
+                f"{prel_n:.3g}, tol {GRAD_NOISE}× that); D's running "
+                f"statistics {srel:.3g} (nudges {srel_n:.3g}); "
+                f"{out[name]['s']:.1f} s"
+                + (f" FAILED: {'; '.join(fails)}" if fails else ""))
+            failed += [f"{name}: {f}" for f in fails]
+            del runs
+            if DEV13 == "cuda":
+                torch.cuda.empty_cache()
+        # the degradation pipelines on the same draws
+        bs, hr, scale, l = P13_SRMD
+        ks = random_batch_kernel(256, l, rate_iso=0.5,
+                                 generator=torch.Generator().manual_seed(5))
+        pca = pca_matrix(ks.numpy())
+        x = torch.rand((bs, hr, hr, 3), generator=gen, device=DEV13)
+        deg = {}
+        for name, pre in (("srmd", SRMDPreprocessing(
+                scale, pca, kernel=l, noise=True, rate_iso=0.5)),
+                ("iso", IsoGaussian(scale, pca, kernel=l, noise=True,
+                                    noise_high=0.05))):
+            draws = pre.draws(x, gen)
+            card = pre(x, draws=draws) if name == "iso" else pre(
+                x, True, draws=draws)
+            host = _on_cpu(torch, draws)
+            cpu = pre(x.cpu(), draws=host) if name == "iso" else pre(
+                x.cpu(), True, draws=host)
+            deg[name] = max(float((a.cpu() - c).abs().max())
+                            / max(float(c.abs().max()), 1e-12)
+                            for a, c in zip(card, cpu))
+            if not deg[name] <= P13_DEG_REL:
+                failed.append(f"{name}: {deg[name]:.3g} of max |ref| > "
+                              f"{P13_DEG_REL:g}")
+        out["degradation"] = deg
+        log(f"[13f] degradation, batch {bs}, HR {hr}², ×{scale}, l {l}, card "
+            f"vs CPU on the same draws: SRMDPreprocessing {deg['srmd']:.3g}, "
+            f"IsoGaussian {deg['iso']:.3g} of max |ref| (tol "
+            f"{P13_DEG_REL:g})")
+        if failed:
+            raise AssertionError("[13f] " + "; ".join(failed))
+    finally:
+        cudnn.deterministic = was
+    return out
+
+
+def _on_cpu(torch, tree):
+    """A nest of dicts of tensors, on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _on_cpu(torch, v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def phase13(torch, counters):
+    """Phase 13: the GAN models, their data and the degradation toolkit
+    (13a–13f), fp32 with TF32 off, seeded weights (and a seeded VGG19
+    file: the repo holds none), synthetic data under ``build/gan13``
+    (deleted after). Returns ({path label: launches}, readings)."""
+    import shutil
+
+    from endosr_torch.models.sftgan_model import SFTGANACDModel
+    from endosr_torch.models.srgan_model import SRGANModel
+    from endosr_torch.utils.port_params import write_seeded_vgg
+
+    root = Path(__file__).resolve().parent / GAN13_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    vgg = write_seeded_vgg(str(root / "vgg19.pth"), seed=13)
+    taps = ModelTaps(torch, counters, (SRGANModel, SFTGANACDModel))
+    numbers = {}
+    uninstall = taps.install()
+    try:
+        for key, fn in (("13a", lambda: p13_esrgan(torch, root, taps, vgg)),
+                        ("13b", lambda: p13_srgan_losses(torch, taps)),
+                        ("13c", lambda: p13_sftgan(torch, taps, vgg)),
+                        ("13d", lambda: p13_requests(torch, taps)),
+                        ("13e", lambda: p13_data(torch, root, taps))):
+            t = time.perf_counter()
+            numbers[key] = fn()
+            numbers[key + "_s"] = time.perf_counter() - t
+            log(f"[phase 13] {key}: {numbers[key + '_s']:.1f} s")
+    finally:
+        uninstall()
+    launches = {label: {c.__name__: sum(r["launches"][c.__name__]
+                                        for r in recs) for c in counters}
+                for label, recs in taps.calls.items()}
+    if DEV13 == "cuda":
+        t = time.perf_counter()
+        numbers["13f"] = p13_card_vs_cpu(torch, vgg)
+        numbers["13f_s"] = time.perf_counter() - t
+        log(f"[phase 13] 13f: {numbers['13f_s']:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 13] took {numbers['seconds']:.1f} s")
     return launches, numbers
 
 
@@ -5773,6 +6363,9 @@ def main() -> int:
             have = rows[kname]["max_abs_err"]
             have[dts] = max(have[dts], err)
     log(f"[phase 12] summary: {json.dumps(numbers)}")
+    p13, numbers = phase13(torch, counters)
+    by_path.update(p13)
+    log(f"[phase 13] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

@@ -34,16 +34,14 @@ MODES = {"LQGTker_Depth": "LQGTKerDepthDataset",
          "EndoScene_Depth": "EndoSceneDepthDataset",
          "EndoScene_Depthnew": "EndoSceneDepthnewDataset",
          "LQGTker": "LQGTKerDataset", "LQ": "LQDataset",
-         "LQker": "LQKerDataset", "SRker": "SRKerDataset"}
+         "LQker": "LQKerDataset", "SRker": "SRKerDataset",
+         "LRHR_seg_bg": "LRHRSegBGDataset"}
 
 
 def create_dataset(dataset_opt):
     from endosr_torch.data import datasets
 
     mode = dataset_opt["mode"]
-    if mode == "LRHR_seg_bg":
-        raise NotImplementedError(
-            f"Dataset mode [{mode}] is not ported yet (the SFT-GAN data)")
     if mode not in MODES:
         raise NotImplementedError(f"Dataset [{mode}] is not recognized.")
     dataset = getattr(datasets, MODES[mode])(dataset_opt)
@@ -91,11 +89,11 @@ class EpochBatchSampler(Sampler):
 
 
 def collate(items: list[dict]) -> dict:
-    """Samples → one batch: arrays stacked into CPU tensors, the rest
-    (path strings) as lists."""
+    """Samples → one batch: arrays and numpy scalars stacked into CPU
+    tensors, the rest (path strings) as lists."""
     out = {}
     for k, v0 in items[0].items():
-        if isinstance(v0, np.ndarray):
+        if isinstance(v0, (np.ndarray, np.generic)):
             out[k] = torch.from_numpy(np.stack([it[k] for it in items]))
         else:
             out[k] = [it[k] for it in items]

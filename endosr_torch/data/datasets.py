@@ -3,8 +3,8 @@ flagship ``LQGTKerDepthDataset`` and ``EndoSceneDepthDataset``, the
 EndoScene variant ``EndoSceneDepthnewDataset``, and the depth-free ones of
 the other models — ``LQGTKerDataset`` (LR/GT pairs), ``LQDataset`` (LR
 only), ``LQKerDataset`` (LR + real kernel code) and ``SRKerDataset`` (SR +
-estimated kernel code). ``LRHRSegBGDataset`` (the SFT-GAN data) is still
-to be ported.
+estimated kernel code) — and ``LRHRSegBGDataset``, SFT-GAN's images with
+their segmentation maps and categories.
 
 A sample is a dict of numpy arrays in NHWC order: 'LQ' and 'GT' HWC RGB
 float32 in [0, 1] (uint8 with ``u8_pipeline``), 'Depth' HW1 float32,
@@ -27,7 +27,7 @@ from endosr_torch.ops.resize import imresize_np
 
 __all__ = ["LQGTKerDepthDataset", "EndoSceneDepthDataset",
            "EndoSceneDepthnewDataset", "LQGTKerDataset", "LQDataset",
-           "LQKerDataset", "SRKerDataset"]
+           "LQKerDataset", "SRKerDataset", "LRHRSegBGDataset"]
 
 
 class _Base:
@@ -494,3 +494,114 @@ class SRKerDataset(_Base):
             item["est_ker_map"] = np.asarray(self.est_ker_map_list[index],
                                              np.float32)
         return item
+
+
+class LRHRSegBGDataset(_Base):
+    """SFT-GAN's data: HR images with 8-channel segmentation probability
+    maps (``<stem>.npy``, HWC, under ``dataroot_seg``; all background
+    where there is none), one item in ``ratio`` (10) a background image
+    from ``dataroot_GT_bg`` with an all-background map, a random rescale
+    (``cv2`` INTER_LINEAR for the image, INTER_NEAREST for the map) and
+    MATLAB-bicubic LR in training, a paired crop and ``augment``, and the
+    category from the path (the OST names, 1–7; 0 otherwise, −1 in
+    validation). The draws from ``self.rng`` are the JAX dataset's, in its
+    order, so an item equals JAX's at the same seed."""
+
+    CATEGORIES = ("building", "plant", "mountain", "water", "sky", "grass",
+                  "animal")
+
+    def __init__(self, opt):
+        super().__init__(opt)
+        self.HR_paths = util.get_image_paths("img", opt["dataroot_GT"])
+        self.GT_paths = self.HR_paths
+        self.LR_paths = (util.get_image_paths("img", opt["dataroot_LR"])
+                         if opt.get("dataroot_LR") else None)
+        self.BG_paths = (util.get_image_paths("img", opt["dataroot_GT_bg"])
+                         if opt.get("dataroot_GT_bg") else None)
+        self.seg_root = opt.get("dataroot_seg")
+        self.random_scale_list = [1, 0.9, 0.8, 0.7, 0.6, 0.5]
+        self.ratio = 10
+
+    @staticmethod
+    def _background(shape):
+        seg = np.zeros((shape[0], shape[1], 8), np.float32)
+        seg[..., 0] = 1.0
+        return seg
+
+    def _load_seg(self, hr_path, shape):
+        if self.seg_root:
+            p = os.path.join(self.seg_root, os.path.basename(hr_path)
+                             .rsplit(".", 1)[0] + ".npy")
+            if os.path.exists(p):
+                return np.load(p).astype(np.float32)
+        return self._background(shape)
+
+    def _rescale(self, img_hr, seg, scale, hr_size):
+        import cv2
+
+        rs = self.rng.choice(self.random_scale_list)
+
+        def mod(n):
+            r = (int(n * rs) // scale) * scale
+            return hr_size if r < hr_size else r
+
+        h_s, w_s = mod(img_hr.shape[0]), mod(img_hr.shape[1])
+        img_hr = cv2.resize(np.copy(img_hr), (w_s, h_s),
+                            interpolation=cv2.INTER_LINEAR)
+        seg = cv2.resize(np.copy(seg), (w_s, h_s),
+                         interpolation=cv2.INTER_NEAREST)
+        return img_hr, seg
+
+    def __getitem__(self, index):
+        opt = self.opt
+        scale = opt["scale"]
+        hr_size = opt.get("HR_size") or opt.get("GT_size")
+        train = self._is_train()
+
+        use_bg = (train and self.BG_paths
+                  and self.rng.randrange(self.ratio) == 0)
+        if use_bg:
+            HR_path = self.BG_paths[self.rng.randrange(len(self.BG_paths))]
+            img_HR = util.read_img(None, HR_path)
+            seg = self._background(img_HR.shape)
+        else:
+            HR_path = self.HR_paths[index]
+            img_HR = util.read_img(None, HR_path)
+            seg = self._load_seg(HR_path, img_HR.shape)
+        if not train:
+            img_HR = modcrop(img_HR, 8)
+            seg = seg[: img_HR.shape[0], : img_HR.shape[1]]
+
+        LR_path = None
+        if self.LR_paths and not use_bg:
+            LR_path = self.LR_paths[index]
+            img_LR = self._read_img(LR_path)
+        else:
+            if train:
+                img_HR, seg = self._rescale(img_HR, seg, scale, hr_size)
+            img_LR = imresize_np(img_HR, 1 / scale, True)
+            if img_LR.ndim == 2:
+                img_LR = np.expand_dims(img_LR, axis=2)
+
+        category = -1
+        if train:
+            lr_size = hr_size // scale
+            h, w = img_LR.shape[:2]
+            rnd_h = self.rng.randint(0, max(0, h - lr_size))
+            rnd_w = self.rng.randint(0, max(0, w - lr_size))
+            img_LR = img_LR[rnd_h:rnd_h + lr_size, rnd_w:rnd_w + lr_size]
+            rh, rw = rnd_h * scale, rnd_w * scale
+            img_HR = img_HR[rh:rh + hr_size, rw:rw + hr_size]
+            seg = seg[rh:rh + hr_size, rw:rw + hr_size]
+            img_LR, img_HR, seg = util.augment(
+                [img_LR, img_HR, seg], opt.get("use_flip", False),
+                opt.get("use_rot", False), self.rng)
+            category = next((i for i, name in enumerate(self.CATEGORIES, 1)
+                             if name in HR_path), 0)
+
+        img_HR = util.bgr_to_rgb_f32(img_HR)
+        img_LR = util.bgr_to_rgb_f32(img_LR)
+        return {"LR": img_LR, "HR": img_HR, "GT": img_HR.copy(),
+                "seg": np.ascontiguousarray(seg, np.float32),
+                "category": np.int64(category),
+                "LR_path": LR_path or HR_path, "HR_path": HR_path}

@@ -18,17 +18,15 @@ MODELS = {
     "sftmd_depthCond": ("f_depthcond", "FModelDepthCond"),
     "sftmd_depth": ("f_depth", "FModelDepth"),
     "sftmd_depthSegNet": ("f_depthseg", "FModelDepthSeg"),
+    "srgan": ("srgan_model", "SRGANModel"),
+    "sftgan": ("sftgan_model", "SFTGANACDModel"),
 }
-NOT_PORTED = ("srgan", "sftgan")
 
 
 def create_model(opt, device=None):
     """The model the YAML's ``model:`` names, on ``device`` (None: CUDA,
     which raises without one)."""
     model = opt["model"]
-    if model in NOT_PORTED:
-        raise NotImplementedError(
-            f"Model [{model}] is not ported yet (the GAN models)")
     if model not in MODELS:
         raise NotImplementedError(f"Model [{model}] not recognized.")
     module, cls = MODELS[model]

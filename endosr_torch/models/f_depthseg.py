@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from endosr_torch.losses.basic import bce_with_logits
 from endosr_torch.losses.mask import dynamic_weight_mask_loss, mask_loss
 from endosr_torch.losses.ssim import ssim_value
 from endosr_torch.models.base import _host
@@ -43,12 +44,6 @@ def jaccard_loss(true_onehot, logits, eps: float = 1e-7):
     intersection = (probs * true_onehot).sum(dim=(1, 2))
     union = (probs + true_onehot).sum(dim=(1, 2)) - intersection
     return 1.0 - (intersection / (union + eps)).mean()
-
-
-def bce_with_logits(logits, targets):
-    """mean(max(l, 0) − l·t + log1p(exp(−|l|))), the JAX model's form."""
-    return torch.mean(torch.clamp(logits, min=0) - logits * targets
-                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 class RMSChain(torch.optim.Optimizer):

@@ -16,10 +16,15 @@ BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9)`` (:class:`FlaxBatchNorm`)
 in training mode it normalizes with the batch statistics, the variance
 E[x²] − E[x]² clamped at 0 and biased, and updates the running statistics
 with that biased variance (torch's ``BatchNorm2d`` would update with the
-unbiased one); in eval mode it uses the running statistics.
+unbiased one); in eval mode it uses the running statistics. Inside
+:func:`batch_stats_only` a training-mode forward normalizes with the batch
+statistics and leaves the running ones as they are, as a flax apply whose
+new ``batch_stats`` are thrown away (the GAN models' generator step).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
@@ -29,7 +34,7 @@ from endosr_torch.nn.layers import Conv, init_leaves_, torch_conv_init_
 from endosr_torch.nn.vgg import VGG_CFGS
 
 __all__ = ["VGGBackbone", "FCN8s", "FCN16s", "FCN32s", "FCNs",
-           "FlaxBatchNorm", "Deconv2x"]
+           "FlaxBatchNorm", "Deconv2x", "batch_stats_only"]
 
 F32 = torch.float32
 
@@ -42,6 +47,7 @@ class FlaxBatchNorm(nn.BatchNorm2d):
 
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        self.update_stats = True
 
     def init_(self, gen):
         """flax's init: scale 1, bias 0, mean 0, var 1 (``gen`` unused)."""
@@ -49,19 +55,38 @@ class FlaxBatchNorm(nn.BatchNorm2d):
 
     def forward(self, x):
         if self.training:
-            x32 = x.float()
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = x32.mean(dim=(0, 1, 2))
             var = torch.clamp((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean.detach())
-                self.running_var.mul_(1 - m).add_(m * var.detach())
-                self.num_batches_tracked.add_(1)
+            if self.update_stats:
+                self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+    @torch.no_grad()
+    def _update(self, mean, var):
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean.detach())
+        self.running_var.mul_(1 - m).add_(m * var.detach())
+        self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def batch_stats_only(module: nn.Module):
+    """Inside: every :class:`FlaxBatchNorm` of ``module`` leaves its running
+    statistics as they are (in training mode it still normalizes with the
+    batch statistics)."""
+    bns = [m for m in module.modules() if isinstance(m, FlaxBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class Deconv2x(nn.Module):

@@ -1,9 +1,8 @@
 """Network factory (counterpart of ``endosr/nn/networks.py``):
 :func:`define_G` builds every generator the JAX package's does, from the
-same ``opt`` dict, and :func:`define_SegNet` the segmentation network of
-the co-training model. The discriminator and the perceptual feature
-network of the GAN models (:func:`define_D`, :func:`define_F`) are still
-to be ported and raise by name."""
+same ``opt`` dict, :func:`define_SegNet` the segmentation network of
+the co-training model, and :func:`define_D` / :func:`define_F` the
+discriminator and the perceptual feature network of the GAN models."""
 
 from __future__ import annotations
 
@@ -139,16 +138,43 @@ def _other_generator(opt_net, which_model, scale):
 
 
 def define_D(opt, dtype=torch.float32, device=None):
-    """The GAN discriminator: still to be ported."""
-    raise NotImplementedError(
-        f"Discriminator [{opt['network_D']['which_model_D']}] is not ported "
-        "yet (define_D: the srgan / sftgan models)")
+    """The GAN discriminator of ``opt["network_D"]``:
+    ``discriminator_vgg_128`` (``nf``, ``in_nc``) built for the HR size
+    the JAX model initialises it at, ``datasets.train.LR_size`` (default
+    32) × ``scale`` (default 4); fp32, on ``device`` (None: CUDA, which
+    raises without one). Another name raises by name."""
+    from endosr_torch.nn.discriminator import DiscriminatorVGG128
+
+    opt_net = opt["network_D"]
+    which_model = opt_net["which_model_D"]
+    if which_model != "discriminator_vgg_128":
+        raise NotImplementedError(
+            f"Discriminator model [{which_model}] not recognized")
+    ds = (opt.get("datasets") or {}).get("train") or {}
+    hr = int(ds.get("LR_size") or 32) * int(opt.get("scale") or 4)
+    return DiscriminatorVGG128(in_nc=opt_net.get("in_nc", 3),
+                               nf=opt_net.get("nf", 64), hr_size=hr).to(
+        resolve_device(device))
 
 
 def define_F(opt, use_bn: bool = False, dtype=torch.float32, device=None):
-    """The GAN models' perceptual feature network: still to be ported."""
-    raise NotImplementedError("define_F (the VGG feature network of the "
-                              "srgan / sftgan models) is not ported yet")
+    """The GAN models' perceptual feature network: VGG19 up to layer 34
+    with the ImageNet normalization (``nn/vgg.py::VGGFeatureExtractor``),
+    frozen (``eval()``, no gradient), on ``device`` (None: CUDA, which
+    raises without one). ``train.vgg_weights_path`` loads a torchvision
+    file; without one, the port's seeded init (``train.manual_seed``,
+    default 0). ``use_bn`` is the reference's and, as in JAX, unused."""
+    from endosr_torch.losses.perceptual import frozen
+    from endosr_torch.nn.vgg import VGGFeatureExtractor, load_vgg_state
+
+    net = VGGFeatureExtractor(feature_layer=34, use_input_norm=True)
+    t = opt.get("train") or {}
+    if t.get("vgg_weights_path"):
+        load_vgg_state(net.vgg, t["vgg_weights_path"])
+    else:
+        net.vgg.init_(torch.Generator().manual_seed(
+            int(t.get("manual_seed") or 0)))
+    return frozen(net, resolve_device(device))
 
 
 def define_SegNet(opt, device=None):

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 __all__ = ["from_flax", "from_flax_train", "from_flax_seg_train",
-           "from_flax_variables", "flax_path_to_torch_key", "load_params",
+           "from_flax_variables", "from_flax_gan", "flax_path_to_torch_key",
+           "load_params",
            "fit_state_dict", "seeded_init", "load_monodepth",
            "load_monodepth_file", "from_flax_monodepth", "from_flax_pose",
            "from_flax_depth_trainer", "from_flax_vgg",
@@ -57,10 +58,10 @@ def _segment_to_torch(seg: str) -> str:
     return seg
 
 
-def flax_path_to_torch_key(path: tuple[str, ...]) -> str:
+def flax_path_to_torch_key(path: tuple[str, ...],
+                           segment=_segment_to_torch) -> str:
     *mods, leaf = path
-    return ".".join([_segment_to_torch(s) for s in mods]
-                    + [_LEAF_MAP.get(leaf, leaf)])
+    return ".".join([segment(s) for s in mods] + [_LEAF_MAP.get(leaf, leaf)])
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -71,13 +72,16 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
+def from_flax(params_np: Mapping, segment=_segment_to_torch,
+              dtype=np.float32) -> dict[str, torch.Tensor]:
     """A JAX generator's (or FCN's) parameters (nested dicts of numpy
     arrays) → the port's ``state_dict`` (reference keys, OIHW layouts, a
-    Dense kernel (I, O) as torch's (O, I), CPU fp32 tensors)."""
+    Dense kernel (I, O) as torch's (O, I), CPU tensors of ``dtype``, fp32
+    unless asked). ``segment`` maps a flax module name to its part of the
+    key."""
     sd = {}
     for path, leaf in _flatten(params_np):
-        a = np.asarray(leaf, np.float32)
+        a = np.asarray(leaf, dtype)
         name = path[-1]
         if name in ("v", "kernel", "A_i_j_kernel") and a.ndim == 4:
             tc = any(seg in _TRANSPOSE_CONV_SEGMENTS for seg in path)
@@ -86,30 +90,53 @@ def from_flax(params_np: Mapping) -> dict[str, torch.Tensor]:
             a = a.T
         elif name == "g":
             a = a.reshape(-1, 1, 1, 1)
-        sd[flax_path_to_torch_key(path)] = torch.from_numpy(np.array(a))
+        sd[flax_path_to_torch_key(path, segment)] = torch.from_numpy(
+            np.array(a))
     return sd
 
 
-def from_flax_stats(stats_np: Mapping) -> dict[str, torch.Tensor]:
+def from_flax_stats(stats_np: Mapping,
+                    segment=_segment_to_torch) -> dict[str, torch.Tensor]:
     """A flax ``batch_stats`` tree (``bn1/mean``, ``bn1/var``, ...) → the
     BatchNorm buffers of the port's ``state_dict`` (``bn1.running_mean``,
     ``bn1.running_var``, ``bn1.num_batches_tracked`` = 0)."""
     sd = {}
     for path, leaf in _flatten(stats_np):
         *mods, name = path
-        prefix = ".".join(_segment_to_torch(m) for m in mods)
+        prefix = ".".join(segment(m) for m in mods)
         sd[f"{prefix}.running_{name}"] = torch.from_numpy(
             np.array(leaf, np.float32))
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     return sd
 
 
-def from_flax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
+def from_flax_variables(variables: Mapping, segment=_segment_to_torch,
+                        dtype=np.float32) -> dict[str, torch.Tensor]:
     """A JAX network's variables (``{"params": ..., "batch_stats": ...}``)
-    → the port's ``state_dict``: :func:`from_flax` of the parameters and
-    :func:`from_flax_stats` of the statistics."""
-    return {**from_flax(variables["params"]),
-            **from_flax_stats(variables.get("batch_stats") or {})}
+    → the port's ``state_dict``: :func:`from_flax` of the parameters (as
+    ``dtype``) and :func:`from_flax_stats` of the statistics."""
+    return {**from_flax(variables["params"], segment, dtype),
+            **from_flax_stats(variables.get("batch_stats") or {}, segment)}
+
+
+def from_flax_gan(variables: Mapping, network: str,
+                  dtype=np.float32) -> dict[str, torch.Tensor]:
+    """The variables of a JAX GAN network → the port's ``state_dict``
+    under the reference checkpoint's keys. ``network``:
+    ``DiscriminatorVGG128`` (names as they are: ``conv0_0``, ``bn0_1``,
+    ``linear1``), ``SFTNet`` / ``SFTNetTorch`` (``sft_branch_3/sft0/…`` →
+    ``sft_branch.3.sft0.…``, ``CondNet/CondNet_0`` → ``CondNet.0``,
+    ``HR_branch_0`` → ``HR_branch.0``) or ``ACDVGGBN96`` (``feature_3``,
+    ``gan_0``, ``cls_2`` → ``feature.3``, …). A bare parameter tree is
+    taken as ``{"params": tree}``; its tensors are ``dtype``'s."""
+    if "params" not in variables:
+        variables = {"params": variables}
+    if network == "DiscriminatorVGG128":
+        return from_flax_variables(variables, str, dtype)
+    if network not in ("SFTNet", "SFTNetTorch", "ACDVGGBN96"):
+        raise ValueError(f"no GAN network [{network}]")
+    return {k.replace("CondNet.CondNet.", "CondNet."): v for k, v in
+            from_flax_variables(variables, dtype=dtype).items()}
 
 
 def fit_state_dict(sd: Mapping, network: torch.nn.Module, strict: bool = True,

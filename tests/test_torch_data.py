@@ -356,14 +356,12 @@ def test_endoscene_loader_batches_equal_jax(endoscene):
 @pytest.mark.parametrize("mode", ["EndoScene_Depthnew",
                                   "LQ", "LQGTker", "SRker", "LQker",
                                   "LRHR_seg_bg"])
-def test_unported_dataset_modes_raise_by_name(mode, tmp_path):
-    """``LRHR_seg_bg`` still raises by name; the other modes are ported
-    now and build their class (their items are held to JAX's in
-    ``tests/test_torch_models_data.py``)."""
-    if mode == "LRHR_seg_bg":
-        with pytest.raises(NotImplementedError, match=mode):
-            tdata.create_dataset({"mode": mode})
-        return
+def test_dataset_modes_build_their_class(mode, tmp_path):
+    """Every mode is ported and builds its class (the items are held to
+    JAX's in ``tests/test_torch_models_data.py`` and, ``LRHR_seg_bg``'s,
+    ``tests/test_torch_gan_sft.py``); an unknown mode raises by name."""
+    with pytest.raises(NotImplementedError, match="Nope"):
+        tdata.create_dataset({"mode": "Nope"})
     cv2.imwrite(str(tmp_path / "a.png"), np.zeros((8, 8, 3), np.uint8))
     np.save(tmp_path / "a_disp.npy", np.ones((1, 1, 8, 8), np.float32))
     opt = {"mode": mode, "phase": "test", "data_type": "img", "scale": 2,

@@ -617,23 +617,19 @@ def test_x2_x3_eval_serves_bf16c3_like_jax(tmp_path, jax_env, scale, caplog):
 @pytest.mark.parametrize("model", ["sr", "srgan", "sftgan", "predictor",
                                    "corrector", "sftmd", "sftmd_depth",
                                    "sftmd_depthSegNet"])
-def test_unported_models_raise_by_name(model):
-    """The GAN models still raise by name; the others are ported now, and
-    ``create_model`` builds each (a small generator, serving)."""
-    if model not in PORTED_SMALL:
-        with pytest.raises(NotImplementedError,
-                           match=f"Model \\[{model}\\]"):
-            create_model({"model": model}, device="cpu")
-        return
+def test_create_model_builds_every_model(model):
+    """Every model is ported: ``create_model`` builds each (a small
+    generator, serving); an unknown name raises by name."""
     net, cls = PORTED_SMALL[model]
     m = create_model({"model": model, "scale": 4, "is_train": False,
                       "network_G": net, "datasets": {}, "path": {}},
                      device="cpu")
     assert type(m).__name__ == cls
+    with pytest.raises(NotImplementedError, match="Model \\[nope\\]"):
+        create_model({"model": "nope"}, device="cpu")
 
 
-# a small generator of each model ported since the models above were first
-# listed as unported
+# a small generator of each model
 PORTED_SMALL = {
     "sr": ({"which_model_G": "MSRResNet", "nf": 8, "nb": 1}, "SRModel"),
     "predictor": ({"which_model_G": "Predictor"}, "PModel"),
@@ -644,6 +640,9 @@ PORTED_SMALL = {
     "sftmd_depthSegNet": ({"which_model_G": "DepthNet", "nb": 4,
                            "depth_latent_ch": 16, "which_ResBlk_depth": [0]},
                           "FModelDepthSeg"),
+    "srgan": ({"which_model_G": "MSRResNet", "nf": 8, "nb": 1},
+              "SRGANModel"),
+    "sftgan": ({"which_model_G": "sft_arch"}, "SFTGANACDModel"),
 }
 
 

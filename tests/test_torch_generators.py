@@ -229,16 +229,21 @@ def test_fcn_forwards_and_batch_statistics_match_jax(cls):
     _close(got, jm.apply(variables, x, train=False))
 
 
-def test_define_segnet_builds_fcn8s_and_the_gan_networks_raise():
+def test_define_segnet_d_and_f_build():
     net = networks.define_SegNet({"network_SegNet": {"num_classes": 3}},
                                  device="cpu")
     assert type(net).__name__ == "FCN8s"
     assert net.classifier.weight.shape[0] == 3
-    with pytest.raises(NotImplementedError, match="discriminator_vgg_128"):
-        networks.define_D({"network_D": {
-            "which_model_D": "discriminator_vgg_128"}})
-    with pytest.raises(NotImplementedError, match="define_F"):
-        networks.define_F({})
+    d = networks.define_D({"network_D": {
+        "which_model_D": "discriminator_vgg_128"}}, device="cpu")
+    assert type(d).__name__ == "DiscriminatorVGG128"
+    assert d.linear1.weight.shape == (100, 512 * 4 * 4)   # HR 32 × 4
+    with pytest.raises(NotImplementedError, match="Nope_D"):
+        networks.define_D({"network_D": {"which_model_D": "Nope_D"}},
+                          device="cpu")
+    f = networks.define_F({}, device="cpu")
+    assert type(f).__name__ == "VGGFeatureExtractor"
+    assert not any(p.requires_grad for p in f.parameters())
     with pytest.raises(NotImplementedError, match="Nope"):
         networks.define_G({"network_G": {"which_model_G": "Nope"}},
                           device="cpu")
@@ -250,6 +255,11 @@ def test_generators_take_cuda_unless_asked(monkeypatch):
         networks.define_G({"network_G": {"which_model_G": "MSRResNet"}})
     with pytest.raises(RuntimeError, match="CUDA"):
         networks.define_SegNet({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        networks.define_D({"network_D": {
+            "which_model_D": "discriminator_vgg_128"}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        networks.define_F({})
 
 
 # ------------------------------------------------------------ checkpoints
