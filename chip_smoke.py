@@ -391,6 +391,45 @@ exits non-zero):
    one-ulp nudges; ``SRMDPreprocessing`` and ``IsoGaussian`` on the same
    draws ≤ 1e-5 of max |ref|.
 
+14. data-parallel training and H-sharded serving — (a) the flagship
+   ×8 YAML's step (bf16, batch 8 of seeded uint8 LQ 128² / GT 1024², 14
+   depth blocks, K 10, latent 256, ``dynamic_loss`` on; cuDNN's
+   deterministic algorithms) on the single-device model, then through a
+   1-rank NCCL process group (``parallel/mesh.py``: the model built over
+   the mesh, its losses' global sums, the gradient all-reduce, the logs'
+   mean): logs, step 1's gradients and the parameters after 1 and 4
+   steps bit-equal; ms a step of both (steps 2–4); ``packed_g123`` 2,
+   ``style_blend_dot`` 2, ``head_dot`` 1, ``output_stage_x8`` 1 a step.
+   (b) Two ranks spawned on this card over gloo (NCCL refuses two ranks on
+   one GPU; ``python3 chip_smoke.py --p14-rank dp <dir>`` with torchrun's
+   environment), 4 images each, from the same weights: each rank's
+   launches as (a)'s; both ranks' parameters bit-equal; against the
+   1-rank step on the 8 images, the loss, each gradient (norm-relative),
+   all gradients as one vector and the first update, each within
+   ``P14_ORDER`` (4) × the largest change the 1-rank step itself makes
+   with its batch's halves swapped (every sum over the batch in another
+   order) or its weights nudged one ulp (phase 6b's nudges): the loss +
+   1e-6 relative, all gradients and the update at least 2e-4; each
+   gradient tensor within 4× the largest of those and of the 1-rank step
+   with the network run on each rank's 4 images in turn (a rank's shapes:
+   cuDNN and the kernels' backward sum in other orders at 4 images than
+   at 8) + 2e-4, and within 4× the swap / nudges + 2e-4 of that in-shares
+   step. A rank that exits with another code than 0 fails the phase.
+   (``python3 chip_smoke.py --gloo-probe``, outside this run, reads which
+   collectives gloo carries for CUDA tensors.) (c) ×2 fp32 serving at
+   full width (the
+   test YAML's ``network_G``: nb 16, latent 256, K 10, blocks 0–13;
+   seeded weights), ``spatial_shard: 4`` through ``FModelDepthCond.test``
+   on 4 ranks on this card over gloo: an LR 250×186 frame (H and W
+   misaligned; bucket 32 → 256×192) within 1e-4 of the unsharded masked
+   forward, ``style_dot_hwbm`` 2 and ``output_stage`` 1 a rank a request;
+   an LR 512² frame: peak memory and ms a rank against the unsharded
+   request's. (d) Every kernel call of (a)–(c), recorded by ``KernelTap``
+   (the ranks' too), again at its shape against its plain version,
+   forward and gradient, as 9f. ``python3 chip_smoke.py --p14-nccl N``
+   (a call on N cards, not run without arguments) checks (b) and (c) with
+   one rank a card over NCCL instead.
+
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
 ``val entry`` and ``eval entry``, phase 8's ``x2 <precision>`` and
@@ -403,6 +442,8 @@ losses``, ``x8 train losses step 0`` and ``x8 losses grads``, and phase
 11's ``depth train`` (0 for every kernel), and phase 12's ``12e
 depthseg train`` and one label for each run of 12a–12d (0 for every kernel),
 phase 13's one label for each run of 13a–13e (0 for every kernel),
+phase 14's ``14a dp world 1``, ``14b dp world 2`` and ``14c spatial x2``
+(the ranks' launches summed),
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -6269,13 +6310,742 @@ def phase13(torch, counters):
     return launches, numbers
 
 
+P14_ROOT = "build/p14"         # under the repository root, git-ignored
+P14_STEPS = 3                  # timed steps after the compared first one
+P14_SEED = 14
+P14_ORDER = 4                  # 14b: × the 1-rank step's own change when its
+#                                batch's halves swap, its weights move 1 ulp or
+#                                its forward runs on a rank's share at a time
+P14_FLOOR = 2e-4               # 14b: at least this (gradients, the update)
+P14_X2_NET = "options/test/test_depthNet.yml"   # 14c's network_G fields
+P14_X2_SMALL = (250, 186)      # 14c: LR of the compared frame (H, W % 16 ≠ 0)
+P14_X2_BIG = (512, 512)        # 14c: LR of the memory reading
+P14_X2_WORLD = 4
+P14_X2_TOL = 1e-4              # 14c: sharded vs unsharded (JAX's bar)
+P14_X2_WANT = {"style_dot_hwbm": 2, "output_stage": 1}
+P14_TIMEOUT = 600              # seconds a spawned rank may take
+
+
+def _kernel_counters():
+    """The twelve kernel wrappers (their ``launches`` / ``routes``)."""
+    from endosr_torch.kernels.fused_in_mod import fused_in_mod
+    from endosr_torch.kernels.fused_mod import fused_modulation
+    from endosr_torch.kernels.fused_obranch import fused_o_branch
+    from endosr_torch.kernels.fused_tail import fused_tail
+    from endosr_torch.kernels.head_dot import head_dot
+    from endosr_torch.kernels.in_stats import in_stats
+    from endosr_torch.kernels.output_stage import output_stage, output_stage_x8
+    from endosr_torch.kernels.packed_chain import packed_g123
+    from endosr_torch.kernels.shuffle_mid import mid_shuffle
+    from endosr_torch.kernels.style_dot import style_blend_dot, style_dot_hwbm
+
+    return [packed_g123, style_blend_dot, head_dot, output_stage_x8,
+            output_stage, style_dot_hwbm, fused_in_mod, in_stats,
+            fused_o_branch, fused_modulation, fused_tail, mid_shuffle]
+
+
+def _p14_batch(torch):
+    """The flagship's batch (phase 6a's layout): 8 seeded uint8 LQ 128² /
+    GT 1024², depth and its K = 10 masks, on the card."""
+    from endosr_torch.ops.masks import depth_masks
+
+    gen = torch.Generator(device="cuda").manual_seed(P14_SEED)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    dep = torch.rand((8, 128, 128, 1), generator=gen, device="cuda")
+    return {"LQ": u8(8, 128, 128, 3), "GT": u8(8, 1024, 1024, 3),
+            "Depth": dep, "DepthMaskList": depth_masks(
+                dep[..., 0], False, 10).to(torch.uint8)}
+
+
+def _p14_model(torch, mesh=None):
+    """The flagship bf16 training model (``models/recipes.py``) over
+    ``mesh`` (None: the default one), as ``train.py`` builds it (with
+    ``sync_replicas``); :func:`_p14_steps` resets it for every run."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.models.recipes import x8_train_opt
+
+    m = FModelDepthCond(x8_train_opt("bf16"), mesh=mesh)
+    m.sync_replicas()
+    m.rng0 = copy.deepcopy(m._np_rng)
+    return m
+
+
+def _in_parts(torch, net, parts):
+    """``net`` run on ``parts`` equal shares of its batch, one call each
+    (as ``parts`` ranks run it), the outputs joined in the memory layout
+    of the first."""
+    def run(*args):
+        k = args[0].shape[0] // parts
+        outs = [net(*(a[i * k:(i + 1) * k] for a in args))
+                for i in range(parts)]
+        order = sorted(range(outs[0].dim()), key=lambda d: -outs[0].stride(d))
+        joined = torch.cat([o.permute(order) for o in outs], order.index(0))
+        return joined.permute([order.index(d) for d in range(len(order))])
+
+    return run
+
+
+def _p14_steps(torch, m, start, batch, counters, steps, parts=1):
+    """``steps`` flagship bf16 steps of the model ``m`` from the
+    parameters ``start`` (a fresh Adam, the mask loss's RNG from its
+    seed) on ``batch``, cuDNN's deterministic algorithms,
+    the counts set to 0 just before and read just after: {logs a step,
+    step 1's gradients, the parameters after step 1 and after the last,
+    ms a step after the first, launches, routes}. ``parts``: the network
+    runs on that many shares of the batch, one call each (the losses on
+    the whole batch)."""
+    cudnn = torch.backends.cudnn
+    was, cudnn.deterministic = cudnn.deterministic, True
+    net = m._train_net
+    if parts > 1:
+        m._train_net = _in_parts(torch, net, parts)
+    try:
+        m.step = 0
+        m._np_rng = copy.deepcopy(m.rng0)
+        m.optimizer_G.state.clear()
+        with torch.no_grad():
+            for k, p in m.named_train_parameters():
+                p.copy_(start[k])
+        m.feed_data(batch)
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        out = {"logs": [], "secs": []}
+        for n in range(steps):
+            t = time.perf_counter()
+            out["logs"].append(dict(m.optimize_parameters(n)))
+            torch.cuda.synchronize()
+            out["secs"].append(time.perf_counter() - t)
+            if n == 0:
+                out["grads"] = _grads(m)
+                out["params1"] = {k: p.detach().cpu() for k, p
+                                  in m.named_train_parameters()}
+        out["params"] = {k: p.detach().cpu() for k, p
+                         in m.named_train_parameters()}
+        out["launches"] = {c.__name__: c.launches for c in counters}
+        out["routes"] = {c.__name__: dict(c.routes) for c in counters
+                         if hasattr(c, "routes")}
+        out["ms"] = (sum(out["secs"][1:]) / max(1, steps - 1) * 1e3
+                     if steps > 1 else float("nan"))
+    finally:
+        cudnn.deterministic = was
+        m._train_net = net
+        m.batch = {}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _check_train_launches(label, run, steps):
+    for name, n in run["launches"].items():
+        want = TRAIN_WANT.get(name, 0) * steps
+        if n != want:
+            raise AssertionError(f"[{label}] {name}: {n} launches in {steps} "
+                                 f"steps, want {want}")
+
+
+def _bit_equal(a, b):
+    import torch
+
+    return all(torch.equal(a[k], b[k]) for k in a) and sorted(a) == sorted(b)
+
+
+def _p14_launch(job, world, where, payload, backend="gloo"):
+    """Run ``python3 chip_smoke.py --p14-rank <job> <where>`` on ``world``
+    ranks (torchrun's environment; ``cuda:rank`` modulo the cards present,
+    over ``backend``) with ``payload``; returns each rank's exit code
+    ("timeout" for a rank killed at ``P14_TIMEOUT``), the tail of the log
+    of each rank that failed logged."""
+    import os
+    import socket
+
+    import torch
+
+    where.mkdir(parents=True, exist_ok=True)
+    torch.save(payload, where / "in.pt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "RANK": str(r), "LOCAL_RANK": str(r),
+               "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "P14_BACKEND": backend}
+        logf = open(where / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--p14-rank", job,
+             str(where)], env=env, stdout=logf, stderr=subprocess.STDOUT,
+            cwd=str(Path(__file__).resolve().parent)), logf))
+    codes = []
+    try:
+        deadline = time.perf_counter() + P14_TIMEOUT
+        for p, _ in procs:
+            try:
+                codes.append(p.wait(timeout=max(1.0, deadline
+                                                - time.perf_counter())))
+            except subprocess.TimeoutExpired:
+                codes.append("timeout")
+    finally:
+        for p, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    for r, code in enumerate(codes):
+        if code != 0:
+            for line in (where / f"rank{r}.log").read_text().splitlines()[-40:]:
+                log(f"  rank {r} (exit {code}): {line}")
+    return codes
+
+
+def _p14_spawn(job, world, where, payload, backend="gloo"):
+    """:func:`_p14_launch`; returns each rank's result, and raises unless
+    every rank exited with 0."""
+    import torch
+
+    codes = _p14_launch(job, world, where, payload, backend)
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"[phase 14] {job}: rank exit codes {codes}")
+    return [torch.load(where / f"out{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+GLOO_PROBES = ("all_reduce", "broadcast", "barrier", "all_gather",
+               "all_gather_into_tensor", "reduce", "reduce_scatter_tensor",
+               "all_to_all_single", "gather", "scatter", "send/recv")
+
+
+def _gloo_probe(torch, where):
+    """(``python3 chip_smoke.py --gloo-probe``, not part of the default
+    run; a rank aborts in it.) Which collectives gloo carries for CUDA
+    tensors here: each one
+    called on a small CUDA tensor by every rank alike, in a group of its
+    own with a 30 s timeout; ``<where>/probe<rank>.json`` gets "ok" or the
+    error of each before the next starts (one that kills the process is
+    the last one started)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    group = dist.new_group(backend="gloo",
+                           timeout=datetime.timedelta(seconds=30))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = torch.full((4,), float(r + 1), device=dev)
+    kw = {"group": group}
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(t.clone(), **kw),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0, **kw),
+        "barrier": lambda: dist.barrier(**kw),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(n)], t, **kw),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * n, device=dev), t, **kw),
+        "reduce": lambda: dist.reduce(t.clone(), 0, **kw),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.ones(4 * n, device=dev), **kw),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(4 * n, device=dev), torch.ones(4 * n, device=dev),
+            **kw),
+        "gather": lambda: dist.gather(
+            t, [torch.empty_like(t) for _ in range(n)] if r == 0 else None,
+            0, **kw),
+        "scatter": lambda: dist.scatter(
+            torch.empty_like(t),
+            [t.clone() for _ in range(n)] if r == 0 else None, 0, **kw),
+        "send/recv": lambda: (dist.send(t, 1, **kw) if r == 0 else
+                              dist.recv(torch.empty_like(t), 0, **kw)
+                              if r == 1 else None),
+    }
+    out = {}
+    path = Path(where) / f"probe{r}.json"
+    for name in GLOO_PROBES:
+        out[name] = "started"
+        path.write_text(json.dumps(out))
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:         # the probe's reading, not a check
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        path.write_text(json.dumps(out))
+    return out
+
+
+def _probe_readings(where, codes):
+    """The gloo probe's readings of the ranks (``probe<rank>.json``): an
+    op still "started" in a rank that exited with an error killed it."""
+    out = {}
+    for r, code in enumerate(codes):
+        path = where / f"probe{r}.json"
+        got = json.loads(path.read_text()) if path.exists() else {}
+        for name in GLOO_PROBES:
+            v = got.get(name, "not reached")
+            if v == "started":
+                v = f"the rank exited with {code} in it"
+            if out.get(name, "ok") == "ok":
+                out[name] = v
+    return out
+
+
+def _p14_rank(torch, job, where):
+    """A spawned rank of 14b (``dp``), 14c (``spatial``) or the gloo probe
+    (``probe``): the process group from torchrun's environment over gloo
+    on this card; writes its readings to ``<where>/out<rank>.pt``."""
+    import torch.distributed as dist
+
+    from endosr_torch.parallel.mesh import get_mesh, maybe_init_distributed
+    from endosr_torch.utils.device import local_device
+
+    import os
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    where = Path(where)
+    backend = os.environ.get("P14_BACKEND", "gloo")
+    maybe_init_distributed(backend=backend, device=local_device(),
+                           timeout_s=P14_TIMEOUT)
+    if job == "probe":
+        _gloo_probe(torch, where)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    payload = torch.load(where / "in.pt", weights_only=False)
+    counters = _kernel_counters()
+    tap = KernelTap()
+    uninstall = tap.install()
+    tap.where = job
+    try:
+        if job == "dp":
+            from endosr_torch.parallel.mesh import shard_batch
+
+            mesh = get_mesh()
+            batch = shard_batch({k: v.cuda() for k, v in
+                                 payload["batch"].items()}, mesh)
+            out = _p14_steps(torch, _p14_model(torch), payload["start"],
+                             batch, counters, 1 + P14_STEPS)
+        else:
+            out = _p14_spatial_rank(torch, payload, counters)
+    finally:
+        uninstall()
+    out["calls"] = tap.calls
+    out["gpu"] = gpu_line()
+    torch.save(out, where / f"out{dist.get_rank()}.pt")
+    dist.barrier()          # no rank leaves while another still talks to it
+    dist.destroy_process_group()
+    return 0
+
+
+def _x2_serving_opt(spatial=0):
+    """14c's model: the test YAML's ``network_G`` at ×2, fp32, bucketed
+    (unset: 32), K 10; ``spatial_shard`` ``spatial``."""
+    import yaml
+
+    net = yaml.safe_load((Path(__file__).resolve().parent / P14_X2_NET)
+                         .read_text())["network_G"]
+    net.pop("upscale", None)
+    return {"is_train": False, "model": "sftmd_depthCond", "scale": 2,
+            "precision": None, "spatial_shard": spatial,
+            "datasets": {"test": {"phase": "test", "depthMaskNum": 10,
+                                  "LR_size": 128}},
+            "network_G": net, "path": {}}
+
+
+def _x2_frame(torch, hw, seed):
+    """One seeded frame: LQ, depth and its K = 10 depth masks, on the
+    host (numpy), batch 1."""
+    import numpy as np
+
+    from endosr_torch.ops.masks import depth_masks_np
+
+    rng = np.random.default_rng(seed)
+    dep = rng.random(hw).astype(np.float32)
+    return {"LQ": rng.random((1, *hw, 3), dtype=np.float32),
+            "Depth": dep[None, ..., None],
+            "DepthMaskList": depth_masks_np(dep, False, 10)[None].astype(
+                np.float32)}
+
+
+def _serve_once(torch, model, batch, counters):
+    """(SR on the host, ms, peak GiB, launches) of one ``test`` on
+    ``batch``, the counts set to 0 just before and read just after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.feed_data(batch)
+    zero_counts(counters)
+    t = time.perf_counter()
+    sr = model.test()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return (sr.cpu(), ms, torch.cuda.max_memory_allocated() / 2 ** 30,
+            {c.__name__: c.launches for c in counters},
+            {c.__name__: dict(c.routes) for c in counters
+             if hasattr(c, "routes")})
+
+
+def _p14_spatial_rank(torch, payload, counters):
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+
+    model = FModelDepthCond(_x2_serving_opt(payload["world"]))
+    model.netG.load_state_dict(payload["state"])
+    out = {}
+    for key in ("small", "big"):
+        sr, ms, peak, launches, routes = _serve_once(
+            torch, model, payload[key], counters)
+        if key == "small":
+            out["max_abs"] = float((sr - payload["want"]).abs().max())
+            out["shape"] = tuple(sr.shape)
+        out[key] = {"ms": ms, "peak_gib": peak, "launches": launches,
+                    "routes": routes, "finite": bool(sr.isfinite().all())}
+    return out
+
+
+def _merge_calls(calls, *more):
+    """``KernelTap`` records of several processes, summed into ``calls``."""
+    for extra in more:
+        for key, rec in extra.items():
+            mine = calls.setdefault(key, {"grad": False, "where": {}})
+            mine["grad"] |= rec["grad"]
+            for w, n in rec["where"].items():
+                mine["where"][w] = mine["where"].get(w, 0) + n
+    return calls
+
+
+def _p14_reference(torch, counters, world):
+    """The flagship's 1-rank step (``1 + P14_STEPS`` steps) on
+    :func:`_p14_batch` from the seeded weights, and the yardstick runs of
+    14b's rule: the step with the batch's halves swapped (every sum over
+    the batch in another order), from the weights nudged one ulp (phase
+    6b's nudges), and with the network run on each of ``world`` shares of
+    the batch in turn (the shapes, so the cuDNN algorithms and the kernels'
+    tilings, of a rank; the losses on the whole batch). Returns (start,
+    batch, the step, the first two yardsticks, the last)."""
+    model = _p14_model(torch)
+    start = {k: p.detach().clone() for k, p in model.named_train_parameters()}
+    batch = _p14_batch(torch)
+    single = _p14_steps(torch, model, start, batch, counters, 1 + P14_STEPS)
+    _check_train_launches("14a single", single, 1 + P14_STEPS)
+    others = [_p14_steps(torch, model, start, {
+        k: torch.cat([v[4:], v[:4]]) for k, v in batch.items()}, counters, 1)]
+    others += [_p14_steps(torch, model, _nudge_weights(torch, start, seed),
+                          batch, counters, 1) for seed in (1, 2)]
+    parts = _p14_steps(torch, model, start, batch, counters, 1, world)
+    del model
+    torch.cuda.empty_cache()
+    return start, batch, single, others, parts
+
+
+def p14_dp(torch, counters, root):
+    """14a and 14b: the flagship ×8 step (bf16, batch 8, LQ 128² → GT
+    1024², the YAML's ``dynamic_loss`` on) through the distributed path.
+    Returns (launches by path, readings, the ranks' kernel calls)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from endosr_torch.parallel.mesh import make_mesh
+
+    numbers, launches = {}, {}
+    start, batch, single, others, parts = _p14_reference(torch, counters, 2)
+
+    # 14a: a process group of one rank over NCCL
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        model = _p14_model(torch, make_mesh())
+        dp1 = _p14_steps(torch, model, start, batch, counters, 1 + P14_STEPS)
+        del model
+    finally:
+        dist.destroy_process_group()
+    _check_train_launches("14a dp world 1", dp1, 1 + P14_STEPS)
+    launches["14a dp world 1"] = dp1["launches"]
+    torch.cuda.empty_cache()
+    same = {"logs": dp1["logs"] == single["logs"],
+            "grads": _bit_equal(dp1["grads"], single["grads"]),
+            "params1": _bit_equal(dp1["params1"], single["params1"]),
+            "params": _bit_equal(dp1["params"], single["params"])}
+    numbers["14a"] = {"bit_equal": same, "ms_single": single["ms"],
+                      "ms_dp_world1": dp1["ms"],
+                      "l_all": [lg["l_all"] for lg in dp1["logs"]]}
+    log(f"[14a] flagship bf16 step, batch 8, through a 1-rank NCCL group: "
+        f"{dp1['ms']:.1f} ms a step against {single['ms']:.1f} single-device "
+        f"(mean of steps 2–{1 + P14_STEPS}, cuDNN deterministic, host clock, "
+        f"synchronised); bit-equal to the single-device step: {same}; "
+        f"launches {dp1['launches']}; {gpu_line()}")
+    if not all(same.values()):
+        raise AssertionError(f"[14a] the 1-rank step is not the single-device "
+                             f"step bit for bit: {same}")
+    got, numbers["14b"], calls = p14_dp_ranks(
+        torch, root, start, batch, single, others, parts, 2, "gloo", "14b")
+    launches["14b dp world 2"] = got
+    return launches, numbers, calls
+
+
+def p14_dp_ranks(torch, root, start, batch, single, others, parts, world,
+                 backend, tag):
+    """The flagship step on ``world`` spawned ranks over ``backend``, each
+    on its ``8 // world`` images of ``batch``, against the 1-rank step
+    ``single`` by 14b's rule (the yardsticks ``others`` and ``parts``).
+    Returns (the ranks' launches summed, readings, the ranks' kernel
+    calls).
+
+    The rule: the loss, all gradients together and the first update
+    within ``P14_ORDER`` × the largest change of the 1-rank step under the
+    yardsticks ``others`` (halves swapped, one-ulp nudges), or
+    ``P14_FLOOR``; each gradient tensor within ``P14_ORDER`` × the largest
+    of those and of ``parts`` (the 1-rank step with the network run on
+    each rank's share in turn, which measures what a rank's smaller
+    shapes change) + ``P14_FLOOR``, and within ``P14_ORDER`` × the first
+    + ``P14_FLOOR`` of ``parts`` itself, which runs the ranks' shapes in
+    one process (a depth block's conv biases, whose true gradient is zero
+    under the InstanceNorm after them, are read but not held)."""
+    ranks = _p14_spawn("dp", world, root / f"dp{world}{backend}", {
+        "start": start, "batch": {k: v.cpu() for k, v in batch.items()}},
+        backend)
+    for r, out in enumerate(ranks):
+        _check_train_launches(f"{tag} rank {r}", out, 1 + P14_STEPS)
+    r0 = ranks[0]
+    equal_ranks = all(_bit_equal(r0[k], o[k]) for o in ranks[1:]
+                      for k in ("params1", "params"))
+    ref = single["logs"][0]["l_all"]
+    loss = abs(r0["logs"][0]["l_all"] - ref)
+    loss_order = max(abs(o["logs"][0]["l_all"] - ref) for o in others)
+    worst, fails = [], []
+    for k, w in single["grads"].items():
+        got = _nrel({k: r0["grads"][k]}, {k: w})
+        order = max(_nrel({k: o["grads"][k]}, {k: w}) for o in others)
+        shares = _nrel({k: parts["grads"][k]}, {k: w})
+        bar = P14_ORDER * max(order, shares) + P14_FLOOR
+        vs_parts = _nrel({k: r0["grads"][k]}, {k: parts["grads"][k]})
+        bar_parts = P14_ORDER * order + P14_FLOOR
+        worst.append((got / bar, k, got, order, shares, vs_parts))
+        if _before_instance_norm(k):
+            continue
+        if got > bar:
+            fails.append(f"{k} {got:.3g} > {bar:.3g}")
+        if vs_parts > bar_parts:
+            fails.append(f"{k} against the in-shares step {vs_parts:.3g} > "
+                         f"{bar_parts:.3g}")
+    all_got = _nrel(r0["grads"], single["grads"])
+    all_order = max(_nrel(o["grads"], single["grads"]) for o in others)
+    all_shares = _nrel(parts["grads"], single["grads"])
+    all_vs_parts = _nrel(r0["grads"], parts["grads"])
+    move = {k: single["params1"][k] - start[k].cpu() for k in start}
+
+    def update_apart(run):
+        """‖run's first update − the 1-rank step's‖ / ‖the latter‖."""
+        return _nrel({k: run["params1"][k] - start[k].cpu() for k in start},
+                     move)
+
+    p_got = update_apart(r0)
+    p_order = max(update_apart(o) for o in others)
+    numbers = {
+        "world": world, "backend": backend,
+        "ranks_bit_equal": equal_ranks, "loss_abs": loss,
+        "loss_order_abs": loss_order, "grad_nrel_all": all_got,
+        "grad_nrel_all_order": all_order, "grad_nrel_all_shares": all_shares,
+        "grad_nrel_all_vs_shares": all_vs_parts, "update_nrel": p_got,
+        "update_nrel_order": p_order, "ms": [o["ms"] for o in ranks],
+        "worst": [dict(zip(("tensor", "nrel", "order", "shares",
+                            "vs_shares"), w[1:]))
+                  for w in sorted(worst)[-4:]],
+        "gpus": sorted({o["gpu"] for o in ranks})}
+    log(f"[{tag}] {world} ranks over {backend}, {8 // world} images each, "
+        f"against the 1-rank step on the 8: l_all |Δ| {loss:.3g} (the "
+        f"1-rank step with its halves swapped or its weights nudged one ulp, "
+        f"the largest: {loss_order:.3g}); gradients {all_got:.3g} "
+        f"norm-relative ({all_order:.3g}; the 1-rank step with the network "
+        f"on one rank's share at a time: {all_shares:.3g}, the ranks against "
+        f"it {all_vs_parts:.3g}); the update {p_got:.3g} of its "
+        f"move ({p_order:.3g}); ranks bit-equal {equal_ranks}; "
+        f"{[round(o['ms'], 1) for o in ranks]} ms a step (steps 2–"
+        f"{1 + P14_STEPS}); worst tensors (ranks, yardstick, in shares, "
+        f"ranks against in shares) "
+        + ", ".join(f"{k} {g:.3g} ({o:.3g}, {sh:.3g}, {vp:.3g})"
+                    for _, k, g, o, sh, vp in sorted(worst)[-3:])
+        + f"; {r0['gpu']}")
+    bars = {"ranks": equal_ranks,
+            "loss": loss <= P14_ORDER * loss_order + 1e-6 * abs(ref),
+            "grads_all": all_got <= max(P14_FLOOR, P14_ORDER * all_order),
+            "update": p_got <= max(P14_FLOOR, P14_ORDER * p_order),
+            "tensors": not fails}
+    if not all(bars.values()):
+        raise AssertionError(f"[{tag}] world {world} against world 1: "
+                             f"{bars}; " + "; ".join(fails[:5]))
+    launches = {k: sum(o["launches"][k] for o in ranks)
+                for k in r0["launches"]}
+    return launches, numbers, _merge_calls({}, *(o["calls"] for o in ranks))
+
+
+def p14_spatial(torch, counters, root, world=P14_X2_WORLD, backend="gloo",
+                tag="14c"):
+    """14c: ×2 fp32 serving at full width split over ``world`` ranks
+    (spawned, over ``backend``), against the unsharded masked forward.
+    Returns (the ranks' launches summed, readings, their kernel calls)."""
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.utils.port_params import seeded_init
+
+    model = FModelDepthCond(_x2_serving_opt())
+    seeded_init(model.netG, P14_SEED)
+    state = {k: v.cpu() for k, v in model.netG.state_dict().items()}
+    small = _x2_frame(torch, P14_X2_SMALL, 1)
+    big = _x2_frame(torch, P14_X2_BIG, 2)
+    want, ms, peak_small, launches_small, _ = _serve_once(
+        torch, model, small, counters)
+    _, ms_big, peak_big, _, _ = _serve_once(torch, model, big, counters)
+    del model
+    torch.cuda.empty_cache()
+    ranks = _p14_spawn("spatial", world, root / f"sp{world}{backend}", {
+        "state": state, "small": small, "big": big, "want": want,
+        "world": world}, backend)
+    for r, out in enumerate(ranks):
+        for key in ("small", "big"):
+            got = out[key]["launches"]
+            want_n = {k: P14_X2_WANT.get(k, 0) for k in got}
+            if got != want_n or not out[key]["finite"]:
+                raise AssertionError(f"[{tag}] rank {r} {key}: launches "
+                                     f"{got}, want {want_n}; finite "
+                                     f"{out[key]['finite']}")
+        if out["shape"] != tuple(want.shape) or not out["max_abs"] <= P14_X2_TOL:
+            raise AssertionError(f"[{tag}] rank {r}: SR {out['shape']} max "
+                                 f"|Δ| {out['max_abs']:.3g} against the "
+                                 f"unsharded {tuple(want.shape)} (bar "
+                                 f"{P14_X2_TOL})")
+    numbers = {
+        "world": world, "backend": backend,
+        "max_abs": max(o["max_abs"] for o in ranks),
+        "small_lr": P14_X2_SMALL, "big_lr": P14_X2_BIG,
+        "unsharded": {"ms_small": ms, "peak_small_gib": peak_small,
+                      "ms_big": ms_big, "peak_big_gib": peak_big},
+        "ranks": [{"ms_small": o["small"]["ms"], "ms_big": o["big"]["ms"],
+                   "peak_small_gib": o["small"]["peak_gib"],
+                   "peak_big_gib": o["big"]["peak_gib"]} for o in ranks]}
+    log(f"[{tag}] ×2 fp32 full width (nb 16, latent 256, K 10), "
+        f"{world} ranks over {backend}: LR "
+        f"{P14_X2_SMALL[0]}×{P14_X2_SMALL[1]} SR max |Δ| "
+        f"{numbers['max_abs']:.3g} against the unsharded masked forward "
+        f"(bar {P14_X2_TOL}); LR {P14_X2_BIG[0]}²: peak "
+        + ", ".join(f"{o['peak_big_gib']:.2f}" for o in numbers["ranks"])
+        + f" GiB a rank against {peak_big:.2f} unsharded; ms a request "
+        + ", ".join(f"{o['ms_big']:.1f}" for o in numbers["ranks"])
+        + f" against {ms_big:.1f} unsharded; launches a rank "
+        f"{ranks[0]['small']['launches']}; {ranks[0]['gpu']}")
+    launches = {
+        k: sum(o[key]["launches"][k] for o in ranks for key in ("small", "big"))
+        for k in ranks[0]["small"]["launches"]}
+    return launches, numbers, _merge_calls({}, *(o["calls"] for o in ranks))
+
+
+def phase14(torch, counters):
+    """Phase 14: data-parallel training (14a: a 1-rank NCCL group, bit for
+    bit the single-device step; 14b: 2 ranks sharing the card over gloo)
+    and H-sharded ×2 serving (14c: 4 ranks over gloo), then every kernel
+    call of the phase again at its shape against its plain version.
+    Returns ({path label: launches}, readings)."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / P14_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    tap = KernelTap()
+    uninstall = tap.install()
+    tap.where = "14a"
+    try:
+        launches, numbers, calls_b = p14_dp(torch, counters, root)
+    finally:
+        uninstall()
+    numbers["dp_s"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    launches["14c spatial x2"], numbers["14c"], calls_c = p14_spatial(
+        torch, counters, root)
+    numbers["spatial_s"] = time.perf_counter() - t
+    calls = _merge_calls(dict(tap.calls), calls_b, calls_c)
+    t = time.perf_counter()
+    numbers["kernel_max_abs_err"], numbers["kernels"] = phase9_kernel_checks(
+        torch, calls, "phase 14 kernels", controls=False)
+    numbers["kernels_s"] = time.perf_counter() - t
+    shutil.rmtree(root, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 14] took {numbers['seconds']:.1f} s (dp {numbers['dp_s']:.1f}, "
+        f"spatial {numbers['spatial_s']:.1f}, kernel calls "
+        f"{numbers['kernels_s']:.1f})")
+    return launches, numbers
+
+
+def p14_multi(torch, world):
+    """``python3 chip_smoke.py --p14-nccl N`` (a call on N cards, not part
+    of the one-card run): 14b's and 14c's checks with one rank a card over
+    NCCL (the flagship step at ``8 // N`` images a rank against the 1-rank
+    step by 14b's rule; ×2 serving split over N ranks against the
+    unsharded forward), the references on card 0, then the ranks' kernel
+    calls against their plain versions. Returns the readings."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / P14_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    counters = _kernel_counters()
+    start, batch, single, others, parts = _p14_reference(torch, counters,
+                                                         world)
+    numbers = {"cards": torch.cuda.device_count(), "single_ms": single["ms"]}
+    dp_launches, numbers["dp"], calls_d = p14_dp_ranks(
+        torch, root, start, batch, single, others, parts, world, "nccl",
+        "14b nccl")
+    sp_launches, numbers["spatial"], calls_s = p14_spatial(
+        torch, counters, root, world, "nccl", "14c nccl")
+    numbers["launches"] = {"dp": dp_launches, "spatial": sp_launches}
+    numbers["kernel_max_abs_err"], _ = phase9_kernel_checks(
+        torch, _merge_calls({}, calls_d, calls_s), "phase 14 nccl kernels",
+        controls=False)
+    shutil.rmtree(root, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 14 nccl] took {numbers['seconds']:.1f} s")
+    return numbers
+
+
+def gloo_probe(world=2):
+    """``python3 chip_smoke.py --gloo-probe``: :func:`_gloo_probe` on
+    ``world`` ranks sharing this card; returns {collective: its reading}."""
+    import shutil
+
+    where = Path(__file__).resolve().parent / P14_ROOT / "probe"
+    shutil.rmtree(where, ignore_errors=True)
+    readings = _probe_readings(where, _p14_launch("probe", world, where, {}))
+    shutil.rmtree(where, ignore_errors=True)
+    return readings
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--p14-rank"]:          # a rank phase 14 spawned
+        return _p14_rank(torch, sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--gloo-probe"]:        # which collectives gloo carries
+        print(json.dumps(gloo_probe()))
+        print(gpu_line())
+        return 0
     from endosr_torch.kernels import _build
+
+    if sys.argv[1:2] == ["--p14-nccl"]:          # a call on several cards
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"device: {gpu_line()} × {torch.cuda.device_count()}; built "
+            f"{_build.build_all()}")
+        print(json.dumps(p14_multi(torch, int(sys.argv[2])), default=str))
+        print(gpu_line())
+        return 0
     from endosr_torch.kernels.fused_in_mod import fused_in_mod
     from endosr_torch.kernels.fused_mod import fused_modulation
     from endosr_torch.kernels.fused_obranch import fused_o_branch
@@ -6366,6 +7136,13 @@ def main() -> int:
     p13, numbers = phase13(torch, counters)
     by_path.update(p13)
     log(f"[phase 13] summary: {json.dumps(numbers)}")
+    p14, numbers = phase14(torch, counters)
+    by_path.update(p14)
+    for kname, errs in numbers["kernel_max_abs_err"].items():
+        for dts, err in errs.items():
+            have = rows[kname]["max_abs_err"]
+            have[dts] = max(have[dts], err)
+    log(f"[phase 14] summary: {json.dumps(numbers, default=str)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

@@ -2,11 +2,17 @@
 
 :func:`create_dataset` maps the YAML ``mode`` to a dataset class;
 :func:`create_dataloader` gives a ``torch.utils.data.DataLoader`` whose
-batches come in the JAX ``ShardedLoader``'s order on one shard: the index
-space ``len(dataset) × dataset_enlarge_ratio`` permuted by
-``numpy.random.default_rng(seed + epoch)``, the last partial batch dropped,
-for training; batch 1 in file order for validation and testing. Batches are
-dicts of stacked CPU tensors (the path strings as lists).
+batches come in the JAX ``ShardedLoader``'s order: the index space
+``len(dataset) × dataset_enlarge_ratio`` permuted by
+``numpy.random.default_rng(seed + epoch)``, padded so that every shard
+holds as many indices, each rank's shard a rank-strided slice of it, the
+last partial batch dropped, for training; batch 1 in file order for
+validation and testing. Under ``opt["dist"]`` (``train.py`` under
+``torchrun``) a rank's batch is ``batch_size // world`` and
+``dataset_enlarge_ratio`` defaults to 200, as in JAX. Batches are dicts of
+stacked CPU tensors (the path strings as lists);
+:func:`prefetch_to_device` copies upcoming batches to the device while
+the current step runs.
 
 Worker processes are forked each epoch from a parent whose ``cache_data``
 cache was filled once before the first fork, so they inherit it
@@ -18,6 +24,7 @@ depend on timing. Workers never touch CUDA.
 
 from __future__ import annotations
 
+import collections
 import logging
 import random
 
@@ -26,7 +33,7 @@ import torch
 from torch.utils.data import DataLoader, Sampler, get_worker_info
 
 __all__ = ["create_dataset", "create_dataloader", "EpochBatchSampler",
-           "EpochLoader"]
+           "EpochLoader", "prefetch_to_device"]
 
 
 # ``mode`` → dataset class of ``endosr_torch.data.datasets``
@@ -53,34 +60,45 @@ def create_dataset(dataset_opt):
 
 class EpochBatchSampler(Sampler):
     """Batches of dataset indices in ``ShardedLoader._indices()`` order for
-    one shard; :meth:`set_epoch` picks the epoch's permutation."""
+    shard ``shard_index`` of ``num_shards``; :meth:`set_epoch` picks the
+    epoch's permutation."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, ratio: int = 1, drop_last: bool = True):
+                 seed: int = 0, ratio: int = 1, drop_last: bool = True,
+                 num_shards: int = 1, shard_index: int = 0):
         self.n = n
         self.batch_size = max(1, batch_size)
         self.shuffle = shuffle
         self.seed = seed
         self.ratio = max(1, ratio)
         self.drop_last = drop_last
+        self.num_shards = max(1, num_shards)
+        self.shard_index = shard_index
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
+    def _per_shard(self) -> int:
+        return -(-self.n * self.ratio // self.num_shards)
+
     def indices(self) -> np.ndarray:
+        """This shard's dataset indices: the (permuted) index space padded
+        with its own head to a multiple of the shard count, then every
+        ``num_shards``-th from ``shard_index``."""
         total = self.n * self.ratio
         if self.shuffle:
             idx = np.random.default_rng(self.seed + self.epoch).permutation(total)
         else:
             idx = np.arange(total)
-        return idx % self.n
+        padded = self._per_shard() * self.num_shards
+        idx = np.concatenate([idx, idx[:padded - total]])
+        return idx[self.shard_index::self.num_shards] % self.n
 
     def __len__(self):
-        total = self.n * self.ratio
         if self.drop_last:
-            return total // self.batch_size
-        return -(-total // self.batch_size)
+            return self._per_shard() // self.batch_size
+        return -(-self._per_shard() // self.batch_size)
 
     def __iter__(self):
         idx = self.indices().tolist()
@@ -132,21 +150,34 @@ class EpochLoader(DataLoader):
         return super().__iter__()
 
 
+def _shard() -> tuple[int, int]:
+    """(shard count, this rank's shard) under a process group, else (1, 0)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
 def create_dataloader(dataset, dataset_opt, opt=None, pin_memory=False):
     """The loader of one dataset block: training batches of ``batch_size``
     (shuffled by ``use_shuffle`` with ``train.manual_seed``, the index
-    space enlarged by ``dataset_enlarge_ratio``, ``n_workers`` processes);
-    otherwise batch 1 in order, in this process. ``pin_memory``: pin the
-    batches (the model runs on CUDA)."""
+    space enlarged by ``dataset_enlarge_ratio``, ``n_workers`` processes;
+    under ``opt["dist"]`` this rank's shard, ``batch_size // world`` a
+    batch, the ratio 200 when unset); otherwise batch 1 in order, in this
+    process. ``pin_memory``: pin the batches (the model runs on CUDA)."""
     if dataset_opt["phase"] == "train":
+        dist_on = bool(opt and opt.get("dist"))
+        shards, index = _shard() if dist_on else (1, 0)
         seed = 0
         if opt and opt.get("train") and opt["train"].get("manual_seed") is not None:
             seed = int(opt["train"]["manual_seed"])
         sampler = EpochBatchSampler(
-            len(dataset), dataset_opt["batch_size"],
+            len(dataset), dataset_opt["batch_size"] // shards,
             shuffle=dataset_opt.get("use_shuffle", True), seed=seed,
-            ratio=dataset_opt.get("dataset_enlarge_ratio") or 1,
-            drop_last=True)
+            ratio=dataset_opt.get("dataset_enlarge_ratio",
+                                  200 if dist_on else 1) or 1,
+            drop_last=True, num_shards=shards, shard_index=index)
         workers = int(dataset_opt.get("n_workers") or 0)
         return EpochLoader(
             dataset, batch_sampler=sampler, num_workers=workers,
@@ -156,3 +187,29 @@ def create_dataloader(dataset, dataset_opt, opt=None, pin_memory=False):
     sampler = EpochBatchSampler(len(dataset), 1, shuffle=False, drop_last=False)
     return EpochLoader(dataset, batch_sampler=sampler, num_workers=0,
                        collate_fn=collate, pin_memory=pin_memory)
+
+
+PREFETCH = 2        # batches on the device at once: the current and the next
+
+
+def prefetch_to_device(iterator, device):
+    """The batches of ``iterator`` on ``device``, one ahead: the tensors of
+    the upcoming batch are copied (``non_blocking``, from the
+    loader's pinned memory on CUDA) while the current step runs. Strings
+    and lists ride along. A CPU ``device`` yields the batches as they
+    are."""
+    device = torch.device(device)
+
+    def put(batch):
+        if device.type == "cpu":
+            return batch
+        return {k: v.to(device, non_blocking=True) if torch.is_tensor(v)
+                else v for k, v in batch.items()}
+
+    buf = collections.deque()
+    for batch in iterator:
+        buf.append(put(batch))
+        if len(buf) == PREFETCH:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

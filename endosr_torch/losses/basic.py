@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from endosr_torch.parallel.mesh import world_size
+
 __all__ = ["l1_loss", "l2_loss", "charbonnier_loss", "smooth_l1_loss",
            "pixel_loss", "bce_with_logits", "gan_loss", "gradient_penalty"]
 
@@ -44,12 +46,19 @@ def smooth_l1_loss(pred, target, beta: float = 1.0, reduction: str = "mean"):
 _PIXEL = {"l1": l1_loss, "l2": l2_loss, "cb": charbonnier_loss}
 
 
-def pixel_loss(kind: str):
-    """The pixel criterion ``kind`` names (``l1``, ``l2`` or ``cb``)."""
+def pixel_loss(kind: str, mesh=None):
+    """The pixel criterion ``kind`` names (``l1``, ``l2`` or ``cb``). Under
+    data parallelism (``mesh``, ``parallel/mesh.py``) the ``cb`` sum is
+    ``world`` × this rank's sum, so that the ranks' mean is the global
+    batch's sum; the means are this rank's means."""
     try:
-        return _PIXEL[kind]
+        fn = _PIXEL[kind]
     except KeyError:
         raise NotImplementedError(f"Loss type [{kind}] is not recognized.")
+    n = world_size(mesh)
+    if kind == "cb" and n > 1:
+        return lambda pred, target: n * charbonnier_loss(pred, target)
+    return fn
 
 
 def bce_with_logits(logits, targets):

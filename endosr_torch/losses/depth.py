@@ -31,8 +31,8 @@ class DepthEstimatorLoss:
     weighted sum, the four per-scale terms, the SR and the HR disparity
     pyramids, NCHW)."""
 
-    def __init__(self, opt, device=None):
-        self.cri = pixel_loss(opt["depth_criterion"])
+    def __init__(self, opt, device=None, mesh=None):
+        self.cri = pixel_loss(opt["depth_criterion"], mesh)
         self.weights = [float(w) for w in opt["depth_weight"]]
         model_path = opt["pretrained_model_path"]
         if not all(os.path.exists(os.path.join(model_path, f))

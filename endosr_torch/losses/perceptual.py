@@ -52,10 +52,10 @@ class VGGDepthLoss:
     ``vgg_criterion``, ``vgg_type``, ``vgg_weights_path``). Called on
     (SR, HR) NHWC images: (the weighted sum, the per-tap terms)."""
 
-    def __init__(self, opt, device=None, seed: int = 0):
+    def __init__(self, opt, device=None, seed: int = 0, mesh=None):
         self.layers = [int(x) for x in opt["vgg_layers"]]
         self.weights = [float(w) for w in opt["vgg_weight"]]
-        self.cri = pixel_loss(opt["vgg_criterion"])
+        self.cri = pixel_loss(opt["vgg_criterion"], mesh)
         self.model = _build_vgg(opt.get("vgg_type") or "vgg19", self.layers,
                                 max(self.layers), opt.get("vgg_weights_path"),
                                 seed, device)
@@ -76,8 +76,8 @@ class PerceptualLoss:
 
     def __init__(self, criterion: str = "l1", weight: float = 1.0,
                  vgg_weights_path: str | None = None, feature_layer: int = 34,
-                 device=None, seed: int = 0):
-        self.cri = pixel_loss(criterion)
+                 device=None, seed: int = 0, mesh=None):
+        self.cri = pixel_loss(criterion, mesh)
         self.weight = weight
         self.model = _build_vgg("vgg19", (feature_layer,), feature_layer,
                                 vgg_weights_path, seed, device)

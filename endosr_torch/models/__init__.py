@@ -23,14 +23,15 @@ MODELS = {
 }
 
 
-def create_model(opt, device=None):
+def create_model(opt, device=None, mesh=None):
     """The model the YAML's ``model:`` names, on ``device`` (None: CUDA,
-    which raises without one)."""
+    which raises without one), data-parallel over ``mesh``
+    (``parallel/mesh.py``; None: the default, none in one process)."""
     model = opt["model"]
     if model not in MODELS:
         raise NotImplementedError(f"Model [{model}] not recognized.")
     module, cls = MODELS[model]
     M = getattr(importlib.import_module(f"endosr_torch.models.{module}"), cls)
-    m = M(opt, device=device)
+    m = M(opt, device=device, mesh=mesh)
     logging.getLogger("base").info("Model [%s] is created.", m.__class__.__name__)
     return m

@@ -18,6 +18,14 @@ where the model has them, and what a model adds by
 :meth:`BaseModel._extra_training_state`, such as a second network and its
 optimizer). Both are written to a temporary file and renamed into place.
 
+Under data parallelism (``mesh``: ``parallel/mesh.py``'s 1-D mesh; None
+means the default one, which is None in a single process) a model averages
+its gradients over the ranks before every update
+(:meth:`BaseModel._sync_grads`), computes its global-batch losses with
+the mesh, averages its logs over the ranks, and :meth:`sync_replicas`
+broadcasts rank 0's weights and optimizer state (a resume calls it; every
+rank reads rank 0's files).
+
 Weights load as the JAX package's porter reads them
 (``utils/port_params.py::fit_state_dict``): keys of modules the network
 does not build are dropped and logged, and ``strict_load`` asks that every
@@ -31,6 +39,7 @@ import os
 import torch
 
 from endosr_torch.models.lr_schedule import build_schedule
+from endosr_torch.parallel.mesh import allreduce_grads, get_mesh, replicate
 from endosr_torch.utils.port_params import fit_state_dict, load_params
 
 __all__ = ["BaseModel"]
@@ -57,8 +66,9 @@ class BaseModel:
 
     dyn_weight = None
 
-    def __init__(self, opt):
+    def __init__(self, opt, mesh=None):
         self.opt = opt
+        self.mesh = mesh if mesh is not None else get_mesh()
         self.is_train = bool(opt.get("is_train"))
         self.log_dict: dict[str, float] = {}
         self.schedule = None
@@ -132,7 +142,29 @@ class BaseModel:
         self.optimizer_G.load_state_dict(state["optimizer"])
         self._load_extra_training_state(state)
         self.step = state["step"]
+        self.sync_replicas()
         return state["epoch"], state["iter"]
+
+    def _replicas(self) -> list:
+        """What :meth:`sync_replicas` broadcasts: the networks, their
+        optimizers (their state) and the dynamic loss's weights."""
+        return [getattr(self, k, None) for k in
+                ("netG", "optimizer_G", "dyn_weight", "netD", "optimizer_D",
+                 "segNet", "optimizer_seg")]
+
+    def sync_replicas(self):
+        """Broadcast rank 0's weights, buffers and optimizer state to every
+        rank of the mesh (a no-op without one)."""
+        if self.mesh is not None:
+            replicate(self._replicas(), self.mesh)
+
+    def _sync_grads(self, *optimizers):
+        """Average the gradients of the ``optimizers``' parameters over the
+        mesh's ranks (between ``backward()`` and ``step()``)."""
+        if self.mesh is None:
+            return
+        allreduce_grads([p for o in optimizers for g in o.param_groups
+                         for p in g["params"]], self.mesh)
 
     def _extra_training_state(self) -> dict:
         """What a model saves in ``{iter}.state`` besides the generator,

@@ -9,7 +9,9 @@ the network's inputs (:meth:`SimpleModel._net_inputs`) and its target
 (:meth:`SimpleModel._target`). Weights come from ``path.pretrain_model_G``
 (``models/base.py``'s loader) or from the port's seeded init
 (``train.manual_seed``, default 0); checkpoints and the trainer state are
-``models/base.py``'s.
+``models/base.py``'s. Data parallel over a ``mesh`` (``models/base.py``):
+the gradients are averaged over the ranks before each update, a ``cb``
+pixel loss is the global batch's sum, the logs are the ranks' mean.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from endosr_torch.losses.basic import pixel_loss
 from endosr_torch.models.base import BaseModel
 from endosr_torch.nn.networks import define_G
+from endosr_torch.parallel.mesh import mean_over_ranks
 from endosr_torch.utils.device import resolve_device
 from endosr_torch.utils.port_params import seeded_init
 
@@ -53,8 +56,8 @@ class SimpleModel(BaseModel):
     """One-network pixel-criterion trainer with the reference model API.
     ``device``: where it runs; None means CUDA and raises without one."""
 
-    def __init__(self, opt, device=None):
-        super().__init__(opt)
+    def __init__(self, opt, device=None, mesh=None):
+        super().__init__(opt, mesh)
         self.device = resolve_device(device)
         self.netG = self._build_network(opt)
         seed = int((opt.get("train") or {}).get("manual_seed") or 0)
@@ -64,7 +67,7 @@ class SimpleModel(BaseModel):
         self.optimizer_G = None
         if self.is_train:
             t = opt["train"]
-            self.cri_pix = pixel_loss(t["pixel_criterion"])
+            self.cri_pix = pixel_loss(t["pixel_criterion"], self.mesh)
             self.l_pix_w = float(t["pixel_weight"])
             self.optimizer_G = make_adam(self.netG.parameters(), t,
                                          self.schedule)
@@ -103,6 +106,7 @@ class SimpleModel(BaseModel):
         schedule's LR of update ``self.step``."""
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        self._sync_grads(optimizer)
         lr = self.schedule(self.step)
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -118,7 +122,7 @@ class SimpleModel(BaseModel):
         total, logs = self._losses(self.netG(*self._net_inputs(batch)), batch)
         self._update(total, self.optimizer_G)
         self.step += 1
-        self.log_dict = _floats(logs, self.device)
+        self.log_dict = _floats(logs, self.device, self.mesh)
         return self.log_dict
 
     @torch.inference_mode()
@@ -154,8 +158,12 @@ class SimpleModel(BaseModel):
         return self.save_network(self.netG, "G", iter_label)
 
 
-def _floats(logs, device):
-    """{name: loss tensor or float} → {name: float}, one read-back."""
+def _floats(logs, device, mesh=None):
+    """{name: loss tensor or float} → {name: float}, one read-back; with a
+    ``mesh``, each the mean over the ranks."""
     vals = [v.detach().float().reshape(()).to(device) if torch.is_tensor(v)
             else torch.tensor(float(v), device=device) for v in logs.values()]
-    return dict(zip(logs, torch.stack(vals).cpu().tolist())) if vals else {}
+    if not vals:
+        return {}
+    return dict(zip(logs, mean_over_ranks(torch.stack(vals), mesh)
+                    .cpu().tolist()))

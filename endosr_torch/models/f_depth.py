@@ -24,14 +24,14 @@ def _nchw(x):
 
 
 class FModelDepth(SimpleModel):
-    def __init__(self, opt, device=None):
+    def __init__(self, opt, device=None, mesh=None):
         net_opt = opt["network_G"]
         self.pred_depth = bool(net_opt.get("predict_depth_map", False))
         self.n_depth_resblk = int(net_opt.get("n_depthResBlk") or 0)
         t = opt.get("train") or {}
         self.l_depth_l1_w = float(t.get("depth_l1_weight") or 1.0)
         self.l_depth_ssim_w = float(t.get("depth_ssim_weight") or 1.0)
-        super().__init__(opt, device=device)
+        super().__init__(opt, device=device, mesh=mesh)
 
     def _net_inputs(self, batch):
         return (batch["LQ"], batch["Depth_x8"])

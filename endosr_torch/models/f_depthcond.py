@@ -30,8 +30,16 @@ are no part of ``netG``, of the optimizer or of a saved ``.pth``. With the
 depth loss, every 1000th step first writes the SR and HR disparity
 pyramids to ``./tmp/{sr,hr}_<i>.npy`` (:meth:`_dump_disparities`). uint8
 batches (the ``u8_pipeline``) are normalized inside the step through the
-256-entry table; masks are cast without scaling. ``spatial_shard`` is
-still to be ported and raises.
+256-entry table; masks are cast without scaling.
+
+Data parallel over a ``mesh`` (``parallel/mesh.py``; ``models/base.py``),
+a step is JAX's global-batch step over its mesh: every rank steps on its
+own part of the batch, draws the mask loss's bin from the same host RNG
+(seeded alike on every rank), computes the mask and dynamic losses from
+sums over every rank (their ratios are not means of per-sample terms),
+averages the gradients before the update and its logs after it.
+``spatial_shard: N`` serves each image with its height split over the N
+ranks of the mesh (``parallel/spatial.py``), on the bucketed path only.
 
 Weights come from ``path.pretrain_model_G`` (a ``.npz`` of JAX parameters
 or a ``state_dict`` file, :meth:`load`) or from the port's seeded init;
@@ -58,6 +66,8 @@ from endosr_torch.models.base import BaseModel
 from endosr_torch.models.lr_schedule import clear_state_at
 from endosr_torch.nn.networks import define_G
 from endosr_torch.ops.masks import pool_mask_np
+from endosr_torch.parallel.mesh import mean_over_ranks
+from endosr_torch.parallel.spatial import sharded_masked_forward
 from endosr_torch.utils.device import device_constant, resolve_device
 from endosr_torch.utils.port_params import seeded_init
 
@@ -127,14 +137,12 @@ class FModelDepthCond(BaseModel):
     """Serving and training model. ``device``: where it runs; None means
     CUDA and raises when there is none."""
 
-    def __init__(self, opt, device=None):
-        super().__init__(opt)
+    def __init__(self, opt, device=None, mesh=None):
+        super().__init__(opt, mesh)
         self.device = resolve_device(device)
         precision = opt.get("precision")
         if precision not in _PRECISIONS:
             raise NotImplementedError(f"precision [{precision}] is not ported")
-        if int(opt.get("spatial_shard") or 0) > 1:
-            raise NotImplementedError("spatial_shard is not ported yet")
         which = opt["network_G"]["which_model_G"]
         if which != "DepthNet":
             raise NotImplementedError(
@@ -156,6 +164,7 @@ class FModelDepthCond(BaseModel):
         self._fwd = chunked_serving_fn(self.netG,
                                        8 if chunk is None else int(chunk))
         self._warned_bucket_fallback = False
+        self._warned_spatial_fallback = False
         self.batch = {}
         self._masks_np = None
         self.dyn_weight = None
@@ -171,12 +180,13 @@ class FModelDepthCond(BaseModel):
                 for k in ("depth", "vgg", "ssim", "mask", "dynamic")}
         if gate["depth"]:
             self.depth_loss_fn = DepthEstimatorLoss(t["depth_loss"],
-                                                    self.device)
+                                                    self.device, self.mesh)
         if gate["vgg"]:
             # without vgg_weights_path the port's own seeded VGG init
             self.vgg_loss_fn = VGGDepthLoss(
-                t["vgg_loss"], self.device, int(t.get("manual_seed") or 0))
-        self.cri_pix = pixel_loss(t["pixel_criterion"])
+                t["vgg_loss"], self.device, int(t.get("manual_seed") or 0),
+                self.mesh)
+        self.cri_pix = pixel_loss(t["pixel_criterion"], self.mesh)
         self.l_pix_w = float(t["pixel_weight"])
         self.use_ssim_loss = gate["ssim"]
         self.use_mask_loss = gate["mask"]
@@ -253,7 +263,8 @@ class FModelDepthCond(BaseModel):
         if "GT" not in self.batch:
             raise RuntimeError("no training batch: feed LQ, GT, Depth and "
                                "DepthMaskList first")
-        # drawn every step, used or not, so the stream stays JAX's
+        # drawn every step, used or not, so the stream stays JAX's (and,
+        # seeded alike, the same on every rank of a mesh)
         mask_bin = int(self._np_rng.integers(0, self.mask_num))
         if self.depth_loss_fn is not None and step is not None \
                 and step % 1000 == 0:
@@ -277,18 +288,20 @@ class FModelDepthCond(BaseModel):
             total = total + logs["l_ssim"]
         if self.use_mask_loss:
             logs["l_mask"] = mask_loss(fake_h, gt, masks, mask_bin,
-                                       self.mask_criterion, self.l_mask_w)
+                                       self.mask_criterion, self.l_mask_w,
+                                       self.mesh)
             total = total + logs["l_mask"]
         if self.use_dynamic_loss:
             raw, _, l_dyn, w = dynamic_weight_mask_loss(
                 fake_h, gt, masks, self.dyn_weight, self.dyn_criterion,
-                self.l_dyn_w)
+                self.l_dyn_w, self.mesh)
             logs.update(l_dynamic=l_dyn, dyn_w=w, dyn_l=raw)
             total = total + l_dyn
         logs["l_all"] = total
 
         self.optimizer_G.zero_grad(set_to_none=True)
         total.backward()
+        self._sync_grads(self.optimizer_G)
         if self._clear_state is not None:
             self._clear_state(self.optimizer_G, self.step)
         lr = self.schedule(self.step)
@@ -299,11 +312,12 @@ class FModelDepthCond(BaseModel):
         return self._read_logs(logs)
 
     def _read_logs(self, logs):
-        """{name: loss tensor} → ``self.log_dict`` of floats, in one
-        read-back; the vectors ``dyn_w`` / ``dyn_l`` as ``dyn_w_i`` /
-        ``dyn_l_i``."""
-        flat = torch.cat([v.detach().float().reshape(-1)
-                          for v in logs.values()]).cpu().tolist()
+        """{name: loss tensor} → ``self.log_dict`` of floats (with a mesh,
+        the mean over the ranks), in one read-back; the vectors ``dyn_w`` /
+        ``dyn_l`` as ``dyn_w_i`` / ``dyn_l_i``."""
+        flat = mean_over_ranks(torch.cat([v.detach().float().reshape(-1)
+                                          for v in logs.values()]),
+                               self.mesh).cpu().tolist()
         self.log_dict, i = {}, 0
         for k, v in logs.items():
             n = v.numel()
@@ -376,13 +390,40 @@ class FModelDepthCond(BaseModel):
                                "bf16c): serving unpadded")
         return -(-bucket // 4) * 4       # the masked forward needs H, W % 4 == 0
 
+    def _spatial_shards(self, bucket) -> int:
+        """N of ``spatial_shard: N`` (0: off). It needs the exact bucketed
+        path, so it is ignored with a warning where bucketing is off (the
+        ablations, the fused epilogue, the centered precisions: their
+        border corrections assume the whole image), as in JAX; otherwise
+        the mesh must hold N ranks."""
+        nsp = int(self.opt.get("spatial_shard") or 0)
+        if nsp <= 1:
+            return 0
+        if not bucket:
+            if not self._warned_spatial_fallback:
+                self._warned_spatial_fallback = True
+                logger.warning(
+                    "spatial_shard ignored: it requires the exact bucketed "
+                    "eval path, which is disabled for this network config "
+                    "(ablation / fused epilogue / centered bf16c)")
+            return 0
+        have = 1 if self.mesh is None else self.mesh.size()
+        if have != nsp:
+            raise ValueError(
+                f"spatial_shard: {nsp} needs {nsp} ranks (torchrun "
+                f"--nproc_per_node {nsp}), have {have}")
+        return nsp
+
     @torch.inference_mode()
     def test(self):
         """SR of the fed batch → ``self.fake_SR`` [B, H·s, W·s, 3] fp32 (on
         the model's device). Bucketed, the padding and the pooling mask
         are made where the batch lies: on the host for a batch fed as numpy
         (then copied over padded); the pooling mask comes from
-        :meth:`_host_masks`."""
+        :meth:`_host_masks`. With ``spatial_shard: N`` (every rank of the
+        mesh calls it on the same batch) the padded height is a multiple of
+        lcm(bucket, 4·N), each rank computes its slab of rows and every rank
+        gets the whole SR (``parallel/spatial.py``)."""
         if "LQ" not in self.batch:
             raise RuntimeError("no batch: call feed_data before test")
         b, dev = self.batch, self.device
@@ -390,15 +431,22 @@ class FModelDepthCond(BaseModel):
                           for k in ("LQ", "Depth", "DepthMaskList"))
         h, w = lq.shape[1], lq.shape[2]
         bucket = self._bucket()
+        nsp = self._spatial_shards(bucket)
         if bucket:
-            hb, wb = -(-h // bucket) * bucket, -(-w // bucket) * bucket
+            hmult = int(np.lcm(bucket, 4 * nsp)) if nsp else bucket
+            hb, wb = -(-h // hmult) * hmult, -(-w // bucket) * bucket
             pad = (0, 0, 0, wb - w, 0, hb - h)
             v3h, v3w = ((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2
             pm = pool_mask_np(self._host_masks(), (v3h, v3w),
                               (hb // 4, wb // 4))
-            sr = self.netG(F.pad(lq, pad).to(dev), F.pad(dep, pad).to(dev),
-                           F.pad(masks, pad).to(dev), valid_hw=(h, w),
-                           pool_mask=torch.from_numpy(pm).to(dev))
+            if nsp:
+                sr = sharded_masked_forward(
+                    self.netG, F.pad(lq, pad), F.pad(dep, pad),
+                    F.pad(masks, pad), (h, w), pm, self.mesh)
+            else:
+                sr = self.netG(F.pad(lq, pad).to(dev), F.pad(dep, pad).to(dev),
+                               F.pad(masks, pad).to(dev), valid_hw=(h, w),
+                               pool_mask=torch.from_numpy(pm).to(dev))
         else:
             sr = self._fwd(lq.to(dev), dep.to(dev), masks.to(dev))
         s = int(self.opt["scale"])

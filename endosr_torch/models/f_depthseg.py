@@ -12,10 +12,10 @@ JAX chain ``add_decayed_weights → scale_by_rms(0.99, 1e-8) → trace
 (momentum) → step_lr``, with ``train.segNet``'s ``lr``, ``momentum``,
 ``weight_decay`` and the reference's ``setp_size`` / ``gamma``) updates
 the FCN, whose BatchNorm statistics move in train mode as flax's do
-(``nn/fcn.py``). The FCN's weights are the port's seeded init (seed 1, as
-the JAX model's ``PRNGKey(1)``); :meth:`save` also writes
-``{iter}_segNet.pth``, and the trainer state holds the FCN and its
-optimizer.
+(``nn/fcn.py``; over a mesh, the global batch's). The FCN's weights are
+the port's seeded init (seed 1, as the JAX model's ``PRNGKey(1)``);
+:meth:`save` also writes ``{iter}_segNet.pth``, and the trainer state
+holds the FCN and its optimizer.
 
 A uint8 batch (``u8_pipeline``) goes into the networks and the losses as
 it comes, 0–255, as the JAX step takes it (C14 in ``ROADMAP.md``: the
@@ -32,6 +32,7 @@ from endosr_torch.losses.ssim import ssim_value
 from endosr_torch.models.base import _host
 from endosr_torch.models.f_depthcond import FModelDepthCond, u8_cast
 from endosr_torch.models.lr_schedule import step_lr
+from endosr_torch.nn.fcn import sync_batch_norm
 from endosr_torch.nn.networks import define_SegNet
 from endosr_torch.utils.port_params import seeded_init
 
@@ -80,13 +81,14 @@ class RMSChain(torch.optim.Optimizer):
 
 
 class FModelDepthSeg(FModelDepthCond):
-    def __init__(self, opt, device=None):
-        super().__init__(opt, device=device)
+    def __init__(self, opt, device=None, mesh=None):
+        super().__init__(opt, device=device, mesh=mesh)
         self.segNet = self.optimizer_seg = None
         if not self.is_train:
             return
         seg = opt["train"].get("segNet") or {}
-        self.segNet = seeded_init(define_SegNet(opt, device=self.device), 1)
+        self.segNet = sync_batch_norm(
+            seeded_init(define_SegNet(opt, device=self.device), 1), self.mesh)
         self.segNet.train()
         self.seg_schedule = step_lr(
             float(seg.get("lr") or 1e-4),
@@ -131,12 +133,13 @@ class FModelDepthSeg(FModelDepthCond):
             total = total + logs["l_ssim"]
         if self.use_mask_loss:
             logs["l_mask"] = mask_loss(fake_h, gt, masks, mask_bin,
-                                       self.mask_criterion, self.l_mask_w)
+                                       self.mask_criterion, self.l_mask_w,
+                                       self.mesh)
             total = total + logs["l_mask"]
         if self.use_dynamic_loss:
             raw, _, l_dyn, w = dynamic_weight_mask_loss(
                 fake_h, gt, masks, self.dyn_weight, self.dyn_criterion,
-                self.l_dyn_w)
+                self.l_dyn_w, self.mesh)
             logs.update(l_dynamic=l_dyn, dyn_w=w, dyn_l=raw)
             total = total + l_dyn
         logs["l_all"] = total
@@ -146,6 +149,7 @@ class FModelDepthSeg(FModelDepthCond):
         self.optimizer_G.zero_grad(set_to_none=True)
         self.optimizer_seg.zero_grad(set_to_none=True)
         (total + logs["l_segBCE"]).backward()
+        self._sync_grads(self.optimizer_G, self.optimizer_seg)
         if self._clear_state is not None:
             self._clear_state(self.optimizer_G, self.step)
         for opt_, lr in ((self.optimizer_G, self.schedule(self.step)),

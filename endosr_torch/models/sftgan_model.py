@@ -7,8 +7,10 @@ built for HR ``LR_size × 4`` (``LR_size`` default 24). A batch holds
 ``LR``, ``seg``, ``category`` (int; 0 background) and ``GT``. G's loss is
 pixel + VGG feature + ``gan_weight`` × (GAN + the class cross-entropy
 with background ignored); D's the GAN terms on GT and the fake plus the
-class cross-entropy of both. The gate, D's batch statistics and the order
-of the updates are ``models/srgan_model.py``'s.
+class cross-entropy of both. The gate, D's batch statistics, the order
+of the updates and data parallelism are ``models/srgan_model.py``'s; over
+a mesh the class cross-entropy divides the global batch's sum by its
+count of labelled samples.
 
 Three Adams, as JAX's three optax chains (β2 0.999, ε 1e-8, no weight
 decay): ``tx_sft`` (β1 ``beta1_G``, 5× the G schedule's LR), ``tx_other``
@@ -30,8 +32,9 @@ import torch
 from endosr_torch.losses.basic import gan_loss
 from endosr_torch.models.common import _floats, as_tensor
 from endosr_torch.models.srgan_model import GANModelBase, requires_grad
-from endosr_torch.nn.fcn import batch_stats_only
+from endosr_torch.nn.fcn import batch_stats_only, sync_batch_norm
 from endosr_torch.nn.sft_arch import ACDVGGBN96, SFTNet
+from endosr_torch.parallel.mesh import allreduce_grads, global_sum
 
 __all__ = ["SFTGANACDModel", "AdamMoments", "SFTAdams",
            "cross_entropy_ignore0", "sft_mask"]
@@ -39,16 +42,18 @@ __all__ = ["SFTGANACDModel", "AdamMoments", "SFTAdams",
 FREEZE_STEPS = 20000    # the non-SFT parameters stay put until a step past it
 
 
-def cross_entropy_ignore0(logits, labels):
+def cross_entropy_ignore0(logits, labels, mesh=None):
     """Cross-entropy over the samples whose label is not 0, divided by
     max(their count, 1): a batch of background only gives 0 (torch's
     ``ignore_index`` would give NaN). A label indexes the classes as JAX's
-    ``take_along_axis`` does (−1 is the last)."""
+    ``take_along_axis`` does (−1 is the last). With a ``mesh`` the sum and
+    the count are the global batch's (a ratio, not a mean)."""
     logp = torch.log_softmax(logits, dim=-1)
     idx = torch.remainder(labels.long(), logits.shape[-1])
     picked = logp.gather(-1, idx[:, None])[:, 0]
     keep = (labels != 0).float()
-    return -(picked * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+    return -global_sum((picked * keep).sum(), mesh) / torch.clamp(
+        global_sum(keep.sum(), mesh), min=1.0)
 
 
 def sft_mask(name: str) -> bool:
@@ -112,8 +117,8 @@ class SFTGANACDModel(GANModelBase):
 
     lq_key = "LR"
 
-    def __init__(self, opt, device=None):
-        super().__init__(opt, device)
+    def __init__(self, opt, device=None, mesh=None):
+        super().__init__(opt, device, mesh)
         self.netG = self._init_or_load(SFTNet().to(self.device), "G",
                                        self.seed)
         if not self.is_train:
@@ -122,8 +127,9 @@ class SFTGANACDModel(GANModelBase):
         t = opt["train"]
         ds = (opt.get("datasets") or {}).get("train") or {}
         hr = int(ds.get("LR_size") or 24) * 4
-        self.netD = self._init_or_load(ACDVGGBN96(hr_size=hr).to(self.device),
-                                       "D", self.seed + 1)
+        self.netD = sync_batch_norm(self._init_or_load(
+            ACDVGGBN96(hr_size=hr).to(self.device), "D", self.seed + 1),
+            self.mesh)
         self._gan_options(t)
         self.g_names, self.g_params = zip(*self.netG.named_parameters())
         self.sft_mask = [sft_mask(k) for k in self.g_names]
@@ -132,6 +138,12 @@ class SFTGANACDModel(GANModelBase):
         self.optimizer_D = torch.optim.Adam(
             self.netD.parameters(), lr=self.schedule_D(0), eps=1e-8,
             betas=(float(t.get("beta1_D", 0.9)), 0.999))
+
+    def _replicas(self):
+        adams = self.optimizer_G
+        moments = [] if adams is None else [
+            adams.tx_sft.m, adams.tx_sft.v, adams.tx_other.m, adams.tx_other.v]
+        return [self.netG, self.netD, self.optimizer_D, moments]
 
     def feed_data(self, data, need_GT: bool = True):
         self.batch = {"LR": as_tensor(data["LR"]), "seg": as_tensor(data["seg"]),
@@ -167,11 +179,12 @@ class SFTGANACDModel(GANModelBase):
                 gan_logit, cls_logit = self.netD(fake)
             logs["l_g_gan"] = self.l_gan_w * gan_loss(self.gan_type,
                                                       gan_logit, True)
-            logs["l_g_cls"] = self.l_gan_w * cross_entropy_ignore0(cls_logit,
-                                                                   cat)
+            logs["l_g_cls"] = self.l_gan_w * cross_entropy_ignore0(
+                cls_logit, cat, self.mesh)
             for p in self.g_params:
                 p.grad = None
             (total + logs["l_g_gan"] + logs["l_g_cls"]).backward()
+            allreduce_grads(self.g_params, self.mesh)
             self._g_update(step > FREEZE_STEPS)
             self.step_G += 1
             requires_grad(self.netD, True)
@@ -183,14 +196,14 @@ class SFTGANACDModel(GANModelBase):
         logs.update(
             l_d_real=gan_loss(self.gan_type, pred_real, True),
             l_d_fake=gan_loss(self.gan_type, pred_fake, False),
-            l_d_cls_real=cross_entropy_ignore0(cls_real, cat),
-            l_d_cls_fake=cross_entropy_ignore0(cls_fake, cat))
+            l_d_cls_real=cross_entropy_ignore0(cls_real, cat, self.mesh),
+            l_d_cls_fake=cross_entropy_ignore0(cls_fake, cat, self.mesh))
         self._d_update(logs["l_d_real"] + logs["l_d_fake"]
                        + logs["l_d_cls_real"] + logs["l_d_cls_fake"])
         logs.update(D_real=pred_real.detach().mean(),
                     D_fake=pred_fake.detach().mean())
         self.step += 1
-        self.log_dict = _floats(logs, self.device)
+        self.log_dict = _floats(logs, self.device, self.mesh)
         return self.log_dict
 
     @torch.inference_mode()

@@ -19,6 +19,13 @@ The step copies the JAX model's order and statistics exactly:
 - ``wgan-gp`` is the signed mean with no gradient penalty, as in JAX
   (C16 in ``ROADMAP.md``; ``losses/basic.py::gradient_penalty`` exists).
 
+Data parallel over a ``mesh`` (``models/base.py``), a step is JAX's
+global-batch step: D's BatchNorm statistics are the global batch's
+(``nn/fcn.py::sync_batch_norm``), ``ragan``'s means of D's outputs are
+taken over every rank (they sit inside the BCE), both networks' gradients
+are averaged over the ranks before their updates, and the logs are the
+ranks' mean.
+
 G's optimiser is ``models/common.py::make_adam``; D's takes ``beta1_D``,
 ``beta2_D`` and ``weight_decay_D`` on the schedule of ``lr_D``. Each
 optimiser's LR is its schedule at the updates it has made (optax's count:
@@ -39,8 +46,9 @@ from endosr_torch.losses.basic import gan_loss, pixel_loss
 from endosr_torch.models.base import BaseModel, _host
 from endosr_torch.models.common import _floats, as_tensor, make_adam
 from endosr_torch.models.lr_schedule import build_schedule
-from endosr_torch.nn.fcn import batch_stats_only
+from endosr_torch.nn.fcn import batch_stats_only, sync_batch_norm
 from endosr_torch.nn.networks import define_D, define_G
+from endosr_torch.parallel.mesh import global_mean
 from endosr_torch.utils.device import resolve_device
 from endosr_torch.utils.port_params import seeded_init
 
@@ -61,8 +69,8 @@ class GANModelBase(BaseModel):
     # the fed batch's low-resolution key
     lq_key = "LQ"
 
-    def __init__(self, opt, device=None):
-        super().__init__(opt)
+    def __init__(self, opt, device=None, mesh=None):
+        super().__init__(opt, mesh)
         self.device = resolve_device(device)
         self.seed = int((opt.get("train") or {}).get("manual_seed") or 0)
         self.netD = self.optimizer_G = self.optimizer_D = None
@@ -84,8 +92,8 @@ class GANModelBase(BaseModel):
 
     def _gan_options(self, t):
         self.l_pix_w = float(t.get("pixel_weight") or 0)
-        self.cri_pix = pixel_loss(t["pixel_criterion"]) if self.l_pix_w > 0 \
-            else None
+        self.cri_pix = pixel_loss(t["pixel_criterion"], self.mesh) \
+            if self.l_pix_w > 0 else None
         self.l_fea_w = float(t.get("feature_weight") or 0)
         self.cri_fea = None
         if self.l_fea_w > 0:
@@ -94,7 +102,7 @@ class GANModelBase(BaseModel):
             self.cri_fea = PerceptualLoss(
                 criterion=t.get("feature_criterion", "l1"), weight=1.0,
                 vgg_weights_path=t.get("vgg_weights_path"),
-                device=self.device, seed=self.seed)
+                device=self.device, seed=self.seed, mesh=self.mesh)
         self.gan_type = t["gan_type"]
         self.l_gan_w = float(t["gan_weight"])
         self.D_update_ratio = int(t.get("D_update_ratio") or 1)
@@ -119,6 +127,7 @@ class GANModelBase(BaseModel):
     def _d_update(self, total):
         self.optimizer_D.zero_grad(set_to_none=True)
         total.backward()
+        self._sync_grads(self.optimizer_D)
         lr = self.schedule_D(self.step)
         for group in self.optimizer_D.param_groups:
             group["lr"] = lr
@@ -157,16 +166,16 @@ class GANModelBase(BaseModel):
 class SRGANModel(GANModelBase):
     """``device``: where it runs; None means CUDA and raises without one."""
 
-    def __init__(self, opt, device=None):
-        super().__init__(opt, device)
+    def __init__(self, opt, device=None, mesh=None):
+        super().__init__(opt, device, mesh)
         self.netG = self._init_or_load(define_G(opt, device=self.device), "G",
                                        self.seed)
         if not self.is_train:
             self.netG.eval()
             return
         t = opt["train"]
-        self.netD = self._init_or_load(define_D(opt, device=self.device), "D",
-                                       self.seed + 1)
+        self.netD = sync_batch_norm(self._init_or_load(
+            define_D(opt, device=self.device), "D", self.seed + 1), self.mesh)
         self._gan_options(t)
         self.optimizer_G = make_adam(self.netG.parameters(), t, self.schedule)
         self.optimizer_D = make_adam(
@@ -180,6 +189,10 @@ class SRGANModel(GANModelBase):
         if need_GT and "GT" in data:
             self.batch["GT"] = as_tensor(data["GT"])
 
+    def _mean(self, pred):
+        """The global batch's mean of D's outputs (``ragan``)."""
+        return global_mean(pred.mean(), self.mesh)
+
     def _g_loss(self, fake, gt, logs):
         total = self._g_content(fake, gt, logs)
         with batch_stats_only(self.netD):
@@ -188,8 +201,9 @@ class SRGANModel(GANModelBase):
                 with torch.no_grad():
                     pred_d_real = self.netD(gt)
                 l_g_gan = self.l_gan_w * (
-                    gan_loss("gan", pred_d_real - pred_g_fake.mean(), False)
-                    + gan_loss("gan", pred_g_fake - pred_d_real.mean(),
+                    gan_loss("gan", pred_d_real - self._mean(pred_g_fake),
+                             False)
+                    + gan_loss("gan", pred_g_fake - self._mean(pred_d_real),
                                True)) / 2
             else:
                 l_g_gan = self.l_gan_w * gan_loss(self.gan_type, pred_g_fake,
@@ -201,9 +215,9 @@ class SRGANModel(GANModelBase):
         pred_d_real = self.netD(gt)
         pred_d_fake = self.netD(fake.detach())
         if self.gan_type == "ragan":
-            l_d_real = gan_loss("gan", pred_d_real - pred_d_fake.mean(),
+            l_d_real = gan_loss("gan", pred_d_real - self._mean(pred_d_fake),
                                 True) * 0.5
-            l_d_fake = gan_loss("gan", pred_d_fake - pred_d_real.mean(),
+            l_d_fake = gan_loss("gan", pred_d_fake - self._mean(pred_d_real),
                                 False) * 0.5
         else:
             l_d_real = gan_loss(self.gan_type, pred_d_real, True)
@@ -227,6 +241,7 @@ class SRGANModel(GANModelBase):
             total = self._g_loss(fake, b["GT"], logs)
             self.optimizer_G.zero_grad(set_to_none=True)
             total.backward()
+            self._sync_grads(self.optimizer_G)
             lr = self.schedule(self.step_G)
             for group in self.optimizer_G.param_groups:
                 group["lr"] = lr
@@ -238,7 +253,7 @@ class SRGANModel(GANModelBase):
                 fake = self.netG(b["LQ"])
         self._d_update(self._d_loss(fake, b["GT"], logs))
         self.step += 1
-        self.log_dict = _floats(logs, self.device)
+        self.log_dict = _floats(logs, self.device, self.mesh)
         return self.log_dict
 
     @torch.inference_mode()

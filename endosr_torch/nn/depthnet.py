@@ -42,6 +42,12 @@ backward recomputes its insides instead of keeping them. The paper's
 ablations (``ablate_depth_matrix``, ``ablate_depth_block``; see
 ``nn/sean.py``) and the baseline without depth blocks (the encoder's first
 conv only, no style matrix) are the JAX module's too.
+
+Inside a ``parallel/spatial.py::spatial`` block the masked forward runs on
+one slab of rows a rank: the layers exchange their halo rows and
+statistics (``nn/layers.py``), the region-wise pooling sums over the
+ranks, and the encoder's masks count rows from the slab's first global
+row.
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from endosr_torch.nn.sean import (
     style_chunk_dot,
 )
 from endosr_torch.ops.resize import interpolate_bilinear, interpolate_nearest
+from endosr_torch.parallel.spatial import active as spatial_active
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["DepthNet", "Encoder", "EncoderNoDepthMatrix",
@@ -220,14 +227,24 @@ class _ValidRegion:
 def region_wise_avg_pooling(feature_map, mask):
     """Masked average pool [B,h,w,L] × [B,H,W,K] → [B,K,L]; a mask of
     another resolution is bilinear-resized (align_corners) and re-binarized
-    at 0.5 first."""
+    at 0.5 first. In a spatial block (``parallel/spatial.py``) both are
+    this rank's row slabs and the sums are the whole image's; the resize,
+    which mixes rows across slabs, is refused there (the masked forward
+    pools with the host's ``pool_mask`` at the feature's size)."""
     fh, fw = feature_map.shape[1], feature_map.shape[2]
+    sp = spatial_active()
     if mask.shape[1] != fh or mask.shape[2] != fw:
+        if sp is not None:
+            raise NotImplementedError(
+                "region_wise_avg_pooling: resizing a mask over row slabs; "
+                "pass the pool_mask of the feature's size")
         mask = interpolate_bilinear(mask, (fh, fw), align_corners=True)
         mask = (mask >= 0.5).to(feature_map.dtype)
     mask = mask.to(feature_map.dtype)
     sum_feat = torch.einsum("bhwk,bhwl->bkl", mask, feature_map)
     sum_mask = mask.sum(dim=(1, 2))
+    if sp is not None:
+        sum_feat, sum_mask = sp.sum(sum_feat, sum_mask)
     return sum_feat / (sum_mask[..., None] + 1e-10)
 
 
@@ -253,7 +270,7 @@ class Encoder(nn.Module):
         the valid region of its resolution, and the styles are pooled with
         ``pool_mask`` (the host-resized depth mask, zero-padded to the
         latent's shape; see ``ops.masks.pool_mask_np``)."""
-        m1 = m2 = m3 = m4 = None
+        m1 = m2 = m3 = None
         if valid_hw is not None:
             hv, wv = valid_hw
             h, w = x.shape[1], x.shape[2]
@@ -263,14 +280,17 @@ class Encoder(nn.Module):
             m1 = vm((h, w), hv, wv)
             m2 = vm((h // 2, w // 2), v2h, v2w)
             m3 = vm((h // 4, w // 4), v3h, v3w)
-            # the transposed conv gives 2n − 1
-            m4 = vm((h // 2 - 1, w // 2 - 1), 2 * v3h - 1, 2 * v3w - 1)
         feat = self.layer1(x, dtype)
         if self.is_baseline:
             return _mul(leaky_relu(feat), m1), None
         out = self.layer2(_mul(leaky_relu(feat), m1), dtype)
         out = self.layer3(_mul(leaky_relu(out), m2), dtype)
         out = self.layer4(_mul(leaky_relu(out), m3), dtype)
+        m4 = None
+        if valid_hw is not None:
+            # the transposed conv gives 2n − 1 rows (a row slab: 2n, its
+            # last row beyond the valid 2·v3h − 1 of the whole image)
+            m4 = vm((out.shape[1], out.shape[2]), 2 * v3h - 1, 2 * v3w - 1)
         out = self.layer5(_mul(leaky_relu(out), m4), dtype)
         style = region_wise_avg_pooling(
             out, depth_mask if pool_mask is None else pool_mask)

@@ -20,6 +20,11 @@ unbiased one); in eval mode it uses the running statistics. Inside
 :func:`batch_stats_only` a training-mode forward normalizes with the batch
 statistics and leaves the running ones as they are, as a flax apply whose
 new ``batch_stats`` are thrown away (the GAN models' generator step).
+Under data parallelism (:func:`sync_batch_norm` gives the layers a mesh)
+the batch statistics are the global batch's, as in JAX's one program over
+the mesh: Σx, Σx² and the count are summed over the ranks (the gradient
+flows through the sums), and the running statistics move by those global
+moments, alike on every rank.
 """
 
 from __future__ import annotations
@@ -32,9 +37,11 @@ import torch.nn.functional as F
 
 from endosr_torch.nn.layers import Conv, init_leaves_, torch_conv_init_
 from endosr_torch.nn.vgg import VGG_CFGS
+from endosr_torch.parallel.mesh import global_sum, world_size
 
 __all__ = ["VGGBackbone", "FCN8s", "FCN16s", "FCN32s", "FCNs",
-           "FlaxBatchNorm", "Deconv2x", "batch_stats_only"]
+           "FlaxBatchNorm", "Deconv2x", "batch_stats_only",
+           "sync_batch_norm"]
 
 F32 = torch.float32
 
@@ -48,6 +55,7 @@ class FlaxBatchNorm(nn.BatchNorm2d):
     def __init__(self, num_features, eps=1e-5, momentum=0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.update_stats = True
+        self.mesh = None
 
     def init_(self, gen):
         """flax's init: scale 1, bias 0, mean 0, var 1 (``gen`` unused)."""
@@ -56,9 +64,16 @@ class FlaxBatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         if self.training:
             x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = x32.mean(dim=(0, 1, 2))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
+            if self.mesh is None:
+                mean = x32.mean(dim=(0, 1, 2))
+                mean2 = (x32 * x32).mean(dim=(0, 1, 2))
+            else:
+                sums = global_sum(torch.stack([
+                    x32.sum(dim=(0, 1, 2)), (x32 * x32).sum(dim=(0, 1, 2))]),
+                    self.mesh)
+                mean, mean2 = sums / (x32[..., 0].numel()
+                                      * world_size(self.mesh))
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             if self.update_stats:
                 self._update(mean, var)
         else:
@@ -72,6 +87,15 @@ class FlaxBatchNorm(nn.BatchNorm2d):
         self.running_mean.mul_(1 - m).add_(m * mean.detach())
         self.running_var.mul_(1 - m).add_(m * var.detach())
         self.num_batches_tracked.add_(1)
+
+
+def sync_batch_norm(module: nn.Module, mesh) -> nn.Module:
+    """Give every :class:`FlaxBatchNorm` of ``module`` the ``mesh`` (None:
+    the local batch's statistics); returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, FlaxBatchNorm):
+            m.mesh = mesh
+    return module
 
 
 @contextlib.contextmanager

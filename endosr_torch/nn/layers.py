@@ -11,6 +11,12 @@ do, so the two can be compared entry by entry.
 Activations stay NHWC like the JAX package; a convolution runs as
 ``F.conv2d`` on the NCHW view of an NHWC tensor (a channels-last tensor,
 no copy).
+
+Inside a ``parallel/spatial.py::spatial`` block (H-sharded serving) the
+convolutions take their halo rows from the neighbouring ranks, the valid
+masks are built in global rows and the masked InstanceNorms sum their
+statistics over the ranks; the norms over the whole image that no masked
+forward runs refuse to run there.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from endosr_torch.parallel.spatial import active as spatial_active
 from endosr_torch.utils.device import device_constant
 
 __all__ = [
@@ -69,9 +76,14 @@ def conv2d_nhwc(x, w_hwio, pad=1, dtype=None, stride=1, groups=1):
     """Conv of NHWC ``x`` with an HWIO kernel in ``dtype`` (default
     ``x.dtype``); ``pad`` is an int or ((top, bottom), (left, right));
     ``groups``: the kernel is [kh,kw,C_in/groups,C_out], output channels
-    group-major. No bias. Returns NHWC."""
+    group-major. No bias. Returns NHWC. In a spatial block ``x`` is this
+    rank's row slab, and so is the output."""
     dtype = dtype or x.dtype
     (pt, pb), (pl, pr) = _pads(pad)
+    sp = spatial_active()
+    if sp is not None:
+        x = sp.conv_rows(x, w_hwio.shape[0], stride, pt, pb)
+        pt = pb = 0
     xn = x.to(dtype).permute(0, 3, 1, 2)
     w = w_hwio.to(dtype).permute(3, 2, 0, 1)
     if pt == pb and pl == pr:
@@ -184,6 +196,7 @@ def centered_conv(x, w, b, dtype, passes: int = 1):
     process-wide TF32 flag for their length (:func:`_tf32_convs`), so an
     fp32 conv that another thread runs meanwhile may take TF32: the call
     is not thread-safe in that respect."""
+    _whole_image_only("centered_conv")
     k = w.shape[0]
     p = k // 2
     h, wd = x.shape[1], x.shape[2]
@@ -310,10 +323,18 @@ def wn_effective_kernel(m: WNConv):
 
 def _conv_transpose_nhwc(x, w_iokk, b, stride, padding, dtype):
     """torch ``conv_transpose2d`` of NHWC ``x`` with an (I, O, kh, kw)
-    weight, plus bias, in ``dtype``; out = (in−1)·s − 2p + k."""
-    y = F.conv_transpose2d(x.to(dtype).permute(0, 3, 1, 2), w_iokk.to(dtype),
-                           stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 1) + b.to(dtype)
+    weight, plus bias, in ``dtype``; out = (in−1)·s − 2p + k. In a spatial
+    block, this rank's s·(slab rows) output rows (the whole output taken as
+    in·s rows; ``parallel/spatial.py``)."""
+    def conv(t):
+        return F.conv_transpose2d(t.to(dtype).permute(0, 3, 1, 2),
+                                  w_iokk.to(dtype), stride=stride,
+                                  padding=padding).permute(0, 2, 3, 1)
+
+    sp = spatial_active()
+    y = conv(x) if sp is None else sp.conv_transpose_rows(
+        x, w_iokk.shape[2], stride, padding, conv)
+    return y + b.to(dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -374,6 +395,7 @@ def instance_norm(x, eps: float = 1e-5, stats: str = "default"):
     variance clamped at 0; output in x's dtype. ``stats="kernel"`` takes
     the two sums from :func:`endosr_torch.kernels.in_stats.in_stats` (the
     JAX package's ``ENDOSR_IN_STATS=pallas``)."""
+    _whole_image_only("instance_norm")
     x32 = x.float()
     n = x.shape[1] * x.shape[2]
     if stats == "kernel":
@@ -393,6 +415,7 @@ def instance_norm(x, eps: float = 1e-5, stats: str = "default"):
 def chained_instance_norm(x, eps: float = 1e-5):
     """``instance_norm(instance_norm(x))`` from one statistics pass: the
     second norm's statistics are mean 0 and var/(var+eps)."""
+    _whole_image_only("chained_instance_norm")
     x32 = x.float()
     n = x.shape[1] * x.shape[2]
     s = x32.sum(dim=(1, 2), keepdim=True)
@@ -403,14 +426,33 @@ def chained_instance_norm(x, eps: float = 1e-5):
     return ((x32 - mean) * scale).to(x.dtype)
 
 
-def masked_instance_norm(x, vmask, eps: float = 1e-5):
-    """:func:`instance_norm` over the valid region only (exact bucketed
-    eval): ``vmask`` is a [B|1,H,W,1] float 0/1 mask, the statistics divide
-    by its count instead of H·W, and the output is zero outside it."""
+def _whole_image_only(name):
+    """Refuse a whole-image statistic inside a spatial block (no masked
+    forward runs it; a slab's statistic would be wrong)."""
+    if spatial_active() is not None:
+        raise NotImplementedError(
+            f"{name} over a row slab: spatial sharding runs the masked "
+            "(bucketed) forward only")
+
+
+def _masked_sums(x, vmask):
+    """(x·vmask, valid count, Σ, Σ²) over H, W; in a spatial block the
+    count and sums are the whole image's (summed over the ranks)."""
     x32 = x.float() * vmask
     n = vmask.sum(dim=(1, 2), keepdim=True)
     s = x32.sum(dim=(1, 2), keepdim=True)
     sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    sp = spatial_active()
+    if sp is not None:
+        n, s, sq = sp.sum(n, s, sq)
+    return x32, n, s, sq
+
+
+def masked_instance_norm(x, vmask, eps: float = 1e-5):
+    """:func:`instance_norm` over the valid region only (exact bucketed
+    eval): ``vmask`` is a [B|1,H,W,1] float 0/1 mask, the statistics divide
+    by its count instead of H·W, and the output is zero outside it."""
+    x32, n, s, sq = _masked_sums(x, vmask)
     mean = s / n
     var = torch.clamp(sq / n - mean * mean, min=0.0)
     return ((x32 - mean) * torch.rsqrt(var + eps) * vmask).to(x.dtype)
@@ -419,10 +461,7 @@ def masked_instance_norm(x, vmask, eps: float = 1e-5):
 def masked_chained_instance_norm(x, vmask, eps: float = 1e-5):
     """:func:`chained_instance_norm` with valid-region statistics (see
     :func:`masked_instance_norm`); output zero outside the valid region."""
-    x32 = x.float() * vmask
-    n = vmask.sum(dim=(1, 2), keepdim=True)
-    s = x32.sum(dim=(1, 2), keepdim=True)
-    sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    x32, n, s, sq = _masked_sums(x, vmask)
     mean = s / n
     var = torch.clamp(sq / n - mean * mean, min=0.0)
     scale = torch.rsqrt(var + eps) * torch.rsqrt(var / (var + eps) + eps)
@@ -431,9 +470,13 @@ def masked_chained_instance_norm(x, vmask, eps: float = 1e-5):
 
 def valid_mask(shape_hw, hv: int, wv: int, dtype=torch.float32, device=None):
     """[1, H, W, 1] mask that is 1 on rows < ``hv`` and columns < ``wv``,
-    built on ``device`` (no host-to-device copy)."""
+    built on ``device`` (no host-to-device copy). In a spatial block H is
+    the slab's and the rows are counted from the slab's first global
+    row."""
     h, w = shape_hw
-    r = torch.arange(h, device=device)[:, None] < hv
+    sp = spatial_active()
+    first = 0 if sp is None else sp.offset(h)
+    r = torch.arange(first, first + h, device=device)[:, None] < hv
     c = torch.arange(w, device=device)[None, :] < wv
     return (r & c).to(dtype)[None, :, :, None]
 

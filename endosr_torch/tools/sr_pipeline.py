@@ -16,7 +16,13 @@ is). The masks are ``ops/masks.py::depth_masks_np`` of each depth map.
 
 It runs on CUDA unless ``--device cpu`` is given, and raises without a
 CUDA device; on CUDA it turns TF32 off, as the entry points do.
-``--spatial`` (one frame's height across devices) is not ported.
+
+``--spatial`` splits each frame's height across the ranks of a
+``torchrun`` launch (``python -m torch.distributed.run --nproc_per_node N
+-m endosr_torch.tools.sr_pipeline --spatial ...``): every rank reads the
+same frames and serves its slab of rows through
+``parallel/spatial.py::spatial_forward`` (the masked forward, H ≥ 4·N);
+rank 0 alone writes the depth maps and the PNGs.
 """
 
 from __future__ import annotations
@@ -94,8 +100,8 @@ def parse_args(argv=None):
     ap.add_argument("--latent", type=int, default=256)
     ap.add_argument("--fixed_range", action="store_true", default=True)
     ap.add_argument("--spatial", action="store_true",
-                    help="shard each frame's height across devices (not "
-                         "ported)")
+                    help="shard each frame's height across the ranks of a "
+                         "torchrun launch (needs H >= 4x the rank count)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without one) or cpu")
     return ap.parse_args(argv)
@@ -109,15 +115,29 @@ def main(argv=None):
     from endosr_torch.utils.misc import save_img, tensor2img
 
     args = parse_args(argv)
-    if args.spatial:
-        raise NotImplementedError(
-            "--spatial (spatial_shard: one frame's height across devices) "
-            "is not ported yet")
     device = resolve_device(args.device)
+    mesh, started = None, False
+    if args.spatial:
+        import torch.distributed as dist
+
+        from endosr_torch.parallel.mesh import get_mesh, maybe_init_distributed
+
+        started = not dist.is_initialized()
+        if not maybe_init_distributed(device=device):
+            raise RuntimeError("--spatial shards a frame over the ranks of a "
+                               "torchrun launch: run it under "
+                               "python -m torch.distributed.run")
+        mesh = get_mesh()
+    writes = mesh is None or mesh.get_local_rank() == 0
     true_fp32(device)
-    os.makedirs(args.output, exist_ok=True)
     names = dutil.get_image_paths("img", args.input)
-    depth_paths = ensure_depth(args, names, device)
+    if writes:
+        os.makedirs(args.output, exist_ok=True)
+        depth_paths = ensure_depth(args, names, device)
+    if mesh is not None:
+        depth_paths = [depth_paths if writes else None]
+        dist.broadcast_object_list(depth_paths, src=0)
+        depth_paths = depth_paths[0]
     model = build_model(args, device)
 
     # same-shape frames are served together
@@ -133,15 +153,26 @@ def main(argv=None):
     for items in groups.values():
         for i in range(0, len(items), args.batch):
             chunk = items[i:i + args.batch]
-            model.feed_data({
+            batch = {
                 "LQ": np.stack([c[1] for c in chunk]).astype(np.float32),
                 "Depth": np.stack([c[2] for c in chunk]).astype(np.float32),
                 "DepthMaskList": np.stack([c[3] for c in chunk]).astype(
-                    np.float32)})
-            sr = model.test()
+                    np.float32)}
+            if mesh is not None:
+                from endosr_torch.parallel.spatial import spatial_forward
+
+                sr = model.fake_SR = spatial_forward(
+                    model.netG, None, batch["LQ"], batch["Depth"],
+                    batch["DepthMaskList"], mesh=mesh)
+            else:
+                model.feed_data(batch)
+                sr = model.test()
             for j, (stem, *_) in enumerate(chunk):
                 written[stem] = os.path.join(args.output, stem + ".png")
-                save_img(tensor2img(sr[j]), written[stem])
+                if writes:
+                    save_img(tensor2img(sr[j]), written[stem])
+    if started:
+        dist.destroy_process_group()
     print(f"wrote {len(written)} SR frames to {args.output}")
     return written
 

@@ -1,6 +1,7 @@
 """Training entry point of the port (counterpart of the root ``train.py``).
 
     python -m endosr_torch.train -opt_F options/train/train_depthNet_SEAN_depthMask_x8.yml [--device cpu]
+    python -m torch.distributed.run --nproc_per_node N -m endosr_torch.train -opt_F <yaml> [--device cpu]
 
 Reads the JAX package's training YAML, seeds (``train.manual_seed``),
 resolves ``path.resume_state`` (``auto``: the newest ``<iter>.state`` of the
@@ -18,8 +19,19 @@ the loaders and the model, and runs the epoch and step loop:
 - at the end, ``latest_G.pth``.
 
 ``logger.profile_iter: N`` traces steps N to N+2 with ``torch.profiler``
-into ``<experiment>/profile``. ``use_tb_logger`` writes scalars through
-``tensorboardX`` when it is installed.
+(``utils/prof.py::trace``) into ``<experiment>/profile/trace_N.json``.
+``use_tb_logger`` writes scalars through ``tensorboardX`` when it is
+installed.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N
+...``) it trains data-parallel, as the JAX ``train.py`` trains over its
+mesh: the process group comes up first (``parallel/mesh.py``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``), ``opt["dist"]`` is
+world > 1, each rank loads its shard of the index space at
+``batch_size // world`` a batch, and the model's step is the global
+batch's (``models/base.py``). Only rank 0 sets up the experiment tree,
+the file logs and tensorboard, validates, saves and traces; the other
+ranks log to the screen. A resume reads rank 0's files on every rank.
 
 It runs on CUDA, and raises without a CUDA device; ``--device cpu`` runs the
 plain PyTorch path on the CPU. On CUDA it turns TF32 off for the process
@@ -35,6 +47,8 @@ mask loss's bin is not saved (as in JAX): it restarts from
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import logging
 import math
 import os
@@ -42,13 +56,17 @@ import random
 import time
 
 import torch
+import torch.distributed as dist
 
 from endosr_torch.config import options as option
-from endosr_torch.data import create_dataloader, create_dataset
+from endosr_torch.data import (create_dataloader, create_dataset,
+                               prefetch_to_device)
 from endosr_torch.metrics.psnr_ssim import calculate_psnr, ssim
 from endosr_torch.models import create_model
+from endosr_torch.parallel.mesh import get_mesh, maybe_init_distributed
 from endosr_torch.utils import misc as util
 from endosr_torch.utils.device import resolve_device, true_fp32
+from endosr_torch.utils.prof import trace
 
 __all__ = ["main", "validate"]
 
@@ -94,8 +112,8 @@ def validate(model, val_loader, opt, current_step):
     return psnr_sum / max(1, n), ssim_sum / max(1, n), n
 
 
-def _tb_logger(opt):
-    if not opt.get("use_tb_logger") or "debug" in opt["name"]:
+def _tb_logger(opt, rank):
+    if not opt.get("use_tb_logger") or "debug" in opt["name"] or rank:
         return None
     try:
         from tensorboardX import SummaryWriter
@@ -106,8 +124,9 @@ def _tb_logger(opt):
                                               opt["name"]))
 
 
-def _train(opt, device, resume_path, resume_iter):
-    tb = _tb_logger(opt)
+def _train(opt, device, mesh, resume_path, resume_iter):
+    rank = 0 if mesh is None else mesh.get_local_rank()
+    tb = _tb_logger(opt, rank)
     opt = option.dict_to_nonedict(opt)
     pin = device.type == "cuda"
 
@@ -132,7 +151,8 @@ def _train(opt, device, resume_path, resume_iter):
     if train_loader is None:
         raise ValueError("the options have no datasets.train block")
 
-    model = create_model(opt, device=device)
+    model = create_model(opt, device=device, mesh=mesh)
+    model.sync_replicas()
     logger.info("Network G: %s", model.get_network_description(model.netG)[0])
 
     start_epoch = current_step = 0
@@ -145,38 +165,33 @@ def _train(opt, device, resume_path, resume_iter):
     print_freq = int(opt["logger"]["print_freq"])
     val_freq = int(opt["train"]["val_freq"])
     save_freq = int(opt["logger"]["save_checkpoint_freq"])
-    profile_iter = int(opt["logger"].get("profile_iter") or 0)
+    profile_iter = int(opt["logger"].get("profile_iter") or 0) \
+        if rank == 0 else 0
     profile_dir = os.path.join(opt["path"]["experiments_root"], "profile")
-    prof = None
-
-    def stop_profile():
-        prof.stop()
-        util.mkdir(profile_dir)
-        path = os.path.join(profile_dir, f"trace_{profile_iter}.json")
-        prof.export_chrome_trace(path)
-        logger.info("profiler trace written to %s", path)
+    tracing = contextlib.ExitStack()
 
     try:
         for epoch in range(start_epoch, total_epochs + 1):
             if current_step >= total_iters:
                 break
             train_loader.set_epoch(epoch)
-            for batch in train_loader:
+            # ask the loader for the batches the run will step on only
+            # (the prefetch reads one ahead)
+            batches = itertools.islice(train_loader, total_iters - current_step)
+            for batch in prefetch_to_device(batches, device):
                 current_step += 1
                 if profile_iter and current_step == profile_iter:
-                    acts = [torch.profiler.ProfilerActivity.CPU]
-                    if device.type == "cuda":
-                        acts.append(torch.profiler.ProfilerActivity.CUDA)
-                    prof = torch.profiler.profile(activities=acts)
-                    prof.start()
-                elif prof is not None and current_step >= profile_iter + 3:
-                    stop_profile()
-                    prof = None
+                    tracing.enter_context(trace(
+                        profile_dir, f"trace_{profile_iter}",
+                        cuda=device.type == "cuda"))
+                elif profile_iter and current_step == profile_iter + 3:
+                    tracing.close()
+                    logger.info("profiler trace written to %s", profile_dir)
 
                 model.feed_data(batch)
                 model.optimize_parameters(current_step)
 
-                if current_step % print_freq == 0:
+                if current_step % print_freq == 0 and rank == 0:
                     logs = model.get_current_log()
                     lr = model.get_current_learning_rate(current_step)
                     message = (f"<epoch:{epoch:3d}, iter:{current_step:8,d}, "
@@ -189,7 +204,8 @@ def _train(opt, device, resume_path, resume_iter):
                         tb.add_scalar("lr", lr, current_step)
                     logger.info(message)
 
-                if val_loader is not None and current_step % val_freq == 0:
+                if (val_loader is not None and current_step % val_freq == 0
+                        and rank == 0):
                     t0 = time.perf_counter()
                     psnr, ssim_v, n = validate(model, val_loader, opt,
                                                current_step)
@@ -204,7 +220,7 @@ def _train(opt, device, resume_path, resume_iter):
                         tb.add_scalar("val_psnr", psnr, current_step)
                         tb.add_scalar("val_ssim", ssim_v, current_step)
 
-                if current_step % save_freq == 0:
+                if current_step % save_freq == 0 and rank == 0:
                     logger.info("Saving models and training states.")
                     model.save(current_step)
                     model.save_training_state(epoch, current_step)
@@ -212,29 +228,40 @@ def _train(opt, device, resume_path, resume_iter):
                 if current_step >= total_iters:
                     break
     finally:
-        if prof is not None:
-            stop_profile()
+        tracing.close()
         if tb is not None:
             tb.close()
 
-    logger.info("Saving the final model.")
-    model.save("latest")
+    if rank == 0:
+        logger.info("Saving the final model.")
+        model.save("latest")
     logger.info("End of training.")
     return model
 
 
 def main(argv=None):
-    """Train from ``-opt_F``; returns the trained model."""
+    """Train from ``-opt_F``; returns the trained model. Under ``torchrun``
+    every rank runs it (the process group it brings up is taken down at
+    the end)."""
     args = parse_args(argv, "Train the port from a training YAML.")
     device = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    maybe_init_distributed(device=device)
+    own_group = own_group and dist.is_initialized()
+    mesh = get_mesh()
+    rank = 0 if mesh is None else mesh.get_local_rank()
     true_fp32(device)
     opt = option.parse(args.opt_F, is_train=True)
 
     seed = opt["train"].get("manual_seed")
     if seed is None:
-        seed = opt["train"]["manual_seed"] = random.randint(1, 10000)
+        # every rank draws the seed rank 0 drew
+        seed = [random.randint(1, 10000)]
+        if mesh is not None:
+            dist.broadcast_object_list(seed, src=0)
+        seed = opt["train"]["manual_seed"] = seed[0]
     util.set_random_seed(seed)
-    opt["dist"] = False
+    opt["dist"] = mesh is not None and mesh.size() > 1
 
     resume_iter = 0
     resume_path = option.resolve_resume_state(opt)
@@ -242,18 +269,27 @@ def main(argv=None):
         resume_iter = int(os.path.basename(resume_path).split(".")[0])
         option.check_resume(opt, resume_iter)
 
-    option.setup_experiment_dirs(opt)
-    handlers = util.setup_logger("base", opt["path"]["log"],
-                                 "train_" + opt["name"], screen=True,
-                                 tofile=True)
-    val_handlers = util.setup_logger("val", opt["path"]["log"],
-                                     "val_" + opt["name"], tofile=True)
+    if rank == 0:
+        option.setup_experiment_dirs(opt)
+        handlers = util.setup_logger("base", opt["path"]["log"],
+                                     "train_" + opt["name"], screen=True,
+                                     tofile=True)
+        handlers_val = util.setup_logger("val", opt["path"]["log"],
+                                         "val_" + opt["name"], tofile=True)
+    else:
+        handlers = util.setup_logger("base", opt["path"]["log"], "train",
+                                     screen=True)
+        handlers_val = []
+    if mesh is not None:
+        dist.barrier()          # the tree is up before any rank reads it
     try:
         logger.info(option.dict2str(opt))
-        return _train(opt, device, resume_path, resume_iter)
+        return _train(opt, device, mesh, resume_path, resume_iter)
     finally:
         util.close_logger("base", handlers)
-        util.close_logger("val", val_handlers)
+        util.close_logger("val", handlers_val)
+        if own_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -3,10 +3,11 @@
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
-__all__ = ["resolve_device", "device_constant", "true_fp32"]
+__all__ = ["resolve_device", "local_device", "device_constant", "true_fp32"]
 
 
 @functools.lru_cache(maxsize=512)
@@ -26,16 +27,29 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
 
     ``None`` means CUDA, and raises when no CUDA device is present: the port
-    never carries on silently on the CPU. Pass ``device="cpu"`` to run the
-    plain PyTorch versions of the kernels on the CPU (the tests do).
+    never carries on silently on the CPU. Under ``torchrun`` (``LOCAL_RANK``
+    set) it is ``cuda:LOCAL_RANK``. Pass ``device="cpu"`` to run the plain
+    PyTorch versions of the kernels on the CPU (the tests do).
     """
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "endosr_torch runs on CUDA and no CUDA device is available; "
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
-        return torch.device("cuda")
+        return local_device()
     return torch.device(device)
+
+
+def local_device() -> torch.device:
+    """This process's device: ``cuda:LOCAL_RANK`` (``torchrun``'s local
+    rank, default 0, modulo the cards present, so that several ranks can
+    share one card) with a card, else the CPU."""
+    if not torch.cuda.is_available():
+        return torch.device("cpu")
+    if "LOCAL_RANK" not in os.environ:
+        return torch.device("cuda")
+    rank = int(os.environ["LOCAL_RANK"])
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 def true_fp32(device: torch.device) -> None:

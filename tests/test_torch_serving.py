@@ -241,14 +241,25 @@ def _net(**kw):
         "lazy_o_chunk", "chain_in", "preset_plain", "net_kw",
         "other_generator", "obranch_body"])
 def test_unported_options_raise(change):
-    """What still waits: sharded bucketed eval (``spatial_shard``, with the
-    bucket set or left at its default), a precision JAX does not name, a
-    training model with ``spatial_shard`` (the depth loss, which this case
-    used to name, trains: ``tests/test_torch_losses_depth.py``), the
-    generators other than DepthNet, and the ``net_kw`` fields
-    the port lacks (also on a ×4 network with a depth block after
-    upscale2, and over ``preset: plain``)."""
+    """What still waits: a precision JAX does not name, the generators
+    other than DepthNet, and the ``net_kw`` fields the port lacks (also on
+    a ×4 network with a depth block after upscale2, and over ``preset:
+    plain``). ``spatial_shard`` (with the bucket set or left at its
+    default, and in a training model) is ported since: the model builds;
+    bucketed, serving needs the N ranks of a ``torchrun`` launch and
+    raises by name without them (``tests/test_torch_spatial.py`` serves
+    with them); unbucketed (the training case) it is ignored, as in
+    JAX."""
     opt = {**copy.deepcopy(OPT), **change}
+    if "spatial_shard" in change:
+        model = FModelDepthCond(opt, device="cpu")
+        model.feed_data(_batch(1))
+        if model._bucket():
+            with pytest.raises(ValueError, match="spatial_shard: .* ranks"):
+                model.test()
+        else:
+            assert model.test().shape == (1, 64, 64, 3)
+        return
     with pytest.raises(NotImplementedError):
         FModelDepthCond(opt, device="cpu")
 

@@ -15,8 +15,13 @@ and masks to its feature size):
 - the port's pipeline equals, bit for bit, its own parts composed by hand:
   ``depth/infer.py::run_folder``, ``ops/masks.py::depth_masks_np`` and
   ``FModelDepthCond.test``, frames of two shapes in batches of 2;
-- ``--spatial`` raises ``NotImplementedError`` by name, a missing depth
-  map exits naming it, and without ``--device cpu`` it takes CUDA.
+- ``--spatial`` at world 2 (two gloo ranks started as ``torchrun``
+  starts them, ``tests/torch_dist_common.py``), at ×2 with depth from
+  ``--depth_weights`` (rank 0 makes the maps, the ranks share their
+  paths) and at ×8 with ``--depth_dir``: rank 0's PNGs equal the
+  unsharded pipeline's within 1 LSB, and rank 1 writes nothing;
+- ``--spatial`` outside a ``torchrun`` launch raises by name, a missing
+  depth map exits naming it, and without ``--device cpu`` it takes CUDA.
 """
 
 import os
@@ -32,6 +37,7 @@ from endosr_torch.ops.masks import depth_masks_np
 from endosr_torch.tools import sr_pipeline as t_pipe
 from endosr_torch.utils.misc import tensor2img
 from endosr_torch.utils.port_params import write_seeded_monodepth
+from tests.torch_dist_common import run_ranks
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
@@ -142,9 +148,37 @@ def test_pipeline_is_its_parts_composed(env, tmp_path):
                 cv2.imread(written[s]), tensor2img(sr[j]))
 
 
+def test_spatial_pipeline_matches_unsharded(env, tmp_path):
+    x8 = _argv(env, "unused", "depth_dir")
+    x8[x8.index("--scale") + 1] = "8"
+    x8[x8.index("--model") + 1] = ""           # the seeded init, saved
+    net = t_pipe.build_model(t_pipe.parse_args(x8), "cpu").netG
+    x8[x8.index("--model") + 1] = str(tmp_path / "g8.pth")
+    torch.save(net.state_dict(), x8[x8.index("--model") + 1])
+    runs = {2: _argv(env, "unused", "depth_weights"), 8: x8}
+    for scale, argv in runs.items():
+        t_pipe.main(argv + ["--device", "cpu", "--output",
+                            str(tmp_path / f"x{scale}" / "whole")])
+    ranks = run_ranks("sr_pipeline_spatial", 2, {"runs": [
+        (argv, str(tmp_path / f"x{scale}")) for scale, argv in runs.items()]},
+        tmp_path / "ranks")
+    for scale in runs:
+        want = _pngs(tmp_path / f"x{scale}" / "whole")
+        got = _pngs(tmp_path / f"x{scale}" / "rank0")
+        assert sorted(got) == sorted(want) == ["f0.png", "f1.png", "f2.png"]
+        for n, w in want.items():
+            assert got[n].shape == w.shape == (H * scale, H * scale, 3)
+            assert np.abs(got[n] - w).max() <= 1, (scale, n)
+        assert not (tmp_path / f"x{scale}" / "rank1").exists()
+    for r, written in enumerate(ranks):     # every rank names the frames
+        assert written == [{f"f{i}": str(tmp_path / f"x{scale}" / f"rank{r}"
+                                         / f"f{i}.png") for i in range(3)}
+                           for scale in runs]
+
+
 def test_pipeline_refusals(env, tmp_path, monkeypatch):
     argv = _argv(env, "unused", "depth_dir")
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(RuntimeError, match="spatial.*torchrun"):
         t_pipe.main(argv + ["--spatial", "--device", "cpu"])
     empty = tmp_path / "none"
     empty.mkdir()
