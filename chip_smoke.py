@@ -429,6 +429,31 @@ exits non-zero):
    forward and gradient, as 9f. ``python3 chip_smoke.py --p14-nccl N``
    (a call on N cards, not run without arguments) checks (b) and (c) with
    one rank a card over NCCL instead.
+15. JAX's checkpoint files (``utils/checkpoint.py``; ≤ 60 s). (a)
+   ``python -m endosr_torch.train`` through ``main`` on the ×8 YAML at full
+   width (phase 7's changes, the loader in order, without flips and in
+   this process, so that every epoch is the same two batches,
+   ``checkpoint_backend: msgpack``, 4 steps, saving at 2): JAX's ``{iter}_G.ckpt`` and ``{iter}.state``. (b)
+   A run resumed from its ``2.state`` (``resume_state: auto``): steps 3–4
+   logs, ``4_G.ckpt`` and ``4.state``'s iteration, optimizer state and
+   weights bit-equal to (a)'s (cuDNN's deterministic algorithms; its epoch
+   is 0, as the resumed run reruns epoch 0, C3). (c) ``test.main`` with ``pretrain_model_G:
+   4_G.ckpt``, unbucketed (LR 128², bf16): ``packed_g123`` 2,
+   ``style_blend_dot`` 2, ``head_dot`` 1 and ``output_stage_x8`` 1 an
+   image, the SR bit-equal to the same model served with (a)'s in-memory
+   weights. (d) The JAX-written fixture ``tests/data/jax_ckpt/`` (a ×8
+   DepthNet that the JAX package trained two steps and saved,
+   ``tests/make_jax_ckpt_fixture.py``): its ``2_G.ckpt``'s fp32 forward
+   within 2e-4 of max |ref| of JAX's stored output; its ``2.state``
+   resumes (weights equal to the ``.ckpt``'s, Adam counts 2) and steps.
+
+Phase 3 also holds the two kernel options no path passes against their
+plain versions, at the flagship's shapes: ``packed_g123[k4]`` (the up1
+chain with the absorbed stage 4, k4 [2,2,128,512]; stage 4 on the shared
+implicit GEMM, route ``k4_mma`` / ``k4_fp32``) and
+``style_blend_dot[hwbc]`` (the M = 1792 group, ``shifted`` given as
+[H,W,B,J]; routes ``tc_hwbc`` / ``cuda_core_hwbc``); each is a row of the
+kernels line, with 0 launches.
 
 Prints the kernels JSON line (``launches`` summed over the paths and the
 training steps, ``launches_by_path`` with phase 7's ``train entry``,
@@ -443,7 +468,8 @@ losses``, ``x8 train losses step 0`` and ``x8 losses grads``, and phase
 depthseg train`` and one label for each run of 12a–12d (0 for every kernel),
 phase 13's one label for each run of 13a–13e (0 for every kernel),
 phase 14's ``14a dp world 1``, ``14b dp world 2`` and ``14c spatial x2``
-(the ranks' launches summed),
+(the ranks' launches summed), phase 15's ``15a train``, ``15b resumed``,
+``15c eval`` and ``15d fixture``,
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -855,6 +881,30 @@ def make_cases(torch, dt, gen):
             previous=lambda a=args, k=kw: packed_igemm(*a, **k)))
     cases["packed_g123"] = pcs
 
+    # packed_g123's k4 option (no path passes it): the up1 chain with the
+    # absorbed ungated stage 4, k4 [2,2,128,512] (the up1 chain's next
+    # conv, endosr/nn/depthnet.py:960-1003), stages 1-3 on their route and
+    # stage 4 on the shared implicit GEMM
+    x = rn(B, 128, 128, 256, s=0.5).permute(1, 2, 0, 3)
+    k1 = rn(2, 2, 256, 128, s=1.0 / math.sqrt(1024))
+    k2, k3 = (rn(2, 2, 128, 128, s=1.0 / math.sqrt(512)) for _ in range(2))
+    k4 = rn(2, 2, 128, 512, s=1.0 / math.sqrt(512))
+    b1, b2, b3 = (rn(128, s=0.1) for _ in range(3))
+    b4 = rn(512, s=0.1)
+    args = (x, k1, b1, k2, b2, k3, b3)
+    kw = dict(pre_act=True, k4=k4, b4=b4)
+    cases["packed_g123[k4]"] = [KernelCase(
+        "packed_g123[k4 up1]",
+        lambda a=args, k=kw: packed_g123(*a, **k),
+        lambda a=args, k=kw: packed_g123_plain(*a, **k),
+        None,
+        nbytes(x, k1, k2, k3, k4, b1, b2, b3, b4)
+        + 129 * 129 * B * 512 * x.element_size(),
+        2 * B * 129 * 129 * 4 * (256 * 128 + 2 * 128 * 128 + 128 * 512),
+        route=(packed_g123, {torch.bfloat16: ("wgmma", "k4_mma"),
+                             torch.float32: ("fp32", "k4_fp32")}),
+        previous=lambda a=args, k=kw: packed_igemm(*a, **k))]
+
     # style_blend_dot: the 7- and 6-block groups (M = 1792 / 1536)
     scs = []
     masks = (torch.rand((B, 128, 128, 90), generator=gen, device=dev)
@@ -894,6 +944,33 @@ def make_cases(torch, dt, gen):
         lambda s=rsh, vv=rv, c=rconvs, b=rb: style_blend_plain(s, vv, c, b),
         None, 0, 0, main=False, route=blend_route, timed=False))
     cases["style_blend_dot"] = scs
+
+    # style_blend_dot's hwbc option (no path passes it): the 7-block group
+    # with shifted given as [H,W,B,J], the mask-conv producer's order
+    m = 7 * 2 * 128
+    masks_h = masks.permute(1, 2, 0, 3).contiguous()
+    v = rn(B, 90, m, s=0.05)
+    convs = tuple(rn(B, 128, 128, 128, s=0.3).permute(1, 2, 0, 3)
+                  for _ in range(14))
+    bias = rn(m, s=0.1, dtype=torch.float32)
+    cat = torch.cat([c.permute(2, 0, 1, 3) for c in convs], dim=-1)
+    cat = cat.reshape(B, 128 * 128, m)
+    sflat = masks.reshape(B, 128 * 128, 90)
+    cases["style_blend_dot[hwbc]"] = [KernelCase(
+        f"style_blend_dot[hwbc M={m}]",
+        lambda s=masks_h, vv=v, c=convs, b=bias: style_blend_dot(
+            s, vv, c, b, hwbc=True),
+        lambda s=masks_h, vv=v, c=convs, b=bias: style_blend_plain(
+            s, vv, c, b, hwbc=True),
+        lambda c=cat, s=sflat, vv=v, b=bias.to(dt):
+            torch.baddbmm(c, s, vv).add_(b),
+        nbytes(masks_h, v, bias, *convs)
+        + 128 * 128 * B * m * masks_h.element_size(),
+        2 * B * 128 * 128 * 90 * m,
+        previous=lambda s=masks_h, vv=v, c=convs, b=bias:
+            launch_blend_cuda_core(s, vv, c, b, hwbc=True),
+        route=(style_blend_dot, {torch.bfloat16: "tc_hwbc",
+                                 torch.float32: "cuda_core_hwbc"}))]
 
     # style_dot_hwbm: the same two groups on the masked path
     hcs = []
@@ -1151,6 +1228,11 @@ SOURCES = {
                    "endosr/kernels/fused_tail.py:238"),
     "mid_shuffle": ("endosr_torch/csrc/shuffle_mid.cu",
                     "endosr/kernels/shuffle_mid.py:94"),
+    # the two kernel options no path passes (their launches are 0)
+    "packed_g123[k4]": ("endosr_torch/csrc/packed_chain.cu",
+                        "endosr/kernels/packed_chain.py:438"),
+    "style_blend_dot[hwbc]": ("endosr_torch/csrc/style_dot.cu",
+                              "endosr/kernels/style_dot.py:284"),
 }
 
 
@@ -1173,10 +1255,12 @@ def check_kernels(torch):
                     fn.routes = dict.fromkeys(fn.routes, 0)
                 got = c.kernel()
                 torch.cuda.synchronize()
+                took = by_dt[dt] if c.route else ()
+                took = (took,) if isinstance(took, str) else took
                 if c.route and fn.routes != {**dict.fromkeys(fn.routes, 0),
-                                             by_dt[dt]: 1}:
+                                             **dict.fromkeys(took, 1)}:
                     raise AssertionError(f"{c.name} {dt}: routes {fn.routes}, "
-                                         f"want one launch on {by_dt[dt]}")
+                                         f"want one launch on each of {took}")
                 ctol = c.tol or tol
                 if c.exact:
                     ref = c.plain()
@@ -3050,8 +3134,13 @@ def serve_x2(torch, counters):
         model.netG.load_state_dict(sd)
 
         def request(r):
+            # the SR lives only where the caller keeps it: a 96 MB output
+            # kept on the card from one request to the next can split one
+            # of the 26 GiB blocks the fp32 request needs
             model.feed_data(r)
-            return model.test()
+            out = model.test()
+            model.fake_SR = model.fake_H = None
+            return out
 
         request(reqs[0])
         torch.cuda.synchronize()
@@ -3060,9 +3149,11 @@ def serve_x2(torch, counters):
         lat, outs = [], []
         for r in reqs:
             t = time.perf_counter()
-            outs.append(request(r).clone())
+            sr = request(r)
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t)
+            outs.append(sr.cpu())
+            del sr
         got = {c.__name__: c.launches for c in counters}
         routes = {c.__name__: dict(c.routes) for c in counters
                   if hasattr(c, "routes")}
@@ -3594,10 +3685,10 @@ def vjp_controls(torch):
 
     right = style_dot.style_blend_vjp
 
-    def bf16(shifted, v, n_conv, conv_dtype, bias_dtype, g):
+    def bf16(shifted, v, n_conv, conv_dtype, bias_dtype, g, hwbc=False):
         b = torch.bfloat16
         gs, gv, gc, gb = right(shifted.to(b), v.to(b), n_conv, b, bias_dtype,
-                               g.to(b))
+                               g.to(b), hwbc)
         return (gs.to(shifted.dtype), gv.to(v.dtype),
                 tuple(c.to(conv_dtype) for c in gc), gb)
 
@@ -3852,9 +3943,9 @@ class KernelTap:
 
         taps = (
             (sd, "_blend", sd.style_blend_dot,
-             lambda s, v, convs, bias: (tuple(s.shape) + (v.shape[2],),
-                                        (convs[0].shape[3],),
-                                        (s, v, *convs, bias))),
+             lambda s, v, convs, bias, hwbc=False: (
+                 tuple(s.shape) + (v.shape[2],), (convs[0].shape[3],),
+                 (s, v, *convs, bias))),
             (sd, "_dot", sd.style_dot_hwbm,
              lambda s, v: (tuple(s.shape) + (v.shape[2],), (), (s, v))),
             (ost, "_forward", ost.output_stage,
@@ -3862,7 +3953,8 @@ class KernelTap:
             (ost, "_forward_x8", ost.output_stage_x8,
              lambda p, lo, hi, order: (tuple(p.shape), (order, lo, hi), (p,))),
             (pc, "_forward", pc.packed_g123,
-             lambda x, k1, b1, k2, b2, k3, b3, pre_act, pb, phases: (
+             lambda x, k1, b1, k2, b2, k3, b3, pre_act, pb, phases, k4=None,
+             b4=None: (
                  tuple(x.shape) + tuple(k1.shape[2:]),
                  (pre_act, phases, dts(k1, b1, *(() if pb is None else (pb,)))),
                  (x, k1, b1, k2, b2, k3, b3) + (() if pb is None else (pb,)))),
@@ -7024,6 +7116,230 @@ def gloo_probe(world=2):
     return readings
 
 
+P15_ROOT = "build/p15"         # under the repository root, git-ignored
+P15_LR = {"train": (128, 128), "test": (128, 128)}
+FIXTURE = "tests/data/jax_ckpt"      # written by tests/make_jax_ckpt_fixture.py
+FIXTURE_REL = 2e-4                   # the repo's parity bar, of max |JAX out|
+FLAGSHIP4 = ("packed_g123", "style_blend_dot", "head_dot", "output_stage_x8")
+
+
+def _fixture_batch(np, seed, k=4, lr=8, b=2, scale=8):
+    """``tests/make_jax_ckpt_fixture.py::batch``: a seeded training batch."""
+    rng = np.random.default_rng(seed)
+    return {"LQ": rng.random((b, lr, lr, 3), dtype=np.float32),
+            "GT": rng.random((b, lr * scale, lr * scale, 3), dtype=np.float32),
+            "Depth": rng.random((b, lr, lr, 1), dtype=np.float32),
+            "DepthMaskList": (rng.random((b, lr, lr, k)) > 0.6).astype(
+                np.float32)}
+
+
+def _flax_file_equal(a, b, keys=None):
+    """Two flax msgpack files hold the same tree (with ``keys``, those of
+    its top level), bit for bit."""
+    from endosr_torch.utils.msgpack_io import unpackb
+
+    def eq(x, y):
+        if isinstance(x, dict):
+            return isinstance(y, dict) and x.keys() == y.keys() and all(
+                eq(x[k], y[k]) for k in x)
+        import numpy as np
+
+        return (np.asarray(x).dtype == np.asarray(y).dtype
+                and np.asarray(x).tobytes() == np.asarray(y).tobytes())
+
+    ta, tb = (unpackb(Path(p).read_bytes()) for p in (a, b))
+    if keys:
+        ta, tb = ({k: t[k] for k in keys} for t in (ta, tb))
+    return eq(ta, tb)
+
+
+def p15_fixture(torch, counters):
+    """15d: the JAX-written fixture read on the card: ``2_G.ckpt``'s fp32
+    forward against JAX's stored output, and ``2.state`` resumed and
+    stepped. Returns (launches, readings)."""
+    import numpy as np
+
+    from endosr_torch.models import create_model
+
+    fx = Path(__file__).resolve().parent / FIXTURE
+    opt = json.loads((fx / "opt.json").read_text())
+    serve = copy.deepcopy(opt)
+    serve.update(is_train=False,
+                 path={"pretrain_model_G": str(fx / "2_G.ckpt")})
+    model = create_model(serve)
+    with np.load(fx / "input.npz") as z:
+        inputs = [torch.from_numpy(z[k]).cuda()
+                  for k in ("LQ", "Depth", "DepthMaskList")]
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    with torch.inference_mode():
+        out = model.netG(*inputs)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    ref = torch.from_numpy(np.load(fx / "output.npy")).double()
+    err = float((out.double().cpu() - ref).abs().max() / ref.abs().max())
+    log(f"[15d] the JAX-written 2_G.ckpt (fixture {FIXTURE}, ×8 DepthNet, "
+        f"fp32, LR 8×12, batch 2) on the card: max |Δ| / max |JAX out| "
+        f"{err:.3e} (tol {FIXTURE_REL:g}); launches {launches}")
+    if not (tuple(out.shape) == tuple(ref.shape) and bool(
+            torch.isfinite(out).all()) and err <= FIXTURE_REL):
+        raise AssertionError(f"[15d] fixture forward {tuple(out.shape)}, rel "
+                             f"err {err}")
+    trained = create_model(copy.deepcopy(opt))
+    epoch_it = trained.resume_training(str(fx / "2.state"))
+    same = all(torch.equal(v, model.netG.state_dict()[k])
+               for k, v in trained.netG.state_dict().items())
+    steps = {int(st["step"]) for st in trained.optimizer_G.state.values()}
+    trained.feed_data(_fixture_batch(np, 3))
+    logs = trained.optimize_parameters(3)
+    log(f"[15d] the JAX-written 2.state resumed on the card: (epoch, iter) "
+        f"{epoch_it}, weights equal to 2_G.ckpt's {same}, Adam counts "
+        f"{steps}; step 3 l_all {logs['l_all']:.6g}")
+    if (epoch_it != (0, 2) or not same or steps != {2} or trained.step != 3
+            or not math.isfinite(logs["l_all"])):
+        raise AssertionError(f"[15d] resume of 2.state: {epoch_it}, {same}, "
+                             f"{steps}, {trained.step}, {logs}")
+    return launches, {"fixture_rel_err": err, "resumed_l_all": logs["l_all"]}
+
+
+def phase15(torch, counters):
+    """Phase 15: JAX's checkpoint files in the port on the card. (a)
+    ``train.main`` on the ×8 YAML (phase 7's changes, batches in order,
+    no flips, no loader workers, ``checkpoint_backend: msgpack``, 4 steps,
+    saving at 2); (b)
+    a run resumed from its JAX-format ``2.state``: steps 3–4 (the same
+    batches, as the loader does not shuffle) bit-equal to (a)'s, cuDNN
+    deterministic (in (a) and (b) only); (c) ``test.main`` from ``4_G.ckpt``, unbucketed, where
+    the four flagship kernels launch: the SR bit-equal to the same model
+    served with (a)'s in-memory weights; (d) :func:`p15_fixture`.
+    Returns ({path label: launches}, readings)."""
+    import shutil
+
+    import endosr_torch.test as entry_test
+    import endosr_torch.train as entry_train
+
+    repo = Path(__file__).resolve().parent
+    root = repo / P15_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_kvasir(root / "data", lr_hw=P15_LR)
+
+    def roots(split):
+        return {"dataroot_GT": str(root / "data/HR" / split),
+                "dataroot_LQ": str(root / "data/LR" / split),
+                "dataroot_depthMap": str(root / "data/depth" / split)}
+
+    train_yaml = _derive(
+        repo / "options/train/train_depthNet_SEAN_depthMask_x8.yml",
+        root / "train.yml", {
+            **{f"datasets.train.{k}": v for k, v in roots("train").items()},
+            **{f"datasets.val.{k}": v for k, v in roots("test").items()},
+            "datasets.train.data_num": 16, "datasets.train.use_shuffle": False,
+            "datasets.train.use_flip": False, "datasets.train.use_rot": False,
+            "datasets.train.n_workers": 0,
+            "path.root": str(root / "run"),
+            "path.checkpoint_backend": "msgpack", "train.niter": 4,
+            "train.val_freq": 1000, "logger.save_checkpoint_freq": 2,
+            "logger.print_freq": 1}, "15a")
+    resume_yaml = _derive(root / "train.yml", root / "resume.yml", {
+        "path.root": str(root / "resumed"), "path.resume_state": "auto"},
+        "15b")
+    run = root / "run" / EXP
+    test_yaml = _derive(repo / "options/test/test_depthNet.yml",
+                        root / "test.yml", {
+                            **{f"datasets.test_1.{k}": v
+                               for k, v in roots("test").items()},
+                            "path.root": str(root / "eval"),
+                            "path.pretrain_model_G": str(run / "models/4_G.ckpt"),
+                            "eval_bucket_multiple": 0}, "15c")
+    taps = EntryTaps(torch, counters)
+    uninstall = taps.install()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    secs = {"data": time.perf_counter() - t0}
+    try:
+        taps.training = "15a train"
+        t = time.perf_counter()
+        model = entry_train.main(["-opt_F", train_yaml])
+        secs["15a"] = time.perf_counter() - t
+        shutil.copytree(root / "run", root / "resumed", ignore=lambda d, names: [
+            n for n in names if n.startswith(("4", "latest"))])
+        taps.training = "15b resumed"
+        t = time.perf_counter()
+        entry_train.main(["-opt_F", resume_yaml])
+        secs["15b"] = time.perf_counter() - t
+        torch.backends.cudnn.deterministic = det
+        taps.serving = "15c eval"
+        t = time.perf_counter()
+        eval_model = entry_test.main(["-opt_F", test_yaml])
+        # the same model with (a)'s weights from memory, on the same images
+        eval_model.netG.load_state_dict(model.netG.state_dict())
+        from endosr_torch.data import create_dataloader, create_dataset
+
+        ds_opt = eval_model.opt["datasets"]["test_1"]
+        taps.serving = "15c in memory"
+        for batch in create_dataloader(create_dataset(ds_opt), ds_opt):
+            eval_model.feed_data(batch)
+            eval_model.test()
+        secs["15c"] = time.perf_counter() - t
+        del eval_model, model
+    finally:
+        torch.backends.cudnn.deterministic = det
+        uninstall()
+    torch.cuda.empty_cache()
+    first, resumed = taps.calls["15a train"], taps.calls["15b resumed"]
+    if (len(first), len(resumed)) != (4, 2):
+        raise AssertionError(f"[15b] {len(first)} + {len(resumed)} steps")
+    taps.check("15a train", first + resumed, TRAIN_WANT, ENTRY_TRAIN_ROUTES)
+    logs_equal = [a["logs"] == b["logs"] for a, b in zip(first[2:], resumed)]
+    res = root / "resumed" / EXP
+    # 4.state's epoch is 1 in (a) and 0 in (b), which reruns epoch 0 (C3)
+    files_equal = {name: _flax_file_equal(run / name, res / name, keys)
+                   for name, keys in (("models/4_G.ckpt", None),
+                                      ("training_state/4.state",
+                                       ("iter", "opt_state", "params")))}
+    for name in ("models/2_G.ckpt", "training_state/2.state"):
+        if (run / name).read_bytes()[:4] == b"PK\x03\x04":
+            raise AssertionError(f"[15a] {name} is a torch file")
+    rtext = "".join(p.read_text() for p in res.glob("train_*.log"))
+    log(f"[15b] resumed from the JAX-format 2.state: steps 3-4 logs equal "
+        f"{logs_equal}, 4_G.ckpt and 4.state's iter, opt_state and params "
+        f"bit-equal {files_equal} (cuDNN deterministic)")
+    if (not all(logs_equal) or not all(files_equal.values())
+            or "Start training from epoch: 0, iter: 2" not in rtext):
+        raise AssertionError(f"[15b] the resumed run is not the whole run: "
+                             f"{logs_equal}, {files_equal}")
+    evals, mem = taps.calls["15c eval"], taps.calls["15c in memory"]
+    sr_equal = [torch.equal(a["sr"], b["sr"]) for a, b in zip(evals, mem)]
+    want = {k: v for k, v in {"packed_g123": 2, "style_blend_dot": 2,
+                              "head_dot": 1, "output_stage_x8": 1}.items()}
+    check_launches("15c eval", evals, want, {})
+    log(f"[15c] test.main from 4_G.ckpt ({len(evals)} images, LR 128², "
+        f"unbucketed): SR bit-equal to the in-memory weights' {sr_equal}; "
+        f"launches an image {evals[0]['launches']}, routes "
+        f"{ {k: evals[0]['routes'][k] for k in FLAGSHIP4} }")
+    if len(evals) != 2 or not all(sr_equal):
+        raise AssertionError(f"[15c] SR from 4_G.ckpt not the in-memory "
+                             f"model's: {sr_equal}")
+    launches = {label: {c.__name__: sum(r["launches"][c.__name__]
+                                        for r in taps.calls[label])
+                        for c in counters}
+                for label in ("15a train", "15b resumed", "15c eval")}
+    t = time.perf_counter()
+    launches["15d fixture"], numbers = p15_fixture(torch, counters)
+    secs["15d"] = time.perf_counter() - t
+    shutil.rmtree(root, ignore_errors=True)
+    numbers.update(seconds=time.perf_counter() - t0, parts_s=secs,
+                   train_ms_per_step=sum(r["secs"] for r in first[1:]) / 3
+                   * 1e3)
+    log(f"[phase 15] took {numbers['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f"); ×8 fp32 step {numbers['train_ms_per_step']:.1f} ms (mean of "
+        f"steps 2-4, host clock, synchronised, cuDNN deterministic); "
+        f"{gpu_line()}")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -7143,6 +7459,9 @@ def main() -> int:
             have = rows[kname]["max_abs_err"]
             have[dts] = max(have[dts], err)
     log(f"[phase 14] summary: {json.dumps(numbers, default=str)}")
+    p15, numbers = phase15(torch, counters)
+    by_path.update(p15)
+    log(f"[phase 15] summary: {json.dumps(numbers)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():
@@ -7153,13 +7472,17 @@ def main() -> int:
         elif kname == "mid_shuffle":     # phase 3: bit-identical
             grad = {"grad_checked": True, "grad": "un-shuffle kernel",
                     "grad_max_rel_err": {"float32": 0.0, "bfloat16": 0.0}}
+        elif "[" in kname:               # an option: its VJP held on the CPU
+            grad = {"grad_checked": False, "grad": "*_vjp (held to JAX's on "
+                    "the CPU)", "grad_max_rel_err": None}
         else:
             grad = {"grad_checked": True, "grad": "none: raises under "
                     "autograd on CUDA", "grad_max_rel_err": None}
         out.append({
             "name": kname, "route": "cuda", "source": src, "replaces": repl,
-            "launches": sum(p[kname] for p in by_path.values()),
-            "launches_by_path": {k: p[kname] for k, p in by_path.items()},
+            "launches": sum(p.get(kname, 0) for p in by_path.values()),
+            "launches_by_path": {k: p.get(kname, 0)
+                                 for k, p in by_path.items()},
             "max_abs_err": r["max_abs_err"]["bfloat16"],
             "max_abs_err_fp32": r["max_abs_err"]["float32"],
             "ms": r["ms"], "call_ms": r["call_ms"], "timing": r["timing"],

@@ -10,7 +10,9 @@ auto`` and ``check_resume``. ``root`` defaults to ``path.root`` of the
 YAML, else the repository root.
 
 One difference: :func:`check_resume` points ``pretrain_model_G`` at
-``{iter}_G.pth``, the port's weight file, where JAX reads ``.ckpt``.
+``{iter}_G.pth``, the port's weight file, where JAX reads ``.ckpt``; it
+takes ``.ckpt`` under the ``msgpack`` checkpoint backend, or where only the
+``.ckpt`` is there (a JAX run's folder).
 """
 
 from __future__ import annotations
@@ -153,19 +155,30 @@ def resolve_resume_state(opt: dict):
     return resume_path
 
 
+def _weights(opt: dict, name: str) -> str:
+    """``path.models/<name>.pth``, or ``.ckpt`` under the ``msgpack``
+    backend or where only the ``.ckpt`` exists."""
+    base = osp.join(opt["path"]["models"], name)
+    backend = (opt["path"].get("checkpoint_backend")
+               or os.environ.get("ENDOSR_CKPT_BACKEND"))
+    if backend == "msgpack" or (not osp.exists(base + ".pth")
+                                and osp.exists(base + ".ckpt")):
+        return base + ".ckpt"
+    return base + ".pth"
+
+
 def check_resume(opt: dict, resume_iter: int) -> None:
     """When resuming, point the pretrained weights at the resumed
-    iteration's ``{iter}_G.pth`` (and ``_D`` for a GAN model)."""
+    iteration's ``{iter}_G.pth`` (``.ckpt``, see the module docstring; and
+    ``_D`` for a GAN model)."""
     if opt["path"].get("resume_state"):
         if opt["path"].get("pretrain_model_G") or opt["path"].get("pretrain_model_D"):
             logger.warning(
                 "pretrain_model path will be ignored when resuming training.")
-        opt["path"]["pretrain_model_G"] = osp.join(
-            opt["path"]["models"], f"{resume_iter}_G.pth")
+        opt["path"]["pretrain_model_G"] = _weights(opt, f"{resume_iter}_G")
         logger.info("Set [pretrain_model_G] to %s", opt["path"]["pretrain_model_G"])
         if "gan" in opt.get("model", ""):
-            opt["path"]["pretrain_model_D"] = osp.join(
-                opt["path"]["models"], f"{resume_iter}_D.pth")
+            opt["path"]["pretrain_model_D"] = _weights(opt, f"{resume_iter}_D")
             logger.info("Set [pretrain_model_D] to %s", opt["path"]["pretrain_model_D"])
 
 

@@ -8,6 +8,9 @@
 //        fine-grid interleave of the packed producer tensor, at load time
 //   g2 = gate0(relu(g1 ⊛ K2 + b2))        pads (0,1)
 //   g3 = gate1(relu(g1 + g2 ⊛ K3 + b3))   pads (1,0)
+// and, with the absorbed stage 4 (k4/b4, the twin's ungated stage), a fourth
+// call of packed_stage:
+//   g4 = lrelu(g3 ⊛ K4 + b4)              pads (0,1), gate_s = −1
 // Each stage is a [2,2,Cin,C4] conv with fp32 accumulation, then the
 // storage-type epilogue of the JAX twin (rounded after the sum and after
 // each of bias, residual, activation and gate).
@@ -123,7 +126,7 @@ struct StageEpi {
   const T* res;       // residual (g1) with the output's geometry, or null
   i64 rh, rw, rb;
   int act;            // 0 relu, 1 leaky_relu(0.2)
-  int gate_s;         // packed gate shift (0 or 1)
+  int gate_s;         // packed gate shift (0 or 1), or −1: no gate
   int nrow, ncol;     // the grid's last row and column: packed extent − 1
   int cg;             // channels per phase group (C4 / 4)
   __device__ __forceinline__ void operator()(int oy, int ox, int b, int o,
@@ -131,7 +134,7 @@ struct StageEpi {
     float g = rnd<T>(rnd<T>(acc) + to_f<T>(bias[o]));
     if (res) g = rnd<T>(to_f<T>(res[oy * rh + ox * rw + b * rb + o]) + g);
     g = act ? lrelu_t<T>(g, 0.2f) : relu_f(g);
-    if (gate_dead(gate_s, o / cg, oy, ox, nrow, ncol)) g = 0.f;
+    if (gate_s >= 0 && gate_dead(gate_s, o / cg, oy, ox, nrow, ncol)) g = 0.f;
     out[(i64)oy * oh + (i64)ox * ow + (i64)b * ob + o] = from_f<T>(g);
   }
 };
@@ -256,7 +259,8 @@ extern "C" {
 // the fine grid of a packed [nx/2+1, mx/2+1] producer); the output is
 // hout × wout × B × c4. The conv uses stride 1, taps 2×2, and the
 // top/left padding pad_y/pad_x (the bottom/right padding follows from the
-// output extent). dtype: 0 float32, 1 bfloat16.
+// output extent). gate_s: the packed gate's shift, or −1 for none (stage 4).
+// dtype: 0 float32, 1 bfloat16.
 int packed_stage(int dtype, const void* x, i64 sh, i64 sw, i64 sb, int nx,
                  int mx, int hout, int wout, int B, int cin, int phases, const void* pb,
                  int pre_act, const void* w, const void* bias, int pad_y,

@@ -63,6 +63,12 @@
 //
 // style_dot_kernel<T, true> (fp32, and any other bf16 shape): the CUDA-core
 // dot with the adds in its scalar epilogue.
+//
+// Both blend kernels read `shifted` through two strides: sb between images
+// and sp between the pixels of an image (p = h·W + w). The [B, H, W, J]
+// layout has sb = H·W·J, sp = J; the `hwbc` option's [H, W, B, J] layout
+// (the mask-conv producer's order) has sb = J, sp = B·J. Rows stay whole
+// runs of J values, so the tensor-core route reads them as before.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -75,7 +81,7 @@
 // otherwise store the rounded dot (style_dot_hwbm; convs and bias unused).
 template <typename T, bool BLEND>
 __global__ void __launch_bounds__(256)
-style_dot_kernel(const T* __restrict__ sh, const T* __restrict__ v,
+style_dot_kernel(const T* __restrict__ sh, i64 sb, i64 sp, const T* __restrict__ v,
                    const i64* __restrict__ convs, i64 ch, i64 cw, i64 cb,
                    int c2, const float* __restrict__ bias, T* __restrict__ out,
                    i64 oh, i64 ow, i64 ob, int H, int W, int J, int M) {
@@ -86,7 +92,7 @@ style_dot_kernel(const T* __restrict__ sh, const T* __restrict__ v,
   const int HW = H * W;
   const int p0 = blockIdx.x * SD_BM;   // pixel index h·W + w within batch b
   const int n0 = blockIdx.y * SD_BN;
-  const T* shb = sh + (i64)b * HW * J;
+  const T* shb = sh + (i64)b * sb;
   const T* vb = v + (i64)b * J * M;
 
   const int a_mi = tid >> 2, a_kq = (tid & 3) * 4;
@@ -104,7 +110,7 @@ style_dot_kernel(const T* __restrict__ sh, const T* __restrict__ v,
     for (int q = 0; q < 4; ++q) {
       int k = k0 + a_kq + q;
       As[a_kq + q][a_mi] =
-          (pa < HW && k < J) ? to_f<T>(shb[(i64)pa * J + k]) : 0.f;
+          (pa < HW && k < J) ? to_f<T>(shb[(i64)pa * sp + k]) : 0.f;
     }
     const int kb = k0 + b_ki;
 #pragma unroll
@@ -165,13 +171,13 @@ typedef __nv_bfloat16 bf16;
 #define ST_SMEM ((2 * ST_BBUF + 8 * 16 * ST_BP) * 2)   // ≥ the A tile's 128·ST_AP
 
 // One block of the dot: pixels p0 .. p0+127 of an image whose `shifted` rows
-// start at sh ([HW, J]) and whose v is vb ([J, M]). epi(p, m, dot8, pre)
+// of J start at sh, sp elements apart (sp even), and whose v is vb ([J, M]). epi(p, m, dot8, pre)
 // receives eight consecutive channels m..m+7 of pixel p (p < HW, m < M),
 // rounded to bf16, and what epi.load(p, m) (an Epi::Pre) returned for the
 // same piece before the tile's product. smem: ST_SMEM bytes, 16-byte
 // aligned. 256 threads.
 template <class Epi>
-__device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
+__device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh, i64 sp,
                                                    const bf16* __restrict__ vb, int HW,
                                                    int J, int M, int p0,
                                                    unsigned char* smem, Epi epi) {
@@ -206,11 +212,12 @@ __device__ __forceinline__ void style_dot_tc_block(const bf16* __restrict__ sh,
     constexpr int WPR = ST_KP / 2, IT = ST_PX * WPR / 256;
     const uint32_t* src = reinterpret_cast<const uint32_t*>(sh);
     const int jw = J >> 1;
+    const i64 spw = sp >> 1;
     uint32_t vals[IT];
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
       const int e = tid + i * 256, p = e / WPR, kw = e - p * WPR;
-      vals[i] = (p0 + p < HW && kw < jw) ? src[(i64)(p0 + p) * jw + kw] : 0u;
+      vals[i] = (p0 + p < HW && kw < jw) ? src[(i64)(p0 + p) * spw + kw] : 0u;
     }
 #pragma unroll
     for (int i = 0; i < IT; ++i) {
@@ -340,30 +347,33 @@ style_dot_tc_kernel(const bf16* __restrict__ shifted, const bf16* __restrict__ v
                     bf16* __restrict__ out, int HW, int J, int M) {
   extern __shared__ __align__(16) unsigned char st_smem[];
   const int b = blockIdx.y;
-  style_dot_tc_block(shifted + (i64)b * HW * J, v + (i64)b * J * M, HW, J, M,
+  style_dot_tc_block(shifted + (i64)b * HW * J, J, v + (i64)b * J * M, HW, J, M,
                      blockIdx.x * ST_PX, st_smem,
                      StoreDot{out + (i64)b * HW * M, M});
 }
 
 __global__ void __launch_bounds__(256, 2)
-style_blend_tc_kernel(const bf16* __restrict__ shifted, const bf16* __restrict__ v,
+style_blend_tc_kernel(const bf16* __restrict__ shifted, i64 sb, i64 sp,
+                      const bf16* __restrict__ v,
                       const i64* __restrict__ convs, i64 ch, i64 cw, i64 cb, int c2,
                       const float* __restrict__ bias, bf16* __restrict__ out, int W, int HW,
                       int J, int M) {
   extern __shared__ __align__(16) unsigned char st_smem[];
   const int b = blockIdx.y;
-  style_dot_tc_block(shifted + (i64)b * HW * J, v + (i64)b * J * M, HW, J, M,
+  style_dot_tc_block(shifted + (i64)b * sb, sp, v + (i64)b * J * M, HW, J, M,
                      blockIdx.x * ST_PX, st_smem,
                      BlendEpi{convs, ch, cw, cb, c2, W, b, bias, out + (i64)b * HW * M, M});
 }
 
 extern "C" {
 
-// shifted: contiguous [B, H, W, J]; v: contiguous [B, J, M]; convs: device
+// shifted: pixel rows of J (channel stride 1), images sb and pixels (h·W + w)
+// sp elements apart: a contiguous [B, H, W, J] (sb = H·W·J, sp = J) or
+// [H, W, B, J] (sb = J, sp = B·J); v: contiguous [B, J, M]; convs: device
 // array of N pointers to [H, W, B, c2] tensors sharing the element strides
 // ch, cw, cb (channel stride 1), N·c2 = M; bias fp32 [M]; out [H, W, B, M]
 // with strides oh, ow, ob. dtype: 0 float32, 1 bfloat16.
-int style_blend_dot(int dtype, const void* shifted, const void* v,
+int style_blend_dot(int dtype, const void* shifted, i64 sb, i64 sp, const void* v,
                     const void* convs, i64 ch, i64 cw, i64 cb, int c2,
                     const void* bias, void* out, i64 oh, i64 ow, i64 ob,
                     int B, int H, int W, int J, int M, void* stream) {
@@ -371,11 +381,11 @@ int style_blend_dot(int dtype, const void* shifted, const void* v,
   dim3 grid((H * W + SD_BM - 1) / SD_BM, (M + SD_BN - 1) / SD_BN, B);
   if (dtype == 0)
     style_dot_kernel<float, true><<<grid, 256, 0, s>>>(
-        (const float*)shifted, (const float*)v, (const i64*)convs, ch, cw, cb,
+        (const float*)shifted, sb, sp, (const float*)v, (const i64*)convs, ch, cw, cb,
         c2, (const float*)bias, (float*)out, oh, ow, ob, H, W, J, M);
   else
     style_dot_kernel<__nv_bfloat16, true><<<grid, 256, 0, s>>>(
-        (const __nv_bfloat16*)shifted, (const __nv_bfloat16*)v,
+        (const __nv_bfloat16*)shifted, sb, sp, (const __nv_bfloat16*)v,
         (const i64*)convs, ch, cw, cb, c2, (const float*)bias,
         (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
   return (int)cudaGetLastError();
@@ -390,11 +400,11 @@ int style_dot_hwbm(int dtype, const void* shifted, const void* v, void* out,
   dim3 grid((H * W + SD_BM - 1) / SD_BM, (M + SD_BN - 1) / SD_BN, B);
   if (dtype == 0)
     style_dot_kernel<float, false><<<grid, 256, 0, s>>>(
-        (const float*)shifted, (const float*)v, nullptr, 0, 0, 0, 1, nullptr,
+        (const float*)shifted, (i64)H * W * J, J, (const float*)v, nullptr, 0, 0, 0, 1, nullptr,
         (float*)out, oh, ow, ob, H, W, J, M);
   else
     style_dot_kernel<__nv_bfloat16, false><<<grid, 256, 0, s>>>(
-        (const __nv_bfloat16*)shifted, (const __nv_bfloat16*)v, nullptr, 0, 0,
+        (const __nv_bfloat16*)shifted, (i64)H * W * J, J, (const __nv_bfloat16*)v, nullptr, 0, 0,
         0, 1, nullptr, (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
   return (int)cudaGetLastError();
 }
@@ -414,23 +424,25 @@ int style_dot_tc(const void* shifted, const void* v, void* out, int B, int HW,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route of style_blend_dot, bf16 only: shifted contiguous
-// [B, H·W, J] (4-byte aligned, J even and ≤ 96), v contiguous [B, J, M]
+// The tensor-core route of style_blend_dot, bf16 only: shifted rows of J
+// with the strides sb, sp of style_blend_dot (both even; 4-byte aligned, J
+// even and ≤ 96), v contiguous [B, J, M]
 // (16-byte aligned, M a multiple of 8); convs: device array of N pointers to
 // [H, W, B, c2] tensors (16-byte aligned) sharing the element strides ch, cw,
 // cb (multiples of 8, channel stride 1), c2 a multiple of 8, N·c2 = M; bias
 // fp32 [M] (16-byte aligned); out contiguous [B, H, W, M] (16-byte aligned).
-int style_blend_tc(const void* shifted, const void* v, const void* convs, i64 ch, i64 cw,
-                   i64 cb, int c2, const void* bias, void* out, int B, int H, int W, int J,
-                   int M, void* stream) {
-  if (J > ST_KP || J % 2 != 0 || M % 8 != 0 || c2 % 8 != 0 || (ch | cw | cb) % 8 != 0)
+int style_blend_tc(const void* shifted, i64 sb, i64 sp, const void* v, const void* convs,
+                   i64 ch, i64 cw, i64 cb, int c2, const void* bias, void* out, int B, int H,
+                   int W, int J, int M, void* stream) {
+  if (J > ST_KP || J % 2 != 0 || M % 8 != 0 || c2 % 8 != 0 || (ch | cw | cb) % 8 != 0 ||
+      (sb | sp) % 2 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       style_blend_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((H * W + ST_PX - 1) / ST_PX, B);
   style_blend_tc_kernel<<<grid, 256, ST_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)shifted, (const bf16*)v, (const i64*)convs, ch, cw, cb, c2,
+      (const bf16*)shifted, sb, sp, (const bf16*)v, (const i64*)convs, ch, cw, cb, c2,
       (const float*)bias, (bf16*)out, W, H * W, J, M);
   return (int)cudaGetLastError();
 }

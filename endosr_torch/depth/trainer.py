@@ -39,11 +39,16 @@ What the port keeps of the JAX trainer, on purpose:
   worker i mod n, and each worker draws from its copy of the dataset's
   ``rng`` reseeded with ``seed · 1000003 + worker id``.
 
-Checkpoints are monodepth2's files, not JAX's ``.ckpt``: ``weights_{epoch}/
-encoder.pth`` (with ``height``, ``width``, ``use_stereo``), ``depth.pth``,
-``pose_encoder.pth``, ``pose.pth`` and ``adam.pth`` (the optimizer state
-and the step). ``utils/port_params.py::load_monodepth``,
-``depth/infer.py::run_folder`` and the JAX package's porters read them.
+Checkpoints are monodepth2's files: ``weights_{epoch}/encoder.pth`` (with
+``height``, ``width``, ``use_stereo``), ``depth.pth``, ``pose_encoder.pth``,
+``pose.pth`` and ``adam.pth`` (the optimizer state and the step).
+``utils/port_params.py::load_monodepth``, ``depth/infer.py::run_folder``
+and the JAX package's porters read them. Under ``ENDOSR_CKPT_BACKEND=
+msgpack`` the trainer writes JAX's folder instead (``endosr/depth/
+trainer.py:386-407``): ``{encoder,depth,pose_encoder,pose}.ckpt`` (each
+network's flax variables), ``meta.json`` (the feed size, the stereo flag,
+the step) and ``adam.ckpt`` (optax's Adam and schedule states).
+:meth:`Trainer.load_model` reads either folder.
 
 The trainer runs on CUDA unless the options say ``--no_cuda``, and raises
 without a CUDA device (``utils/device.py::resolve_device``); on CUDA it
@@ -54,7 +59,7 @@ it outside any Pallas kernel.
 
 from __future__ import annotations
 
-import glob
+import json
 import os
 import random
 import time
@@ -72,8 +77,12 @@ from endosr_torch.depth.layers import (backproject_depth, disp_to_depth,
 from endosr_torch.nn.layers import torch_conv_init_
 from endosr_torch.nn.monodepth import (DepthDecoder, PoseCNN, PoseDecoder,
                                        ResnetEncoder, freeze_running_stats)
+from endosr_torch.utils import checkpoint as ckpt
+from endosr_torch.utils import optim_state as ost
 from endosr_torch.utils.device import resolve_device, true_fp32
-from endosr_torch.utils.port_params import load_monodepth_file
+from endosr_torch.utils.port_params import (from_flax_depth_trainer,
+                                            load_monodepth_file,
+                                            to_flax_depth_trainer)
 
 __all__ = ["Trainer", "monodepth_loss"]
 
@@ -431,13 +440,54 @@ class Trainer:
                 self.log_scalars("train", host)
 
     # ------------------------------------------------------------------
+    def _named_parameters(self):
+        """(``<network>.<parameter>``, parameter) in the optimizer's
+        order."""
+        return [(f"{name}.{k}", p) for name, m in self.models.items()
+                for k, p in m.named_parameters()]
+
+    def _flax_tree(self, named):
+        """{``<network>.<key>``: tensor} → ``{network: params tree}``
+        (the tree of JAX's optimizer state)."""
+        by = {name: {} for name in self.models}
+        for k, v in named.items():
+            name, key = k.split(".", 1)
+            by[name][key] = v.detach().float().cpu()
+        return {name: v["params"] for name, v in
+                to_flax_depth_trainer(by).items()}
+
+    def _from_flax_tree(self, tree):
+        sds = from_flax_depth_trainer({name: {"params": p}
+                                       for name, p in tree.items()})
+        return {f"{name}.{k}": v for name, sd in sds.items()
+                for k, v in sd.items()}
+
     def save_model(self) -> str:
         """Write ``log_path/models/weights_{epoch}/``: the networks'
         ``.pth`` files (the encoder's with ``height``, ``width`` and
-        ``use_stereo``) and ``adam.pth``. Returns the folder."""
+        ``use_stereo``) and ``adam.pth``, or JAX's ``.ckpt`` files,
+        ``meta.json`` and ``adam.ckpt`` under the ``msgpack`` backend.
+        Returns the folder."""
         folder = os.path.join(self.log_path, "models",
                               f"weights_{self.epoch}")
         os.makedirs(folder, exist_ok=True)
+        if ckpt.backend_of() == "msgpack":
+            variables = to_flax_depth_trainer({
+                name: {k: v.detach().float().cpu()
+                       for k, v in m.state_dict().items()}
+                for name, m in self.models.items()})
+            for name, v in variables.items():
+                ckpt.save_pytree(v, os.path.join(folder, f"{name}.ckpt"))
+            with open(os.path.join(folder, "meta.json"), "w") as f:
+                json.dump({"height": self.opt.height, "width": self.opt.width,
+                           "use_stereo": self.use_stereo, "step": self.step},
+                          f)
+            ckpt.save_pytree(ost.chain(
+                ost.adam_state(self.optimizer, self._named_parameters(),
+                               self._flax_tree),
+                {"count": ost.count(self.step)}),
+                os.path.join(folder, "adam.ckpt"))
+            return folder
         for name, m in self.models.items():
             sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
             if name == "encoder":
@@ -450,26 +500,30 @@ class Trainer:
         return folder
 
     def load_model(self):
-        """Load ``load_weights_folder``'s ``<name>.pth`` for each of
-        ``models_to_load`` this trainer has and whose file exists, then
-        ``adam.pth`` (the optimizer state and the step) if present. A JAX ``.ckpt`` there raises ``NotImplementedError``."""
+        """Load ``load_weights_folder``'s ``<name>.pth`` (monodepth2's) or
+        ``<name>.ckpt`` (JAX's flax variables, through
+        ``from_flax_depth_trainer``) for each of ``models_to_load`` this
+        trainer has and whose file exists, then ``adam.pth`` (the optimizer
+        state and the step) or ``adam.ckpt`` (optax's Adam state; the step
+        from ``meta.json``) if present."""
         folder = os.path.expanduser(self.opt.load_weights_folder)
         names = [n for n in self.opt.models_to_load if n in self.models]
         for name in names:
             p = os.path.join(folder, f"{name}.pth")
             if os.path.exists(p):
                 load_monodepth_file(self.models[name], p)
-            elif glob.glob(os.path.join(folder, f"{name}.ckpt")):
-                raise NotImplementedError(
-                    f"{name}.ckpt is a JAX (flax) checkpoint, which the port "
-                    "does not read; export monodepth2 .pth files "
-                    "(encoder.pth, depth.pth, pose_encoder.pth, pose.pth)")
+            elif os.path.exists(p[:-len(".pth")] + ".ckpt"):
+                tree = ckpt.load_pytree(p[:-len(".pth")] + ".ckpt")
+                self.models[name].load_state_dict(
+                    from_flax_depth_trainer({name: tree})[name])
         adam = os.path.join(folder, "adam.pth")
         if os.path.exists(adam):
             state = torch.load(adam, map_location="cpu", weights_only=True)
             self.optimizer.load_state_dict(state["optimizer"])
             self.step = int(state["step"])
-        elif os.path.exists(os.path.join(folder, "adam.ckpt")):
-            raise NotImplementedError(
-                "adam.ckpt is a JAX (optax) checkpoint, which the port does "
-                "not read")
+        elif os.path.exists(adam[:-len(".pth")] + ".ckpt"):
+            tree = ckpt.load_pytree(adam[:-len(".pth")] + ".ckpt")
+            ost.load_adam(self.optimizer, self._named_parameters(),
+                          ost.find_adam(tree), self._from_flax_tree)
+            with open(os.path.join(folder, "meta.json")) as f:
+                self.step = int(json.load(f)["step"])

@@ -51,11 +51,12 @@ SOURCES = {
                                P, I, P, I64, I64, I64, P, I64, I64, I64, I, I,
                                P]},
     "style_dot": {
-        "style_blend_dot": [I, P, P, P, I64, I64, I64, I, P, P, I64, I64, I64,
-                            I, I, I, I, I, P],
+        "style_blend_dot": [I, P, I64, I64, P, P, I64, I64, I64, I, P, P, I64,
+                            I64, I64, I, I, I, I, I, P],
         "style_dot_hwbm": [I, P, P, P, I64, I64, I64, I, I, I, I, I, P],
         "style_dot_tc": [P, P, P, I, I, I, I, P],
-        "style_blend_tc": [P, P, P, I64, I64, I64, I, P, P, I, I, I, I, I, P]},
+        "style_blend_tc": [P, I64, I64, P, P, I64, I64, I64, I, P, P, I, I, I, I,
+                           I, P]},
     "in_stats": {
         "in_stats": [I, P, I64, I64, I64, I, I, I, I, I, P, P, P],
         "in_stats_vec16": [I, P, I64, I64, I64, I, I, I, I, I, I, P, P, P, P]},

@@ -8,7 +8,12 @@ and ``unfold_g4_phases`` (``:50``):
     g2 = gate₀(relu(g1 ⊛ K2 + b2))          pads (0,1)(0,1), s=0
     g3 = gate₁(relu(g1 + g2 ⊛ K3 + b3))     pads (1,0)(1,0), s=1
 
-with [2,2,4C,4C′] packed kernels. ``endosr_torch/csrc/packed_chain.cu``
+with [2,2,4C,4C′] packed kernels, and with ``k4``/``b4`` the absorbed
+ungated stage 4 of the twin (``:135-138``):
+
+    g4 = lrelu(g3 ⊛ K4 + b4)                pads (0,1)(0,1), no gate
+
+``endosr_torch/csrc/packed_chain.cu``
 holds one packed stage in two hand-written kernels, and
 :func:`packed_g123_route` picks one by shape, never by trial; the wrapper
 runs the three stages as three calls, g1 and g2 through device memory:
@@ -30,8 +35,11 @@ it loads x, so neither an activated nor an interleaved copy of the producer
 tensor is written. The chain is bound by operations (≈70 GFLOP for the up1
 chain, ≈208 GFLOP for the tail chain). ``packed_g123.launches`` counts
 calls (three stage launches each), ``packed_g123.routes`` counts them per
-route. Absorbing stage 4 (``k4``/``b4``) is not on the serving path and is
-not ported.
+route. Stage 4 (``k4``/``b4`` [2,2,C4,C4out]; no JAX path passes it, JAX's
+kernel tests do) is a fourth launch of the shared implicit GEMM
+(``packed_stage``) with an ungated epilogue after either route, as C4out
+need not be 128; ``packed_g123.routes`` counts it as ``"k4_mma"`` (bf16)
+or ``"k4_fp32"``.
 """
 
 from __future__ import annotations
@@ -67,9 +75,10 @@ def _gate(g, s, c4):
 
 
 def packed_g123_plain(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
-                      pre_bias=None, phases=False):
+                      pre_bias=None, phases=False, k4=None, b4=None):
     """Plain PyTorch version: the unfused stages on the BHWC view, in the
-    twin's op and dtype order. Returns g3 [Nx+1, Mx+1, B, C4] (HWNC)."""
+    twin's op and dtype order. Returns g3 [Nx+1, Mx+1, B, C4] (HWNC), or
+    with ``k4``/``b4`` g4 [Nx+1, Mx+1, B, C4out]."""
     if phases:
         x_hwnc = unfold_g4_phases(x_hwnc)
     dt = x_hwnc.dtype
@@ -86,6 +95,8 @@ def packed_g123_plain(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
     g1 = _gate(leaky_relu(pconv(x, k1, ((1, 1), (1, 1)), b1)), 1, c4)
     g2 = _gate(torch.relu(pconv(g1, k2, ((0, 1), (0, 1)), b2)), 0, c4)
     g3 = _gate(torch.relu(g1 + pconv(g2, k3, ((1, 0), (1, 0)), b3)), 1, c4)
+    if k4 is not None:
+        g3 = leaky_relu(pconv(g3, k4, ((0, 1), (0, 1)), b4))
     return g3.permute(1, 2, 0, 3)
 
 
@@ -160,10 +171,28 @@ def _bhwc_strides(t):
     return (t.stride(1), t.stride(2), t.stride(0)) if t is not None else (0, 0, 0)
 
 
+def _stage4(g3, k4, b4):
+    """Stage 4 on the shared implicit GEMM, ungated (``gate_s`` −1):
+    g3 [B, n, m, C4] (BHWC) → g4 [B, n, m, C4out] → its HWNC view."""
+    fn = _build.load("packed_chain")
+    b, n, m, c4 = g3.shape
+    dt = g3.dtype
+    k4, b4 = k4.to(dt).contiguous(), b4.to(dt).contiguous()
+    c4o = k4.shape[3]
+    g4 = torch.empty((b, n, m, c4o), dtype=dt, device=g3.device)
+    code = fn(_build.dtype_code(dt), g3.data_ptr(), *_bhwc_strides(g3), n, m,
+              n, m, b, c4, 0, None, 0, k4.data_ptr(), b4.data_ptr(), 0, 0,
+              g4.data_ptr(), *_bhwc_strides(g4), c4o, None, 0, 0, 0, 1, -1,
+              _build.stream_ptr(g3.device))
+    _build.check("packed_chain", code)
+    return g4.permute(1, 2, 0, 3)
+
+
 def launch_igemm(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
-                 pre_bias=None, phases=False):
+                 pre_bias=None, phases=False, k4=None, b4=None):
     """The three stages on the shared implicit GEMM (routes ``"mma"`` and
-    ``"fp32"``) on CUDA operands; counts nothing. Returns g3 (HWNC)."""
+    ``"fp32"``), and stage 4 with ``k4``, on CUDA operands; counts nothing.
+    Returns g3 (or g4) (HWNC)."""
     fn = _build.load("packed_chain")
     (nx, mx, n, m, b, cin4), ks, bs, pb, (g1, g2, g3) = _prepare(
         x_hwnc, (k1, k2, k3), (b1, b2, b3), pre_bias, phases)
@@ -183,13 +212,17 @@ def launch_igemm(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
                   pad, out.data_ptr(), *_bhwc_strides(out), c4, _ptr(res),
                   *_bhwc_strides(res), act, gate_s, stream)
         _build.check("packed_chain", code)
+    if k4 is not None:
+        return _stage4(g3, k4, b4)
     return g3.permute(1, 2, 0, 3)
 
 
 def launch_wgmma(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
-                 pre_bias=None, phases=False, lib="packed_chain"):
-    """The three stages on the ``wgmma`` kernel (route ``"wgmma"``) on CUDA
-    operands; counts nothing. Returns g3 (HWNC). ``lib``: the library that
+                 pre_bias=None, phases=False, lib="packed_chain", k4=None,
+                 b4=None):
+    """The three stages on the ``wgmma`` kernel (route ``"wgmma"``), and
+    stage 4 with ``k4`` on the shared implicit GEMM, on CUDA operands;
+    counts nothing. Returns g3 (or g4) (HWNC). ``lib``: the library that
     exports ``packed_stage_wgmma`` (another build of the source, to time two
     versions)."""
     fn = _build.load(lib, "packed_stage_wgmma")
@@ -211,62 +244,89 @@ def launch_wgmma(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
                   *_bhwc_strides(out), _ptr(res), *_bhwc_strides(res), act,
                   gate_s, stream)
         _build.check(lib, code, "packed_stage_wgmma")
+    if k4 is not None:
+        return _stage4(g3, k4, b4)
     return g3.permute(1, 2, 0, 3)
 
 
 def packed_g123_vjp(x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, g,
-                    pre_act=False, phases=False):
+                    pre_act=False, phases=False, k4=None, b4=None):
     """The backward of :func:`packed_g123` (the JAX ``_bwd``,
-    ``packed_chain.py:464-493``): the VJP of the plain version at the
+    ``packed_chain.py:457-493``): the VJP of the plain version at the
     saved inputs, the forward recomputed. Returns the gradients of (x, k1,
-    b1, k2, b2, k3, b3, pre_bias), None for a missing ``pre_bias``."""
+    b1, k2, b2, k3, b3, pre_bias), None for a missing ``pre_bias``, and
+    with ``k4`` those of (k4, b4) after them."""
+    if k4 is None:
+        return twin_vjp(
+            lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases),
+            (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias), g)
     return twin_vjp(
-        lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases),
-        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias), g)
+        lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases,
+                                        a[7], a[8]),
+        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, k4, b4), g)
 
 
 def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
-                pre_bias=None, phases=False):
-    """Three-stage packed chain.
+                pre_bias=None, phases=False, k4=None, b4=None):
+    """Three-stage packed chain (four with ``k4``/``b4``).
 
     x_hwnc: [Nx, Mx, B, Cin4] (HWNC), or with ``phases`` the packed
     producer [Hg, Wg, B, 4·Cin4] whose fine grid is interleaved at load
     time; k1 [2,2,Cin4,C4], k2/k3 [2,2,C4,C4]; b* group-tiled [C4].
     ``pre_act``: x is a raw producer output whose leaky_relu(0.2) is
     applied here; ``pre_bias`` [Cin4]: its deferred bias, added first.
-    Returns g3 [Nx+1, Mx+1, B, C4] (HWNC view of a BHWC tensor).
+    ``k4`` [2,2,C4,C4out] / ``b4`` [C4out]: the absorbed ungated stage 4.
+    Returns g3 [Nx+1, Mx+1, B, C4] (or g4 [.., C4out]) (HWNC view of a
+    BHWC tensor).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel :func:`packed_g123_route` names (three stage launches, counted
-    as one call) or raises. Under autograd the backward is
+    kernel :func:`packed_g123_route` names (three stage launches, four with
+    ``k4``, counted as one call) or raises. Under autograd the backward is
     :func:`packed_g123_vjp`."""
+    if (k4 is None) != (b4 is None):
+        raise ValueError("k4 and b4 come together")
+    if k4 is None:
+        return differentiable(
+            lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases),
+            lambda saved, g: packed_g123_vjp(*saved, g, pre_act=pre_act,
+                                             phases=phases),
+            (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias))
     return differentiable(
-        lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases),
-        lambda saved, g: packed_g123_vjp(*saved, g, pre_act=pre_act,
-                                         phases=phases),
-        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias))
+        lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases, a[7], a[8]),
+        lambda saved, g: packed_g123_vjp(*saved[:8], g, pre_act=pre_act,
+                                         phases=phases, k4=saved[8],
+                                         b4=saved[9]),
+        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, k4, b4))
 
 
-def _forward(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases):
+def _forward(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases,
+             k4=None, b4=None):
     if x_hwnc.device.type == "cpu":
         return packed_g123_plain(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act,
-                                 pre_bias, phases)
+                                 pre_bias, phases, k4, b4)
     c4g = x_hwnc.shape[3]
     cin4 = c4g // 4 if phases else c4g
     c4 = k1.shape[3]
     if x_hwnc.stride(3) != 1 or cin4 % 16 or c4 % 16:
         raise ValueError(f"x {tuple(x_hwnc.shape)} strides {x_hwnc.stride()}: "
                          "channels must be contiguous and multiples of 16")
+    if k4 is not None and (k4.shape[:3] != (2, 2, c4) or k4.shape[3] % 16):
+        raise ValueError(f"k4 {tuple(k4.shape)}: must be [2,2,{c4},C4out] "
+                         "with C4out a multiple of 16")
     if pre_bias is not None and not pre_act:
         raise ValueError("pre_bias requires pre_act")
     route = packed_g123_route(x_hwnc.dtype, cin4, c4, x_hwnc.stride(),
                               x_hwnc.data_ptr())
     launch = launch_wgmma if route == "wgmma" else launch_igemm
-    out = launch(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases)
+    out = launch(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases,
+                 k4=k4, b4=b4)
     packed_g123.launches += 1
     packed_g123.routes[route] += 1
+    if k4 is not None:
+        packed_g123.routes["k4_fp32" if route == "fp32" else "k4_mma"] += 1
     return out
 
 
 packed_g123.launches = 0
-packed_g123.routes = {"wgmma": 0, "mma": 0, "fp32": 0}
+packed_g123.routes = {"wgmma": 0, "mma": 0, "fp32": 0, "k4_mma": 0,
+                      "k4_fp32": 0}

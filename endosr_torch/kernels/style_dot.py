@@ -42,8 +42,12 @@ picked by :func:`style_blend_route`:
   dot with the adds in its scalar epilogue.
 
 ``style_blend_dot.launches`` counts launches, ``style_blend_dot.routes``
-counts them per route. The ``hwbc`` variant of the TPU kernel is off by
-default there and not ported.
+counts them per route. ``hwbc=True`` (``:197-272``; no JAX path passes it,
+JAX's kernel tests do) takes ``shifted`` as [H,W,B,J], the mask-conv
+producer's order: both kernels read its pixel rows through that layout's
+strides (images J apart, pixels B·J apart), so no [B,H,W,J] copy is made,
+and the result is exactly the [B,H,W,J] one's. Its launches count as routes
+``"tc_hwbc"`` / ``"cuda_core_hwbc"``.
 """
 
 from __future__ import annotations
@@ -60,9 +64,12 @@ __all__ = ["style_blend_dot", "style_blend_plain", "style_blend_route",
            "launch_tc"]
 
 
-def style_blend_plain(shifted, v, convs, bias):
-    """Plain PyTorch version: shifted [B,H,W,J], v [B,J,M], convs tuple of
-    [H,W,B,2C] tensors with Σ2C = M, bias [M] → [H,W,B,M]."""
+def style_blend_plain(shifted, v, convs, bias, hwbc=False):
+    """Plain PyTorch version: shifted [B,H,W,J] (``hwbc``: [H,W,B,J]), v
+    [B,J,M], convs tuple of [H,W,B,2C] tensors with Σ2C = M, bias [M] →
+    [H,W,B,M]."""
+    if hwbc:
+        shifted = shifted.permute(2, 0, 1, 3)
     dt = shifted.dtype
     y = torch.einsum("bhwj,bjm->bhwm", shifted, v).permute(1, 2, 0, 3).to(dt)
     return (y + torch.cat(list(convs), dim=-1)) + bias.to(dt)
@@ -80,10 +87,12 @@ def style_blend_route(dtype, j, m, c2, strides, aligned):
     return "cuda_core"
 
 
-def _blend_operands(shifted, v, convs, bias):
-    """Checked, contiguous operands: (shifted, v, the convs' device pointer
-    table, their strides, c2, fp32 bias, the [B,H,W,M] output buffer)."""
-    b, h, w, j = shifted.shape
+def _blend_operands(shifted, v, convs, bias, hwbc=False):
+    """Checked, contiguous operands: (shifted, its image and pixel
+    strides, v, the convs' device pointer table, their strides, c2, fp32
+    bias, the [B,H,W,M] output buffer). ``hwbc``: shifted is [H,W,B,J]."""
+    h, w, b, j = shifted.shape if hwbc else (
+        shifted.shape[1], shifted.shape[2], shifted.shape[0], shifted.shape[3])
     m = v.shape[2]
     n = len(convs)
     c2 = convs[0].shape[3]
@@ -105,32 +114,36 @@ def _blend_operands(shifted, v, convs, bias):
     table = torch.tensor([c.data_ptr() for c in convs],
                          dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     out = torch.empty((b, h, w, m), dtype=dt, device=dev)
-    return sh, vv, table, st, c2, bias32, out
+    ssb, ssp = (j, b * j) if hwbc else (h * w * j, j)
+    return sh, (ssb, ssp), vv, table, st, c2, bias32, out
 
 
-def launch_blend_cuda_core(shifted, v, convs, bias):
+def launch_blend_cuda_core(shifted, v, convs, bias, hwbc=False):
     """Launch the CUDA-core blend (route ``"cuda_core"``) on CUDA operands
     → [B,H,W,M]; counts nothing."""
     fn = _build.load("style_dot")
-    b, h, w, j = shifted.shape
-    sh, vv, table, st, c2, bias32, out = _blend_operands(shifted, v, convs, bias)
-    code = fn(_build.dtype_code(shifted.dtype), sh.data_ptr(), vv.data_ptr(),
-              table.data_ptr(), st[0], st[1], st[2], c2, bias32.data_ptr(),
-              out.data_ptr(), out.stride(1), out.stride(2), out.stride(0),
-              b, h, w, j, v.shape[2], _build.stream_ptr(shifted.device))
+    sh, (ssb, ssp), vv, table, st, c2, bias32, out = _blend_operands(
+        shifted, v, convs, bias, hwbc)
+    b, h, w, m = out.shape
+    code = fn(_build.dtype_code(shifted.dtype), sh.data_ptr(), ssb, ssp,
+              vv.data_ptr(), table.data_ptr(), st[0], st[1], st[2], c2,
+              bias32.data_ptr(), out.data_ptr(), out.stride(1), out.stride(2),
+              out.stride(0), b, h, w, shifted.shape[3], m,
+              _build.stream_ptr(shifted.device))
     _build.check("style_dot", code)
     return out
 
 
-def launch_blend_tc(shifted, v, convs, bias):
+def launch_blend_tc(shifted, v, convs, bias, hwbc=False):
     """Launch the tensor-core blend (route ``"tc"``) on CUDA operands →
     [B,H,W,M]; counts nothing."""
     fn = _build.load("style_dot", "style_blend_tc")
-    b, h, w, j = shifted.shape
-    sh, vv, table, st, c2, bias32, out = _blend_operands(shifted, v, convs, bias)
-    code = fn(sh.data_ptr(), vv.data_ptr(), table.data_ptr(), st[0], st[1],
-              st[2], c2, bias32.data_ptr(), out.data_ptr(), b, h, w, j,
-              v.shape[2], _build.stream_ptr(shifted.device))
+    sh, (ssb, ssp), vv, table, st, c2, bias32, out = _blend_operands(
+        shifted, v, convs, bias, hwbc)
+    b, h, w, m = out.shape
+    code = fn(sh.data_ptr(), ssb, ssp, vv.data_ptr(), table.data_ptr(), st[0],
+              st[1], st[2], c2, bias32.data_ptr(), out.data_ptr(), b, h, w,
+              shifted.shape[3], m, _build.stream_ptr(shifted.device))
     _build.check("style_dot", code, "style_blend_tc")
     return out
 
@@ -148,13 +161,18 @@ def style_dot_vjp(shifted, v, g):
     return gs.to(shifted.dtype), gv.to(v.dtype)
 
 
-def style_blend_vjp(shifted, v, n_conv, conv_dtype, bias_dtype, g):
+def style_blend_vjp(shifted, v, n_conv, conv_dtype, bias_dtype, g,
+                    hwbc=False):
     """The backward of :func:`style_blend_dot` (the JAX ``_blend_bwd``,
     ``style_dot.py:306-320``): the dot's two gradients as in
-    :func:`style_dot_vjp`, each conv's gradient its channel slice of g
+    :func:`style_dot_vjp` (with ``hwbc``, on the [B,H,W,J] view, g_shifted
+    given back as [H,W,B,J]), each conv's gradient its channel slice of g
     (in the convs' type), the bias's g summed in fp32 (in the bias's
     type). Returns (g_shifted, g_v, (g_conv, ...), g_bias)."""
-    gs, gv = style_dot_vjp(shifted, v, g)
+    gs, gv = style_dot_vjp(shifted.permute(2, 0, 1, 3) if hwbc else shifted,
+                           v, g)
+    if hwbc:
+        gs = gs.permute(1, 2, 0, 3)
     c2 = g.shape[3] // n_conv
     gconvs = tuple(g[..., i * c2:(i + 1) * c2].to(conv_dtype)
                    for i in range(n_conv))
@@ -162,9 +180,10 @@ def style_blend_vjp(shifted, v, n_conv, conv_dtype, bias_dtype, g):
     return gs, gv, gconvs, gbias
 
 
-def style_blend_dot(shifted, v, convs, bias):
+def style_blend_dot(shifted, v, convs, bias, hwbc=False):
     """Group style dot + conv adds + bias → [H, W, B, M] (the HWNC view of
     a BHWC tensor, so per-instance channel slices are BHWC views).
+    ``hwbc``: ``shifted`` is [H,W,B,J] in place of [B,H,W,J].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`style_blend_route` names (and raises if it cannot).
@@ -175,29 +194,30 @@ def style_blend_dot(shifted, v, convs, bias):
 
     def vjp(saved, g):
         gs, gv, gconvs, gbias = style_blend_vjp(saved[0], saved[1], n, cdt,
-                                                bdt, g)
+                                                bdt, g, hwbc)
         return (gs, gv, *gconvs, gbias)
 
     return differentiable(
-        lambda s, vv, *rest: _blend(s, vv, rest[:-1], rest[-1]), vjp,
+        lambda s, vv, *rest: _blend(s, vv, rest[:-1], rest[-1], hwbc), vjp,
         (shifted, v, *convs, bias), save=(True, True) + (False,) * (n + 1))
 
 
-def _blend(shifted, v, convs, bias):
+def _blend(shifted, v, convs, bias, hwbc=False):
     if shifted.device.type == "cpu":
-        return style_blend_plain(shifted, v, convs, bias)
+        return style_blend_plain(shifted, v, convs, bias, hwbc)
     aligned = all(c.data_ptr() % 16 == 0 for c in convs)
     route = style_blend_route(shifted.dtype, shifted.shape[3], v.shape[2],
                               convs[0].shape[3], convs[0].stride(), aligned)
     launch = launch_blend_tc if route == "tc" else launch_blend_cuda_core
-    out = launch(shifted, v, convs, bias)
+    out = launch(shifted, v, convs, bias, hwbc)
     style_blend_dot.launches += 1
-    style_blend_dot.routes[route] += 1
+    style_blend_dot.routes[route + "_hwbc" if hwbc else route] += 1
     return out.permute(1, 2, 0, 3)
 
 
 style_blend_dot.launches = 0
-style_blend_dot.routes = {"tc": 0, "cuda_core": 0}
+style_blend_dot.routes = {"tc": 0, "cuda_core": 0, "tc_hwbc": 0,
+                          "cuda_core_hwbc": 0}
 
 
 def style_dot_plain(shifted, v):

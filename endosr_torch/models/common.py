@@ -154,7 +154,8 @@ class SimpleModel(BaseModel):
         return True
 
     def save(self, iter_label):
-        """The generator's weights → ``path.models/{iter_label}_G.pth``."""
+        """The generator's weights → ``path.models/{iter_label}_G.pth``
+        (``.ckpt``: :meth:`BaseModel.save_network`)."""
         return self.save_network(self.netG, "G", iter_label)
 
 

@@ -41,10 +41,11 @@ averages the gradients before the update and its logs after it.
 ``spatial_shard: N`` serves each image with its height split over the N
 ranks of the mesh (``parallel/spatial.py``), on the bucketed path only.
 
-Weights come from ``path.pretrain_model_G`` (a ``.npz`` of JAX parameters
-or a ``state_dict`` file, :meth:`load`) or from the port's seeded init;
-:meth:`save` writes them as ``{iter}_G.pth``, and the trainer state
-(``models/base.py``) saves and resumes the optimizer with them.
+Weights come from ``path.pretrain_model_G`` (a JAX ``.ckpt``, a ``.npz``
+of JAX parameters or a ``state_dict`` file, :meth:`load`) or from the
+port's seeded init; :meth:`save` writes them as ``{iter}_G.pth`` (JAX's
+``{iter}_G.ckpt`` under ``checkpoint_backend: msgpack``), and the trainer
+state (``models/base.py``) saves and resumes the optimizer with them.
 """
 
 from __future__ import annotations
@@ -217,16 +218,6 @@ class FModelDepthCond(BaseModel):
                 and t.get("clear_state") and t.get("restarts")):
             self._clear_state = clear_state_at(t["restarts"])
 
-    def named_train_parameters(self):
-        """(name, parameter) of everything the optimizer updates:
-        ``netG.<state_dict key>`` and, with the dynamic loss,
-        ``dyn.trainable_weight`` (the names ``port_params.from_flax_train``
-        gives a JAX parameter or gradient tree)."""
-        for name, p in self.netG.named_parameters():
-            yield f"netG.{name}", p
-        if self.dyn_weight is not None:
-            yield "dyn.trainable_weight", self.dyn_weight
-
     def feed_data(self, data):
         """Batch arrays (NHWC) → tensors: uint8 stays uint8 (the u8
         pipeline; a training step normalizes it, serving casts it to fp32
@@ -359,7 +350,8 @@ class FModelDepthCond(BaseModel):
         return True
 
     def save(self, iter_label):
-        """The generator's weights → ``path.models/{iter_label}_G.pth``."""
+        """The generator's weights → ``path.models/{iter_label}_G.pth``
+        (``.ckpt``: :meth:`BaseModel.save_network`)."""
         return self.save_network(self.netG, "G", iter_label)
 
     def get_current_visuals(self):

@@ -29,12 +29,15 @@ import torch
 from endosr_torch.losses.basic import bce_with_logits
 from endosr_torch.losses.mask import dynamic_weight_mask_loss, mask_loss
 from endosr_torch.losses.ssim import ssim_value
-from endosr_torch.models.base import _host
+from endosr_torch.models.base import _host, load_flax_params
 from endosr_torch.models.f_depthcond import FModelDepthCond, u8_cast
 from endosr_torch.models.lr_schedule import step_lr
 from endosr_torch.nn.fcn import sync_batch_norm
 from endosr_torch.nn.networks import define_SegNet
-from endosr_torch.utils.port_params import seeded_init
+from endosr_torch.utils import optim_state as ost
+from endosr_torch.utils.port_params import (from_flax, from_flax_stats,
+                                            seeded_init, to_flax,
+                                            to_flax_stats)
 
 __all__ = ["FModelDepthSeg", "RMSChain", "jaccard_loss", "bce_with_logits"]
 
@@ -177,3 +180,33 @@ class FModelDepthSeg(FModelDepthCond):
         if self.segNet is not None:
             self.segNet.load_state_dict(state["segNet"])
             self.optimizer_seg.load_state_dict(state["optimizer_seg"])
+
+    def _flax_training_state(self):
+        """JAX's tree: ``params`` adds ``segNet`` and ``segNet_stats``;
+        ``opt_state`` is ``{"G": the generator's chain, "seg":
+        add_decayed_weights (where it decays), scale_by_rms, trace (with
+        momentum), the schedule's count}``."""
+        g = super()._flax_training_state()
+        group = self.optimizer_seg.param_groups[0]
+        named = list(self.segNet.named_parameters())
+        seg = ost.chain(*([{}] if group["weight_decay"] else []),
+                        *ost.rms_state(self.optimizer_seg, named, to_flax,
+                                       bool(group["momentum"])),
+                        {"count": ost.count(self.step)})
+        sd = {k: v.detach().float() for k, v in
+              self.segNet.state_dict().items()}
+        return {"opt_state": {"G": g["opt_state"], "seg": seg},
+                "params": {**g["params"], "segNet": to_flax(
+                    {k: sd[k] for k, _ in named}),
+                    "segNet_stats": to_flax_stats(sd)}}
+
+    def _load_flax_training_state(self, tree):
+        p, o = tree["params"], tree["opt_state"]
+        super()._load_flax_training_state({"params": p, "opt_state": o["G"]})
+        load_flax_params(self.segNet, {**from_flax(p["segNet"]),
+                                       **from_flax_stats(p["segNet_stats"])})
+        seg = [o["seg"][k] for k in sorted(o["seg"], key=int)]
+        rms = next(s for s in seg if "nu" in s)
+        trace = next((s for s in seg if "trace" in s), None)
+        ost.load_rms(self.optimizer_seg, list(self.segNet.named_parameters()),
+                     rms, trace, from_flax)

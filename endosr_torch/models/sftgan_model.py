@@ -27,14 +27,17 @@ the reference's ``'SFT' in k`` would leave those convs "other").
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from endosr_torch.losses.basic import gan_loss
+from endosr_torch.models.base import params_tree_from, state_dict_from_flax
 from endosr_torch.models.common import _floats, as_tensor
 from endosr_torch.models.srgan_model import GANModelBase, requires_grad
 from endosr_torch.nn.fcn import batch_stats_only, sync_batch_norm
 from endosr_torch.nn.sft_arch import ACDVGGBN96, SFTNet
 from endosr_torch.parallel.mesh import allreduce_grads, global_sum
+from endosr_torch.utils import optim_state as ost
 
 __all__ = ["SFTGANACDModel", "AdamMoments", "SFTAdams",
            "cross_entropy_ignore0", "sft_mask"]
@@ -138,6 +141,25 @@ class SFTGANACDModel(GANModelBase):
         self.optimizer_D = torch.optim.Adam(
             self.netD.parameters(), lr=self.schedule_D(0), eps=1e-8,
             betas=(float(t.get("beta1_D", 0.9)), 0.999))
+
+    def _g_opt_state(self):
+        """JAX's ``opt_state`` entries of G: ``G_SFT`` and ``G_other``,
+        each ``scale_by_adam`` then the schedule's count (G's updates)."""
+        def tree(d):
+            return params_tree_from(self.netG, d)
+
+        return {key: ost.chain(ost.moments_state(tx, self.g_names, tree),
+                               {"count": ost.count(self.step_G)})
+                for key, tx in (("G_SFT", self.optimizer_G.tx_sft),
+                                ("G_other", self.optimizer_G.tx_other))}
+
+    def _load_g_opt_state(self, opt_state):
+        for key, tx in (("G_SFT", self.optimizer_G.tx_sft),
+                        ("G_other", self.optimizer_G.tx_other)):
+            ost.load_moments(tx, self.g_names, ost.find_adam(opt_state[key]),
+                             lambda t: state_dict_from_flax(self.netG, t))
+        g = opt_state["G_SFT"]
+        self.step_G = int(np.asarray(g[str(len(g) - 1)]["count"]))
 
     def _replicas(self):
         adams = self.optimizer_G

@@ -33,24 +33,32 @@ G's counts G steps only). Weights are seeded (G with
 ``train.manual_seed``, D with it + 1) unless ``pretrain_model_G`` /
 ``pretrain_model_D`` load. Checkpoints: ``{iter}_G.pth``,
 ``{iter}_D.pth``; ``{iter}.state`` also holds D (with its running
-statistics), D's optimiser and G's update count.
+statistics), D's optimiser and G's update count. JAX's ``{iter}.state``
+(``srgan_model.py:48-91``) holds ``params`` ``{netG, netD, netD_stats}``
+and ``opt_state`` ``{"G", "D"}``, each a ``make_adam`` chain whose
+schedule count is that network's updates.
 """
 
 from __future__ import annotations
 
 import logging
 
+import numpy as np
 import torch
 
 from endosr_torch.losses.basic import gan_loss, pixel_loss
-from endosr_torch.models.base import BaseModel, _host
+from endosr_torch.models.base import (BaseModel, _adam_chain, _f32, _host,
+                                      params_tree_of, params_tree_from,
+                                      load_flax_params, state_dict_from_flax)
 from endosr_torch.models.common import _floats, as_tensor, make_adam
 from endosr_torch.models.lr_schedule import build_schedule
 from endosr_torch.nn.fcn import batch_stats_only, sync_batch_norm
 from endosr_torch.nn.networks import define_D, define_G
 from endosr_torch.parallel.mesh import global_mean
+from endosr_torch.utils import optim_state as ost
 from endosr_torch.utils.device import resolve_device
-from endosr_torch.utils.port_params import seeded_init
+from endosr_torch.utils.port_params import (from_flax_gan, seeded_init,
+                                            to_flax_gan)
 
 __all__ = ["SRGANModel", "GANModelBase"]
 
@@ -161,6 +169,48 @@ class GANModelBase(BaseModel):
             self.netD.load_state_dict(state["netD"])
             self.optimizer_D.load_state_dict(state["optimizer_D"])
             self.step_G = int(state["step_G"])
+
+    # JAX's training-state tree ------------------------------------------
+    def _d_from_tree(self, params, stats=None):
+        """JAX's D variables → D's ``state_dict`` keys."""
+        return from_flax_gan({"params": params, "batch_stats": stats or {}},
+                             type(self.netD).__name__)
+
+    def _g_opt_state(self):
+        """JAX's ``opt_state`` entry of G: ``{"G": make_adam chain}`` over
+        ``{"netG": params}``."""
+        return {"G": _adam_chain(
+            self.optimizer_G, list(self.netG.named_parameters()),
+            lambda d: {"netG": params_tree_from(self.netG, d)}, self.step_G)}
+
+    def _load_g_opt_state(self, opt_state):
+        g = opt_state["G"]
+        ost.load_adam(self.optimizer_G, list(self.netG.named_parameters()),
+                      ost.find_adam(g), lambda t: state_dict_from_flax(
+                          self.netG, t["netG"]))
+        self.step_G = int(np.asarray(g[str(len(g) - 1)]["count"]))
+
+    def _flax_training_state(self):
+        var = to_flax_gan({k: _f32(v) for k, v in
+                           self.netD.state_dict().items()},
+                          type(self.netD).__name__)
+        return {"opt_state": {**self._g_opt_state(), "D": _adam_chain(
+                    self.optimizer_D, list(self.netD.named_parameters()),
+                    lambda d: params_tree_from(self.netD, d), self.step)},
+                "params": {"netD": var["params"],
+                           "netD_stats": var.get("batch_stats", {}),
+                           "netG": params_tree_of(self.netG)}}
+
+    def _load_flax_training_state(self, tree):
+        p = tree["params"]
+        load_flax_params(self.netG, state_dict_from_flax(self.netG,
+                                                         p["netG"]))
+        load_flax_params(self.netD, self._d_from_tree(p["netD"],
+                                                      p.get("netD_stats")))
+        self._load_g_opt_state(tree["opt_state"])
+        ost.load_adam(self.optimizer_D, list(self.netD.named_parameters()),
+                      ost.find_adam(tree["opt_state"]["D"]),
+                      self._d_from_tree)
 
 
 class SRGANModel(GANModelBase):

@@ -15,6 +15,13 @@ the co-training model, with the FCN and its BatchNorm statistics.
 :func:`fit_state_dict` reads a checkpoint as the JAX porter does: keys of
 modules the network does not build are dropped, and with ``strict`` every
 key of the network must be present.
+
+The ``to_flax*`` functions are the inverses (the counterpart of
+``endosr/utils/port_torch.py``'s porter, with no template): a port
+``state_dict`` becomes the flax tree ``net.init`` gives in JAX, with the
+same paths, shapes and layouts (HWIO, a transposed conv's (kh,kw,I,O),
+``g`` (D,), a Dense kernel (I,O)), and ``to_flax(from_flax(t))`` is ``t``.
+Those trees are what ``utils/checkpoint.py`` writes as JAX's ``.ckpt``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,11 @@ __all__ = ["from_flax", "from_flax_train", "from_flax_seg_train",
            "fit_state_dict", "seeded_init", "load_monodepth",
            "load_monodepth_file", "from_flax_monodepth", "from_flax_pose",
            "from_flax_depth_trainer", "from_flax_vgg",
-           "write_seeded_monodepth", "write_seeded_vgg"]
+           "write_seeded_monodepth", "write_seeded_vgg",
+           "to_flax", "to_flax_stats", "to_flax_variables", "to_flax_gan",
+           "to_flax_train", "to_flax_seg_train", "to_flax_monodepth",
+           "to_flax_pose", "to_flax_depth_trainer", "to_flax_vgg",
+           "torch_key_to_flax_path"]
 
 _SEQ_IDX = re.compile(r"^(.*)_(\d+)$")
 # flax module names of transposed convs: their (kh, kw, I, O) kernel becomes
@@ -62,6 +73,127 @@ def flax_path_to_torch_key(path: tuple[str, ...],
                            segment=_segment_to_torch) -> str:
     *mods, leaf = path
     return ".".join([segment(s) for s in mods] + [_LEAF_MAP.get(leaf, leaf)])
+
+
+def _segments_to_flax(segs) -> list[str]:
+    """The inverse of :func:`_segment_to_torch` over a key's module part:
+    ``depth-residual3`` → ``depth_residual3``, a Sequential index joins the
+    name before it (``head``, ``0`` → ``head_0``)."""
+    out = []
+    for seg in segs:
+        if seg.isdigit() and out:
+            out[-1] = f"{out[-1]}_{seg}"
+        elif seg.startswith(("depth-residual", "classic-residual")):
+            out.append(seg.replace("-", "_", 1))
+        else:
+            out.append(seg)
+    return out
+
+
+_LEAF_FROM_TORCH = {"weight_v": "v", "weight_g": "g", "bias": "bias"}
+
+
+def torch_key_to_flax_path(key: str, ndim: int,
+                           segments=_segments_to_flax) -> tuple[str, ...]:
+    """The inverse of :func:`flax_path_to_torch_key` for a tensor of
+    ``ndim`` dimensions: ``weight`` is a conv or Dense ``kernel`` (2-D,
+    4-D) or a norm's ``scale`` (1-D); ``A_i_j.weight`` / ``.bias`` are
+    SEAN's fused ``A_i_j_kernel`` / ``A_i_j_bias``."""
+    *mods, leaf = key.split(".")
+    if mods and mods[-1] == "A_i_j":
+        mods, leaf = mods[:-1], "A_i_j_" + ("kernel" if leaf == "weight"
+                                            else leaf)
+    elif leaf == "weight":
+        leaf = "scale" if ndim == 1 else "kernel"
+    else:
+        leaf = _LEAF_FROM_TORCH.get(leaf, leaf)
+    return tuple(segments(mods)) + (leaf,)
+
+
+def _leaf(t):
+    """A tensor → a numpy array of its type, or the tensor itself (on
+    the CPU) where numpy has no such type (bfloat16), which
+    ``msgpack_io`` writes as flax's ``bfloat16``."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else np.array(t.numpy())
+
+
+def _unflatten(flat) -> dict:
+    tree: dict = {}
+    for path, v in flat:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def to_flax(sd: Mapping, segments=_segments_to_flax) -> dict:
+    """The inverse of :func:`from_flax`: a port ``state_dict`` (parameters
+    only; BatchNorm buffers go to :func:`to_flax_stats`) → the JAX
+    module's ``params`` tree: HWIO kernels (a transposed conv's
+    (kh,kw,I,O)), ``g`` as (D,), a Dense kernel as (I,O); each leaf a
+    numpy array of the tensor's type (a bfloat16 tensor stays one).
+    ``segments`` maps a key's module part to flax names."""
+    flat = []
+    for key, t in sd.items():
+        if key.rsplit(".", 1)[-1] in ("running_mean", "running_var",
+                                      "num_batches_tracked"):
+            continue
+        path = torch_key_to_flax_path(key, t.dim(), segments)
+        name = path[-1]
+        if name in ("v", "kernel", "A_i_j_kernel") and t.dim() == 4:
+            tc = any(seg in _TRANSPOSE_CONV_SEGMENTS for seg in path)
+            t = t.permute(2, 3, 0, 1) if tc else t.permute(2, 3, 1, 0)
+        elif name == "kernel" and t.dim() == 2:
+            t = t.t()
+        elif name == "g":
+            t = t.reshape(-1)
+        flat.append((path, _leaf(t.contiguous())))
+    return _unflatten(flat)
+
+
+def to_flax_stats(sd: Mapping, segments=_segments_to_flax) -> dict:
+    """The inverse of :func:`from_flax_stats`: the BatchNorm buffers of a
+    ``state_dict`` → a flax ``batch_stats`` tree (``mean``, ``var``;
+    ``num_batches_tracked`` has no counterpart)."""
+    flat = []
+    for key, t in sd.items():
+        prefix, name = key.rsplit(".", 1)
+        if name in ("running_mean", "running_var"):
+            flat.append((tuple(segments(prefix.split(".")))
+                         + (name[len("running_"):],), _leaf(t)))
+    return _unflatten(flat)
+
+
+def to_flax_variables(sd: Mapping, segments=_segments_to_flax) -> dict:
+    """The inverse of :func:`from_flax_variables`: ``{"params": ...}``,
+    with ``"batch_stats"`` where the ``state_dict`` has BatchNorm
+    statistics."""
+    out = {"params": to_flax(sd, segments)}
+    stats = to_flax_stats(sd, segments)
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def _gan_segments(segs):
+    """SFT-GAN's names: ``CondNet.0`` → ``CondNet/CondNet_0``, else the
+    default rule."""
+    if len(segs) >= 2 and segs[0] == "CondNet" and segs[1].isdigit():
+        return ["CondNet", f"CondNet_{segs[1]}"] + _segments_to_flax(segs[2:])
+    return _segments_to_flax(segs)
+
+
+def to_flax_gan(sd: Mapping, network: str) -> dict:
+    """The inverse of :func:`from_flax_gan`: a port GAN network's
+    ``state_dict`` → the JAX module's variables (``{"params": ...}``, with
+    ``"batch_stats"`` where it has BatchNorms)."""
+    if network == "DiscriminatorVGG128":
+        return to_flax_variables(sd, list)
+    if network not in ("SFTNet", "SFTNetTorch", "ACDVGGBN96"):
+        raise ValueError(f"no GAN network [{network}]")
+    return to_flax_variables(sd, _gan_segments)
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -140,14 +272,14 @@ def from_flax_gan(variables: Mapping, network: str,
 
 
 def fit_state_dict(sd: Mapping, network: torch.nn.Module, strict: bool = True,
-                   label: str = "") -> dict:
+                   label: str = "", required=None) -> dict:
     """``sd`` cut to the keys ``network``'s ``state_dict`` has, as the JAX
     package's porter reads a checkpoint (``endosr/utils/port_torch.py``):
     keys of modules the network does not build (a reference
     ``latest_G.pth``'s dead ``depth-residual14``) are dropped and their
     names logged; with ``strict``, every key of the network must be in
-    ``sd``, or it raises ``KeyError`` naming the missing ones. Shapes are
-    checked by ``load_state_dict``."""
+    ``sd`` (``required``: only those keys), or it raises ``KeyError``
+    naming the missing ones. Shapes are checked by ``load_state_dict``."""
     import logging
 
     own = network.state_dict()
@@ -157,7 +289,8 @@ def fit_state_dict(sd: Mapping, network: torch.nn.Module, strict: bool = True,
             "%s: dropping %d keys of modules the network does not build: %s",
             label or type(network).__name__, len(dead), ", ".join(dead))
     if strict:
-        missing = [k for k in own if k not in sd]
+        missing = [k for k in (own if required is None else required)
+                   if k not in sd]
         if missing:
             raise KeyError(f"{label or type(network).__name__}: missing "
                            f"{len(missing)} keys, e.g. {missing[:5]}")
@@ -174,6 +307,32 @@ def from_flax_train(tree: Mapping) -> dict[str, torch.Tensor]:
     if "dyn" in tree:
         out["dyn.trainable_weight"] = torch.from_numpy(np.array(
             tree["dyn"]["trainable_weight"], np.float32))
+    return out
+
+
+def to_flax_train(named: Mapping) -> dict:
+    """The inverse of :func:`from_flax_train`: {``netG.<key>`` and
+    ``dyn.trainable_weight``: tensor} → ``{"netG": ..., "dyn":
+    {"trainable_weight": [K]}}`` (``dyn`` only where given)."""
+    out = {"netG": to_flax({k[len("netG."):]: v for k, v in named.items()
+                            if k.startswith("netG.")})}
+    if "dyn.trainable_weight" in named:
+        out["dyn"] = {"trainable_weight": _leaf(
+            named["dyn.trainable_weight"])}
+    return out
+
+
+def to_flax_seg_train(named: Mapping) -> dict:
+    """The inverse of :func:`from_flax_seg_train`: adds ``segNet`` (the
+    FCN's parameters) and, where its statistics are given,
+    ``segNet_stats``."""
+    out = to_flax_train(named)
+    seg = {k[len("segNet."):]: v for k, v in named.items()
+           if k.startswith("segNet.")}
+    out["segNet"] = to_flax(seg)
+    stats = to_flax_stats(seg)
+    if stats:
+        out["segNet_stats"] = stats
     return out
 
 
@@ -329,6 +488,68 @@ def from_flax_pose(variables: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def to_flax_monodepth(sd: Mapping) -> dict:
+    """The inverse of :func:`from_flax_monodepth`: a port
+    ``ResnetEncoder`` / ``DepthDecoder`` ``state_dict`` → the JAX module's
+    ``{"params": ..., "batch_stats": ...}`` (an encoder's BatchNorms; a
+    decoder has none, and its ``batch_stats`` is left out)."""
+    heads = sorted({int(k.split(".")[1]) for k in sd
+                    if k.startswith("decoder.")})
+    names = _decoder_names()[:10] + [
+        f"dispconv_{s}" for s in range(len(heads) - 10)]
+    coll = {"params": [], "batch_stats": []}
+    for key, t in sd.items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if mods[0] == "decoder":
+            path = (names[int(mods[1])],)
+        else:
+            path, segs = (), mods[1:]
+            for seg in segs:
+                if seg.isdigit() and path:
+                    path = path[:-1] + (f"{path[-1]}_{seg}",)
+                else:
+                    path += (seg,)
+        name = {"running_mean": "mean", "running_var": "var",
+                "bias": "bias"}.get(leaf) or (
+                    "kernel" if t.dim() == 4 else "scale")
+        if t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        which = "batch_stats" if name in ("mean", "var") else "params"
+        coll[which].append((path + (name,), _leaf(t.contiguous())))
+    out = {"params": _unflatten(coll["params"])}
+    if coll["batch_stats"]:
+        out["batch_stats"] = _unflatten(coll["batch_stats"])
+    return out
+
+
+def to_flax_pose(sd: Mapping) -> dict:
+    """The inverse of :func:`from_flax_pose`: a port ``PoseDecoder`` or
+    ``PoseCNN`` ``state_dict`` → ``{"params": ...}``."""
+    by_index = {f"net.{i}": n for n, i in _POSE_DECODER_INDEX.items()}
+    decoder = not any(k.startswith("pose_conv.") for k in sd)   # PoseCNN's
+    flat = []
+    for key, t in sd.items():
+        mod, leaf = key.rsplit(".", 1)
+        if decoder and mod in by_index:
+            mod = by_index[mod]
+        elif mod.startswith("net."):
+            mod = "net_" + mod[len("net."):]
+        if t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        flat.append(((mod, "kernel" if leaf == "weight" else leaf),
+                     _leaf(t.contiguous())))
+    return {"params": _unflatten(flat)}
+
+
+def to_flax_depth_trainer(sds: Mapping) -> dict:
+    """The inverse of :func:`from_flax_depth_trainer`: {name: the port
+    trainer's module ``state_dict``} → a JAX depth ``Trainer.variables``."""
+    return {name: (to_flax_pose(sd) if name == "pose"
+                   else to_flax_monodepth(sd)) for name, sd in sds.items()}
+
+
 def from_flax_depth_trainer(variables: Mapping) -> dict[str, dict]:
     """A JAX depth ``Trainer.variables`` (``endosr/depth/trainer.py``:
     ``encoder``, ``depth`` and, with pose networks, ``pose_encoder`` and
@@ -359,6 +580,19 @@ def from_flax_vgg(params: Mapping) -> dict[str, torch.Tensor]:
         sd[f"{seg}.{'weight' if name == 'kernel' else 'bias'}"] = \
             torch.from_numpy(np.array(a))
     return sd
+
+
+def to_flax_vgg(sd: Mapping) -> dict:
+    """The inverse of :func:`from_flax_vgg`: ``features.N.weight`` /
+    ``.bias`` → ``features_N/kernel`` (HWIO) / ``bias``."""
+    flat = []
+    for key, t in sd.items():
+        mod, idx, leaf = key.split(".")
+        if leaf == "weight":
+            t = t.permute(2, 3, 1, 0)
+        flat.append(((f"{mod}_{idx}", "kernel" if leaf == "weight" else leaf),
+                     _leaf(t.contiguous())))
+    return _unflatten(flat)
 
 
 def _seeded_bn_(bn, gen):

@@ -23,7 +23,8 @@ against the JAX trainer, on the CPU in fp32 at feed 64×96, batch 2.
 - ``val`` on one batch in eval mode.
 - ``save_model`` → a fresh trainer's ``load_model``: every tensor, the
   optimizer state and the step bit-equal; ``load_monodepth`` and
-  ``run_folder`` read the folder; a JAX ``.ckpt`` raises by name.
+  ``run_folder`` read the folder; a ``.ckpt`` that is no flax msgpack file
+  raises naming it.
 - ``python -m endosr_torch.depth.train`` through ``main(["--no_cuda",
   …])`` on a tiny tree; without ``--no_cuda`` and no CUDA device it
   raises.
@@ -294,11 +295,12 @@ def test_save_and_load_round_trip(two_steps, tmp_path):
     written = run_folder(str(frames), folder, str(tmp_path / "disp"),
                          ext="png", device="cpu")
     assert [np.load(p).shape for p in written] == [(1, 1, H, W)] * 2
-    # a JAX checkpoint is refused by name
+    # a .ckpt is read as JAX's flax msgpack file: one that is not raises
+    # naming it (JAX's files load in tests/test_torch_checkpoint.py)
     jax_dir = tmp_path / "jax"
     jax_dir.mkdir()
     (jax_dir / "encoder.ckpt").write_bytes(b"flax")
-    with pytest.raises(NotImplementedError, match="JAX"):
+    with pytest.raises(ValueError, match="encoder.ckpt"):
         Trainer(TO.MonodepthOptions().parse(_argv(
             two_steps["root"], "--no_cuda", "--load_weights_folder",
             str(jax_dir))))

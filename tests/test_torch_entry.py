@@ -34,7 +34,7 @@ written with ``cv2``.
   EndoScene dataset) with ``precision`` unset: both ``test.main`` serve
   ``bf16c3`` unbucketed, and their TSV rows and PNGs agree.
 - The entry points default to CUDA and raise without it; unported models
-  and a flax ``.ckpt`` raise by name.
+  and an orbax checkpoint directory raise by name.
 """
 
 import copy
@@ -647,11 +647,14 @@ PORTED_SMALL = {
 
 
 def test_flax_checkpoint_refused_naming_npz(tmp_path):
+    """A flax ``.ckpt`` file is read now (``tests/test_torch_checkpoint.py``);
+    an orbax checkpoint (a directory) is refused by name."""
     y = yaml.safe_load(TEST_YAML.read_text())
+    (tmp_path / "5_G.ckpt").mkdir()
     opt = copy.deepcopy({"model": y["model"], "scale": 8,
                          "network_G": {**y["network_G"], **NET},
                          "path": {"pretrain_model_G": str(tmp_path / "5_G.ckpt")}})
-    with pytest.raises(NotImplementedError, match=r"\.npz"):
+    with pytest.raises(NotImplementedError, match="orbax"):
         create_model(opt, device="cpu")
 
 

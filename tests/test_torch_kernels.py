@@ -8,7 +8,10 @@ bf16 at clamp bounds that bf16 rounds, and ``output_stage_x8`` against its
 Pallas kernel in interpret mode);
 ``style_dot_hwbm``, ``fused_in_mod``, ``fused_o_branch`` (bf16),
 ``fused_modulation`` and ``fused_tail`` are also held against their Pallas
-kernels in interpret mode, and ``mid_shuffle`` with its gradient exactly.
+kernels in interpret mode, and ``mid_shuffle`` with its gradient exactly;
+the options ``packed_g123(k4, b4)`` and ``style_blend_dot(hwbc=True)``
+against JAX's twins, its Pallas kernels in interpret mode (at
+``tests/test_kernels.py``'s tolerances) and JAX's VJPs.
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
 
@@ -121,6 +124,55 @@ def test_packed_g123_matches_jax_twin(mode, nx, mx, b, cin4, c4):
     _cmp(got.numpy(), want)
 
 
+def _k4_operands(rng, nx=13, mx=11, b=2, cin4=32, c4=32, c4o=48):
+    s1, s2 = 0.8 / np.sqrt(4 * cin4), 0.8 / np.sqrt(4 * c4)
+    return (_f32(rng, nx, mx, b, cin4, s=0.5),
+            _f32(rng, 2, 2, cin4, c4, s=s1), _f32(rng, c4, s=0.1),
+            _f32(rng, 2, 2, c4, c4, s=s2), _f32(rng, c4, s=0.1),
+            _f32(rng, 2, 2, c4, c4, s=s2), _f32(rng, c4, s=0.1),
+            _f32(rng, 2, 2, c4, c4o, s=s2), _f32(rng, c4o, s=0.1))
+
+
+def test_packed_g123_stage4_matches_jax_twin_and_kernel():
+    """``k4``/``b4``, the absorbed ungated stage 4: the plain version
+    against JAX's twin (1e-5) and JAX's Pallas kernel in interpret mode
+    (``tests/test_kernels.py``'s 2e-3), C4out ≠ C4, odd extents."""
+    ops = _k4_operands(_rng(21))
+    got = t_pc.packed_g123(*map(_t, ops[:7]), pre_act=True, k4=_t(ops[7]),
+                           b4=_t(ops[8]))
+    want = jax_pc.packed_g123_reference(*map(jnp.asarray, ops), pre_act=True)
+    assert got.shape == (14, 12, 2, 48)
+    _cmp(got.numpy(), want)
+    kern = jax_pc._forward(*map(jnp.asarray, ops), True, interpret=True)
+    _cmp(got.numpy(), kern, 2e-3)
+
+
+def test_packed_g123_stage4_vjp_matches_jax():
+    """The ``k4`` VJP (JAX's ``_bwd``, ``packed_chain.py:486-493``): every
+    operand's gradient, through the wrapper under autograd and through
+    :func:`packed_g123_vjp`, against JAX's ``jax.vjp`` of ``packed_g123``
+    (1e-5 relative to the largest entry; JAX's test bar is 5e-2)."""
+    import jax
+
+    rng = _rng(22)
+    ops = _k4_operands(rng)
+    gout = _f32(rng, 14, 12, 2, 48)
+    _, vjp = jax.vjp(lambda *a: jax_pc.packed_g123(*a, pre_act=True),
+                     *map(jnp.asarray, ops))
+    want = vjp(jnp.asarray(gout))
+    ts = [_t(a).requires_grad_(True) for a in ops]
+    out = t_pc.packed_g123(*ts[:7], pre_act=True, k4=ts[7], b4=ts[8])
+    out.backward(_t(gout))
+    direct = t_pc.packed_g123_vjp(*map(_t, ops[:7]), None, _t(gout),
+                                  pre_act=True, k4=_t(ops[7]), b4=_t(ops[8]))
+    assert direct[7] is None and len(direct) == 10
+    for i, w in enumerate(want):
+        w = np.asarray(w)
+        scale = max(float(np.abs(w).max()), 1e-12)
+        for got in (ts[i].grad, direct[i if i < 7 else i + 1]):
+            assert float(np.abs(got.numpy() - w).max()) <= 1e-5 * scale, i
+
+
 def test_unfold_g4_phases_matches_jax():
     g4 = _f32(_rng(4), 5, 6, 2, 12)
     _cmp(t_pc.unfold_g4_phases(_t(g4)).numpy(),
@@ -194,6 +246,46 @@ def test_style_blend_dot_matches_jax_twin(blocks):
                                         jnp.asarray(bias))
     got = t_sd.style_blend_dot(_t(sh), _t(v), tuple(map(_t, convs)), _t(bias))
     _cmp(got.numpy(), want)
+
+
+def test_style_blend_dot_hwbc_matches_jax_twin_kernel_and_vjp():
+    """``hwbc=True``: ``shifted`` as [H,W,B,J]. The plain version equals
+    the [B,H,W,J] call exactly and JAX's twin to 1e-5; JAX's Pallas kernel
+    in interpret mode within ``tests/test_kernels.py``'s 2e-5; the VJP
+    (g_shifted back in [H,W,B,J]) against JAX's ``jax.vjp`` of
+    ``style_blend_dot(hwbc=True)`` to 1e-5 relative (JAX's bar: 1e-3)."""
+    import jax
+
+    rng = _rng(23)
+    b, h, w, j, c2, n = 2, 8, 8, 36, 64, 4
+    sh = (rng.random((b, h, w, j)) > 0.7).astype(np.float32)
+    sh_h = np.ascontiguousarray(sh.transpose(1, 2, 0, 3))
+    v = _f32(rng, b, j, n * c2, s=0.3)
+    convs = [_f32(rng, h, w, b, c2) for _ in range(n)]
+    bias = _f32(rng, n * c2, s=0.1)
+    jconvs = tuple(map(jnp.asarray, convs))
+    got = t_sd.style_blend_dot(_t(sh_h), _t(v), tuple(map(_t, convs)),
+                               _t(bias), hwbc=True)
+    flat = t_sd.style_blend_dot(_t(sh), _t(v), tuple(map(_t, convs)), _t(bias))
+    assert torch.equal(got, flat)
+    _cmp(got.numpy(), jax_sd.style_blend_reference(
+        jnp.asarray(sh_h), jnp.asarray(v), jconvs, jnp.asarray(bias), True))
+    _cmp(got.numpy(), jax_sd._blend_forward(
+        jnp.asarray(sh_h), jnp.asarray(v), jconvs, jnp.asarray(bias),
+        hwbc=True, interpret=True), 2e-5)
+    gout = _f32(rng, h, w, b, n * c2)
+    _, vjp = jax.vjp(lambda s, vv, cs, bb: jax_sd.style_blend_dot(
+        s, vv, cs, bb, True), jnp.asarray(sh_h), jnp.asarray(v), jconvs,
+        jnp.asarray(bias))
+    want = jax.tree.leaves(vjp(jnp.asarray(gout)))
+    ts = [_t(a).requires_grad_(True) for a in (sh_h, v, *convs, bias)]
+    t_sd.style_blend_dot(ts[0], ts[1], tuple(ts[2:-1]), ts[-1],
+                         hwbc=True).backward(_t(gout))
+    assert ts[0].grad.shape == (h, w, b, j)
+    for t, w_ in zip(ts, want):
+        w_ = np.asarray(w_)
+        scale = max(float(np.abs(w_).max()), 1e-12)
+        assert float(np.abs(t.grad.numpy() - w_).max()) <= 1e-5 * scale
 
 
 def test_style_blend_dot_matches_jax_twin_with_tiles_across_convs():
@@ -1098,8 +1190,10 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     assert t_hd.head_dot.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_sd.style_dot_hwbm.routes == {"tc": 0, "cuda_core": 0}
     assert t_ft.fused_tail.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
-    assert t_sd.style_blend_dot.routes == {"tc": 0, "cuda_core": 0}
-    assert t_pc.packed_g123.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
+    assert t_sd.style_blend_dot.routes == {"tc": 0, "cuda_core": 0,
+                                           "tc_hwbc": 0, "cuda_core_hwbc": 0}
+    assert t_pc.packed_g123.routes == {"wgmma": 0, "mma": 0, "fp32": 0,
+                                       "k4_mma": 0, "k4_fp32": 0}
     assert t_sm.mid_shuffle.routes == {"vec16": 0, "scalar": 0}
     assert t_fo.fused_o_branch.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
     assert t_fm.fused_modulation.routes == {"wgmma": 0, "mma": 0, "fp32": 0}
