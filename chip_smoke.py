@@ -14,7 +14,8 @@ exits non-zero):
    ``packed_chain``), ``fused_mod_wgmma``, ``style_dot_tc``,
    ``style_blend_tc`` and the ``vec16`` kernels of ``in_stats``,
    ``fused_in_mod`` and the output stages on lines of their own.
-3. kernels — each of the twelve kernels against its plain PyTorch version
+3. kernels — each of the twelve kernels (and ``fused_in_mod``'s stats-in
+   form, ``fused_in_mod_stats``) against its plain PyTorch version
    at the shapes the full-width forwards give it, in bf16 (max|Δ|/max|ref|
    ≤ 1e-2) and fp32 (≤ 1e-5 against float64); ``in_stats`` ≤ 1e-5 against
    float64 sums in both; ``output_stage_x8`` (the ×8 HBWC and the ×4 BHWC
@@ -446,6 +447,45 @@ exits non-zero):
    ``tests/make_jax_ckpt_fixture.py``): its ``2_G.ckpt``'s fp32 forward
    within 2e-4 of max |ref| of JAX's stored output; its ``2.state``
    resumes (weights equal to the ``.ckpt``'s, Adam counts 2) and steps.
+16. The unmasked spatial forward, orbax and the lowering switches (≈ 40 s).
+   (b) ``fused_in_mod_stats`` (the stats-in form of ``fused_in_mod``, for
+   a row slab) at the ×4 fused ranks' shape, a [8,64,128,64] slab with
+   the whole image's sums (two slabs' ``in_stats`` added), fp32 against
+   float64 ≤ 1e-5, bf16 ≤ 1e-2 of max |ref|, route ``vec16``; phase 3
+   holds and times it as a kernel of its own. (a) ``spatial_forward``
+   (DepthNet's unmasked forward, as JAX's) on 2 ranks spawned on this card
+   over gloo (``--p14-rank p16``), against the unsharded forward on the
+   card (its SR saved for the ranks), on inputs half noise, half a ramp
+   from the top row to the bottom one: the ×8 flagship (bf16, seeded
+   weights, LR 128², the largest batch up to 32 whose forward takes at
+   most half the card by the peak of a batch-8 forward) and the ×8 at LR
+   134 × 128 (B 8; slabs of 68 and 66 rows; 132 × 128 on 4 cards), each within ``P16_REL`` of
+   max |ref| with ``packed_g123`` 2, ``style_blend_dot`` 2, ``head_dot``
+   1, ``output_stage_x8`` 1 a rank; the ×4 fused epilogue (``in_stats:
+   kernel``, bf16, B 8) within ``P16_REL`` with ``fused_in_mod_stats``
+   26, ``in_stats`` 52, ``style_blend_dot`` 2, ``output_stage_x8`` 1 a
+   rank; ×2 fp32 (the test YAML's network, LR 512², B 1) within 2e-4 with
+   ``style_blend_dot`` 2, ``output_stage`` 1 a rank; peak memory and ms a
+   rank against the unsharded forward's; two planted faults that must
+   exceed ``P16_REL`` (the ×8 with the row-mixing kernels' halos 0, the
+   ×4 fused with each slab's own statistics); then every kernel call the
+   ranks made, recorded by ``KernelTap``, again at its shape against its
+   plain version. (c) The JAX-written orbax fixture ``tests/data/jax_orbax/``
+   (OCDBT, zstd chunks; ``tests/make_jax_ckpt_fixture.py --backend
+   orbax``): ``2_G.ckpt/``'s fp32 forward within 2e-4 of max |ref| of
+   ``tests/data/jax_ckpt/output.npy``; the model resumed from the msgpack
+   ``2.state`` writes an orbax ``2.state/``, and models resumed from it and
+   from JAX's orbax ``2.state/`` equal it bit for bit before and after one
+   step (cuDNN deterministic). (d) Each lowering switch (``P16_ARMS``:
+   ``chain_in``, ``lazy_o_chunk`` 7 and 2, ``pallas_packed_chain``,
+   ``blend_fold`` with and without ``pallas_style_blend``,
+   ``obranch_body``, ``tail_defer_act``, ``mask_stack_conv``) on the ×8
+   flagship (bf16, B 8) against the default path on the same weights:
+   its launches and within ``P16_REL``, which the default path with the
+   shifted mask stack's taps in the wrong order must exceed; the ×2 fp32
+   LR 512² peak with ``lazy_o_chunk`` 0 and 7. ``python3 chip_smoke.py --p16-nccl N`` (a
+   call on N cards, not run without arguments) checks (a) with one rank a
+   card over NCCL.
 
 Phase 3 also holds the two kernel options no path passes against their
 plain versions, at the flagship's shapes: ``packed_g123[k4]`` (the up1
@@ -469,7 +509,9 @@ depthseg train`` and one label for each run of 12a–12d (0 for every kernel),
 phase 13's one label for each run of 13a–13e (0 for every kernel),
 phase 14's ``14a dp world 1``, ``14b dp world 2`` and ``14c spatial x2``
 (the ranks' launches summed), phase 15's ``15a train``, ``15b resumed``,
-``15c eval`` and ``15d fixture``,
+``15c eval`` and ``15d fixture``, phase 16's ``16a x8``, ``16a x4
+fused`` and ``16a x2 fp32`` (the ranks' launches summed), ``16c orbax
+fixture`` and one label for each run of 16d,
 ``grad_checked`` / ``grad`` / ``grad_max_rel_err`` from
 phase 6c (``mid_shuffle``: its backward in phase 3),
 ``timing`` "graph" or "call";
@@ -627,13 +669,17 @@ class KernelCase:
 
 
 def make_cases(torch, dt, gen):
-    """The twelve kernels at the shapes the full-width forwards give them
+    """The twelve kernels (and the stats-in ``fused_in_mod``) at the
+    shapes the full-width forwards give them
     (B=8, LR 128; packed_g123, style_blend_dot and style_dot_hwbm twice)."""
     import torch.nn.functional as F
 
     from endosr_torch.kernels.fused_in_mod import (fused_in_mod,
-                                                   fused_in_mod_plain)
+                                                   fused_in_mod_plain,
+                                                   fused_in_mod_stats,
+                                                   fused_in_mod_stats_plain)
     from endosr_torch.kernels.fused_in_mod import launch as in_mod_launch
+    from endosr_torch.kernels.fused_in_mod import launch_stats
     from endosr_torch.kernels.fused_mod import (fused_modulation,
                                                 fused_modulation_plain)
     from endosr_torch.kernels.fused_mod import launch_mma as mod_mma
@@ -806,6 +852,46 @@ def make_cases(torch, dt, gen):
             lambda a=rg: fused_in_mod(*a), lambda a=rg: fused_in_mod_plain(*a),
             None, 0, 0, main=False, timed=False,
             ref64=lambda a=rg: in_mod_64(*a), route=(fused_in_mod, v1))]
+
+    # fused_in_mod_stats: a row slab [8,64,128,64] of a 2-rank spatial
+    # forward (the top half of the trunk activation) with the whole image's
+    # sums (its Σ, Σ² in float64, rounded to fp32), γ and β channel slices;
+    # vec16 in both types, v1 timed as previous; the ragged case on v1
+    def stats_in_inputs():
+        x, g, b = in_mod_inputs()
+        s64, q64 = sums64(x)
+        return (x[:, :64], g[:, :64], b[:, :64], s64.float(), q64.float())
+
+    def stats_in_64(x, g, b, s, q):
+        n = 128 * 128
+        x, g, b = x.double(), g.double(), b.double()
+        mean = (s.double() / n)[:, None, None, :]
+        var = (q.double() / n)[:, None, None, :] - mean * mean
+        return (x - mean) * torch.rsqrt(var + 1e-5) * (1.0 + g) + b
+
+    si = stats_in_inputs()
+    rs = tuple(ragged(3, 13, 21, 24) for _ in range(3))
+    rs = rs + tuple(t.float() for t in sums64(rs[0]))
+    cases["fused_in_mod_stats"] = [
+        KernelCase(
+            "fused_in_mod_stats[slab 64 of 128 rows]",
+            lambda x=si[0], g=si[1], b=si[2], s=si[3], q=si[4]:
+                fused_in_mod_stats(x, g, b, s, q, 128 * 128),
+            lambda x=si[0], g=si[1], b=si[2], s=si[3], q=si[4]:
+                fused_in_mod_stats_plain(x, g, b, s, q, 128 * 128),
+            None, 4 * nbytes(si[0]) + 2 * B * 64 * 4, 6 * si[0].numel(),
+            ref64=lambda a=si: stats_in_64(*a), route=(fused_in_mod_stats,
+                                                       vec16),
+            previous=lambda x=si[0], g=si[1], b=si[2], s=si[3], q=si[4]:
+                launch_stats(x, g, b, s, q, 128 * 128, route="v1")[0],
+            rotate=(si, stats_in_inputs)),
+        KernelCase(
+            "fused_in_mod_stats[ragged 13×21, C=24, unaligned]",
+            lambda a=rs: fused_in_mod_stats(*a, 13 * 21),
+            lambda a=rs: fused_in_mod_stats_plain(*a, 13 * 21), None, 0, 0,
+            main=False, timed=False,
+            ref64=lambda a=rs: in_mod_64(*a[:3]),
+            route=(fused_in_mod_stats, v1))]
 
     # head_dot: g4 [257, 257, 8, 512] (HWNC view of the producer's BHWC)
     g4 = rn(B, 257, 257, 512, s=0.5).permute(1, 2, 0, 3)
@@ -1218,6 +1304,9 @@ SOURCES = {
                        "endosr/kernels/style_dot.py:111"),
     "fused_in_mod": ("endosr_torch/csrc/fused_in_mod.cu",
                      "endosr/kernels/fused_in_mod.py:95"),
+    # the stats-in form of the same kernel, for a row slab (spatial)
+    "fused_in_mod_stats": ("endosr_torch/csrc/fused_in_mod.cu",
+                           "endosr/kernels/fused_in_mod.py:95"),
     "in_stats": ("endosr_torch/csrc/in_stats.cu",
                  "endosr/kernels/in_stats.py:47"),
     "fused_o_branch": ("endosr_torch/csrc/fused_mod.cu",
@@ -1472,6 +1561,7 @@ EXACT_ROUTES = {"head_dot": "fp32", "style_dot_hwbm": "cuda_core",
                 "packed_g123": "fp32", "mid_shuffle": "vec16",
                 "fused_o_branch": "fp32", "fused_modulation": "fp32",
                 "in_stats": "vec16", "fused_in_mod": "vec16",
+                "fused_in_mod_stats": "vec16",
                 "output_stage_x8": "vec16", "output_stage": "vec16"}
 
 
@@ -6419,8 +6509,9 @@ P14_TIMEOUT = 600              # seconds a spawned rank may take
 
 
 def _kernel_counters():
-    """The twelve kernel wrappers (their ``launches`` / ``routes``)."""
-    from endosr_torch.kernels.fused_in_mod import fused_in_mod
+    """The thirteen kernel wrappers (their ``launches`` / ``routes``)."""
+    from endosr_torch.kernels.fused_in_mod import (fused_in_mod,
+                                                   fused_in_mod_stats)
     from endosr_torch.kernels.fused_mod import fused_modulation
     from endosr_torch.kernels.fused_obranch import fused_o_branch
     from endosr_torch.kernels.fused_tail import fused_tail
@@ -6433,7 +6524,8 @@ def _kernel_counters():
 
     return [packed_g123, style_blend_dot, head_dot, output_stage_x8,
             output_stage, style_dot_hwbm, fused_in_mod, in_stats,
-            fused_o_branch, fused_modulation, fused_tail, mid_shuffle]
+            fused_o_branch, fused_modulation, fused_tail, mid_shuffle,
+            fused_in_mod_stats]
 
 
 def _p14_batch(torch):
@@ -6718,6 +6810,8 @@ def _p14_rank(torch, job, where):
                                  payload["batch"].items()}, mesh)
             out = _p14_steps(torch, _p14_model(torch), payload["start"],
                              batch, counters, 1 + P14_STEPS)
+        elif job == "p16":
+            out = _p16_rank(torch, payload, counters)
         else:
             out = _p14_spatial_rank(torch, payload, counters)
     finally:
@@ -7340,6 +7434,542 @@ def phase15(torch, counters):
     return launches, numbers
 
 
+P16_ROOT = "build/p16"         # under the repository root, git-ignored
+P16_SEED = 16
+P16_WORLD = 2                  # ranks sharing the card over gloo
+P16_LR = (128, 128)            # the flagship request's LR
+P16_X2_LR = (512, 512)         # the ×2 fp32 frame (and the lazy_o_chunk reading)
+P16_MAX_B = 32                 # the largest ×8 batch 16a tries
+P16_MEM_SHARE = 0.5            # of the card the unsharded ×8 forward may take
+P16_REL = 0.1                  # max |Δ| / max |ref|: sharded vs unsharded bf16,
+#                                and an arm vs the default path; every planted
+#                                fault (P16_CONTROLS, 16d's tap order) must
+#                                exceed it. Read on an H100: sound ≤ 0.032,
+#                                the faults ≥ 0.435 (PERF.md §6, PR 20)
+P16_FP32_TOL = 2e-4            # ×2 fp32 sharded vs unsharded (JAX's bar)
+P16_RAGGED_LR = {2: (134, 128),  # a ×8 frame of uneven slabs a world (H
+                 4: (132, 128)}  # a multiple of N, not of 4·N): 68 + 66 rows
+#                                  on 2 ranks, 36 + 32 + 32 + 32 on 4
+P16_CONTROLS = {               # 16a's planted faults: (case, fault)
+    "x8, halo 0": ("x8", "halo 0"),
+    "x4 fused, slab statistics": ("x4 fused", "slab statistics")}
+P16_X8_WANT = {"packed_g123": 2, "style_blend_dot": 2, "head_dot": 1,
+               "output_stage_x8": 1}
+P16_X4F_WANT = {"fused_in_mod_stats": 26, "in_stats": 52,
+                "style_blend_dot": 2, "output_stage_x8": 1}
+P16_X4F_ONE = {"fused_in_mod": 26, "in_stats": 26, "style_blend_dot": 2,
+               "output_stage_x8": 1}
+P16_X2_WANT = {"style_blend_dot": 2, "output_stage": 1}
+_X8_HWBM = {"packed_g123": 2, "style_dot_hwbm": 2, "head_dot": 1,
+            "output_stage_x8": 1}
+P16_ARMS = {                   # 16d: net_kw, launches a forward
+    "chain_in off": ({"chain_in": False}, P16_X8_WANT),
+    "lazy_o_chunk 7": ({"lazy_o_chunk": 7}, P16_X8_WANT),
+    "lazy_o_chunk 2": ({"lazy_o_chunk": 2}, _X8_HWBM),
+    "pallas_packed_chain off": ({"pallas_packed_chain": False},
+                                {"style_blend_dot": 2, "head_dot": 1,
+                                 "output_stage_x8": 1}),
+    "blend_fold": ({"blend_fold": True}, P16_X8_WANT),
+    "blend_fold, pallas_style_blend off": (
+        {"blend_fold": True, "pallas_style_blend": False}, _X8_HWBM),
+    "obranch_body dot": ({"obranch_body": "dot"}, P16_X8_WANT),
+    "tail_defer_act off": ({"tail_defer_act": False}, P16_X8_WANT),
+    "mask_stack_conv off": ({"mask_stack_conv": False}, P16_X8_WANT),
+}
+ORBAX_FIXTURE = "tests/data/jax_orbax"   # tests/make_jax_ckpt_fixture.py --backend orbax
+
+
+def _p16_x2_opt():
+    """16a's ×2 model: the test YAML's ``network_G`` at ×2 (nb 16, every
+    trunk block a depth block, latent 256), fp32, unbucketed."""
+    import yaml
+
+    net = yaml.safe_load((Path(__file__).resolve().parent / P14_X2_NET)
+                         .read_text())["network_G"]
+    net.pop("upscale", None)
+    return {"is_train": False, "model": "sftmd_depthCond", "scale": 2,
+            "precision": None, "eval_bucket_multiple": 0,
+            "datasets": {"test": {"phase": "test", "depthMaskNum": 10}},
+            "network_G": net, "path": {}}
+
+
+def _p16_inputs(lr, b, seed):
+    """A seeded request on the host: LQ, depth and its K = 10 masks, each
+    half noise, half a ramp from the top row to the bottom one (so a
+    slab's statistics differ from the whole image's)."""
+    import numpy as np
+
+    from endosr_torch.ops.masks import depth_masks_np
+
+    rng = np.random.default_rng(seed)
+    ramp = np.linspace(0.0, 1.0, lr[0], dtype=np.float32)[None, :, None]
+    dep = 0.5 * rng.random((b, *lr)).astype(np.float32) + 0.5 * ramp
+    lq = 0.5 * rng.random((b, *lr, 3), dtype=np.float32) + 0.5 * ramp[..., None]
+    return (lq, dep[..., None],
+            np.stack([depth_masks_np(d, False, 10) for d in dep]).astype(
+                np.float32))
+
+
+def _rel(sr, want):
+    """max |Δ| / max |want|."""
+    return rel_err(sr, want)[1]
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """A fault planted in the spatial path for a control run: ``halo 0``
+    (the row-mixing kernels' slabs not extended by their neighbours'
+    rows) or ``slab statistics`` (no sum over the ranks: the norms and the
+    pooling on this slab alone)."""
+    from endosr_torch.parallel.spatial import SpatialContext
+
+    name = {"halo 0": "rows_local", "slab statistics": "sum"}[fault]
+    orig = getattr(SpatialContext, name)
+    if fault == "halo 0":
+        def bad(self, xs, halo, fn, scale=1):
+            return orig(self, xs, 0, fn, scale)
+    else:
+        def bad(self, *ts):
+            return ts[0] if len(ts) == 1 else ts
+    setattr(SpatialContext, name, bad)
+    try:
+        yield
+    finally:
+        setattr(SpatialContext, name, orig)
+
+
+def _p16_model(torch, opt, seed=P16_SEED):
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.utils.port_params import seeded_init
+
+    model = FModelDepthCond(copy.deepcopy(opt))
+    seeded_init(model.netG, seed)
+    return model
+
+
+def _p16_run(torch, counters, fn):
+    """(output on the host, ms, peak GiB, launches, routes) of ``fn()``,
+    the counts set to 0 just before and read just after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return (out.cpu(), ms, torch.cuda.max_memory_allocated() / 2 ** 30,
+            {c.__name__: c.launches for c in counters},
+            {c.__name__: dict(c.routes) for c in counters
+             if hasattr(c, "routes")})
+
+
+def _p16_rank(torch, payload, counters):
+    """A rank of 16a: each case's ``spatial_forward`` (this rank's slab,
+    the whole SR gathered) against the unsharded SR the parent saved."""
+    from endosr_torch.parallel.spatial import spatial_forward
+
+    out = {"controls": {}}
+    for name, case in payload["cases"].items():
+        model = _p16_model(torch, case["opt"])
+        inputs = _p16_inputs(case["lr"], case["b"], case["seed"])
+        sr, ms, peak, launches, routes = _p16_run(
+            torch, counters, lambda: spatial_forward(model.netG, None,
+                                                     *inputs))
+        want = torch.load(case["want"], weights_only=True)
+        out[name] = {"ms": ms, "peak_gib": peak, "launches": launches,
+                     "routes": routes, "shape": tuple(sr.shape),
+                     "finite": bool(sr.isfinite().all()),
+                     "max_abs": float((sr - want).abs().max()),
+                     "rel": _rel(sr, want)}
+        for label, (cname, fault) in P16_CONTROLS.items():
+            if cname == name:
+                with _planted(fault), torch.inference_mode():
+                    bad = spatial_forward(model.netG, None, *inputs).cpu()
+                out["controls"][label] = _rel(bad, want)
+                del bad
+        del model, sr, want
+    return out
+
+
+def _p16_cases(torch, counters, root, world=P16_WORLD):
+    """16a's cases, each run unsharded on this card first (its SR saved
+    under ``root`` for the ranks): the ×8 flagship (bf16, the largest batch
+    up to ``P16_MAX_B`` whose forward takes at most ``P16_MEM_SHARE`` of the
+    card, from a B = 8 forward's peak), the ×4 fused epilogue (bf16, B =
+    8) and ×2 (fp32, B = 1, LR 512²). Returns (payload cases, readings)."""
+    x8 = flagship_opt("bf16")
+    cases = {"x8": {"opt": x8, "lr": P16_LR, "b": 8, "seed": 1},
+             "x8 ragged": {"opt": x8, "lr": P16_RAGGED_LR[world], "b": 8,
+                           "seed": 6},
+             "x4 fused": {"opt": flagship_opt(
+                 "bf16", scale=4, net_kw={"fused_epilogue": True,
+                                          "in_stats": "kernel"}),
+                          "lr": P16_LR, "b": 8, "seed": 2},
+             "x2 fp32": {"opt": _p16_x2_opt(), "lr": P16_X2_LR, "b": 1,
+                         "seed": 3}}
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    one = {}
+    for name, case in cases.items():
+        model = _p16_model(torch, case["opt"])
+        if name == "x8":
+            inputs = [torch.from_numpy(a).cuda()
+                      for a in _p16_inputs(case["lr"], 8, case["seed"])]
+            with torch.inference_mode():
+                _, _, peak8, _, _ = _p16_run(torch, counters,
+                                             lambda: model.netG(*inputs))
+            case["b"] = 8 * max(1, min(P16_MAX_B // 8, int(
+                P16_MEM_SHARE * total / peak8)))
+            one["x8_peak_b8_gib"] = peak8
+            del inputs
+        inputs = [torch.from_numpy(a).cuda()
+                  for a in _p16_inputs(case["lr"], case["b"], case["seed"])]
+        with torch.inference_mode():
+            sr, ms, peak, launches, routes = _p16_run(
+                torch, counters, lambda: model.netG(*inputs))
+        case["want"] = str(root / f"{name.replace(' ', '_')}.pt")
+        torch.save(sr, case["want"])
+        one[name] = {"ms": ms, "peak_gib": peak, "launches": launches,
+                     "b": case["b"], "finite": bool(sr.isfinite().all())}
+        want = {"x8": P16_X8_WANT, "x8 ragged": P16_X8_WANT,
+                "x4 fused": P16_X4F_ONE, "x2 fp32": P16_X2_WANT}[name]
+        if launches != {k: want.get(k, 0) for k in launches}:
+            raise AssertionError(f"[16a] unsharded {name}: launches "
+                                 f"{launches}, want {want}")
+        del model, inputs, sr
+        torch.cuda.empty_cache()
+    return cases, one
+
+
+def p16_spatial(torch, counters, root, world=P16_WORLD, backend="gloo",
+                tag="16a"):
+    """16a: DepthNet's unmasked forward H-sharded over ``world`` spawned
+    ranks (``spatial_forward``, over ``backend``) against the unsharded
+    forward on the card: every rank's SR finite, of the right shape, bf16
+    within ``P16_REL`` of it (max |Δ| / max |ref|) and fp32 within
+    ``P16_FP32_TOL``, and each rank's launches those of its path; every
+    planted fault of ``P16_CONTROLS`` beyond ``P16_REL``. Returns
+    (launches by path, readings, the ranks' kernel calls)."""
+    cases, one = _p16_cases(torch, counters, root, world)
+    ranks = _p14_spawn("p16", world, root / f"ranks{world}{backend}",
+                       {"cases": cases}, backend)
+    wants = {"x8": P16_X8_WANT, "x8 ragged": P16_X8_WANT,
+             "x4 fused": P16_X4F_WANT, "x2 fp32": P16_X2_WANT}
+    launches, numbers = {}, {"world": world, "backend": backend,
+                             "unsharded": one, "ranks": [
+                                 {k: v for k, v in o.items() if k != "calls"}
+                                 for o in ranks]}
+    for name, case in cases.items():
+        for r, out in enumerate(ranks):
+            got = out[name]
+            fails = []
+            if got["launches"] != {k: wants[name].get(k, 0)
+                                   for k in got["launches"]}:
+                fails.append(f"launches {got['launches']}, want "
+                             f"{wants[name]}")
+            scale = case["opt"]["scale"]
+            shape = (case["b"], case["lr"][0] * scale, case["lr"][1] * scale,
+                     3)
+            if got["shape"] != shape or not got["finite"]:
+                fails.append(f"SR {got['shape']} finite {got['finite']}")
+            if name == "x2 fp32" and not got["max_abs"] <= P16_FP32_TOL:
+                fails.append(f"max |Δ| {got['max_abs']:.3g}")
+            if name != "x2 fp32" and not got["rel"] <= P16_REL:
+                fails.append(f"max |Δ| / max |ref| {got['rel']:.3g}")
+            log(f"[{tag}] {name} (B {case['b']}, LR {case['lr'][0]}×"
+                f"{case['lr'][1]}), rank {r} of {world} over {backend}: max "
+                f"|Δ| {got['max_abs']:.3g}, / max |ref| {got['rel']:.3g} "
+                f"against the unsharded forward; peak "
+                f"{got['peak_gib']:.2f} GiB against "
+                f"{one[name]['peak_gib']:.2f} unsharded; {got['ms']:.1f} ms "
+                f"against {one[name]['ms']:.1f}; launches "
+                f"{ {k: v for k, v in got['launches'].items() if v} }, routes "
+                f"{ {k: {a: n for a, n in v.items() if n} for k, v in got['routes'].items() if any(v.values())} }")
+            if fails:
+                raise AssertionError(f"[{tag}] {name} rank {r}: "
+                                     + "; ".join(fails))
+        launches[f"{tag} {name}"] = {
+            k: sum(o[name]["launches"][k] for o in ranks)
+            for k in ranks[0][name]["launches"]}
+    for label in P16_CONTROLS:
+        rels = [o["controls"][label] for o in ranks]
+        log(f"[{tag}] control, {label}: max |Δ| / max |ref| "
+            + ", ".join(f"{x:.3g}" for x in rels) + f" by rank (bar "
+            f"{P16_REL:g}, which it must exceed)")
+        if not min(rels) > P16_REL:
+            raise AssertionError(f"[{tag}] the planted fault {label} passes "
+                                 f"the bar: {rels}")
+    return launches, numbers, _merge_calls({}, *(o["calls"] for o in ranks))
+
+
+def p16_stats_in(torch):
+    """16b: ``fused_in_mod_stats`` and ``in_stats`` at the shapes 16a's
+    ×4 fused-epilogue ranks give them (a [8, 64, 128, 64] slab, the sums
+    of the whole [8, 128, 128, 64] image), in both types, against their
+    plain versions: fp32 against float64 ≤ 1e-5, bf16 ≤ 1e-2 of max |ref|;
+    both take route vec16. Returns {kernel: {type: max |Δ|}}."""
+    from endosr_torch.kernels.fused_in_mod import (fused_in_mod_stats,
+                                                   fused_in_mod_stats_plain)
+    from endosr_torch.kernels.in_stats import in_stats
+
+    gen = torch.Generator(device="cuda").manual_seed(P16_SEED)
+    errs = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = (torch.randn((8, 128, 128, 64), generator=gen, device="cuda")
+             * 1.5 + 0.5).to(dt)
+        gb = (torch.randn((8, 64, 128, 256), generator=gen, device="cuda")
+              * 0.3).to(dt)
+        g, b = gb[..., 64:128], gb[..., 128:192]
+        halves = [in_stats(x[:, :64]), in_stats(x[:, 64:])]
+        s = halves[0][0] + halves[1][0]
+        q = halves[0][1] + halves[1][1]
+        x64 = x.double()
+        ds_abs = float((s.double() - x64.sum(dim=(1, 2))).abs().max())
+        ds = ds_abs / float(x64.sum(dim=(1, 2)).abs().max())
+        fused_in_mod_stats.routes = dict.fromkeys(fused_in_mod_stats.routes, 0)
+        got = fused_in_mod_stats(x[:, :64], g, b, s, q, 128 * 128)
+        if fused_in_mod_stats.routes["vec16"] != 1:
+            raise AssertionError(f"[16b] routes {fused_in_mod_stats.routes}")
+        if dt == torch.float32:
+            n = 128 * 128
+            mean = (x64.sum(dim=(1, 2)) / n)[:, None, None, :]
+            var = (x64.square().sum(dim=(1, 2)) / n)[:, None, None, :] \
+                - mean * mean
+            ref = ((x64[:, :64] - mean) * torch.rsqrt(var + 1e-5)
+                   * (1.0 + g.double()) + b.double())
+        else:
+            ref = fused_in_mod_stats_plain(x[:, :64], g, b, s, q, 128 * 128)
+        err, rel = rel_err(got, ref)
+        log(f"[16b] fused_in_mod_stats {str(dt)[6:]} [8,64,128,64] with the "
+            f"whole image's sums (two slabs' in_stats added, rel err "
+            f"{ds:.2e} against float64): max|Δ| {err:.3e} rel {rel:.3e} "
+            f"(tol {tol:g}) against the plain version")
+        if not (rel <= tol and ds <= 1e-5):
+            raise AssertionError(f"[16b] fused_in_mod_stats {dt}: rel {rel}, "
+                                 f"sums {ds}")
+        errs.setdefault("fused_in_mod_stats", {})[str(dt)[6:]] = err
+        errs.setdefault("in_stats", {})[str(dt)[6:]] = ds_abs
+    return errs
+
+
+def p16_orbax(torch, counters, root):
+    """16c: the JAX-written orbax fixture (``tests/data/jax_orbax``, the
+    model of ``tests/data/jax_ckpt``) on the card: ``2_G.ckpt/``'s fp32
+    forward within ``FIXTURE_REL`` of JAX's ``output.npy``; then the model
+    resumed from the JAX msgpack ``2.state`` writes its state as an orbax
+    directory, and models resumed from that directory and from JAX's orbax
+    ``2.state/`` equal it bit for bit, before and after one step on the
+    same batch (cuDNN deterministic). Returns (launches, readings)."""
+    import numpy as np
+
+    from endosr_torch.models import create_model
+
+    repo = Path(__file__).resolve().parent
+    fx, ox = repo / FIXTURE, repo / ORBAX_FIXTURE
+    opt = json.loads((fx / "opt.json").read_text())
+    serve = copy.deepcopy(opt)
+    serve.update(is_train=False,
+                 path={"pretrain_model_G": str(ox / "2_G.ckpt")})
+    model = create_model(serve)
+    with np.load(fx / "input.npz") as z:
+        inputs = [torch.from_numpy(z[k]).cuda()
+                  for k in ("LQ", "Depth", "DepthMaskList")]
+    with torch.inference_mode():
+        out, _, _, launches, _ = _p16_run(torch, counters,
+                                          lambda: model.netG(*inputs))
+    ref = torch.from_numpy(np.load(fx / "output.npy")).double()
+    err = float((out.double() - ref).abs().max() / ref.abs().max())
+    log(f"[16c] the JAX-written orbax 2_G.ckpt/ ({ORBAX_FIXTURE}, OCDBT, "
+        f"zstd chunks) on the card: max |Δ| / max |JAX out| {err:.3e} (tol "
+        f"{FIXTURE_REL:g})")
+    if not (bool(torch.isfinite(out).all()) and err <= FIXTURE_REL):
+        raise AssertionError(f"[16c] orbax fixture forward rel err {err}")
+
+    def state(m):
+        return ({k: v.clone() for k, v in m.netG.state_dict().items()},
+                {k: {n: t.clone() for n, t in st.items()}
+                 for k, st in m.optimizer_G.state_dict()["state"].items()})
+
+    def equal(a, b):
+        return (all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+                and all(torch.equal(torch.as_tensor(a[1][k][n]),
+                                    torch.as_tensor(b[1][k][n]))
+                        for k in a[1] for n in a[1][k]))
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train = copy.deepcopy(opt)
+        train["path"] = {"training_state": str(root / "state"),
+                         "checkpoint_backend": "orbax"}
+        runs = {}
+        first = create_model(copy.deepcopy(train))
+        first.resume_training(str(fx / "2.state"))
+        written = first.save_training_state(0, 2)
+        for label, src in (("msgpack 2.state", None),
+                           ("port-written orbax", written),
+                           ("JAX-written orbax", str(ox / "2.state"))):
+            m = first if src is None else create_model(copy.deepcopy(train))
+            if src is not None:
+                m.resume_training(src)
+            before = state(m)
+            m.feed_data(_fixture_batch(np, 3))
+            logs = m.optimize_parameters(3)
+            runs[label] = (before, state(m), logs["l_all"])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    base = runs["msgpack 2.state"]
+    same = {k: equal(v[0], base[0]) and equal(v[1], base[1])
+            and v[2] == base[2] for k, v in runs.items()}
+    log(f"[16c] resumed from the port-written orbax {Path(written).name}/ "
+        f"and from JAX's orbax 2.state/: weights, Adam state and step 3 "
+        f"(l_all {base[2]:.6g}) bit-equal to the msgpack resume {same}")
+    if not all(same.values()):
+        raise AssertionError(f"[16c] orbax resumes differ: {same}")
+    return launches, {"fixture_rel_err": err, "resumes_equal": same}
+
+
+def p16_arms(torch, counters):
+    """16d: each of DepthNet's lowering switches (``P16_ARMS``) on the
+    flagship ×8 (bf16, B 8, LR 128²) against the default path on the same
+    weights: its launches, and within ``P16_REL`` (max |Δ| / max |ref|),
+    which the default path with a planted fault (the shifted mask stack's
+    nine taps in the wrong order) must exceed; then the lazy o-branch's
+    peak memory at ×2 LR 512² (fp32, 16a's ×2 model) with ``lazy_o_chunk``
+    0 and 7. Returns (launches by path, readings)."""
+    inputs = [torch.from_numpy(a).cuda()
+              for a in _p16_inputs(P16_LR, 8, 4)]
+    base = _p16_model(torch, flagship_opt("bf16"))
+    with torch.inference_mode():
+        want, ms0, _, got, _ = _p16_run(torch, counters,
+                                        lambda: base.netG(*inputs))
+    from endosr_torch.nn import depthnet as dn
+
+    stack = dn.shifted_mask_stack
+    dn.shifted_mask_stack = lambda m, dt: torch.roll(
+        stack(m, dt), m.shape[-1], dims=-1)
+    try:
+        with torch.inference_mode():
+            bad = base.netG(*inputs).cpu()
+    finally:
+        dn.shifted_mask_stack = stack
+    control = _rel(bad, want)
+    log(f"[16d] control, the mask stack's taps in the wrong order: max |Δ| "
+        f"/ max |ref| {control:.3g} against the default path (bar "
+        f"{P16_REL:g}, which it must exceed)")
+    if not control > P16_REL:
+        raise AssertionError(f"[16d] the planted fault passes the bar: "
+                             f"{control}")
+    state = base.netG.state_dict()
+    del base, bad
+    launches, numbers = {"16d default": got}, {"default_ms": ms0,
+                                               "control_rel": control}
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+
+    for label, (kw, want_n) in P16_ARMS.items():
+        model = FModelDepthCond(flagship_opt("bf16", net_kw=kw))
+        model.netG.load_state_dict(state)
+        with torch.inference_mode():
+            sr, ms, _, got, routes = _p16_run(torch, counters,
+                                              lambda: model.netG(*inputs))
+        rel = _rel(sr, want)
+        log(f"[16d] ×8 bf16 {label}: max |Δ| / max |ref| {rel:.3g} against "
+            f"the default path, {ms:.1f} ms (default {ms0:.1f}); launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        if got != {k: want_n.get(k, 0) for k in got} or not (
+                rel <= P16_REL and bool(sr.isfinite().all())):
+            raise AssertionError(f"[16d] {label}: launches {got}, want "
+                                 f"{want_n}; rel {rel:.3g}")
+        launches[f"16d {label}"] = got
+        numbers[label] = {"rel": rel, "ms": ms}
+        del model, sr
+    x2 = _p16_x2_opt()
+    inputs = [torch.from_numpy(a).cuda() for a in _p16_inputs(P16_X2_LR, 1, 5)]
+    peaks = {}
+    for g in (0, 7):
+        opt = copy.deepcopy(x2)
+        opt["network_G"]["net_kw"] = {"lazy_o_chunk": g}
+        model = _p16_model(torch, opt)
+        with torch.inference_mode():
+            _, ms, peaks[g], got, _ = _p16_run(torch, counters,
+                                               lambda: model.netG(*inputs))
+        launches[f"16d x2 lazy_o_chunk {g}"] = got
+        del model
+    log(f"[16d] ×2 fp32 LR 512² (B 1): peak {peaks[0]:.2f} GiB with "
+        f"lazy_o_chunk 0, {peaks[7]:.2f} GiB with 7; {gpu_line()}")
+    numbers["x2_peak_gib"] = peaks
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def phase16(torch, counters):
+    """Phase 16: DepthNet's unmasked forward H-sharded (16a, with the
+    ranks' kernel calls against their plain versions), the stats-in
+    ``fused_in_mod`` (16b), the orbax checkpoint backend (16c) and the
+    lowering switches (16d). Returns ({path label: launches}, readings)."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / P16_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    secs, numbers = {}, {}
+    numbers["kernel_max_abs_err"] = p16_stats_in(torch)
+    secs["16b"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    launches, numbers["16a"], calls = p16_spatial(torch, counters, root)
+    secs["16a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    errs, _ = phase9_kernel_checks(torch, calls, "phase 16 kernels",
+                                   controls=False)
+    for kname, by_dt in errs.items():
+        for dts, e in by_dt.items():
+            slot = numbers["kernel_max_abs_err"].setdefault(kname, {})
+            slot[dts] = max(slot.get(dts, 0.0), e)
+    secs["16a kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launches["16c orbax fixture"], numbers["16c"] = p16_orbax(torch, counters,
+                                                             root)
+    secs["16c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    arms, numbers["16d"] = p16_arms(torch, counters)
+    launches.update(arms)
+    secs["16d"] = time.perf_counter() - t
+    shutil.rmtree(root, ignore_errors=True)
+    numbers.update(seconds=time.perf_counter() - t0, parts_s=secs)
+    log(f"[phase 16] took {numbers['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f"); "
+        f"{gpu_line()}")
+    return launches, numbers
+
+
+def p16_multi(torch, world):
+    """``python3 chip_smoke.py --p16-nccl N`` (a call on N cards, not part
+    of the one-card run): 16a with one rank a card over NCCL, the
+    references on card 0, then the ranks' kernel calls against their plain
+    versions. Returns the readings."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / P16_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    counters = _kernel_counters()
+    launches, numbers, calls = p16_spatial(torch, counters, root, world,
+                                           "nccl", "16a nccl")
+    numbers["launches"] = launches
+    numbers["cards"] = torch.cuda.device_count()
+    numbers["kernel_max_abs_err"], _ = phase9_kernel_checks(
+        torch, calls, "phase 16 nccl kernels", controls=False)
+    shutil.rmtree(root, ignore_errors=True)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 16 nccl] took {numbers['seconds']:.1f} s")
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -7354,15 +7984,17 @@ def main() -> int:
         return 0
     from endosr_torch.kernels import _build
 
-    if sys.argv[1:2] == ["--p14-nccl"]:          # a call on several cards
+    if sys.argv[1:2] in (["--p14-nccl"], ["--p16-nccl"]):   # several cards
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         log(f"device: {gpu_line()} × {torch.cuda.device_count()}; built "
             f"{_build.build_all()}")
-        print(json.dumps(p14_multi(torch, int(sys.argv[2])), default=str))
+        multi = p14_multi if sys.argv[1] == "--p14-nccl" else p16_multi
+        print(json.dumps(multi(torch, int(sys.argv[2])), default=str))
         print(gpu_line())
         return 0
-    from endosr_torch.kernels.fused_in_mod import fused_in_mod
+    from endosr_torch.kernels.fused_in_mod import (fused_in_mod,
+                                                   fused_in_mod_stats)
     from endosr_torch.kernels.fused_mod import fused_modulation
     from endosr_torch.kernels.fused_obranch import fused_o_branch
     from endosr_torch.kernels.fused_tail import fused_tail
@@ -7408,7 +8040,8 @@ def main() -> int:
     small_forwards(torch)
     counters = [packed_g123, style_blend_dot, head_dot, output_stage_x8,
                 output_stage, style_dot_hwbm, fused_in_mod, in_stats,
-                fused_o_branch, fused_modulation, fused_tail, mid_shuffle]
+                fused_o_branch, fused_modulation, fused_tail, mid_shuffle,
+                fused_in_mod_stats]
     by_path = serving_paths(torch, counters)
     by_path["train x8"], train_ms, train_peak, bf16 = train_flagship(
         torch, counters)
@@ -7462,6 +8095,13 @@ def main() -> int:
     p15, numbers = phase15(torch, counters)
     by_path.update(p15)
     log(f"[phase 15] summary: {json.dumps(numbers)}")
+    p16, numbers = phase16(torch, counters)
+    by_path.update(p16)
+    for kname, errs in numbers["kernel_max_abs_err"].items():
+        for dts, err in errs.items():
+            have = rows[kname]["max_abs_err"]
+            have[dts] = max(have[dts], err)
+    log(f"[phase 16] summary: {json.dumps(numbers, default=str)}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

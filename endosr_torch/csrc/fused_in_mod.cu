@@ -182,6 +182,63 @@ static int in_mod_vec16_launch(const T* x, i64 xb, i64 xy, i64 xx, const T* g,
   return (int)cudaGetLastError();
 }
 
+// The stats-in form: the apply pass alone, from per-(b, c) sums (Σx, Σx²)
+// that the caller took over `count` pixels (a row slab's in_stats sums added
+// over the ranks of a spatial block). One launch turns them into (μ,
+// 1/√(var+ε)) as in_stats_finish<NORM> does, then the apply pass of the
+// vec16 or v1 route, whose bytes are the bound's: x, γ, β read, out written.
+__global__ void in_mod_norm_sums(const float* __restrict__ s,
+                                 const float* __restrict__ q, int BC,
+                                 float count, float eps,
+                                 float2* __restrict__ out) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= BC) return;
+  float mean = s[t] / count;
+  float var = fmaxf(q[t] / count - mean * mean, 0.f);
+  out[t] = make_float2(mean, 1.0f / sqrtf(var + eps));
+}
+
+template <typename T>
+static int in_mod_stats_launch(const T* x, i64 xb, i64 xy, i64 xx, const T* g,
+                               i64 gb, i64 gy, i64 gx, const T* be, i64 bb,
+                               i64 by, i64 bx, int B, int H, int W, int C,
+                               const float* sum, const float* sumsq,
+                               float count, float eps, float2* stats, T* out,
+                               int vec16, cudaStream_t s) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int BC = B * C;
+  in_mod_norm_sums<<<(BC + 127) / 128, 128, 0, s>>>(sum, sumsq, BC, count, eps,
+                                                    stats);
+  if (vec16) {
+    const i64 n = (i64)H * W * (C / V);
+    if (!in_stats_vec16_ok<T>(x, xb, xy, xx, C) ||
+        !in_stats_vec16_ok<T>(g, gb, gy, gx, C) ||
+        !in_stats_vec16_ok<T>(be, bb, by, bx, C) || (uintptr_t)out % 16 != 0 ||
+        n >= (1ll << 30) || B > 65535)
+      return (int)cudaErrorInvalidValue;
+    const int blocks = (int)std::min<i64>(
+        (n + 2 * IM_THREADS - 1) / (2 * IM_THREADS), std::max(1, 8 * 132 / B));
+    in_mod_apply_vec16<T><<<dim3(blocks, B), IM_THREADS, 0, s>>>(
+        x, xb, xy, xx, g, gb, gy, gx, be, bb, by, bx, stats, out, W, H * W, C);
+  } else {
+    const bool v = C % V == 0 && vec_ok(x, xb, xy, xx, V) &&
+                   vec_ok(g, gb, gy, gx, V) && vec_ok(be, bb, by, bx, V) &&
+                   (uintptr_t)out % 16 == 0;
+    if (v) {
+      i64 n = (i64)B * H * W * (C / V);
+      in_mod_apply<T, V><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+          x, xb, xy, xx, g, gb, gy, gx, be, bb, by, bx, stats, out, B, H, W,
+          C);
+    } else {
+      i64 n = (i64)B * H * W * C;
+      in_mod_apply<T, 1><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+          x, xb, xy, xx, g, gb, gy, gx, be, bb, by, bx, stats, out, B, H, W,
+          C);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 // v1. x, gamma, beta: [B, H, W, C] of one dtype, each with its own element
@@ -226,6 +283,32 @@ int fused_in_mod_vec16(int dtype, const void* x, i64 xb, i64 xy, i64 xx,
         gx, (const __nv_bfloat16*)be, bb, by, bx, B, H, W, C, chunks,
         per_chunk, eps, (float2*)part, (int*)tickets, (float2*)stats,
         (__nv_bfloat16*)out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// stats-in: out = ((x − μ)·rsqrt(var+ε))·(1 + γ) + β with μ and var from
+// sum, sumsq ([B, C] fp32, contiguous) over count pixels; stats: scratch of
+// B·C float2; vec16: 1 for the vec16 apply pass (cudaErrorInvalidValue if
+// the tensors do not take it), 0 for v1's.
+int fused_in_mod_stats(int dtype, const void* x, i64 xb, i64 xy, i64 xx,
+                       const void* g, i64 gb, i64 gy, i64 gx, const void* be,
+                       i64 bb, i64 by, i64 bx, int B, int H, int W, int C,
+                       const void* sum, const void* sumsq, float count,
+                       float eps, void* stats, void* out, int vec16,
+                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return in_mod_stats_launch<float>(
+        (const float*)x, xb, xy, xx, (const float*)g, gb, gy, gx,
+        (const float*)be, bb, by, bx, B, H, W, C, (const float*)sum,
+        (const float*)sumsq, count, eps, (float2*)stats, (float*)out, vec16,
+        s);
+  if (dtype == 1)
+    return in_mod_stats_launch<__nv_bfloat16>(
+        (const __nv_bfloat16*)x, xb, xy, xx, (const __nv_bfloat16*)g, gb, gy,
+        gx, (const __nv_bfloat16*)be, bb, by, bx, B, H, W, C,
+        (const float*)sum, (const float*)sumsq, count, eps, (float2*)stats,
+        (__nv_bfloat16*)out, vec16, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,10 +44,12 @@ Checkpoints are monodepth2's files: ``weights_{epoch}/encoder.pth`` (with
 ``pose.pth`` and ``adam.pth`` (the optimizer state and the step).
 ``utils/port_params.py::load_monodepth``, ``depth/infer.py::run_folder``
 and the JAX package's porters read them. Under ``ENDOSR_CKPT_BACKEND=
-msgpack`` the trainer writes JAX's folder instead (``endosr/depth/
-trainer.py:386-407``): ``{encoder,depth,pose_encoder,pose}.ckpt`` (each
-network's flax variables), ``meta.json`` (the feed size, the stereo flag,
-the step) and ``adam.ckpt`` (optax's Adam and schedule states).
+msgpack`` (or ``orbax``) the trainer writes JAX's folder instead
+(``endosr/depth/trainer.py:386-407``): ``{encoder,depth,pose_encoder,
+pose}.ckpt`` (each network's flax variables), ``meta.json`` (the feed
+size, the stereo flag, the step) and ``adam.ckpt`` (optax's Adam and
+schedule states), each ``.ckpt`` a file or, under ``orbax``, a
+directory.
 :meth:`Trainer.load_model` reads either folder.
 
 The trainer runs on CUDA unless the options say ``--no_cuda``, and raises
@@ -466,12 +468,12 @@ class Trainer:
         """Write ``log_path/models/weights_{epoch}/``: the networks'
         ``.pth`` files (the encoder's with ``height``, ``width`` and
         ``use_stereo``) and ``adam.pth``, or JAX's ``.ckpt`` files,
-        ``meta.json`` and ``adam.ckpt`` under the ``msgpack`` backend.
-        Returns the folder."""
+        ``meta.json`` and ``adam.ckpt`` under the ``msgpack`` or ``orbax``
+        backend. Returns the folder."""
         folder = os.path.join(self.log_path, "models",
                               f"weights_{self.epoch}")
         os.makedirs(folder, exist_ok=True)
-        if ckpt.backend_of() == "msgpack":
+        if ckpt.backend_of() is not None:
             variables = to_flax_depth_trainer({
                 name: {k: v.detach().float().cpu()
                        for k, v in m.state_dict().items()}

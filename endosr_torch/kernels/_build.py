@@ -65,6 +65,9 @@ SOURCES = {
                          I64, I, I, I, I, I, F32, P, P, P, P],
         "fused_in_mod_vec16": [I, P, I64, I64, I64, P, I64, I64, I64, P, I64,
                                I64, I64, I, I, I, I, I, I, F32, P, P, P, P,
+                               P],
+        "fused_in_mod_stats": [I, P, I64, I64, I64, P, I64, I64, I64, P, I64,
+                               I64, I64, I, I, I, I, P, P, F32, F32, P, P, I,
                                P]},
     "fused_mod": {
         "fused_modulation": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],

@@ -39,8 +39,10 @@ JAX's msgpack tree ``{epoch, iter, opt_state, params}``, the optimizer
 states through ``utils/optim_state.py``). With ``path.checkpoint_backend:
 msgpack`` (or ``ENDOSR_CKPT_BACKEND=msgpack``) the model writes JAX's
 files, which the JAX package's ``load_network`` and ``resume_training``
-read; unset, it writes ``.pth`` files as above. ``orbax`` raises
-``NotImplementedError`` when the model is built. A model's JAX tree is
+read; ``orbax`` writes the same trees as orbax directories of those
+names (``utils/orbax_io.py``); unset, it writes ``.pth`` files as above.
+A directory loads as an orbax checkpoint wherever a ``.ckpt`` or a JAX
+``.state`` does. A model's JAX tree is
 :meth:`BaseModel._flax_training_state` (its parameters and the optax
 chain states JAX's model keeps), read back by
 :meth:`BaseModel._load_flax_training_state`; the GAN and co-training
@@ -162,7 +164,7 @@ class BaseModel:
     def __init__(self, opt, mesh=None):
         self.opt = opt
         self.mesh = mesh if mesh is not None else get_mesh()
-        # "msgpack": JAX's files; None: the port's .pth (orbax raises)
+        # "msgpack" / "orbax": JAX's files; None: the port's .pth
         self.ckpt_backend = ckpt.backend_of(
             (opt.get("path") or {}).get("checkpoint_backend"))
         self.is_train = bool(opt.get("is_train"))
@@ -196,11 +198,13 @@ class BaseModel:
 
     def save_network(self, network, network_label, iter_label) -> str:
         """``network``'s weights → ``path.models/{iter}_{label}.pth``, or
-        with the ``msgpack`` backend JAX's ``{iter}_{label}.ckpt``."""
-        if self.ckpt_backend == "msgpack":
+        with the ``msgpack`` or ``orbax`` backend JAX's
+        ``{iter}_{label}.ckpt`` (an orbax directory with ``orbax``)."""
+        if self.ckpt_backend is not None:
             return ckpt.save_network(params_tree_of(network),
                                      self.opt["path"]["models"],
-                                     network_label, iter_label)
+                                     network_label, iter_label,
+                                     self.ckpt_backend)
         return _save_atomic(_host(network.state_dict()), os.path.join(
             self.opt["path"]["models"], f"{iter_label}_{network_label}.pth"))
 
@@ -253,13 +257,14 @@ class BaseModel:
 
     def save_training_state(self, epoch, iter_step) -> str:
         """The trainer state → ``path.training_state/{iter}.state`` (JAX's
-        tree with the ``msgpack`` backend)."""
-        if self.ckpt_backend == "msgpack":
+        tree with the ``msgpack`` or ``orbax`` backend)."""
+        if self.ckpt_backend is not None:
             state = {"epoch": np.asarray(int(epoch), np.int64),
                      "iter": np.asarray(int(iter_step), np.int64),
                      **self._flax_training_state()}
             return ckpt.save_training_state(
-                state, self.opt["path"]["training_state"], iter_step)
+                state, self.opt["path"]["training_state"], iter_step,
+                self.ckpt_backend)
         state = {"epoch": int(epoch), "iter": int(iter_step),
                  "step": int(self.step),
                  "optimizer": self.optimizer_G.state_dict(),
@@ -271,11 +276,14 @@ class BaseModel:
             self.opt["path"]["training_state"], f"{iter_step}.state"))
 
     def resume_training(self, resume_path):
-        """Restore a ``.state`` file, the port's or JAX's (told apart by
-        content); returns (epoch, iter). The updates made come from JAX's
-        ``iter``, as its ``resume_training`` rebuilds its step."""
-        with open(resume_path, "rb") as f:
-            torch_file = ckpt.is_torch_file(f.read(4))
+        """Restore a ``.state``, the port's or JAX's (told apart by
+        content; a directory is JAX's orbax one); returns (epoch, iter).
+        The updates made come from JAX's ``iter``, as its
+        ``resume_training`` rebuilds its step."""
+        torch_file = False
+        if not os.path.isdir(resume_path):
+            with open(resume_path, "rb") as f:
+                torch_file = ckpt.is_torch_file(f.read(4))
         if not torch_file:
             tree = ckpt.load_training_state(resume_path)
             self._load_flax_training_state(tree)

@@ -26,7 +26,12 @@ block InstanceNorm's sums from the ``in_stats`` kernel.
 The JAX module's other graph fields (see :class:`DepthNet`) select the
 hoisted trunk (``fused_o_branch``, ``fused_modulation``), the fused ×8 head
 (``fused_tail``), the dense and the unfolded tails, and turn single kernels
-off; ``preset: plain`` turns them all off and launches no kernel.
+off; ``preset: plain`` turns them all off and launches no kernel. Its
+lowering switches are accepted at every value: ``chain_in``,
+``lazy_o_chunk``, ``pallas_packed_chain``, ``blend_fold`` and
+``obranch_body`` each compute what JAX computes at that value in JAX's op
+order; ``tail_defer_act`` and ``mask_stack_conv`` choose between two
+lowerings that give the same values in the port, which runs one.
 
 Activations are NHWC; depth masks [B,H,W,K]; the style matrix [B,K,L].
 Parameter names follow the reference PyTorch checkpoint
@@ -43,11 +48,18 @@ ablations (``ablate_depth_matrix``, ``ablate_depth_block``; see
 ``nn/sean.py``) and the baseline without depth blocks (the encoder's first
 conv only, no style matrix) are the JAX module's too.
 
-Inside a ``parallel/spatial.py::spatial`` block the masked forward runs on
-one slab of rows a rank: the layers exchange their halo rows and
-statistics (``nn/layers.py``), the region-wise pooling sums over the
-ranks, and the encoder's masks count rows from the slab's first global
-row.
+Inside a ``parallel/spatial.py::spatial`` block the forward, masked or
+not, runs on one slab of rows a rank: the layers exchange their halo rows
+and statistics (``nn/layers.py``), the region-wise pooling sums over the
+ranks (a mask of another size is gathered, resized whole and cut), the
+encoder's masks count rows from the slab's first global row, and the
+transposed ``layer4`` cuts the last slab to the image's 2n − 1 rows.
+The ×8 packed tail (both chains, stage 4, the head and the output stage,
+whichever kernels the fields pick) runs on the ``upscale1_0`` output's
+slab extended by four LR rows of each neighbour, and the ×4 phase-split
+head on its input's slab extended by two rows; each crops its SR rows to
+this rank's (``SpatialContext.rows_local``). The packed grid's extra
+(dead) LR + 1st row belongs to the last rank.
 """
 
 from __future__ import annotations
@@ -64,7 +76,9 @@ from endosr_torch.kernels.fused_tail import fused_tail
 from endosr_torch.kernels.head_dot import head_dot
 from endosr_torch.kernels.output_stage import (embed_head_channels,
                                                output_stage, output_stage_x8)
-from endosr_torch.kernels.packed_chain import packed_g123
+from endosr_torch.kernels.packed_chain import (packed_g123,
+                                               packed_g123_plain,
+                                               unfold_g4_phases)
 from endosr_torch.nn.layers import (
     Conv,
     WNConv,
@@ -101,6 +115,7 @@ from endosr_torch.nn.sean import (
 )
 from endosr_torch.ops.resize import interpolate_bilinear, interpolate_nearest
 from endosr_torch.parallel.spatial import active as spatial_active
+from endosr_torch.parallel.spatial import suspended
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["DepthNet", "Encoder", "EncoderNoDepthMatrix",
@@ -169,6 +184,16 @@ def _edge_gate(hp: int, wc: int) -> np.ndarray:
     return g
 
 
+def _slab_rows(x, halo: int, fn, scale: int):
+    """``fn(x)``; in a spatial block ``fn`` on this rank's slab extended by
+    ``halo`` rows of each neighbour, its output (``scale`` rows an input
+    row) cropped to this rank's rows (``SpatialContext.rows_local``)."""
+    sp = spatial_active()
+    if sp is None:
+        return fn(x)
+    return sp.rows_local((x,), halo, fn, scale)
+
+
 def _jax_blend_fits(shape, m: int, n_conv: int, itemsize: int) -> bool:
     """Whether the JAX module runs a style group of ``n_conv`` SEANs (M =
     ``m`` map channels) on a [B,H,W,J] mask stack through its blend kernel
@@ -185,15 +210,6 @@ def _jax_blend_fits(shape, m: int, n_conv: int, itemsize: int) -> bool:
             + 2 * 4 * w * b * m * itemsize + 2 * b * 4 * w * mc * 4 * 2)
     return (h % 4 == 0 and w % 8 == 0 and b <= 8
             and (itemsize != 2 or b % 2 == 0) and vmem <= 95 * 1024 * 1024)
-
-
-# DepthNet fields of the JAX module that the port serves at one value only;
-# another value raises NotImplementedError by name
-_JAX_ONLY = {
-    "chain_in": True, "blend_fold": False, "lazy_o_chunk": 0,
-    "pallas_packed_chain": "auto", "obranch_body": "conv",
-    "tail_defer_act": True, "mask_stack_conv": True,
-}
 
 
 class _ValidRegion:
@@ -229,16 +245,21 @@ def region_wise_avg_pooling(feature_map, mask):
     another resolution is bilinear-resized (align_corners) and re-binarized
     at 0.5 first. In a spatial block (``parallel/spatial.py``) both are
     this rank's row slabs and the sums are the whole image's; the resize,
-    which mixes rows across slabs, is refused there (the masked forward
-    pools with the host's ``pool_mask`` at the feature's size)."""
+    which mixes rows across slabs, runs on the whole mask (gathered; it is
+    small at LR), and the rank keeps its own rows."""
     fh, fw = feature_map.shape[1], feature_map.shape[2]
     sp = spatial_active()
     if mask.shape[1] != fh or mask.shape[2] != fw:
-        if sp is not None:
-            raise NotImplementedError(
-                "region_wise_avg_pooling: resizing a mask over row slabs; "
-                "pass the pool_mask of the feature's size")
-        mask = interpolate_bilinear(mask, (fh, fw), align_corners=True)
+        if sp is None:
+            mask = interpolate_bilinear(mask, (fh, fw), align_corners=True)
+        else:
+            offsets, _, total = sp.slabs(fh, fw)
+            whole = sp.gather_rows(mask)
+            with suspended():
+                mask = interpolate_bilinear(whole, (total, fw),
+                                            align_corners=True)
+            first = offsets[sp.rank]
+            mask = mask[:, first:first + fh]
         mask = (mask >= 0.5).to(feature_map.dtype)
     mask = mask.to(feature_map.dtype)
     sum_feat = torch.einsum("bhwk,bhwl->bkl", mask, feature_map)
@@ -288,8 +309,7 @@ class Encoder(nn.Module):
         out = self.layer4(_mul(leaky_relu(out), m3), dtype)
         m4 = None
         if valid_hw is not None:
-            # the transposed conv gives 2n − 1 rows (a row slab: 2n, its
-            # last row beyond the valid 2·v3h − 1 of the whole image)
+            # the transposed conv gives 2n − 1 rows
             m4 = vm((out.shape[1], out.shape[2]), 2 * v3h - 1, 2 * v3w - 1)
         out = self.layer5(_mul(leaky_relu(out), m4), dtype)
         style = region_wise_avg_pooling(
@@ -313,6 +333,13 @@ class EncoderNoDepthMatrix(nn.Module):
         self.layer5 = WNConv(256, latent_ch, 3, 1, 1, device=device)
 
     def forward(self, x, dtype):
+        sp = spatial_active()
+        if sp is not None and sp.slabs(x.shape[1], x.shape[2])[2] % 2 == 0:
+            # an even H gives the latent H − 1 rows, which the SEANs cannot
+            # add to their H-row maps (nor can JAX's, on one device or
+            # sharded)
+            raise ValueError("the depth-matrix ablation needs an odd frame "
+                             "height")
         feat = self.layer1(x, dtype)
         out = self.layer2(leaky_relu(feat), dtype)
         out = self.layer3(leaky_relu(out), dtype)
@@ -326,16 +353,19 @@ class DepthResidualBlock(nn.Module):
     except under ``fused_epilogue``, where the block's norm is a plain
     ``instance_norm`` (sums from the ``in_stats`` kernel with
     ``in_stats="kernel"``) and the SEAN normalizes and modulates in the
-    ``fused_in_mod`` kernel. ``centered`` = N > 0: both convs are N-pass
-    centered bf16 convs with an fp32 output (bf16c / bf16c3 serving)."""
+    ``fused_in_mod`` kernel. With ``chain_in`` off the two norms run apart
+    (``instance_norm``, then the SEAN's own). ``centered`` = N > 0: both
+    convs are N-pass centered bf16 convs with an fp32 output (bf16c /
+    bf16c3 serving)."""
 
     def __init__(self, nf=64, depth_latent_ch=256, depth_range_num=10,
                  use_trainable_params=True, norm_gamma=0.1, norm_beta=0.1,
                  fused_epilogue=False, in_stats="default", centered=0,
                  ablate_depth_matrix=False, ablate_depth_block=False,
-                 device=None):
+                 chain_in=True, device=None):
         super().__init__()
         self.fused_epilogue, self.in_stats = bool(fused_epilogue), in_stats
+        self.chain_in = bool(chain_in)
         kw = dict(label_nc=depth_range_num, norm_nc=nf,
                   len_latent=depth_latent_ch,
                   use_trainable_params=use_trainable_params,
@@ -358,7 +388,7 @@ class DepthResidualBlock(nn.Module):
         ``mod``: per-SEAN pairs of precomputed modulations (see
         :meth:`SEAN.forward`); ``vmask``: valid-region mask of exact
         bucketed eval."""
-        chain = not self.fused_epilogue
+        chain = self.chain_in and not self.fused_epilogue
         if vmask is None:
             norm = (chained_instance_norm if chain else
                     functools.partial(instance_norm, stats=self.in_stats))
@@ -440,7 +470,23 @@ class DepthNet(nn.Module):
     an empty ``which_resblk_depth`` (the baseline) are the JAX module's
     fields of those names (see the module's docstring); under
     ``remat_blocks`` and ``ablate_depth_block`` no branch is hoisted, and
-    every SEAN computes its own at ``dtype``."""
+    every SEAN computes its own at ``dtype``.
+
+    The JAX module's lowering switches: ``chain_in`` off runs a block's
+    InstanceNorm and its SEAN's apart; ``lazy_o_chunk`` = G > 0 makes the
+    lazy o-branch's shared first conv per group of G trunk blocks, right
+    before the group (a style group then takes ``style_blend_dot`` only
+    when one o-group covers it, as in JAX); ``pallas_packed_chain`` off
+    runs both ×8 packed chains as plain convs and gates (no
+    ``packed_g123``); ``blend_fold`` folds the α blend into the lazy
+    branches where the blend kernel does not run; ``obranch_body: dot``
+    runs the o-branch's first conv as a 9-tap product. ``tail_defer_act``
+    and ``mask_stack_conv`` have no effect: in JAX, off applies the up1
+    chain's stage-4 bias and leaky_relu before the tail chain instead of
+    in its load, and builds the shifted mask stack by pad and slice
+    instead of a 0/1 conv; both give the values of their default here (the
+    chain's load rounds as the separate ops do, and a 0/1 conv copies),
+    so the port runs the default."""
 
     def __init__(self, which_resblk_depth=tuple(range(14)), in_nc=3, out_nc=3,
                  nf=64, nb=16, scale=4, clamp_min=0.0, clamp_max=1.0,
@@ -455,15 +501,14 @@ class DepthNet(nn.Module):
                  fold_output_conv=True, modulation_dtype=None,
                  centered_convs=0, remat_blocks=False,
                  ablate_depth_matrix=False, ablate_depth_block=False,
-                 dtype=torch.float32, device=None, **jax_only):
+                 chain_in=True, lazy_o_chunk=0, pallas_packed_chain="auto",
+                 blend_fold=False, obranch_body="conv", tail_defer_act=True,
+                 mask_stack_conv=True, dtype=torch.float32, device=None):
         super().__init__()
         which = set(which_resblk_depth)
-        for name, value in jax_only.items():
-            if name not in _JAX_ONLY:
-                raise TypeError(f"DepthNet has no field {name!r}")
-            if value != _JAX_ONLY[name]:
-                raise NotImplementedError(
-                    f"DepthNet {name}={value!r} is not ported")
+        if obranch_body not in ("conv", "dot"):
+            raise ValueError(f"obranch_body must be 'conv' or 'dot', got "
+                             f"{obranch_body!r}")
         if scale not in (2, 3, 4, 8):
             raise NotImplementedError(f"scale {scale} is not ported")
         for dt in (dtype, modulation_dtype or dtype):
@@ -491,6 +536,12 @@ class DepthNet(nn.Module):
         self.remat_blocks = bool(remat_blocks)
         self.ablate_depth_matrix = bool(ablate_depth_matrix)
         self.ablate_depth_block = bool(ablate_depth_block)
+        self.chain_in = bool(chain_in)
+        self.lazy_o_chunk = int(lazy_o_chunk)
+        self.pallas_packed_chain = _on(pallas_packed_chain)
+        self.blend_fold = bool(blend_fold)
+        self.obranch_body = obranch_body
+        del tail_defer_act, mask_stack_conv   # no effect (see above)
         self.dtype = dtype
         self.mod_dtype = modulation_dtype or dtype
         self.centered_convs = cc = int(centered_convs)
@@ -517,7 +568,7 @@ class DepthNet(nn.Module):
                     ch, depth_latent_ch, depth_range_num, use_trainable_params,
                     norm_gamma, norm_beta, self.fused_epilogue, in_stats, cc,
                     self.ablate_depth_matrix, self.ablate_depth_block,
-                    device=device)
+                    self.chain_in, device=device)
             else:
                 name = f"classic-residual{i + 1}"
                 tail_blk = i >= nb - 2 and scale < 4
@@ -607,12 +658,17 @@ class DepthNet(nn.Module):
             def by(g):
                 return {grp[0]: grp for grp in (
                     trunk_depth[j:j + g] for j in range(0, len(trunk_depth), g))}
+        o_groups, actv = {}, {}
         if lazy:
             norms = [n for i in trunk_depth
                      for n in (self.block(i).norm1, self.block(i).norm2)]
             o_w = [n.depth_branch_weights() for n in norms]
-            actv = precompute_o_actv(o_w, dmap, mdt, vr.mask_for(dmap))
             slot = {i: k for k, i in enumerate(trunk_depth)}
+            if self.lazy_o_chunk > 0:
+                o_groups = by(self.lazy_o_chunk)
+            else:
+                actv = dict(enumerate(precompute_o_actv(
+                    o_w, dmap, mdt, vr.mask_for(dmap), self.obranch_body)))
             if want_style:
                 s_w = [n.style_branch_weights() for n in norms]
                 shifted = shifted_mask_stack(dmask, mdt)
@@ -622,22 +678,38 @@ class DepthNet(nn.Module):
             hoist_groups = by(self.hoist_chunk if self.hoist_chunk > 0
                               else len(trunk_depth))
         mods = {}
+        blend = self.blend_fold and want_style
 
         for i in range(nb - 3):
+            if i in o_groups:
+                # the group's slice of the shared first conv (its output
+                # channels), made right before its blocks
+                ks = [2 * slot[j] + half for j in o_groups[i] for half in (0, 1)]
+                actv.update(zip(ks, precompute_o_actv(
+                    [o_w[k] for k in ks], dmap, mdt, vr.mask_for(dmap),
+                    self.obranch_body)))
             if i in hoist_groups:
                 mods.update(self._hoist_group(hoist_groups[i], dmap, dmask,
                                               depth_vec, vr, can_fuse,
                                               want_style))
             if i in style_groups:
                 mods.update(self._group_mods(style_groups[i], slot, actv, o_w,
-                                             s_w, v_chunks, shifted, vr.on))
+                                             s_w, v_chunks, shifted, vr.on,
+                                             blend))
             kw = mods.pop(i, {})
             if i in slot and "mod" not in kw:
                 # lazy without the blend kernel: conv2 runs per block
-                kw["ob"] = tuple(
-                    o_branch_from_actv(actv[2 * slot[i] + half],
-                                       o_w[2 * slot[i] + half], mdt)
-                    for half in (0, 1))
+                ks = [2 * slot[i] + half for half in (0, 1)]
+                if blend:
+                    # blend fold: (1−α)-scaled conv2 + the α-scaled style
+                    # half with the blended bias
+                    obs = [o_branch_from_actv(actv.pop(k), o_w[k], mdt, al)
+                           for k, al in zip(ks, self._alphas(i))]
+                    kw["mod"] = tuple((o[0] + sb[0], o[1] + sb[1])
+                                      for o, sb in zip(obs, kw.pop("sb")))
+                else:
+                    kw["ob"] = tuple(o_branch_from_actv(actv.pop(k), o_w[k],
+                                                        mdt) for k in ks)
             fea_in = self._run_block(i, fea_in, depth, vr, **kw)
         feat_add1 = fea_in + fea_bef                         # global skip
 
@@ -645,13 +717,20 @@ class DepthNet(nn.Module):
                 and (nb - 2) not in self.which and (nb - 1) not in self.which):
             packed = self.packed_tail and not vr.on and not self.tail_cc
             if packed and self.packed_up1:
-                z_g4, pre_bias = self._packed_up1(feat_add1)
-                return self._packed_tail(z_g4=z_g4, pre_bias=pre_bias)
+                # the whole packed tail reaches 4 LR rows: h_pre[Y−2..Y+2]
+                # make up1's g4 row Y, and a head row reads 3 fine rows
+                return _slab_rows(self.upscale1["0"](feat_add1, self.dtype),
+                                  4, self._packed_from_h_pre, 8)
             z = self._dense_fold1(feat_add1, vr)
             if packed:
-                return self._packed_tail(z)
+                return _slab_rows(z, 3, self._packed_tail, 4)
             return self._dense_fold2_tail(z, vr)
         return self._tail(feat_add1, depth, vr)
+
+    def _alphas(self, i):
+        """Block ``i``'s two SEANs' (α_γ, α_β)."""
+        blk = self.block(i)
+        return blk.norm1.blend_alphas(), blk.norm2.blend_alphas()
 
     def _run_block(self, i, feat, depth, vr, **kw):
         """Block ``i`` on ``feat``; under ``remat_blocks`` and autograd a
@@ -693,7 +772,8 @@ class DepthNet(nn.Module):
         if self.pallas_obranch and not vr.on:
             obs = pallas_o_branch(o_w, dmap, dt)
         else:
-            obs = hoisted_o_branch(o_w, dmap, dt, vmask=vr.mask_for(dmap))
+            obs = hoisted_o_branch(o_w, dmap, dt, vmask=vr.mask_for(dmap),
+                                   body=self.obranch_body)
         out = {i: {"ob": ob} for i, ob in zip(ids, per_block(obs))}
         if want_style:
             sbs = hoisted_style_branch(s_w, dmask, depth_vec, dt)
@@ -716,25 +796,28 @@ class DepthNet(nn.Module):
                                len(ks), shifted.element_size())
 
     def _group_mods(self, ids, slot, actv, o_w, s_w, v_chunks, shifted,
-                    masked):
+                    masked, blend=False):
         """The lazy trunk: modulations of both SEANs of every block in
         ``ids`` from one launch: unmasked, the finished (γ, β) through
         ``style_blend_dot`` ({"mod": ...}); masked, with
-        ``pallas_style_blend`` off or where :meth:`_blends` says no, the
-        style halves ({"sb": ...}) through ``style_dot_hwbm`` (a plain
-        matmul with ``pallas_style`` off). In ``modulation_dtype``."""
+        ``pallas_style_blend`` off, where :meth:`_blends` says no or where
+        the o-branch prefix of some block of the group is not made yet
+        (``lazy_o_chunk``), the style halves ({"sb": ...}) through
+        ``style_dot_hwbm`` (a plain matmul with ``pallas_style`` off), in
+        the blend-fold form with ``blend``. In ``modulation_dtype``."""
         dt = self.mod_dtype
         ks = [2 * slot[i] + half for i in ids for half in (0, 1)]
+        alphas = [a for i in ids for a in self._alphas(i)]
         if (masked or not self.pallas_style_blend
+                or not all(k in actv for k in ks)
                 or not self._blends(shifted, ks, v_chunks)):
-            outs = style_chunk_dot(shifted, [v_chunks[k] for k in ks],
-                                   [s_w[k] for k in ks], dt, self.pallas_style)
+            outs = style_chunk_dot(
+                shifted, [v_chunks[k] for k in ks], [s_w[k] for k in ks], dt,
+                self.pallas_style, alphas=alphas if blend else None,
+                o_biases=[o_w[k][3] for k in ks] if blend else None)
             return {i: {"sb": (outs[2 * n], outs[2 * n + 1])}
                     for n, i in enumerate(ids)}
-        norms = [n for i in ids
-                 for n in (self.block(i).norm1, self.block(i).norm2)]
-        alphas = [n.blend_alphas() for n in norms]
-        convs = [o_branch_raw_hwnc(actv[k], o_w[k], dt, al)
+        convs = [o_branch_raw_hwnc(actv.pop(k), o_w[k], dt, al)
                  for k, al in zip(ks, alphas)]
         outs = style_blend_chunk(shifted, [v_chunks[k] for k in ks],
                                  [s_w[k] for k in ks], alphas,
@@ -868,9 +951,15 @@ class DepthNet(nn.Module):
         as an input-channel split of its folded conv. Unmasked the four
         are one wide conv on a pad-1 grid with per-phase border gates, and
         the ×4/×8 head (r·fs = 4, 3 colours) ends in ``output_stage_x8``;
-        masked they run apart, each re-zeroed outside the valid region."""
+        masked they run apart, each re-zeroed outside the valid region.
+        Unmasked in a spatial block the wide conv's grid has a row more
+        than the image: the head runs on the slab extended by two rows of
+        each neighbour and keeps this rank's rows."""
         dt, fs = self.dtype, self.final_scale
         rt = 2 * fs
+        if vmask is None and spatial_active() is not None:
+            return _slab_rows(z, 2, lambda zz: self._phase_split_head(
+                zz, w30, b30, None), rt)
         wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
                           self.conv_output.bias.float(), rt)
         phases = [(a, b) for a in (0, 1) for b in (0, 1)]
@@ -909,30 +998,48 @@ class DepthNet(nn.Module):
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
         return self._emit(pre + bh.to(dt), rt)
 
-    def _packed_up1(self, feat_add1):
-        """upscale1 → block nb-2 → upscale2_0 as the packed up1 chain on the
-        (LR+1)² grid. Returns (the packed stage-4 output, its deferred
-        bias): stage 4 runs raw, its bias and leaky_relu are applied by the
-        tail chain's load (pre_bias / pre_act)."""
+    def _packed_from_h_pre(self, h_pre):
+        """The ×8 packed tail from upscale1_0's raw output: the up1 chain,
+        then the tail chain on its packed output (:meth:`_packed_tail`)."""
+        z_g4, pre_bias = self._packed_up1(h_pre)
+        if self.pallas_packed_chain:
+            return self._packed_tail(z_g4=z_g4, pre_bias=pre_bias)
+        # the plain chain reads the interleaved fine grid, BHWC-contiguous
+        # (an HWBC layout would make cuDNN write the tail's g4 with strided
+        # channels, which head_dot refuses)
+        return self._packed_tail(unfold_g4_phases(
+            z_g4.permute(1, 2, 0, 3)).permute(2, 0, 1, 3).contiguous())
+
+    def _packed_up1(self, h_pre):
+        """upscale1_3 → block nb-2 → upscale2_0 as the packed up1 chain on the
+        (LR+1)² grid, from upscale1_0's raw output ``h_pre``. Returns (the
+        packed stage-4 output, its deferred bias or None): with the chain
+        kernel stage 4 runs raw, its bias and leaky_relu applied by the
+        tail chain's load (pre_bias / pre_act); ``pallas_packed_chain``
+        off: the stages as plain convs and gates, stage 4 activated
+        here."""
         dt, nb = self.dtype, self.nb
         psk = packed_stage_kernel
-        h_pre = self.upscale1["0"](feat_add1, dt)
         w13, b13 = wn_effective_kernel(self.upscale1["3"])
         (w50, b50), (w52, b52) = self.block(nb - 2).effective_weights()
         w20, b20 = wn_effective_kernel(self.upscale2["0"])
-        g3 = packed_g123(
+        chain = packed_g123 if self.pallas_packed_chain else packed_g123_plain
+        g3 = chain(
             h_pre.permute(1, 2, 0, 3),
             psk(w13, 0, 1, in_interleaved=True), b13.repeat(4),
             psk(w50, 1, 0), b50.repeat(4), psk(w52, 0, 1), b52.repeat(4),
             pre_act=True).permute(2, 0, 1, 3)
         g4 = conv2d_nhwc(g3, psk(w20, 1, 0), ((0, 1), (0, 1)), dt)
-        return g4, b20
+        if self.pallas_packed_chain:
+            return g4, b20
+        return leaky_relu(g4 + b20.repeat(4).to(dt)), None
 
     def _packed_tail(self, z=None, z_g4=None, pre_bias=None):
         """upscale2_3, block nb-1 and upscale3_0 on the phase-packed grid,
         from the mid-tail tensor ``z`` [B, 2N, 2N, 128] or, in its place,
-        the packed up1 output ``z_g4`` [B, N+1, N+1, 512] (raw, with its
-        deferred ``pre_bias``; the chain interleaves it while it loads);
+        the packed up1 output ``z_g4`` [B, N+1, N+1, 512] (raw with its
+        deferred ``pre_bias``, or activated when there is none; the chain
+        interleaves it while it loads);
         then the folded 9×9 head and the output stage: ``fused_tail``
         (``pallas_tail``), ``head_dot`` + ``output_stage_x8``
         (``pallas_head``), or a plain conv and :meth:`_emit`."""
@@ -944,11 +1051,12 @@ class DepthNet(nn.Module):
         (wc0, bc0), (wc2, bc2) = self.block(self.nb - 1).effective_weights()
         src = z if z_g4 is None else z_g4
         nw = src.shape[2] if z_g4 is None else 2 * (src.shape[2] - 1)
-        g3 = packed_g123(
+        chain = packed_g123 if self.pallas_packed_chain else packed_g123_plain
+        g3 = chain(
             src.to(dt).permute(1, 2, 0, 3),
             psk(w23, 0, 1, in_interleaved=True), b23.repeat(4),
             psk(wc0, 1, 0), bc0.repeat(4), psk(wc2, 0, 1), bc2.repeat(4),
-            pre_act=z_g4 is not None,
+            pre_act=pre_bias is not None,
             pre_bias=None if pre_bias is None else pre_bias.to(dt),
             phases=z_g4 is not None).permute(2, 0, 1, 3)
         w30, b30 = wn_effective_kernel(self.upscale3["0"])

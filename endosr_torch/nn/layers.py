@@ -14,9 +14,8 @@ no copy).
 
 Inside a ``parallel/spatial.py::spatial`` block (H-sharded serving) the
 convolutions take their halo rows from the neighbouring ranks, the valid
-masks are built in global rows and the masked InstanceNorms sum their
-statistics over the ranks; the norms over the whole image that no masked
-forward runs refuse to run there.
+masks are built in global rows, and the InstanceNorms (masked or not) and
+``centered_conv``'s mean add their statistics over the ranks.
 """
 
 from __future__ import annotations
@@ -38,7 +37,7 @@ __all__ = [
     "init_leaves_", "torch_conv_init_", "wn_effective_kernel", "conv2d_nhwc", "hwio",
     "instance_norm", "chained_instance_norm", "masked_instance_norm",
     "masked_chained_instance_norm", "valid_mask", "pixel_shuffle",
-    "leaky_relu", "clip", "centered_conv",
+    "leaky_relu", "clip", "centered_conv", "pad_rows", "image_sums",
     "fold_kernel_through_pixel_shuffle", "packed_stage_kernel",
     "packed_gate", "compose_pixel_shuffle_perm",
 ]
@@ -72,6 +71,16 @@ def _pads(pad):
     return tuple(pad[0]), tuple(pad[1])
 
 
+def pad_rows(x, top: int, bottom: int):
+    """NHWC ``x`` with ``top`` and ``bottom`` zero rows around it; in a
+    spatial block this rank's slab with its neighbours' rows there (zeros
+    beyond the image's first and last rows)."""
+    sp = spatial_active()
+    if sp is not None:
+        return sp.halo(x, top, bottom)
+    return F.pad(x, (0, 0, 0, 0, top, bottom))
+
+
 def conv2d_nhwc(x, w_hwio, pad=1, dtype=None, stride=1, groups=1):
     """Conv of NHWC ``x`` with an HWIO kernel in ``dtype`` (default
     ``x.dtype``); ``pad`` is an int or ((top, bottom), (left, right));
@@ -80,6 +89,10 @@ def conv2d_nhwc(x, w_hwio, pad=1, dtype=None, stride=1, groups=1):
     rank's row slab, and so is the output."""
     dtype = dtype or x.dtype
     (pt, pb), (pl, pr) = _pads(pad)
+    if x.shape[-1] == 1 and x.stride(-1) != 1:
+        # a channel of stride 0 (a numpy newaxis) makes the NCHW view look
+        # NCHW-contiguous to the conv, which then writes its output so
+        x = x.clone(memory_format=torch.contiguous_format)
     sp = spatial_active()
     if sp is not None:
         x = sp.conv_rows(x, w_hwio.shape[0], stride, pt, pb)
@@ -157,11 +170,13 @@ def _border_index(n: int, p: int) -> np.ndarray:
     return idx
 
 
-def _constant_image_conv(m, w32, h: int, wd: int):
+def _constant_image_conv(m, w32, h: int, wd: int, first: int = 0,
+                         n_rows: int | None = None):
     """The exact fp32 SAME conv of the constant image m·1 [B, h, wd, Cin]
     by HWIO ``w32``: an output row sees a contiguous tap range, so there
     are (2p+1)² border cases, taken from two cumulative sums of the
-    kernel. Returns [B, h, wd, Cout]."""
+    kernel. Returns [B, h, wd, Cout]; with ``n_rows``, its rows
+    [first, first + n_rows) (a row slab of the image)."""
     k = w32.shape[0]
     p = k // 2
     zero = w32.new_zeros((1,) + tuple(w32.shape[1:]))
@@ -179,6 +194,8 @@ def _constant_image_conv(m, w32, h: int, wd: int):
     # ``torch.set_float32_matmul_precision`` may turn into TF32
     v = torch.einsum("bi,rcio->brco", m.double(), s.double()).float()
     ridx = device_constant(_border_index, (h, p), torch.int64, m.device)
+    if n_rows is not None:
+        ridx = ridx[first:first + n_rows]
     cidx = device_constant(_border_index, (wd, p), torch.int64, m.device)
     return v[:, ridx][:, :, cidx]
 
@@ -195,16 +212,25 @@ def centered_conv(x, w, b, dtype, passes: int = 1):
     image is smaller than the kernel. On CUDA the passes set cuDNN's
     process-wide TF32 flag for their length (:func:`_tf32_convs`), so an
     fp32 conv that another thread runs meanwhile may take TF32: the call
-    is not thread-safe in that respect."""
-    _whole_image_only("centered_conv")
+    is not thread-safe in that respect. In a spatial block ``x`` is a row
+    slab: m is the whole image's and the border cases are the image's."""
     k = w.shape[0]
     p = k // 2
-    h, wd = x.shape[1], x.shape[2]
+    sp = spatial_active()
+    rows, wd = x.shape[1], x.shape[2]
+    first, h = 0, rows
+    if sp is not None:
+        offsets, _, h = sp.slabs(rows, wd)
+        first = offsets[sp.rank]
     if dtype == torch.float32 or h < k or wd < k:
         y = conv2d_nhwc(x.float(), w.float(), p, torch.float32)
         return y if b is None else y + b.float()
     x32 = x.float()
-    m = x32.mean(dim=(1, 2))                             # [B, Cin]
+    if sp is None:
+        m = x32.mean(dim=(1, 2))                         # [B, Cin]
+    else:
+        s, _, n = image_sums(x32)
+        m = (s / n)[:, 0, 0, :]
     d32 = x32 - m[:, None, None, :]
     d_hi, w_hi = d32.to(dtype), w.to(dtype)
     y = _exact_product_conv(d_hi, w_hi, p)
@@ -214,7 +240,10 @@ def centered_conv(x, w, b, dtype, passes: int = 1):
     if passes >= 3:
         w_lo = (w.float() - w_hi.float()).to(dtype)
         y = y + _exact_product_conv(d_hi, w_lo, p)
-    y = y + _constant_image_conv(m, w.float(), h, wd)
+    if sp is None:
+        y = y + _constant_image_conv(m, w.float(), h, wd)
+    else:
+        y = y + _constant_image_conv(m, w.float(), h, wd, first, rows)
     return y if b is None else y + b.float()
 
 
@@ -390,23 +419,38 @@ class WNConvTranspose(nn.Module):
                                     self.padding, dtype)
 
 
-def instance_norm(x, eps: float = 1e-5, stats: str = "default"):
-    """Parameter-free InstanceNorm (NHWC), one-pass fp32 sum/sum-of-squares,
-    variance clamped at 0; output in x's dtype. ``stats="kernel"`` takes
-    the two sums from :func:`endosr_torch.kernels.in_stats.in_stats` (the
-    JAX package's ``ENDOSR_IN_STATS=pallas``)."""
-    _whole_image_only("instance_norm")
-    x32 = x.float()
-    n = x.shape[1] * x.shape[2]
+def image_sums(x, stats: str = "default"):
+    """(Σx, Σx², n) of NHWC ``x`` over H, W: [B,1,1,C] fp32 sums and the
+    pixel count. ``stats="kernel"`` takes
+    the sums from :func:`endosr_torch.kernels.in_stats.in_stats`. In a
+    spatial block the sums and the count are the whole image's (one fp32
+    all-reduce), and n is a tensor."""
     if stats == "kernel":
         from endosr_torch.kernels.in_stats import in_stats
 
         s, sq = (t[:, None, None, :] for t in in_stats(x))
     elif stats == "default":
+        x32 = x.float()
         s = x32.sum(dim=(1, 2), keepdim=True)
         sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
     else:
         raise ValueError(f"stats must be 'default' or 'kernel', got {stats!r}")
+    n = x.shape[1] * x.shape[2]
+    sp = spatial_active()
+    if sp is not None:
+        n = torch.full((), float(n), device=x.device)
+        s, sq, n = sp.sum(s, sq, n)
+    return s, sq, n
+
+
+def instance_norm(x, eps: float = 1e-5, stats: str = "default"):
+    """Parameter-free InstanceNorm (NHWC), one-pass fp32 sum/sum-of-squares,
+    variance clamped at 0; output in x's dtype. ``stats="kernel"`` takes
+    the two sums from :func:`endosr_torch.kernels.in_stats.in_stats` (the
+    JAX package's ``ENDOSR_IN_STATS=pallas``). In a spatial block the
+    statistics are the whole image's (:func:`image_sums`)."""
+    x32 = x.float()
+    s, sq, n = image_sums(x, stats)
     mean = s / n
     var = torch.clamp(sq / n - mean * mean, min=0.0)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
@@ -414,25 +458,14 @@ def instance_norm(x, eps: float = 1e-5, stats: str = "default"):
 
 def chained_instance_norm(x, eps: float = 1e-5):
     """``instance_norm(instance_norm(x))`` from one statistics pass: the
-    second norm's statistics are mean 0 and var/(var+eps)."""
-    _whole_image_only("chained_instance_norm")
+    second norm's statistics are mean 0 and var/(var+eps). In a spatial
+    block the statistics are the whole image's."""
     x32 = x.float()
-    n = x.shape[1] * x.shape[2]
-    s = x32.sum(dim=(1, 2), keepdim=True)
-    sq = (x32 * x32).sum(dim=(1, 2), keepdim=True)
+    s, sq, n = image_sums(x)
     mean = s / n
     var = torch.clamp(sq / n - mean * mean, min=0.0)
     scale = torch.rsqrt(var + eps) * torch.rsqrt(var / (var + eps) + eps)
     return ((x32 - mean) * scale).to(x.dtype)
-
-
-def _whole_image_only(name):
-    """Refuse a whole-image statistic inside a spatial block (no masked
-    forward runs it; a slab's statistic would be wrong)."""
-    if spatial_active() is not None:
-        raise NotImplementedError(
-            f"{name} over a row slab: spatial sharding runs the masked "
-            "(bucketed) forward only")
 
 
 def _masked_sums(x, vmask):
@@ -475,7 +508,7 @@ def valid_mask(shape_hw, hv: int, wv: int, dtype=torch.float32, device=None):
     row."""
     h, w = shape_hw
     sp = spatial_active()
-    first = 0 if sp is None else sp.offset(h)
+    first = 0 if sp is None else sp.offset(h, w)
     r = torch.arange(first, first + h, device=device)[:, None] < hv
     c = torch.arange(w, device=device)[None, :] < wv
     return (r & c).to(dtype)[None, :, :, None]

@@ -26,6 +26,20 @@ style matrix seen as an L×L image of K channels), ``mlp_before_all`` over
 it and the depth map's activation, and ``mlp_gamma_all`` /
 ``mlp_beta_all``.
 
+The JAX module's lowering switches are the port's too: ``body="dot"``
+(``DepthNet.obranch_body``) runs the o-branch's first conv as one matmul
+of the nine taps stacked on the contraction axis, and ``alphas`` in :func:`o_branch_from_actv` / :func:`style_chunk_dot` is the
+reassociated α blend (``blend_fold``).
+
+Inside a ``parallel/spatial.py::spatial`` block the branches run on this
+rank's row slab: the convs and the pads take their neighbours' rows, the
+``fused_o_branch`` and ``fused_modulation`` kernels run on a slab extended
+by two rows of each neighbour and are cropped, the fused epilogue takes
+the whole image's statistics (``in_stats`` of the slab, added over the
+ranks, into the stats-in ``fused_in_mod_stats``), and the depth-block
+ablation's style image, which every rank holds whole, is transposed-conved
+and resized whole and cut to this rank's rows.
+
 Weights travel as plain tuples of HWIO fp32 tensors:
 ``depth_branch_weights()`` → (w_mask, b_mask, w_ob, b_ob) with w_ob the
 γ‖β-concatenated [3,3,2C,2C] kernel; ``style_branch_weights()`` →
@@ -37,14 +51,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from endosr_torch.kernels.fused_in_mod import fused_in_mod
+from endosr_torch.kernels.fused_in_mod import fused_in_mod, fused_in_mod_stats
 from endosr_torch.kernels.fused_mod import fused_modulation
 from endosr_torch.kernels.fused_obranch import fused_o_branch
 from endosr_torch.kernels.style_dot import style_blend_dot, style_dot_hwbm
 from endosr_torch.nn.layers import (Conv, ConvTranspose, conv2d_nhwc, hwio,
-                                    instance_norm, masked_instance_norm)
+                                    image_sums, instance_norm,
+                                    masked_instance_norm, pad_rows)
 from endosr_torch.ops.resize import interpolate_nearest
+from endosr_torch.parallel.spatial import active as spatial_active
+from endosr_torch.parallel.spatial import suspended
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["SEAN", "precompute_o_actv", "alpha_vec", "o_branch_raw_hwnc",
@@ -58,29 +76,50 @@ def _split_channels(x, n, c):
     return tuple(x[..., i * c:(i + 1) * c] for i in range(n))
 
 
-def _mask_conv_relu(d, w_mask, b_mask, dtype):
-    """relu(conv3×3(d [B,h,w,1]) + bias) — the "conv" body."""
-    return torch.relu(conv2d_nhwc(d, w_mask, 1, dtype) + b_mask.to(dtype))
+def _pad_hw(x, p: int):
+    """NHWC ``x`` zero-padded by ``p`` rows (a spatial block's halo rows)
+    and ``p`` columns on each side."""
+    return F.pad(pad_rows(x, p, p), (0, 0, p, p))
 
 
-def _o_actv(weights, depth_map, dtype, vmask):
+def _mask_conv_relu(d, w_mask, b_mask, dtype, body="conv"):
+    """relu(conv3×3(d [B,h,w,1]) + bias). ``body="conv"``: a conv;
+    ``"dot"``: the nine taps of the one-channel input stacked on the
+    contraction axis of one [·, 9] × [9, M] product (the JAX module's
+    ``obranch_body: dot``)."""
+    if body == "conv":
+        return torch.relu(conv2d_nhwc(d, w_mask, 1, dtype) + b_mask.to(dtype))
+    if body != "dot":
+        raise ValueError(f"obranch_body must be 'conv' or 'dot', got {body!r}")
+    h, w = d.shape[1], d.shape[2]
+    dp = _pad_hw(d, 1)[..., 0]                          # [B, h+2, w+2]
+    patches = torch.stack([dp[:, dy:dy + h, dx:dx + w]
+                           for dy in range(3) for dx in range(3)],
+                          dim=-1).to(dtype)                  # [B, h, w, 9]
+    wt = w_mask.to(dtype).reshape(9, -1)
+    y = torch.einsum("bhwk,km->bhwm", patches, wt) + b_mask.to(dtype)
+    return torch.relu(y)
+
+
+def _o_actv(weights, depth_map, dtype, vmask, body="conv"):
     """relu(conv1(d)) of N instances as one 1→N·2C conv: [B,h,w,N·2C],
     instance-major, re-zeroed outside the valid region under ``vmask``."""
     w_mask = torch.cat([w[0].to(dtype) for w in weights], dim=-1)
     b_mask = torch.cat([w[1].to(dtype) for w in weights])
-    actv = _mask_conv_relu(depth_map.to(dtype), w_mask, b_mask, dtype)
+    actv = _mask_conv_relu(depth_map.to(dtype), w_mask, b_mask, dtype, body)
     return actv if vmask is None else actv * vmask.to(actv.dtype)
 
 
-def precompute_o_actv(weights, depth_map, dtype, vmask=None):
-    """Shared first o-branch stage of N instances: one 1→N·2C conv + ReLU,
-    returned as per-instance [B,h,w,2C] chunks. ``vmask`` re-zeroes the
-    activation outside the valid region (the branch is a conv chain, and
-    relu(bias) in the padding would leak one pixel into the image)."""
+def precompute_o_actv(weights, depth_map, dtype, vmask=None, body="conv"):
+    """Shared first o-branch stage of N instances: one 1→N·2C conv + ReLU
+    (``body``: see :func:`_mask_conv_relu`), returned as per-instance
+    [B,h,w,2C] chunks. ``vmask`` re-zeroes the activation outside the
+    valid region (the branch is a conv chain, and relu(bias) in the
+    padding would leak one pixel into the image)."""
     if not weights:
         return ()
     c2 = weights[0][2].shape[-1]
-    return _split_channels(_o_actv(weights, depth_map, dtype, vmask),
+    return _split_channels(_o_actv(weights, depth_map, dtype, vmask, body),
                            len(weights), c2)
 
 
@@ -90,15 +129,16 @@ def _pairs(x, n, c):
     return [(halves[2 * i], halves[2 * i + 1]) for i in range(n)]
 
 
-def hoisted_o_branch(weights, depth_map, dtype, vmask=None):
+def hoisted_o_branch(weights, depth_map, dtype, vmask=None, body="conv"):
     """Every instance's depth-map branch in two convs: the 1→N·2C conv +
-    ReLU, then one N-group 2C→2C conv + bias. Returns [(γ_o, β_o), ...] as
-    views of the one [B,h,w,N·2C] map."""
+    ReLU (``body``: see :func:`_mask_conv_relu`), then one N-group 2C→2C
+    conv + bias. Returns [(γ_o, β_o), ...] as views of the one
+    [B,h,w,N·2C] map."""
     n = len(weights)
     if n == 0:
         return []
     c2 = weights[0][2].shape[-1]
-    actv = _o_actv(weights, depth_map, dtype, vmask)
+    actv = _o_actv(weights, depth_map, dtype, vmask, body)
     w_ob = torch.cat([w[2].to(dtype) for w in weights], dim=-1)
     b_ob = torch.cat([w[3].to(dtype) for w in weights])
     ob = conv2d_nhwc(actv, w_ob, 1, dtype, groups=n) + b_ob
@@ -116,7 +156,14 @@ def pallas_o_branch(weights, depth_map, dtype):
     bm = torch.stack([w[1].to(dtype) for w in weights])
     w2 = torch.stack([w[2].reshape(9, c2, c2).to(dtype) for w in weights])
     b2 = torch.stack([w[3].to(dtype) for w in weights])
-    ob = fused_o_branch(depth_map, wm, bm, w2, b2, dtype)
+    sp = spatial_active()
+    if sp is None:
+        ob = fused_o_branch(depth_map, wm, bm, w2, b2, dtype)
+    else:
+        # conv1 and conv2 reach two rows: the kernel runs on the slab with
+        # two rows of each neighbour
+        ob = sp.rows_local((depth_map,), 2, lambda d: fused_o_branch(
+            d, wm, bm, w2, b2, dtype))
     return _pairs(ob, n, c2 // 2)
 
 
@@ -127,10 +174,16 @@ def alpha_vec(alphas, c, dtype):
                       ab.reshape(()).to(dtype).expand(c)])
 
 
-def o_branch_from_actv(actv_i, weight, dtype):
-    """Per-instance second o-branch conv: [B,h,w,2C] → (γ_o, β_o)."""
+def o_branch_from_actv(actv_i, weight, dtype, alphas=None):
+    """Per-instance second o-branch conv: [B,h,w,2C] → (γ_o, β_o).
+    ``alphas``: the blend-fold form, the conv's output columns scaled by
+    (1−α) in the weights and no bias (the blended bias goes with the style
+    half, :func:`style_chunk_dot`)."""
     w_ob, b_ob = weight[2], weight[3]
     c = w_ob.shape[-1] // 2
+    if alphas is not None:
+        w_ob = w_ob * (1.0 - alpha_vec(alphas, c, w_ob.dtype))
+        b_ob = torch.zeros_like(b_ob)
     ob = conv2d_nhwc(actv_i, w_ob, 1, dtype) + b_ob.to(dtype)
     return ob[..., :c], ob[..., c:]
 
@@ -140,7 +193,8 @@ def o_branch_raw_hwnc(actv_i, weight, dtype, alphas):
     w_ob = weight[2]
     c = w_ob.shape[-1] // 2
     w_ob = w_ob * (1.0 - alpha_vec(alphas, c, w_ob.dtype))
-    return conv2d_nhwc(actv_i, w_ob, 1, dtype).permute(1, 2, 0, 3)
+    # style_blend_dot takes convs with contiguous channels
+    return conv2d_nhwc(actv_i, w_ob, 1, dtype).contiguous().permute(1, 2, 0, 3)
 
 
 def style_blend_chunk(shifted, v_list, weights, alphas, o_biases, convs_raw,
@@ -161,21 +215,33 @@ def style_blend_chunk(shifted, v_list, weights, alphas, o_biases, convs_raw,
     return [(halves[2 * i], halves[2 * i + 1]) for i in range(len(weights))]
 
 
-def style_chunk_dot(shifted, v_list, weights, dtype, use_kernel=True):
+def style_chunk_dot(shifted, v_list, weights, dtype, use_kernel=True,
+                    alphas=None, o_biases=None):
     """One style dot for a group of SEAN instances: per-instance [B,9K,2C]
     kernels ``v_list`` against the shifted mask stack, plus each
     instance's style biases; through ``style_dot_hwbm`` or, with
     ``use_kernel`` off, a plain matmul. Returns [(γ_s, β_s), ...] as
-    [B,H,W,C] views."""
+    [B,H,W,C] views. ``alphas`` / ``o_biases``: the blend-fold form, each
+    v scaled by α and each bias the blended α·b_s + (1−α)·b_o, so that
+    adding :func:`o_branch_from_actv` with ``alphas`` gives the blended
+    (γ, β)."""
     c = weights[0][2].shape[-1]
+    if alphas is not None:
+        avs = [alpha_vec(a, c, v.dtype) for a, v in zip(alphas, v_list)]
+        v_list = [v * av[None, None, :] for v, av in zip(v_list, avs)]
     v = torch.cat(list(v_list), dim=-1)                       # [B, 9K, G·2C]
     if use_kernel:
         y = style_dot_hwbm(shifted, v).permute(2, 0, 1, 3)
     else:
         y = torch.einsum("bhwj,bjm->bhwm", shifted, v)
     halves = _split_channels(y, 2 * len(weights), c)
-    return [(halves[2 * i] + w[3].to(dtype), halves[2 * i + 1] + w[5].to(dtype))
-            for i, w in enumerate(weights)]
+    out = []
+    for i, w in enumerate(weights):
+        b_s = torch.cat([w[3].to(dtype), w[5].to(dtype)])
+        if alphas is not None:
+            b_s = avs[i] * b_s + (1.0 - avs[i]) * o_biases[i].to(dtype)
+        out.append((halves[2 * i] + b_s[:c], halves[2 * i + 1] + b_s[c:]))
+    return out
 
 
 def precompute_style_v(weights, st, dtype):
@@ -240,17 +306,27 @@ def hoisted_blended_mods(o_weights, s_weights, alphas, depth_map, depth_mask,
                        for w in s_weights])
     b_o = torch.stack([w[3].to(dtype) for w in o_weights])
     bias = av * b_s + (1.0 - av) * b_o
-    out = fused_modulation(depth_map.to(dtype), depth_mask.to(dtype), wm, bm,
-                           w2, v, bias, dtype)
+
+    def run(d, m):
+        return fused_modulation(d.to(dtype), m.to(dtype), wm, bm, w2, v, bias,
+                                dtype)
+
+    sp = spatial_active()
+    if sp is None:
+        out = run(depth_map, depth_mask)
+    else:
+        # the o-branch's two convs reach two rows, the mask stack one
+        out = sp.rows_local((depth_map, depth_mask), 2, run)
     return _pairs(out, n, c)
 
 
 def shifted_mask_stack(depth_mask, dtype):
     """9 shifted copies of the K-channel mask stack → [B,H,W,9K]
     (τ-major, then k), built as one 0/1 conv."""
+    m = depth_mask.to(dtype)
     eye = device_constant(_shift_eye, (depth_mask.shape[-1],), dtype,
                           depth_mask.device)
-    return conv2d_nhwc(depth_mask.to(dtype), eye, 1, dtype)
+    return conv2d_nhwc(m, eye, 1, dtype)
 
 
 def _shift_eye(k: int) -> np.ndarray:
@@ -345,7 +421,11 @@ class SEAN(nn.Module):
             y = x * (1 + gamma) + beta
             return y if vmask is None else y * vmask.to(y.dtype)
         if fused_epilogue and vmask is None:
-            return fused_in_mod(x, gamma, beta)
+            if spatial_active() is None:
+                return fused_in_mod(x, gamma, beta)
+            s, sq, n = image_sums(x, "kernel")
+            return fused_in_mod_stats(x, gamma, beta, s[:, 0, 0], sq[:, 0, 0],
+                                      n)
         if vmask is not None:
             y = masked_instance_norm(x, vmask) * (1 + gamma) + beta
             return y * vmask.to(y.dtype)
@@ -390,6 +470,17 @@ class SEAN(nn.Module):
         actv = torch.relu(self.mlp_mask["0"](d, dtype))
         lat = st.shape[2]
         dup = st[..., None].expand(*st.shape, lat).permute(0, 2, 3, 1)
-        down = interpolate_nearest(self.mlp_depthMatrix(dup, dtype), size)
+        sp = spatial_active()
+        if sp is None:
+            down = interpolate_nearest(self.mlp_depthMatrix(dup, dtype), size)
+        else:
+            # the style image is whole on every rank: resized to the whole
+            # image's rows, then this rank's
+            offsets, _, total = sp.slabs(*size)
+            first, rows = offsets[sp.rank], size[0]
+            with suspended():
+                down = interpolate_nearest(self.mlp_depthMatrix(dup, dtype),
+                                           (total, size[1]))
+            down = down[:, first:first + rows]
         cat = self.mlp_before_all(torch.cat([down, actv], dim=-1), dtype)
         return self.mlp_gamma_all(cat, dtype), self.mlp_beta_all(cat, dtype)

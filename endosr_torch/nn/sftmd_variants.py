@@ -29,6 +29,7 @@ from endosr_torch.nn.depthnet import ClassicResidualBlock
 from endosr_torch.nn.layers import (Conv, WNConv, clip, init_leaves_,
                                     instance_norm, leaky_relu, pixel_shuffle)
 from endosr_torch.ops.resize import interpolate_nearest
+from endosr_torch.parallel.spatial import refuse as spatial_refuse
 
 __all__ = ["PositionAttention", "PositionAttentionEfficient", "SPADE",
            "DepthResidualBlockSPADE", "SFTMDUpscaleAfterResBlk",
@@ -62,6 +63,7 @@ class PositionAttention(_AttentionConvs):
     pixels of the [H·W, H·W] similarity."""
 
     def forward(self, features, depth):
+        spatial_refuse("PositionAttention")
         bsz, h, w, c = features.shape
         b_feat, c_feat, d_feat = self.feats(features, depth)
         attn = torch.softmax(torch.einsum("bnc,bmc->bnm", b_feat, c_feat), -1)
@@ -73,6 +75,7 @@ class PositionAttentionEfficient(_AttentionConvs):
     """The linear-complexity reordering: a [C, C/8] channel attention."""
 
     def forward(self, features, depth):
+        spatial_refuse("PositionAttentionEfficient")
         bsz, h, w, _ = features.shape
         b_feat, c_feat, d_feat = self.feats(features, depth)
         attn = torch.softmax(torch.einsum("bnc,bnk->bck", d_feat, b_feat), -1)

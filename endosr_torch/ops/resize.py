@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from endosr_torch.parallel.spatial import refuse as spatial_refuse
 from endosr_torch.utils.device import device_constant
 
 __all__ = ["imresize_np", "resize_matrix", "interpolate_nearest",
@@ -112,11 +113,25 @@ def _nearest_index(out_len: int, in_len: int) -> np.ndarray:
         in_len - 1)
 
 
+def _row_local(in_h: int, out_h: int) -> bool:
+    """Whether a nearest resize of in_h rows to out_h maps each output row
+    from a row of the same slab, at the same place in every slab: the same
+    count, or a whole power-of-two factor up or down (exact in floats)."""
+    big, small = max(in_h, out_h), min(in_h, out_h)
+    f = big // small
+    return big % small == 0 and f & (f - 1) == 0
+
+
 def interpolate_nearest(x, size):
-    """torch ``F.interpolate(mode='nearest')`` for NHWC tensors."""
+    """torch ``F.interpolate(mode='nearest')`` for NHWC tensors. In a
+    spatial block ``x`` is a row slab and the row count may change only
+    by a power-of-two factor (each slab resizes alone); another factor
+    raises."""
     in_h, in_w = x.shape[1], x.shape[2]
     if (in_h, in_w) == tuple(size):
         return x
+    if not _row_local(in_h, size[0]):
+        spatial_refuse(f"interpolate_nearest from {in_h} to {size[0]} rows")
     hi = device_constant(_nearest_index, (size[0], in_h), torch.int64, x.device)
     wi = device_constant(_nearest_index, (size[1], in_w), torch.int64, x.device)
     return x.index_select(1, hi).index_select(2, wi)
@@ -146,10 +161,12 @@ def _bilinear_matrix(in_len: int, out_len: int, align_corners: bool) -> np.ndarr
 
 def interpolate_bilinear(x, size, align_corners: bool = False):
     """torch ``F.interpolate(mode='bilinear')`` for NHWC tensors, as two
-    fp32 matrix products (the same formulation as the JAX twin)."""
+    fp32 matrix products (the same formulation as the JAX twin). It
+    raises in a spatial block: a row reads rows across the whole image."""
     in_h, in_w = x.shape[1], x.shape[2]
     if (in_h, in_w) == tuple(size):
         return x
+    spatial_refuse("interpolate_bilinear")
     m_h = device_constant(_bilinear_matrix, (in_h, size[0], align_corners),
                           torch.float32, x.device)
     m_w = device_constant(_bilinear_matrix, (in_w, size[1], align_corners),

@@ -3,10 +3,9 @@
 
 JAX shards H over its mesh and XLA's SPMD partitioner inserts the halo
 exchanges, the sums behind InstanceNorm's statistics and the collectives
-behind the region-wise pooling. The port has no partitioner, so it runs
-the masked, bucketed forward (the one ``FModelDepthCond.test`` takes) on
-one horizontal slab of rows a rank and makes those exchanges itself,
-inside a :func:`spatial` block:
+behind the region-wise pooling. The port has no partitioner: a forward runs
+on one horizontal slab of rows a rank inside a :func:`spatial` block, and
+the port's ops make those exchanges themselves:
 
 - every convolution of ``nn/layers.py`` (``conv2d_nhwc``: 3×3 stride 1,
   the stride-2 encoder convs, the 2×2 phase convs and the folded heads;
@@ -14,21 +13,50 @@ inside a :func:`spatial` block:
   its slab needs from its neighbours (:meth:`SpatialContext.halo`), zeros
   beyond the image, and convolves them without vertical padding, so each
   rank computes exactly its own output rows;
-- the valid-region masks (``nn/layers.py::valid_mask``) are built in global
-  row coordinates;
-- the masked InstanceNorms add their sums and valid counts over the ranks,
-  and the region-wise pooling its feature and mask sums, so the statistics
-  and the [B,K,L] style matrix are the whole image's;
+- the InstanceNorms (``instance_norm``, ``chained_instance_norm``, the
+  ``in_stats`` route, the masked norms) and ``centered_conv``'s mean add
+  their Σ, Σ² and pixel counts over the ranks in one fp32 all-reduce;
+  ``centered_conv``'s border table applies the image's first and last
+  rows on the first and last rank only; the fused epilogue takes the
+  stats-in form of ``fused_in_mod``;
+- the region-wise pooling sums its feature and mask sums over the ranks;
+  a mask of another size is gathered whole (:meth:`SpatialContext.gather_rows`),
+  resized and cut to this rank's rows;
+- the ×4 phase-split head, the ×8 packed chains and their kernels
+  (``packed_g123``, ``head_dot``, ``fused_tail``) and the hoisted-branch
+  kernels (``fused_o_branch``, ``fused_modulation``) mix rows inside one
+  launch: each runs unchanged on this rank's slab extended by a few rows
+  of its neighbours (:meth:`SpatialContext.rows_local`), outside the
+  block's rules, and its output is cropped to this rank's rows. The
+  extension ends at the image's first and last row, so the kernels' own
+  zero padding and border gates apply there; inside the image they touch
+  only rows that the crop drops. The ×8 packed grid has LR + 1 rows: the
+  last rank owns the extra (dead) row;
 - the SR slabs are gathered, so every rank ends with the whole image.
 
-Every level of the network keeps ``H / N`` rows a rank when the padded
-height is a multiple of 4·N (``FModelDepthCond.test`` raises its bucket
-to lcm(bucket, 4·N), as JAX does). The encoder's transposed ``layer4``
-gives 2n − 1 rows; a slab computes 2·(its rows), and the extra last row
-of the last slab is outside the valid region, which zeroes it before
-``layer5`` reads it, as ``layer5``'s zero padding reads there unsharded.
-The kernels of the masked path (``style_dot_hwbm``, ``output_stage``)
-work row by row and run unchanged on a slab.
+The forwards cut the frame into whole 4-row units a rank, as even as they
+go, the last slab also taking H mod 4 (:func:`row_layout`: 540 rows on 2
+ranks are 272 + 268, 18 are 8 + 10). Every slab but the last then holds
+an even number of rows at the encoder's half height and whole rows at its
+quarter height, and a stride-2 conv gives each rank ⌈its rows / 2⌉; the
+encoder's transposed ``layer4`` gives each rank twice its rows, the last
+one row fewer (the image's 2n − 1). Each op finds its level's slabs from
+its tensor's width (:class:`SpatialContext`). H a multiple of 4·N gives
+``H / N`` rows a rank at every level. The kernels that work row by row
+(``style_blend_dot``, ``style_dot_hwbm``, ``output_stage_x8``,
+``output_stage``) run unchanged on a slab.
+
+:func:`spatial_forward` runs DepthNet's unmasked forward, as JAX's does;
+``FModelDepthCond.test`` with ``spatial_shard`` runs the masked, bucketed
+forward (:func:`sharded_masked_forward`). :func:`spatial_jit` shards any
+``fn(params, *arrays)`` built from the ops above: ``conv2d_nhwc``, the
+norms, :func:`whole_mean` for a mean over the whole image, and any op
+that works pixel by pixel or row by row (activations, channel matmuls,
+``pixel_shuffle``, a nearest resize by a whole factor). An op that mixes
+rows with no rule here raises ``NotImplementedError`` by name in a block:
+``interpolate_bilinear`` and a nearest resize by another factor,
+``PositionAttention`` and ``PositionAttentionEfficient`` (softmaxes over
+H·W).
 
 The exchanges are ``all_gather_into_tensor`` (halo rows, SR slabs) and
 ``all_reduce`` (sums), which NCCL and gloo carry for CUDA tensors alike
@@ -41,14 +69,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from endosr_torch.parallel.mesh import Mesh, get_mesh
 
 __all__ = ["spatial_jit", "shard_spatial", "spatial_forward", "spatial",
-           "active", "SpatialContext", "check_min_rows"]
+           "active", "SpatialContext", "check_min_rows", "suspended",
+           "whole_mean", "refuse", "sharded_masked_forward", "row_layout"]
 
 _ACTIVE = contextvars.ContextVar("endosr_spatial", default=None)
 
@@ -71,20 +99,79 @@ def check_min_rows(h: int, n: int, min_rows: int = 4) -> None:
             "chip (pass min_rows to relax for stride-1-only programs)")
 
 
+def row_layout(h: int, n: int) -> list[int]:
+    """The rows of each of ``n`` slabs of an ``h``-row frame for
+    :func:`spatial_forward`: whole 4-row units, as even as they go (the
+    first ranks one more), the last slab also taking ``h`` mod 4. Every
+    slab then starts on a multiple of 4, so the encoder's two stride-2
+    convs keep whole rows a rank; ``h`` a multiple of 4·n gives equal
+    slabs."""
+    u, r = divmod(h, 4)
+    rows = [4 * (u // n + (k < u % n)) for k in range(n)]
+    rows[-1] += r
+    return rows
+
+
 class SpatialContext:
     """This rank's place among the ``n`` row slabs of the mesh's group and
-    the exchanges between them."""
+    the exchanges between them. ``rows``: each rank's rows of the frame
+    (:func:`row_layout`) of ``width`` columns; None: equal slabs at every
+    level (``spatial_jit``).
 
-    def __init__(self, mesh: Mesh):
+    With a layout, an op learns the slabs at its own level from its
+    tensor's width, which every rank shares: W (the frame's rows), s·W (s
+    times them: the upscaled maps and the SR), ⌈W/2⌉ and ⌈W/4⌉ (after the
+    encoder's stride-2 convs: ⌈rows/2⌉, ⌈rows/4⌉) and 2⌈W/4⌉ − 1 (the
+    encoder's transposed ``layer4``: twice the ⌈rows/4⌉, one row fewer on
+    the last rank). Where two levels share a width (W mod 4 = 1), the one
+    that fits this rank's rows is taken; both give every rank the same
+    first row and differ at most in the last rank's row count, which only
+    ``layer5``'s conv reads there, from its own slab."""
+
+    def __init__(self, mesh: Mesh, rows: list[int] | None = None,
+                 width: int | None = None):
         self.mesh = mesh
         self.group = mesh.get_group()
         self.rank = mesh.get_local_rank()
         self.n = mesh.size()
+        if rows is not None and (len(rows) != self.n or width is None):
+            raise ValueError(f"a layout of {len(rows)} slabs for {self.n} "
+                             "ranks, or no width")
+        self.rows, self.width = rows, width
 
-    def offset(self, rows: int) -> int:
-        """The global index of this slab's first row, at a level where a
-        slab holds ``rows`` rows."""
-        return self.rank * rows
+    def _levels(self):
+        """(width, offsets, counts, total) of every level of the layout."""
+        c, w = self.rows, self.width
+        o = [sum(c[:k]) for k in range(self.n)]
+        h = sum(c)
+        ceil = lambda a, d: -(-a // d)  # noqa: E731
+        yield w, o, c, h
+        for s in range(2, 65):
+            yield s * w, [s * a for a in o], [s * a for a in c], s * h
+        for d in (2, 4):
+            yield (ceil(w, d), [a // d for a in o], [ceil(a, d) for a in c],
+                   ceil(h, d))
+        # layer4: 2n − 1 rows of n = ⌈h/4⌉
+        t = [2 * ceil(a, 4) for a in c]
+        t[-1] -= 1
+        yield 2 * ceil(w, 4) - 1, [a // 2 for a in o], t, 2 * ceil(h, 4) - 1
+
+    def slabs(self, rows: int, width: int):
+        """(offsets, counts, total): every rank's first row and row count,
+        and the image's rows, at the level where this rank's slab holds
+        ``rows`` rows of ``width`` columns."""
+        if self.rows is None:
+            return [k * rows for k in range(self.n)], [rows] * self.n, \
+                rows * self.n
+        for w, o, c, h in self._levels():
+            if w == width and c[self.rank] == rows:
+                return o, c, h
+        raise ValueError(f"a {rows}×{width} slab is at no level of the "
+                         f"{self.rows}-row × {self.width} layout")
+
+    def offset(self, rows: int, width: int) -> int:
+        """The global index of this slab's first row (see :meth:`slabs`)."""
+        return self.slabs(rows, width)[0][self.rank]
 
     def _gather(self, t):
         """[n, *t.shape]: every rank's ``t``, in rank order."""
@@ -111,9 +198,10 @@ class SpatialContext:
         if top == 0 and bottom == 0:
             return x
         b, h, w, c = x.shape
-        if top > h or bottom > h:
-            raise ValueError(f"a halo of {top}/{bottom} rows exceeds the "
-                             f"{h}-row slab: the frame is too small for "
+        least = min(self.slabs(h, w)[1])
+        if top > least or bottom > least:
+            raise ValueError(f"a halo of {top}/{bottom} rows exceeds a "
+                             f"{least}-row slab: the frame is too small for "
                              f"{self.n} slabs")
         # every rank's last `top` and first `bottom` rows, gathered
         edges = self._gather(torch.cat([x[:, h - top:], x[:, :bottom]], 1))
@@ -129,55 +217,132 @@ class SpatialContext:
 
     def conv_rows(self, x, kh: int, stride: int, pt: int, pb: int):
         """The rows a conv (kernel height ``kh``, ``stride``, vertical pads
-        ``pt``/``pb``) needs for this slab's output rows, for a conv run
-        with no vertical padding. The output must have H / stride rows and
-        the slab must start at a multiple of the stride."""
+        ``pt``/``pb``) needs for this slab's output rows, ⌈rows/stride⌉ of
+        them, for a conv run with no vertical padding. Every slab must
+        start on a multiple of the stride, all but the last hold a
+        multiple of it, and the image's output have ⌈H/stride⌉ rows."""
         h = x.shape[1]
-        if h % stride or (h * self.n + pt + pb - kh) // stride + 1 \
-                != h * self.n // stride:
+        offsets, counts, total = self.slabs(h, x.shape[2])
+        if any(o % stride for o in offsets) or \
+                any(c % stride for c in counts[:-1]) or \
+                (total + pt + pb - kh) // stride + 1 != -(-total // stride):
             raise ValueError(
                 f"a {kh}-row conv of stride {stride} with pads ({pt}, {pb}) "
-                f"does not keep {h}-row slabs aligned")
-        bottom = kh - stride - pt
-        x = self.halo(x, pt, max(bottom, 0))
-        return x if bottom >= 0 else x[:, :x.shape[1] + bottom]
+                f"does not keep the {counts}-row slabs aligned")
+        # rows pt above to (⌈h/s⌉ − 1)·s + kh − pt − h below this slab; the
+        # halo is the same on every rank (the most any needs), then cut
+        need = (-(-h // stride) - 1) * stride + kh - pt - h
+        x = self.halo(x, pt, max(kh - pt - 1, 0))
+        return x[:, :pt + h + need]
 
     def conv_transpose_rows(self, x, k: int, stride: int, padding: int,
                             conv):
         """A transposed conv's output rows for this slab, ``stride`` × its
-        rows (the full image's output taken as H·stride rows): ``conv``
-        (the transposed conv with its padding) runs on the slab and the
-        input rows below it that reach its last output rows."""
+        rows, the last slab's cut to the image's (H − 1)·stride − 2·padding
+        + k rows (with a layout): ``conv`` (the transposed conv with its
+        padding) runs on the slab and the input rows below it that reach
+        its last output rows."""
         h = x.shape[1]
         # output row o reads input rows i with o = i·stride − padding + t,
         # 0 ≤ t < k: this slab's outputs read from `top` rows above it to
         # `bottom` rows below it
         top = (k - 1 - padding) // stride
         bottom = 1 + (padding - 1) // stride
+        keep = h * stride
+        if self.rows is not None and self.rank == self.n - 1:
+            offsets, _, total = self.slabs(h, x.shape[2])
+            keep = min(keep, (total - 1) * stride - 2 * padding + k
+                       - offsets[-1] * stride)
         y = conv(self.halo(x, top, bottom))
-        return y[:, top * stride:top * stride + h * stride]
+        return y[:, top * stride:top * stride + keep]
 
     def gather_rows(self, y):
         """The whole image from every rank's slab ``y`` [B, h, ...] (rows
-        stacked in rank order), on every rank."""
-        return torch.cat(list(self._gather(y)), dim=1)
+        stacked in rank order; the slabs' row counts are gathered first, so
+        they may differ), on every rank."""
+        counts = self._gather(torch.tensor([y.shape[1]], device=y.device))
+        counts = [int(c) for c in counts.view(-1).tolist()]
+        most = max(counts)
+        if most != y.shape[1]:
+            y = torch.cat([y, y.new_zeros((y.shape[0], most - y.shape[1])
+                                          + tuple(y.shape[2:]))], 1)
+        return torch.cat([p[:, :c] for p, c in zip(self._gather(y), counts)],
+                         dim=1)
+
+    def rows_local(self, xs, halo: int, fn, scale: int = 1):
+        """``fn(*slabs)`` on this rank's slabs of ``xs`` (NHWC, one row
+        count) extended by ``halo`` rows of each neighbour, none beyond
+        the image's first or last row, run outside the block's rules (a
+        kernel that mixes rows, with its own zero padding and border
+        gates); returns its NHWC output cropped to this rank's rows,
+        ``scale`` output rows an input row. ``fn``'s output rows
+        ``scale·i`` … ``scale·i + scale − 1`` must belong to input row i,
+        and none of those this rank keeps may read further than ``halo``
+        rows."""
+        h = xs[0].shape[1]
+        top = halo if self.rank > 0 else 0
+        bottom = halo if self.rank < self.n - 1 else 0
+        ext = [self.halo(x, halo, halo)[:, halo - top:halo + h + bottom]
+               for x in xs]
+        with suspended():
+            y = fn(*ext)
+        return y[:, top * scale:(top + h) * scale]
 
 
 @contextlib.contextmanager
-def spatial(mesh: Mesh | None = None):
+def spatial(mesh: Mesh | None = None, rows: list[int] | None = None,
+            width: int | None = None):
     """Run the block's DepthNet forwards on this rank's row slab (see the
-    module's docstring); yields the :class:`SpatialContext`."""
+    module's docstring); yields the :class:`SpatialContext` (``rows``,
+    ``width``: its layout)."""
     mesh = mesh or get_mesh()
     if mesh is None:
         raise RuntimeError("spatial sharding needs a process group: launch "
                            "the ranks with torchrun")
     if active() is not None:
         raise RuntimeError("spatial blocks do not nest")
-    token = _ACTIVE.set(SpatialContext(mesh))
+    token = _ACTIVE.set(SpatialContext(mesh, rows, width))
     try:
         yield active()
     finally:
         _ACTIVE.reset(token)
+
+
+@contextlib.contextmanager
+def suspended():
+    """Inside a :func:`spatial` block, run the enclosed ops as on one
+    device (on tensors that are whole, or on a slab a kernel treats as its
+    own image); a no-op outside one."""
+    token = _ACTIVE.set(None)
+    try:
+        yield
+    finally:
+        _ACTIVE.reset(token)
+
+
+def refuse(name: str) -> None:
+    """Raise ``NotImplementedError`` naming ``name`` inside a spatial
+    block: an op that mixes rows with no spatial rule."""
+    if active() is not None:
+        raise NotImplementedError(
+            f"{name} mixes rows across the whole image and has no spatial "
+            "rule: it cannot run on a row slab (spatial_forward, "
+            "spatial_jit)")
+
+
+def whole_mean(x, dims=(1, 2), keepdim: bool = True):
+    """The mean of NHWC ``x`` over ``dims`` (H among them): in a spatial
+    block over the whole image, the slabs' sums and counts added over the
+    ranks in fp32; returns x's dtype."""
+    sp = active()
+    if sp is None or 1 not in dims:
+        return x.mean(dim=dims, keepdim=keepdim)
+    s = x.float().sum(dim=dims, keepdim=keepdim)
+    n = torch.ones((), dtype=torch.float32, device=x.device)
+    for d in dims:
+        n = n * x.shape[d]
+    s, n = sp.sum(s, n)
+    return (s / n).to(x.dtype)
 
 
 def shard_spatial(arrays, mesh: Mesh | None = None, min_rows: int = 4):
@@ -198,22 +363,80 @@ def shard_spatial(arrays, mesh: Mesh | None = None, min_rows: int = 4):
     return type(arrays)(take(x) for x in arrays)
 
 
-def spatial_jit(*args, **kwargs):
-    """JAX's ``spatial_jit`` partitions any function through XLA's SPMD
-    partitioner; the port has none. DepthNet's masked forward is sharded
-    by :func:`spatial_forward` and ``FModelDepthCond.test``."""
-    raise NotImplementedError(
-        "spatial_jit is not ported: the port has no SPMD partitioner; "
-        "DepthNet serves H-sharded through spatial_forward or "
-        "FModelDepthCond.test with spatial_shard")
+def _map_tensors(fn, tree):
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return tree
 
 
-def _to_host(x):
-    return x.detach().float().cpu().numpy() if torch.is_tensor(x) \
-        else np.asarray(x, np.float32)
+def spatial_jit(fn, mesh: Mesh | None = None, n_array_args: int | None = None,
+                min_rows: int = 4):
+    """``call(params, *arrays)``: ``fn(params, *arrays)`` with every NHWC
+    array argument (numpy or tensor, on every rank alike) cut to this
+    rank's row slab and run in a :func:`spatial` block, every tensor of the
+    output (a tensor, or tuples, lists and dicts of them) gathered whole
+    on every rank. ``n_array_args``: how many arrays follow ``params`` (any
+    number when None). H must divide the mesh and every array hold ≥
+    ``min_rows`` rows a rank (:func:`check_min_rows`). ``fn`` may contain
+    what the module's docstring lists; an op with no spatial rule raises
+    ``NotImplementedError`` by name."""
+    def call(params, *arrays):
+        m = mesh or get_mesh()
+        if m is None:
+            raise RuntimeError("spatial_jit needs a process group: launch "
+                               "the ranks with torchrun")
+        if n_array_args is not None and len(arrays) != n_array_args:
+            raise TypeError(f"expected {n_array_args} arrays, got "
+                            f"{len(arrays)}")
+        for a in arrays:
+            if getattr(a, "ndim", 0) >= 2:
+                check_min_rows(a.shape[1], m.size(), min_rows)
+        slabs = [torch.as_tensor(a) for a in
+                 shard_spatial(tuple(arrays), m, min_rows)]
+        with spatial(m) as ctx:
+            out = fn(params, *slabs)
+            return _map_tensors(ctx.gather_rows, out)
+
+    return call
 
 
-@torch.inference_mode()
+def _run_slabs(net, params, arrays, kw, mesh, rows):
+    """``net`` on this rank's slabs (``rows`` a rank) of the whole NHWC
+    ``arrays`` in a :func:`spatial` block of that layout, under inference
+    mode; the whole SR on every rank."""
+    dev = next(net.parameters()).device
+    r, h = mesh.get_local_rank(), arrays[0].shape[1]
+
+    def take(t):
+        # an input of another height (a depth map at its own size): the
+        # same slabs scaled when it is a multiple of H, else equal ones
+        f, n = t.shape[1] // h, mesh.size()
+        if t.shape[1] == f * h:
+            first, mine = f * sum(rows[:r]), f * rows[r]
+        elif t.shape[1] % n == 0:
+            first, mine = r * t.shape[1] // n, t.shape[1] // n
+        else:
+            raise AssertionError(f"an input of {t.shape[1]} rows beside a "
+                                 f"{h}-row frame does not split into {n} "
+                                 "slabs")
+        return torch.as_tensor(t)[:, first:first + mine].to(dev)
+
+    slabs = tuple(take(t) for t in arrays)
+    args, kw = slabs[:3], {**kw, **({"pool_mask": slabs[3]}
+                                    if len(slabs) > 3 else {})}
+    with torch.inference_mode(), \
+            spatial(mesh, rows, arrays[0].shape[2]) as ctx:
+        if params is None:
+            sr = net(*args, **kw)
+        else:
+            sr = torch.func.functional_call(net, params, args, kw)
+        return ctx.gather_rows(sr)
+
+
 def sharded_masked_forward(net, lq, depth_map, depth_mask, valid_hw,
                            pool_mask, mesh: Mesh | None = None, params=None):
     """DepthNet's masked forward (``valid_hw``, ``pool_mask``) of whole
@@ -228,43 +451,27 @@ def sharded_masked_forward(net, lq, depth_map, depth_mask, valid_hw,
         raise ValueError(f"the padded frame ({h}×{lq.shape[2]}) needs H a "
                          f"multiple of 4·{n} and W of 4")
     check_min_rows(h, n)
-    dev = next(net.parameters()).device
-    slabs = [torch.as_tensor(t).to(dev) for t in
-             shard_spatial((lq, depth_map, depth_mask, pool_mask), mesh,
-                           min_rows=1)]
-    args = (*slabs[:3],)
-    kw = {"valid_hw": valid_hw, "pool_mask": slabs[3]}
-    with spatial(mesh) as ctx:
-        if params is None:
-            sr = net(*args, **kw)
-        else:
-            sr = torch.func.functional_call(net, params, args, kw)
-        return ctx.gather_rows(sr)
+    return _run_slabs(net, params, (lq, depth_map, depth_mask, pool_mask),
+                      {"valid_hw": valid_hw}, mesh, row_layout(h, n))
 
 
 def spatial_forward(net, params, lq, depth_map, depth_mask,
                     mesh: Mesh | None = None):
-    """H-sharded DepthNet forward over the mesh's ranks (every rank calls
-    it with the same whole inputs, NHWC, host or device); returns the
-    whole SR [B, s·H, s·W, 3] on every rank. ``params``: a ``state_dict``
-    to run with, or None for ``net``'s own weights.
-
-    JAX runs the unmasked forward through its partitioner; the port runs
-    the masked program with ``valid_hw = (H, W)``, which the repo holds to
-    the same bar: the frame is zero-padded to H a multiple of 4·N and W of
-    4, and the output cropped back."""
+    """H-sharded DepthNet forward over the mesh's ranks: JAX's
+    ``net.apply(params, lq, depth_map, depth_mask)``, the unmasked forward,
+    each rank computing its slab of rows (:func:`row_layout`). Every rank
+    calls it with the same whole inputs (NHWC, host or device); H must be
+    a multiple of the mesh size and ≥ 4 rows a rank (JAX's guards);
+    nothing is padded. Returns the whole SR [B, s·H, s·W, 3] on every
+    rank. ``params``: a ``state_dict`` to run with, or None for ``net``'s
+    own weights."""
     mesh = mesh or get_mesh()
-    n = mesh.size()
-    b, h, w = lq.shape[0], lq.shape[1], lq.shape[2]
+    if mesh is None:
+        raise RuntimeError("spatial sharding needs a process group: launch "
+                           "the ranks with torchrun")
+    n, h = mesh.size(), lq.shape[1]
+    if h % n:
+        raise AssertionError(f"H={h} must divide the {n}-way mesh")
     check_min_rows(h, n)
-    from endosr_torch.ops.masks import pool_mask_np
-
-    hb, wb = -(-h // (4 * n)) * (4 * n), -(-w // 4) * 4
-    pad = ((0, 0), (0, hb - h), (0, wb - w), (0, 0))
-    lq_p, d_p, m_p = (np.pad(_to_host(x), pad)
-                      for x in (lq, depth_map, depth_mask))
-    v3h, v3w = ((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2
-    pm = pool_mask_np(_to_host(depth_mask), (v3h, v3w), (hb // 4, wb // 4))
-    sr = sharded_masked_forward(net, lq_p, d_p, m_p, (h, w), pm, mesh, params)
-    s = sr.shape[1] // hb
-    return sr[:, :h * s, :w * s]
+    return _run_slabs(net, params, (lq, depth_map, depth_mask), {}, mesh,
+                      row_layout(h, n))

@@ -21,7 +21,8 @@ CUDA device; on CUDA it turns TF32 off, as the entry points do.
 ``torchrun`` launch (``python -m torch.distributed.run --nproc_per_node N
 -m endosr_torch.tools.sr_pipeline --spatial ...``): every rank reads the
 same frames and serves its slab of rows through
-``parallel/spatial.py::spatial_forward`` (the masked forward, H ≥ 4·N);
+``parallel/spatial.py::spatial_forward`` (DepthNet's unmasked forward, as
+``scripts/sr_pipeline.py`` serves it: H a multiple of N and ≥ 4·N);
 rank 0 alone writes the depth maps and the PNGs.
 """
 

@@ -12,18 +12,23 @@ states.
 
 The backend is read as JAX reads it: a model's ``path.checkpoint_backend``,
 then ``ENDOSR_CKPT_BACKEND`` (or :func:`set_backend`). ``msgpack`` writes
-JAX's files. Unset, the port's models keep their own ``.pth`` files (a
-deliberate difference from JAX, whose default is ``msgpack``). ``orbax``
-(a directory of tensorstore's OCDBT layout) is not read or written here:
-it raises ``NotImplementedError``, and so does loading a directory. A save
-writes a ``.tmp`` file and renames it into place; under
+JAX's files. ``orbax`` writes each as a directory of that name that orbax's
+``PyTreeCheckpointer`` restores (``utils/orbax_io.py``), through a
+``.tmp.<pid>`` directory and an ``.old`` swap as JAX saves one. Unset, the
+port's models keep their own ``.pth`` files (a deliberate difference from
+JAX, whose default is ``msgpack``). Loading tells the layouts apart as JAX
+does: a directory is an orbax checkpoint (tensorstore's OCDBT layout, as
+JAX writes it, or the plain one the port writes), a file msgpack. A
+msgpack save writes a ``.tmp`` file and renames it into place; under
 ``torch.distributed`` only rank 0 writes, and every rank can read.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 
+from endosr_torch.utils import orbax_io
 from endosr_torch.utils.msgpack_io import packb, unpackb
 
 __all__ = ["save_pytree", "load_pytree", "save_network", "load_network",
@@ -31,9 +36,6 @@ __all__ = ["save_pytree", "load_pytree", "save_network", "load_network",
            "backend_of", "is_torch_file"]
 
 _BACKEND = os.environ.get("ENDOSR_CKPT_BACKEND") or None
-_ORBAX = ("the orbax checkpoint backend (a directory in tensorstore's OCDBT "
-          "layout) is not ported: save with checkpoint_backend: msgpack, "
-          "which the JAX package reads and writes too")
 
 
 def set_backend(name: str | None) -> None:
@@ -48,13 +50,10 @@ def set_backend(name: str | None) -> None:
 
 def backend_of(name: str | None = None) -> str | None:
     """The backend a save takes: ``name`` (a model's
-    ``path.checkpoint_backend``), else the process default; ``"msgpack"``
-    or None (unset: the port's ``.pth`` files). ``orbax`` raises
-    ``NotImplementedError``."""
+    ``path.checkpoint_backend``), else the process default; ``"msgpack"``,
+    ``"orbax"`` or None (unset: the port's ``.pth`` files)."""
     name = name or _BACKEND
-    if name == "orbax":
-        raise NotImplementedError(_ORBAX)
-    if name not in (None, "msgpack"):
+    if name not in (None, "msgpack", "orbax"):
         raise ValueError(f"checkpoint backend [{name}]: msgpack or orbax")
     return name
 
@@ -67,10 +66,27 @@ def _rank0() -> bool:
 
 
 def save_pytree(tree, path: str, backend: str | None = None) -> str:
-    """Write ``tree`` as flax's msgpack bytes to ``path`` (through
-    ``path.tmp``); returns ``path``."""
-    backend_of(backend)
+    """Write ``tree`` to ``path``: flax's msgpack bytes (through
+    ``path.tmp``), or with the ``orbax`` backend an orbax directory
+    (written as ``path.tmp.<pid>``, the old one moved to ``path.old``
+    while it is swapped in, so a crash never loses it). Returns ``path``."""
+    backend = backend_of(backend)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if backend == "orbax":
+        path = os.path.abspath(path)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        orbax_io.write_pytree(tree, tmp)
+        old = path + ".old"
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        if os.path.isdir(path):
+            os.rename(path, old)
+        os.rename(tmp, path)
+        if os.path.isdir(old):
+            shutil.rmtree(old)
+        return path
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(packb(tree))
@@ -79,10 +95,10 @@ def save_pytree(tree, path: str, backend: str | None = None) -> str:
 
 
 def load_pytree(path: str):
-    """The tree a msgpack ``.ckpt`` / ``.state`` holds (nested dicts). A
-    directory (an orbax checkpoint) raises ``NotImplementedError``."""
+    """The tree a ``.ckpt`` / ``.state`` holds (nested dicts): a directory
+    is read as an orbax checkpoint, a file as msgpack."""
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path}: {_ORBAX}")
+        return orbax_io.read_pytree(path)
     with open(path, "rb") as f:
         data = f.read()
     if is_torch_file(data[:4]):

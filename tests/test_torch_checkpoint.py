@@ -24,8 +24,10 @@
   logits 2e-4, ``test_torch_gan.py``), SFT-GAN (the same), the
   co-training model (1e-5, ``test_torch_depthseg.py``) and the depth
   trainer through ``load_model`` (1e-5, ``test_torch_depth_trainer.py``).
-- ``orbax`` is refused by name: a directory, ``checkpoint_backend:
-  orbax`` and ``ENDOSR_CKPT_BACKEND=orbax``.
+- ``orbax`` (ported since; ``tests/test_torch_orbax.py``): a directory
+  that is not an orbax checkpoint is refused naming its missing
+  ``_METADATA``; ``checkpoint_backend: orbax`` and
+  ``ENDOSR_CKPT_BACKEND=orbax`` write directories JAX restores.
 - The committed fixture ``tests/data/jax_ckpt/`` equals, value by value,
   what ``tests/make_jax_ckpt_fixture.py`` makes now.
 """
@@ -433,20 +435,35 @@ def test_jax_ckpt_loads_in_the_port_and_jax_reads_the_ports(name, tmp_path):
 
 # ------------------------------------------------------------ refusals
 
-def test_orbax_is_refused_by_name(tmp_path, monkeypatch):
+def test_non_orbax_directory_is_refused_naming_metadata(tmp_path):
+    """A directory that is not an orbax checkpoint is refused naming the
+    ``_METADATA`` it lacks."""
     (tmp_path / "7_G.ckpt").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax.*tensorstore"):
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
         ckpt.load_pytree(str(tmp_path / "7_G.ckpt"))
+
+
+def test_orbax_backend_saves_directories_jax_restores(tmp_path, monkeypatch):
+    """``checkpoint_backend: orbax`` and ``ENDOSR_CKPT_BACKEND=orbax``
+    build models whose saves are directories JAX's ``load_pytree``
+    restores to the port's own reading (``tests/test_torch_orbax.py``
+    holds the backend itself)."""
+    d = tmp_path / "run"
     opt = model_opt("sr", {"which_model_G": "MSRResNet", "nf": 8, "nb": 1},
-                    path={"checkpoint_backend": "orbax"})
-    with pytest.raises(NotImplementedError, match="orbax"):
-        create_model(copy.deepcopy(opt), device="cpu")
+                    path={"checkpoint_backend": "orbax", "models": str(d),
+                          "training_state": str(d)})
+    tm = create_model(copy.deepcopy(opt), device="cpu")
+    for path in (tm.save(3), tm.save_training_state(0, 3)):
+        assert Path(path).is_dir()
+        mine = ckpt.load_pytree(path)
+        _equal(mine, jax.tree_util.tree_map(
+            np.asarray, jckpt.load_pytree(path, None)))
     monkeypatch.setattr(ckpt, "_BACKEND", "orbax")
-    opt["path"] = {}
-    with pytest.raises(NotImplementedError, match="orbax"):
-        create_model(copy.deepcopy(opt), device="cpu")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ckpt.save_pytree({}, str(tmp_path / "x.ckpt"))
+    opt["path"] = {"models": str(d / "env")}
+    assert Path(create_model(copy.deepcopy(opt), device="cpu").save(
+        4)).is_dir()
+    assert Path(ckpt.save_pytree({"a": np.ones(2, np.float32)},
+                                 str(tmp_path / "x.ckpt"))).is_dir()
 
 
 def test_unset_backend_writes_pth_and_msgpack_writes_jax_files(tmp_path):

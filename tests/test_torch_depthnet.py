@@ -248,11 +248,30 @@ def test_valid_hw_with_fused_epilogue_raises():
 
 
 @pytest.mark.parametrize("kw", [
+    dict(scale=16, which_resblk_depth=(0,)),
+], ids=["x16"])
+def test_unported_depthnet_configurations_raise(kw):
+    """A scale JAX does not serve (×16) raises."""
+    with pytest.raises(NotImplementedError):
+        torch_dn.DepthNet(**SMALL, **kw, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
     dict(scale=4, which_resblk_depth=(0, 1, 4), tail_defer_act=False),
     dict(scale=8, which_resblk_depth=(0, 4), blend_fold=True),
     dict(scale=4, which_resblk_depth=(0,), lazy_o_chunk=2),
-    dict(scale=16, which_resblk_depth=(0,)),
-], ids=["x4_depth_at_nb1", "x8_depth_at_nb1", "lazy_o_chunk", "x16"])
-def test_unported_depthnet_configurations_raise(kw):
-    with pytest.raises(NotImplementedError):
-        torch_dn.DepthNet(**SMALL, **kw, device="cpu")
+], ids=["x4_depth_at_nb1", "x8_depth_at_nb1", "lazy_o_chunk"])
+def test_lowering_switch_configurations_serve_default_function(kw):
+    """Each lowering switch serves the default fields' function on the same
+    weights (≤ 2e-4; their parity with JAX:
+    ``tests/test_torch_jax_only_arms.py``)."""
+    from endosr_torch.utils.port_params import seeded_init
+
+    net = seeded_init(torch_dn.DepthNet(**SMALL, **kw, device="cpu"), 3)
+    ref = torch_dn.DepthNet(**SMALL, scale=kw["scale"],
+                            which_resblk_depth=kw["which_resblk_depth"],
+                            device="cpu")
+    ref.load_state_dict(net.state_dict(), strict=True)
+    inputs = _t(*_rand_inputs(16, 12))
+    with torch.no_grad():
+        _close(ref(*inputs).numpy(), net(*inputs).numpy(), str(kw))

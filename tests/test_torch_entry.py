@@ -34,7 +34,7 @@ written with ``cv2``.
   EndoScene dataset) with ``precision`` unset: both ``test.main`` serve
   ``bf16c3`` unbucketed, and their TSV rows and PNGs agree.
 - The entry points default to CUDA and raise without it; unported models
-  and an orbax checkpoint directory raise by name.
+  and a directory that is no orbax checkpoint raise by name.
 """
 
 import copy
@@ -646,16 +646,28 @@ PORTED_SMALL = {
 }
 
 
-def test_flax_checkpoint_refused_naming_npz(tmp_path):
-    """A flax ``.ckpt`` file is read now (``tests/test_torch_checkpoint.py``);
-    an orbax checkpoint (a directory) is refused by name."""
+def test_pretrain_orbax_directory_loads_and_others_refused(tmp_path):
+    """A flax ``.ckpt`` file is read now (``tests/test_torch_checkpoint.py``)
+    and so is an orbax checkpoint, a directory (``tests/test_torch_orbax
+    .py``): one the port wrote loads as ``pretrain_model_G``; a directory
+    that is not one is refused naming the ``_METADATA`` it lacks."""
+    from endosr_torch.models.base import params_tree_of
+    from endosr_torch.utils import checkpoint as ckpt
+
     y = yaml.safe_load(TEST_YAML.read_text())
     (tmp_path / "5_G.ckpt").mkdir()
     opt = copy.deepcopy({"model": y["model"], "scale": 8,
                          "network_G": {**y["network_G"], **NET},
                          "path": {"pretrain_model_G": str(tmp_path / "5_G.ckpt")}})
-    with pytest.raises(NotImplementedError, match="orbax"):
-        create_model(opt, device="cpu")
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
+        create_model(copy.deepcopy(opt), device="cpu")
+    src = create_model({**copy.deepcopy(opt), "path": {}}, device="cpu")
+    ckpt.save_pytree(params_tree_of(src.netG), str(tmp_path / "6_G.ckpt"),
+                     "orbax")
+    opt["path"]["pretrain_model_G"] = str(tmp_path / "6_G.ckpt")
+    got = create_model(opt, device="cpu").netG.state_dict()
+    for k, v in src.netG.state_dict().items():
+        assert torch.equal(got[k], v), k
 
 
 @pytest.mark.parametrize("tensorboard", [True, False],

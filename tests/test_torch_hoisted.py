@@ -372,18 +372,36 @@ def test_model_serves_every_preset_like_jax_default_fields(preset):
 
 
 @pytest.mark.parametrize("net_kw,exc,match", [
-    ({"blend_fold": True}, NotImplementedError, "blend_fold"),
-    ({"lazy_o_chunk": 2}, NotImplementedError, "lazy_o_chunk"),
-    ({"mask_stack_conv": False}, NotImplementedError, "mask_stack_conv"),
-    ({"chain_in": False}, NotImplementedError, "chain_in"),
-    ({"obranch_body": "dot"}, NotImplementedError, "obranch_body"),
-    ({"pallas_packed_chain": False}, NotImplementedError,
-     "pallas_packed_chain"),
     ({"no_such_field": 1}, TypeError, "no_such_field"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else None)
 def test_unported_or_unknown_net_kw_field_raises_by_name(net_kw, exc, match):
+    """An unknown field raises ``TypeError`` by name (the JAX module's
+    lowering switches: :func:`test_lowering_switch_net_kw_serves_default_
+    output`)."""
     with pytest.raises(exc, match=match):
         FModelDepthCond(_opt(net_kw=net_kw), device="cpu")
+
+
+@pytest.mark.parametrize("net_kw", [
+    {"blend_fold": True}, {"lazy_o_chunk": 2}, {"mask_stack_conv": False},
+    {"chain_in": False}, {"obranch_body": "dot"},
+    {"pallas_packed_chain": False},
+], ids=lambda v: next(iter(v)))
+def test_lowering_switch_net_kw_serves_default_output(net_kw):
+    """Each of the JAX module's lowering switches builds and serves the
+    default fields' output on the same weights (≤ 2e-4; their parity with
+    JAX: ``tests/test_torch_jax_only_arms.py``)."""
+    rng = np.random.default_rng(43)
+    batch = {"LQ": rng.random((1, 16, 16, 3), dtype=np.float32),
+             "Depth": rng.random((1, 16, 16, 1), dtype=np.float32),
+             "DepthMaskList": (rng.random((1, 16, 16, 4)) > 0.6).astype(
+                 np.float32)}
+    ref = FModelDepthCond(_opt(), device="cpu")
+    m = FModelDepthCond(_opt(net_kw=net_kw), device="cpu")
+    m.netG.load_state_dict(ref.netG.state_dict(), strict=True)
+    ref.feed_data(batch)
+    m.feed_data(batch)
+    assert float((m.test() - ref.test()).abs().max()) <= TOL
 
 
 def test_unported_field_at_its_jax_default_is_accepted():

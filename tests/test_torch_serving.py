@@ -229,27 +229,19 @@ def _net(**kw):
     {"eval_bucket_multiple": 32, "spatial_shard": 2},
     {"eval_bucket_multiple": None, "spatial_shard": 4},
     {"precision": "fp16"},
-    {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
-                        net_kw={"tail_defer_act": False})},
     {"is_train": True, "spatial_shard": 2,
      "train": {"lr_G": 1e-3, "pixel_criterion": "l1", "pixel_weight": 1.0}},
-    _net(net_kw={"lazy_o_chunk": 2}), _net(net_kw={"chain_in": False}),
-    _net(preset="plain", net_kw={"pallas_packed_chain": False}),
-    _net(net_kw={"blend_fold": True}),
-    _net(which_model_G="SFTMD"), _net(net_kw={"obranch_body": "dot"}),
-], ids=["bucketed", "bucketed_default", "fp16", "x4", "train",
-        "lazy_o_chunk", "chain_in", "preset_plain", "net_kw",
-        "other_generator", "obranch_body"])
+    _net(which_model_G="SFTMD"),
+], ids=["bucketed", "bucketed_default", "fp16", "train", "other_generator"])
 def test_unported_options_raise(change):
-    """What still waits: a precision JAX does not name, the generators
-    other than DepthNet, and the ``net_kw`` fields the port lacks (also on
-    a ×4 network with a depth block after upscale2, and over ``preset:
-    plain``). ``spatial_shard`` (with the bucket set or left at its
-    default, and in a training model) is ported since: the model builds;
-    bucketed, serving needs the N ranks of a ``torchrun`` launch and
-    raises by name without them (``tests/test_torch_spatial.py`` serves
-    with them); unbucketed (the training case) it is ignored, as in
-    JAX."""
+    """What still waits: a precision JAX does not name and the generators
+    other than DepthNet in this model. ``spatial_shard`` (with the bucket
+    set or left at its default, and in a training model) is ported since:
+    the model builds; bucketed, serving needs the N ranks of a
+    ``torchrun`` launch and raises by name without them
+    (``tests/test_torch_spatial.py`` serves with them); unbucketed (the
+    training case) it is ignored, as in JAX. The ``net_kw`` lowering
+    switches: :func:`test_lowering_switch_options_serve_the_same_output`."""
     opt = {**copy.deepcopy(OPT), **change}
     if "spatial_shard" in change:
         model = FModelDepthCond(opt, device="cpu")
@@ -262,6 +254,30 @@ def test_unported_options_raise(change):
         return
     with pytest.raises(NotImplementedError):
         FModelDepthCond(opt, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"scale": 4, **_net(which_ResBlk_depth=[0, 1, 2, 5],
+                        net_kw={"tail_defer_act": False})},
+    _net(net_kw={"lazy_o_chunk": 2}), _net(net_kw={"chain_in": False}),
+    _net(preset="plain", net_kw={"pallas_packed_chain": False}),
+    _net(net_kw={"blend_fold": True}), _net(net_kw={"obranch_body": "dot"}),
+], ids=["x4", "lazy_o_chunk", "chain_in", "preset_plain", "net_kw",
+        "obranch_body"])
+def test_lowering_switch_options_serve_the_same_output(change):
+    """The ``net_kw`` lowering switches (also on a ×4 network with a depth
+    block after upscale2, and over ``preset: plain``): the model builds
+    and serves the output of the same network without them (≤ 2e-4)."""
+    opt = {**copy.deepcopy(OPT), **change}
+    model = FModelDepthCond(opt, device="cpu")
+    plain = copy.deepcopy(opt)
+    del plain["network_G"]["net_kw"]
+    ref = FModelDepthCond(plain, device="cpu")
+    ref.netG.load_state_dict(model.netG.state_dict(), strict=True)
+    batch = _batch(1)
+    model.feed_data(batch)
+    ref.feed_data(batch)
+    assert float((model.test() - ref.test()).abs().max()) <= 2e-4
 
 
 def test_test_x8_raises():

@@ -19,7 +19,8 @@ exchanges; every rank ends with the whole SR.
   (``shard_spatial``), slabs of < 4 rows (``shard_spatial``,
   ``spatial_forward``); ``spatial_shard`` ignored with a warning where
   bucketing is off; ``spatial_shard: N`` without N ranks raises;
-  ``spatial_jit`` raises by name.
+  ``spatial_jit`` without a process group, and the row-mixing ops with no
+  spatial rule inside a block, raise by name.
 - ``utils/prof.py``: ``trace`` writes a Chrome trace holding an
   ``annotate``d name, ``timed`` returns a median and the output.
 """
@@ -147,9 +148,36 @@ def test_spatial_shard_ignored_without_bucketing(caplog):
         bucketed.test()
 
 
-def test_spatial_jit_is_not_ported():
-    with pytest.raises(NotImplementedError, match="spatial_jit"):
-        spatial_jit(lambda p, x: x)
+def test_spatial_jit_refuses_no_group_and_row_mixing_ops_by_name():
+    """``spatial_jit`` (run over gloo ranks by
+    ``tests/test_torch_spatial_unmasked.py``) refuses a call with no
+    process group (by name, as ``spatial``), and, inside a spatial block,
+    the ops that mix rows with no spatial rule, each by name."""
+    from endosr_torch.nn.sftmd_variants import (PositionAttention,
+                                                PositionAttentionEfficient)
+    from endosr_torch.ops.resize import (interpolate_bilinear,
+                                         interpolate_nearest)
+    from endosr_torch.parallel import spatial as sp
+
+    with pytest.raises(RuntimeError, match="spatial_jit.*torchrun"):
+        spatial_jit(lambda p, x: x)(None, np.zeros((1, 8, 4, 3), np.float32))
+    x = torch.rand(1, 8, 4, 16)
+    token = sp._ACTIVE.set(object())       # a block, without collectives
+    try:
+        for name, call in (
+                ("PositionAttention", lambda: PositionAttention(16, 1)(
+                    x, x[..., :1])),
+                ("PositionAttentionEfficient",
+                 lambda: PositionAttentionEfficient(16, 1)(x, x[..., :1])),
+                ("interpolate_bilinear",
+                 lambda: interpolate_bilinear(x, (16, 8))),
+                ("interpolate_nearest", lambda: interpolate_nearest(
+                    x, (12, 4)))):
+            with pytest.raises(NotImplementedError, match=name):
+                call()
+        assert interpolate_nearest(x, (16, 8)).shape == (1, 16, 8, 16)
+    finally:
+        sp._ACTIVE.reset(token)
 
 
 def test_trace_writes_an_annotated_chrome_trace(tmp_path):

@@ -624,19 +624,30 @@ def test_checkpoints_round_trip(call, tmp_path):
 
 
 def test_remat_blocks_and_serving_models_refuse_training():
-    """A field the port does not take refuses a training model by name
-    (``lazy_o_chunk``; ``remat_blocks`` trains, see
-    ``tests/test_torch_train_scales.py``), and a serving model refuses a
-    training step."""
-    opt = _opt(FLAGSHIP)
-    opt["network_G"]["net_kw"] = {"lazy_o_chunk": 2}
-    with pytest.raises(NotImplementedError, match="lazy_o_chunk"):
-        FModelDepthCond(opt, device="cpu")
+    """A serving model refuses a training step (``remat_blocks`` trains:
+    ``tests/test_torch_train_scales.py``)."""
     serving = {**_opt(FLAGSHIP), "is_train": False}
     tm = FModelDepthCond(serving, device="cpu")
     tm.feed_data(_train_batch(False))
     with pytest.raises(RuntimeError, match="is_train"):
         tm.optimize_parameters()
+
+
+def test_lazy_o_chunk_trains_like_the_default_fields():
+    """``lazy_o_chunk``'s first training step's logs equal the default
+    fields' on the same weights (≤ 1e-5 relative; the same function, the
+    first conv split by groups of blocks)."""
+    opt = _opt(FLAGSHIP)
+    opt["network_G"]["net_kw"] = {"lazy_o_chunk": 2}
+    chunked = FModelDepthCond(opt, device="cpu")
+    ref = FModelDepthCond(_opt(FLAGSHIP), device="cpu")
+    chunked.netG.load_state_dict(ref.netG.state_dict(), strict=True)
+    logs = []
+    for m in (ref, chunked):
+        m.feed_data(_train_batch(True))
+        logs.append(dict(m.optimize_parameters()))
+    for k, v in logs[0].items():
+        assert abs(logs[1][k] - v) <= 1e-5 * max(abs(v), 1e-12), k
 
 
 def test_learning_rate_queries_follow_the_updates():

@@ -176,6 +176,42 @@ def spatial_serving(payload):
 
 
 @job
+def spatial_unmasked_job(payload):
+    """``spatial_forward`` (DepthNet's unmasked forward) of each net of
+    the payload on whole inputs, and ``spatial_jit`` of the generic
+    conv-minus-mean function; an error a case raises is returned as
+    (type name, message)."""
+    from endosr_torch.nn.depthnet import DepthNet
+    from endosr_torch.nn.layers import conv2d_nhwc
+    from endosr_torch.parallel.spatial import (spatial_forward, spatial_jit,
+                                               whole_mean)
+
+    out = {}
+    for name, case in payload["cases"].items():
+        kw = dict(case["net"])
+        for k in ("dtype", "modulation_dtype"):
+            if k in kw:
+                kw[k] = getattr(torch, kw[k])
+        net = DepthNet(**kw)
+        net.load_state_dict(case["state"])
+        net.eval()
+        try:
+            out[name] = spatial_forward(net, None, *case["inputs"])
+        except (ValueError, NotImplementedError) as e:
+            out[name] = (type(e).__name__, str(e))
+
+    def fn(w, x):
+        y = conv2d_nhwc(x, w, 1)
+        return y - whole_mean(y)
+
+    jit = payload.get("jit")
+    if jit is not None:
+        out["jit"] = spatial_jit(fn, n_array_args=1, min_rows=2)(
+            torch.as_tensor(jit["w"]), jit["x"])
+    return out
+
+
+@job
 def sr_pipeline_spatial(payload):
     """``tools/sr_pipeline.py --spatial`` on each argv of the payload, this
     rank writing under ``<output>/rank<r>``; returns what each run
