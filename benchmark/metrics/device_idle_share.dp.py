@@ -1,0 +1,6 @@
+"""Rank 0's 1 − the union of device operations' intervals ÷ the traced
+window, in %. Moves `train_images_per_s.dp`."""
+
+
+def read(trace, cell):
+    return trace.idle_pct()
