@@ -37,6 +37,7 @@ from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import refuse_grad
 from endosr_torch.kernels.in_stats import (MAX_B, chunk_plan,
                                            in_stats_route, tickets)
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["fused_in_mod", "fused_in_mod_plain", "fused_in_mod_route",
            "launch", "fused_in_mod_stats", "fused_in_mod_stats_plain",
@@ -115,14 +116,15 @@ def fused_in_mod(x, gamma, beta, eps: float = 1e-5):
     kernels :func:`fused_in_mod_route` names (and raises if it cannot).
     Neither has a gradient: on CUDA under autograd it raises
     ``NotImplementedError`` (the JAX kernel has none on the TPU)."""
-    if x.device.type == "cpu":
-        return fused_in_mod_plain(x, gamma, beta, eps)
-    refuse_grad("fused_in_mod", "net_kw: {fused_epilogue: true}",
-                (x, gamma, beta))
-    out, route = launch(x, gamma, beta, eps)
-    fused_in_mod.launches += 1
-    fused_in_mod.routes[route] += 1
-    return out
+    with annotate("kernel.fused_in_mod"):
+        if x.device.type == "cpu":
+            return fused_in_mod_plain(x, gamma, beta, eps)
+        refuse_grad("fused_in_mod", "net_kw: {fused_epilogue: true}",
+                    (x, gamma, beta))
+        out, route = launch(x, gamma, beta, eps)
+        fused_in_mod.launches += 1
+        fused_in_mod.routes[route] += 1
+        return out
 
 
 fused_in_mod.launches = 0
@@ -184,14 +186,15 @@ def fused_in_mod_stats(x, gamma, beta, s, sq, count, eps: float = 1e-5):
     a slab). A CPU tensor takes the plain version; a CUDA tensor launches
     the kernels (and raises if it cannot). No gradient, as
     :func:`fused_in_mod`."""
-    if x.device.type == "cpu":
-        return fused_in_mod_stats_plain(x, gamma, beta, s, sq, count, eps)
-    refuse_grad("fused_in_mod_stats", "net_kw: {fused_epilogue: true}",
-                (x, gamma, beta))
-    out, route = launch_stats(x, gamma, beta, s, sq, count, eps)
-    fused_in_mod_stats.launches += 1
-    fused_in_mod_stats.routes[route] += 1
-    return out
+    with annotate("kernel.fused_in_mod_stats"):
+        if x.device.type == "cpu":
+            return fused_in_mod_stats_plain(x, gamma, beta, s, sq, count, eps)
+        refuse_grad("fused_in_mod_stats", "net_kw: {fused_epilogue: true}",
+                    (x, gamma, beta))
+        out, route = launch_stats(x, gamma, beta, s, sq, count, eps)
+        fused_in_mod_stats.launches += 1
+        fused_in_mod_stats.routes[route] += 1
+        return out
 
 
 fused_in_mod_stats.launches = 0

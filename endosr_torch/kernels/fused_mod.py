@@ -43,6 +43,7 @@ from endosr_torch.kernels.fused_obranch import (acc_dtype, check_o_operands,
                                                 o_branch_pack_weights,
                                                 promoted)
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["fused_modulation", "fused_modulation_plain",
            "fused_modulation_route", "fused_modulation_twin",
@@ -102,9 +103,10 @@ def fused_modulation_vjp(d, mask, wm, bm, w2, v, bias, g, out_dtype=None):
     ``fused_mod.py:196-202``): the VJP of the twin
     (:func:`fused_modulation_twin`). Returns the gradients of (d, mask,
     wm, bm, w2, v, bias)."""
-    return twin_vjp(
-        lambda *a: fused_modulation_twin(*a, out_dtype=out_dtype),
-        (d, mask, wm, bm, w2, v, bias), g)
+    with annotate("kernel.fused_modulation_vjp"):
+        return twin_vjp(
+            lambda *a: fused_modulation_twin(*a, out_dtype=out_dtype),
+            (d, mask, wm, bm, w2, v, bias), g)
 
 
 def fused_modulation_route(dtype, c2, k, ptrs):
@@ -185,7 +187,8 @@ def launch_wgmma(d, mask, wm, bm, w2, v, bias, out_dtype=None,
     fn = _build.load(lib, "fused_mod_wgmma")
     (b, h, w, n, c2, k), dt, dd, mm, (wm_, bm_, w2_, v_, bias_), out = \
         _mod_prepare(d, mask, wm, bm, w2, v, bias, out_dtype)
-    wp, vp = o_branch_pack_weights(w2_), style_pack_v(v_)
+    with annotate("net.prepare"):
+        wp, vp = o_branch_pack_weights(w2_), style_pack_v(v_)
     code = fn(1, dd.data_ptr(), mm.data_ptr(), wm_.data_ptr(), bm_.data_ptr(),
               wp.data_ptr(), vp.data_ptr(), bias_.data_ptr(), out.data_ptr(),
               b, h, w, n, c2, k, _build.stream_ptr(d.device))
@@ -200,10 +203,11 @@ def fused_modulation(d, mask, wm, bm, w2, v, bias, out_dtype=None):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`fused_modulation_route` names (and raises if it
     cannot). Under autograd the backward is :func:`fused_modulation_vjp`."""
-    return differentiable(
-        lambda *a: _forward(*a, out_dtype),
-        lambda saved, g: fused_modulation_vjp(*saved, g, out_dtype),
-        (d, mask, wm, bm, w2, v, bias))
+    with annotate("kernel.fused_modulation"):
+        return differentiable(
+            lambda *a: _forward(*a, out_dtype),
+            lambda saved, g: fused_modulation_vjp(*saved, g, out_dtype),
+            (d, mask, wm, bm, w2, v, bias))
 
 
 def _forward(d, mask, wm, bm, w2, v, bias, out_dtype):

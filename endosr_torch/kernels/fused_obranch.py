@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["fused_o_branch", "fused_o_branch_plain", "fused_o_branch_route",
            "fused_o_branch_twin", "fused_o_branch_vjp", "promoted",
@@ -123,9 +124,10 @@ def fused_o_branch_vjp(d, wm, bm, w2, b2, g, out_dtype=None):
     ``fused_obranch.py:179-185``): the VJP of the twin
     (:func:`fused_o_branch_twin`). Returns the gradients of (d, wm, bm,
     w2, b2)."""
-    return twin_vjp(
-        lambda *a: fused_o_branch_twin(*a, out_dtype=out_dtype),
-        (d, wm, bm, w2, b2), g)
+    with annotate("kernel.fused_o_branch_vjp"):
+        return twin_vjp(
+            lambda *a: fused_o_branch_twin(*a, out_dtype=out_dtype),
+            (d, wm, bm, w2, b2), g)
 
 
 def check_o_operands(d, wm, bm, w2, b2):
@@ -220,7 +222,8 @@ def launch_wgmma(d, wm, bm, w2, b2, out_dtype=None, lib="fused_mod"):
     fn = _build.load(lib, "fused_mod_wgmma")
     (b, h, w, n, c2), dt, dd, (wm_, bm_, w2_, b2_), out = _o_prepare(
         d, wm, bm, w2, b2, out_dtype)
-    wp = o_branch_pack_weights(w2_)
+    with annotate("net.prepare"):
+        wp = o_branch_pack_weights(w2_)
     code = fn(0, dd.data_ptr(), None, wm_.data_ptr(), bm_.data_ptr(),
               wp.data_ptr(), None, b2_.data_ptr(), out.data_ptr(), b, h, w, n,
               c2, 0, _build.stream_ptr(d.device))
@@ -235,10 +238,11 @@ def fused_o_branch(d, wm, bm, w2, b2, out_dtype=None):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`fused_o_branch_route` names (and raises if it cannot).
     Under autograd the backward is :func:`fused_o_branch_vjp`."""
-    return differentiable(
-        lambda *a: _forward(*a, out_dtype),
-        lambda saved, g: fused_o_branch_vjp(*saved, g, out_dtype),
-        (d, wm, bm, w2, b2))
+    with annotate("kernel.fused_o_branch"):
+        return differentiable(
+            lambda *a: _forward(*a, out_dtype),
+            lambda saved, g: fused_o_branch_vjp(*saved, g, out_dtype),
+            (d, wm, bm, w2, b2))
 
 
 def _forward(d, wm, bm, w2, b2, out_dtype):

@@ -48,6 +48,7 @@ from endosr_torch.kernels.head_dot import wgmma_pack_index
 from endosr_torch.kernels.output_stage import output_stage_plain
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["fused_tail", "fused_tail_plain", "fused_tail_route",
            "fused_tail_vjp",
@@ -174,7 +175,8 @@ def launch_wgmma(g4, wh, bh, clamp_min, clamp_max, layout, wout, pre_bias=None):
     if g4.data_ptr() % 16:
         raise ValueError("g4 must be 16-byte aligned")
     b, h, wc, c4, st, bias, pb, out = _common(g4, bh, layout, wout, pre_bias)
-    wp = fused_tail_pack_weights(wh.to(g4.dtype))
+    with annotate("net.prepare"):
+        wp = fused_tail_pack_weights(wh.to(g4.dtype))
     code = fn(g4.data_ptr(), st[0], st[1], st[2], b, c4, h, wc, wout,
               wp.data_ptr(), bias.data_ptr(),
               None if pb is None else pb.data_ptr(), float(clamp_min),
@@ -193,12 +195,13 @@ def fused_tail(g4, wh, bh, clamp_min=0.0, clamp_max=1.0, layout="bhwc",
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`fused_tail_route` names (and raises if it cannot).
     Under autograd the backward is :func:`fused_tail_vjp`."""
-    return differentiable(
-        lambda a, w, b, pb: _forward(a, w, b, clamp_min, clamp_max, layout,
-                                     wout, pb),
-        lambda saved, g: fused_tail_vjp(*saved, g, clamp_min, clamp_max,
-                                        layout, wout),
-        (g4, wh, bh, pre_bias))
+    with annotate("kernel.fused_tail"):
+        return differentiable(
+            lambda a, w, b, pb: _forward(a, w, b, clamp_min, clamp_max, layout,
+                                         wout, pb),
+            lambda saved, g: fused_tail_vjp(*saved, g, clamp_min, clamp_max,
+                                            layout, wout),
+            (g4, wh, bh, pre_bias))
 
 
 def fused_tail_vjp(g4, wh, bh, pre_bias, g, clamp_min=0.0, clamp_max=1.0,
@@ -206,10 +209,11 @@ def fused_tail_vjp(g4, wh, bh, pre_bias, g, clamp_min=0.0, clamp_max=1.0,
     """The backward of :func:`fused_tail` (the JAX ``_bwd``,
     ``fused_tail.py:271-283``): the VJP of the plain version at the saved
     inputs. Returns the gradients of (g4, wh, bh, pre_bias)."""
-    return twin_vjp(
-        lambda a, w, b, pb: fused_tail_plain(a, w, b, clamp_min, clamp_max,
-                                             layout, wout, pb),
-        (g4, wh, bh, pre_bias), g)
+    with annotate("kernel.fused_tail_vjp"):
+        return twin_vjp(
+            lambda a, w, b, pb: fused_tail_plain(a, w, b, clamp_min, clamp_max,
+                                                 layout, wout, pb),
+            (g4, wh, bh, pre_bias), g)
 
 
 def _forward(g4, wh, bh, clamp_min, clamp_max, layout, wout, pre_bias):

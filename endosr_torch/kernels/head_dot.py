@@ -34,6 +34,7 @@ from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["head_dot", "head_dot_plain", "head_dot_route",
            "head_dot_pack_weights", "head_dot_unpack_weights",
@@ -133,7 +134,8 @@ def launch_wgmma(g4_hwnc, w64, b64, wout, pre_bias):
     h, dt = hp - 1, g4_hwnc.dtype
     if g4_hwnc.data_ptr() % 16:
         raise ValueError("g4 must be 16-byte aligned")
-    wp = head_dot_pack_weights(w64.to(dt))
+    with annotate("net.prepare"):
+        wp = head_dot_pack_weights(w64.to(dt))
     bias = b64.float().contiguous()
     pb = None if pre_bias is None else pre_bias.to(dt).contiguous()
     out = torch.empty((h, b, wout, 64), dtype=dt, device=g4_hwnc.device)
@@ -153,18 +155,20 @@ def head_dot(g4_hwnc, w64, b64, wout=None, pre_bias=None):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`head_dot_route` names (and raises if it cannot). Under
     autograd the backward is :func:`head_dot_vjp`."""
-    return differentiable(
-        lambda g4, w, b, pb: _forward(g4, w, b, wout, pb),
-        lambda saved, g: head_dot_vjp(*saved, g, wout=wout),
-        (g4_hwnc, w64, b64, pre_bias))
+    with annotate("kernel.head_dot"):
+        return differentiable(
+            lambda g4, w, b, pb: _forward(g4, w, b, wout, pb),
+            lambda saved, g: head_dot_vjp(*saved, g, wout=wout),
+            (g4_hwnc, w64, b64, pre_bias))
 
 
 def head_dot_vjp(g4_hwnc, w64, b64, pre_bias, g, wout=None):
     """The backward of :func:`head_dot` (the JAX ``_bwd``,
     ``head_dot.py:310-320``): the VJP of the plain version at the saved
     inputs. Returns the gradients of (g4, w64, b64, pre_bias)."""
-    return twin_vjp(lambda a, w, b, pb: head_dot_plain(a, w, b, wout, pb),
-                    (g4_hwnc, w64, b64, pre_bias), g)
+    with annotate("kernel.head_dot_vjp"):
+        return twin_vjp(lambda a, w, b, pb: head_dot_plain(a, w, b, wout, pb),
+                        (g4_hwnc, w64, b64, pre_bias), g)
 
 
 def _forward(g4_hwnc, w64, b64, wout, pre_bias):

@@ -30,6 +30,7 @@ import torch
 
 from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import refuse_grad
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["in_stats", "in_stats_plain", "in_stats_route", "stats_plan",
            "chunk_plan", "tickets", "launch"]
@@ -134,13 +135,14 @@ def in_stats(x):
     kernel :func:`in_stats_route` names (and raises if it cannot). Neither
     has a gradient: on CUDA under autograd it raises
     ``NotImplementedError`` (the JAX kernel has none on the TPU)."""
-    if x.device.type == "cpu":
-        return in_stats_plain(x)
-    refuse_grad("in_stats", "in_stats: kernel", (x,))
-    sums, route = launch(x)
-    in_stats.launches += 1
-    in_stats.routes[route] += 1
-    return sums
+    with annotate("kernel.in_stats"):
+        if x.device.type == "cpu":
+            return in_stats_plain(x)
+        refuse_grad("in_stats", "in_stats: kernel", (x,))
+        sums, route = launch(x)
+        in_stats.launches += 1
+        in_stats.routes[route] += 1
+        return sums
 
 
 in_stats.launches = 0

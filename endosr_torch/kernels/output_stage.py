@@ -37,6 +37,7 @@ from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.nn.layers import clip, pixel_shuffle
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["output_stage", "output_stage_plain", "output_stage_route",
            "output_stage_x8", "output_stage_x8_plain", "output_stage_x8_route",
@@ -130,11 +131,12 @@ def output_stage_x8(pre64, clamp_min=0.0, clamp_max=1.0, order="bhwc"):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`output_stage_x8_route` names (and raises if it cannot).
     Under autograd the backward is :func:`output_stage_x8_vjp`."""
-    return differentiable(
-        lambda p: _forward_x8(p, clamp_min, clamp_max, order),
-        lambda saved, g: output_stage_x8_vjp(*saved, g, clamp_min, clamp_max,
-                                             order),
-        (pre64,))
+    with annotate("kernel.output_stage_x8"):
+        return differentiable(
+            lambda p: _forward_x8(p, clamp_min, clamp_max, order),
+            lambda saved, g: output_stage_x8_vjp(*saved, g, clamp_min,
+                                                 clamp_max, order),
+            (pre64,))
 
 
 def output_stage_x8_vjp(pre64, g, clamp_min=0.0, clamp_max=1.0,
@@ -142,9 +144,10 @@ def output_stage_x8_vjp(pre64, g, clamp_min=0.0, clamp_max=1.0,
     """The backward of :func:`output_stage_x8` (the JAX ``_bwd_x8``,
     ``output_stage.py:299-306``): the VJP of the plain version, g
     [B, 4H, 12W] → (g_pre64,), zero in the 16 padding slots."""
-    return twin_vjp(
-        lambda p: output_stage_x8_plain(p, clamp_min, clamp_max, order),
-        (pre64,), g)
+    with annotate("kernel.output_stage_x8_vjp"):
+        return twin_vjp(
+            lambda p: output_stage_x8_plain(p, clamp_min, clamp_max, order),
+            (pre64,), g)
 
 
 def _forward_x8(pre64, clamp_min, clamp_max, order):
@@ -225,19 +228,23 @@ def output_stage(pre, r, clamp_min=0.0, clamp_max=1.0):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`output_stage_route` names (and raises if it cannot).
     Under autograd the backward is :func:`output_stage_vjp`."""
-    _colours(pre.shape[-1], r)
-    return differentiable(
-        lambda p: _forward(p, r, clamp_min, clamp_max),
-        lambda saved, g: output_stage_vjp(*saved, g, r, clamp_min, clamp_max),
-        (pre,))
+    with annotate("kernel.output_stage"):
+        _colours(pre.shape[-1], r)
+        return differentiable(
+            lambda p: _forward(p, r, clamp_min, clamp_max),
+            lambda saved, g: output_stage_vjp(*saved, g, r, clamp_min,
+                                              clamp_max),
+            (pre,))
 
 
 def output_stage_vjp(pre, g, r, clamp_min=0.0, clamp_max=1.0):
     """The backward of :func:`output_stage` (the JAX ``_bwd``,
     ``output_stage.py:374-380``): the VJP of the plain version, g
     [B, H·r, W·r·C] → (g_pre,)."""
-    return twin_vjp(lambda p: output_stage_plain(p, r, clamp_min, clamp_max),
-                    (pre,), g)
+    with annotate("kernel.output_stage_vjp"):
+        return twin_vjp(
+            lambda p: output_stage_plain(p, r, clamp_min, clamp_max), (pre,),
+            g)
 
 
 def _forward(pre, r, clamp_min, clamp_max):

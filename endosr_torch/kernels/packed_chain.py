@@ -51,6 +51,7 @@ from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import differentiable, twin_vjp
 from endosr_torch.nn.layers import conv2d_nhwc, leaky_relu, packed_gate
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["packed_g123", "packed_g123_plain", "packed_g123_route",
            "packed_g123_vjp",
@@ -231,18 +232,19 @@ def launch_wgmma(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
     stream = _build.stream_ptr(x_hwnc.device)
     xs = (x_hwnc.stride(0), x_hwnc.stride(1), x_hwnc.stride(2))
     gs = _bhwc_strides(g1)
-    for (x, st, ex, cin, ph, p, act_in, k, bias, pad, out, res, act, gate_s) in (
-            (x_hwnc, xs, (nx, mx), cin4, phases, pb, pre_act, ks[0], bs[0], 1,
+    with annotate("net.prepare"):
+        wps = [packed_stage_pack_weights(k) for k in ks]
+    for (x, st, ex, cin, ph, p, act_in, wp, bias, pad, out, res, act, g_s) in (
+            (x_hwnc, xs, (nx, mx), cin4, phases, pb, pre_act, wps[0], bs[0], 1,
              g1, None, 1, 1),
-            (g1, gs, (n, m), 128, False, None, False, ks[1], bs[1], 0, g2,
+            (g1, gs, (n, m), 128, False, None, False, wps[1], bs[1], 0, g2,
              None, 0, 0),
-            (g2, gs, (n, m), 128, False, None, False, ks[2], bs[2], 1, g3, g1,
+            (g2, gs, (n, m), 128, False, None, False, wps[2], bs[2], 1, g3, g1,
              0, 1)):
-        wp = packed_stage_pack_weights(k)
         code = fn(x.data_ptr(), *st, *ex, n, m, b, cin, int(ph), _ptr(p),
                   int(act_in), wp.data_ptr(), bias.data_ptr(), pad, out.data_ptr(),
                   *_bhwc_strides(out), _ptr(res), *_bhwc_strides(res), act,
-                  gate_s, stream)
+                  g_s, stream)
         _build.check(lib, code, "packed_stage_wgmma")
     if k4 is not None:
         return _stage4(g3, k4, b4)
@@ -256,14 +258,16 @@ def packed_g123_vjp(x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, g,
     saved inputs, the forward recomputed. Returns the gradients of (x, k1,
     b1, k2, b2, k3, b3, pre_bias), None for a missing ``pre_bias``, and
     with ``k4`` those of (k4, b4) after them."""
-    if k4 is None:
+    with annotate("kernel.packed_g123_vjp"):
+        if k4 is None:
+            return twin_vjp(
+                lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6],
+                                                phases),
+                (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias), g)
         return twin_vjp(
-            lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases),
-            (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias), g)
-    return twin_vjp(
-        lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases,
-                                        a[7], a[8]),
-        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, k4, b4), g)
+            lambda x, *a: packed_g123_plain(x, *a[:6], pre_act, a[6], phases,
+                                            a[7], a[8]),
+            (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, k4, b4), g)
 
 
 def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
@@ -283,20 +287,22 @@ def packed_g123(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act=False,
     kernel :func:`packed_g123_route` names (three stage launches, four with
     ``k4``, counted as one call) or raises. Under autograd the backward is
     :func:`packed_g123_vjp`."""
-    if (k4 is None) != (b4 is None):
-        raise ValueError("k4 and b4 come together")
-    if k4 is None:
+    with annotate("kernel.packed_g123"):
+        if (k4 is None) != (b4 is None):
+            raise ValueError("k4 and b4 come together")
+        if k4 is None:
+            return differentiable(
+                lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases),
+                lambda saved, g: packed_g123_vjp(*saved, g, pre_act=pre_act,
+                                                 phases=phases),
+                (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias))
         return differentiable(
-            lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases),
-            lambda saved, g: packed_g123_vjp(*saved, g, pre_act=pre_act,
-                                             phases=phases),
-            (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias))
-    return differentiable(
-        lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases, a[7], a[8]),
-        lambda saved, g: packed_g123_vjp(*saved[:8], g, pre_act=pre_act,
-                                         phases=phases, k4=saved[8],
-                                         b4=saved[9]),
-        (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, k4, b4))
+            lambda x, *a: _forward(x, *a[:6], pre_act, a[6], phases, a[7],
+                                   a[8]),
+            lambda saved, g: packed_g123_vjp(*saved[:8], g, pre_act=pre_act,
+                                             phases=phases, k4=saved[8],
+                                             b4=saved[9]),
+            (x_hwnc, k1, b1, k2, b2, k3, b3, pre_bias, k4, b4))
 
 
 def _forward(x_hwnc, k1, b1, k2, b2, k3, b3, pre_act, pre_bias, phases,

@@ -34,6 +34,7 @@ import torch
 
 from endosr_torch.kernels import _build
 from endosr_torch.nn.layers import pixel_shuffle
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["mid_shuffle", "mid_shuffle_plain", "mid_shuffle_route",
            "mid_unshuffle_plain", "launch"]
@@ -129,9 +130,10 @@ def mid_shuffle(z, r=2):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`mid_shuffle_route` names (and raises if it cannot).
     Forward and backward launches both count."""
-    if z.device.type == "cpu":
-        return mid_shuffle_plain(z, r)
-    return _MidShuffle.apply(z, r)
+    with annotate("kernel.mid_shuffle"):
+        if z.device.type == "cpu":
+            return mid_shuffle_plain(z, r)
+        return _MidShuffle.apply(z, r)
 
 
 mid_shuffle.launches = 0

@@ -56,6 +56,7 @@ import torch
 
 from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import differentiable
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["style_blend_dot", "style_blend_plain", "style_blend_route",
            "style_blend_vjp", "style_dot_hwbm", "style_dot_plain",
@@ -153,12 +154,13 @@ def style_dot_vjp(shifted, v, g):
     ``style_dot.py:137-142``): g [H,W,B,M] → (g_shifted, g_v), each
     product in its operands' promoted type, then cast to its input's
     type."""
-    gt = g.permute(2, 0, 1, 3)
-    ct = torch.promote_types(g.dtype, v.dtype)
-    gs = torch.einsum("bhwm,bjm->bhwj", gt.to(ct), v.to(ct))
-    ct = torch.promote_types(shifted.dtype, g.dtype)
-    gv = torch.einsum("bhwj,bhwm->bjm", shifted.to(ct), gt.to(ct))
-    return gs.to(shifted.dtype), gv.to(v.dtype)
+    with annotate("kernel.style_dot_vjp"):
+        gt = g.permute(2, 0, 1, 3)
+        ct = torch.promote_types(g.dtype, v.dtype)
+        gs = torch.einsum("bhwm,bjm->bhwj", gt.to(ct), v.to(ct))
+        ct = torch.promote_types(shifted.dtype, g.dtype)
+        gv = torch.einsum("bhwj,bhwm->bjm", shifted.to(ct), gt.to(ct))
+        return gs.to(shifted.dtype), gv.to(v.dtype)
 
 
 def style_blend_vjp(shifted, v, n_conv, conv_dtype, bias_dtype, g,
@@ -169,15 +171,16 @@ def style_blend_vjp(shifted, v, n_conv, conv_dtype, bias_dtype, g,
     given back as [H,W,B,J]), each conv's gradient its channel slice of g
     (in the convs' type), the bias's g summed in fp32 (in the bias's
     type). Returns (g_shifted, g_v, (g_conv, ...), g_bias)."""
-    gs, gv = style_dot_vjp(shifted.permute(2, 0, 1, 3) if hwbc else shifted,
-                           v, g)
-    if hwbc:
-        gs = gs.permute(1, 2, 0, 3)
-    c2 = g.shape[3] // n_conv
-    gconvs = tuple(g[..., i * c2:(i + 1) * c2].to(conv_dtype)
-                   for i in range(n_conv))
-    gbias = g.float().sum(dim=(0, 1, 2)).to(bias_dtype)
-    return gs, gv, gconvs, gbias
+    with annotate("kernel.style_blend_vjp"):
+        gs, gv = style_dot_vjp(
+            shifted.permute(2, 0, 1, 3) if hwbc else shifted, v, g)
+        if hwbc:
+            gs = gs.permute(1, 2, 0, 3)
+        c2 = g.shape[3] // n_conv
+        gconvs = tuple(g[..., i * c2:(i + 1) * c2].to(conv_dtype)
+                       for i in range(n_conv))
+        gbias = g.float().sum(dim=(0, 1, 2)).to(bias_dtype)
+        return gs, gv, gconvs, gbias
 
 
 def style_blend_dot(shifted, v, convs, bias, hwbc=False):
@@ -197,9 +200,10 @@ def style_blend_dot(shifted, v, convs, bias, hwbc=False):
                                                 bdt, g, hwbc)
         return (gs, gv, *gconvs, gbias)
 
-    return differentiable(
-        lambda s, vv, *rest: _blend(s, vv, rest[:-1], rest[-1], hwbc), vjp,
-        (shifted, v, *convs, bias), save=(True, True) + (False,) * (n + 1))
+    with annotate("kernel.style_blend_dot"):
+        return differentiable(
+            lambda s, vv, *rest: _blend(s, vv, rest[:-1], rest[-1], hwbc), vjp,
+            (shifted, v, *convs, bias), save=(True, True) + (False,) * (n + 1))
 
 
 def _blend(shifted, v, convs, bias, hwbc=False):
@@ -276,8 +280,9 @@ def style_dot_hwbm(shifted, v):
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel :func:`style_dot_route` names (and raises if it cannot).
     Under autograd the backward is :func:`style_dot_vjp`."""
-    return differentiable(_dot, lambda saved, g: style_dot_vjp(*saved, g),
-                          (shifted, v))
+    with annotate("kernel.style_dot_hwbm"):
+        return differentiable(_dot, lambda saved, g: style_dot_vjp(*saved, g),
+                              (shifted, v))
 
 
 def _dot(shifted, v):

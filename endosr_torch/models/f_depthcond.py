@@ -71,6 +71,7 @@ from endosr_torch.parallel.mesh import mean_over_ranks
 from endosr_torch.parallel.spatial import sharded_masked_forward
 from endosr_torch.utils.device import device_constant, resolve_device
 from endosr_torch.utils.port_params import seeded_init
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["FModelDepthCond", "chunked_serving_fn", "u8_image_norm",
            "u8_cast"]
@@ -261,10 +262,33 @@ class FModelDepthCond(BaseModel):
                 and step % 1000 == 0:
             self._dump_disparities()
         b, dev = self.batch, self.device
-        lq = u8_image_norm(b["LQ"].to(dev))
-        masks = u8_cast(b["DepthMaskList"].to(dev))
-        gt = u8_image_norm(b["GT"].to(dev))
-        fake_h = self._train_net(lq, b["Depth"].to(dev), masks)
+        with annotate("train.inputs"):
+            lq = u8_image_norm(b["LQ"].to(dev))
+            masks = u8_cast(b["DepthMaskList"].to(dev))
+            gt = u8_image_norm(b["GT"].to(dev))
+            depth = b["Depth"].to(dev)
+        with annotate("train.forward"):
+            fake_h = self._train_net(lq, depth, masks)
+        with annotate("train.losses"):
+            logs, total = self._losses(fake_h, gt, masks, mask_bin)
+        with annotate("train.backward"):
+            self.optimizer_G.zero_grad(set_to_none=True)
+            total.backward()
+        with annotate("train.update"):
+            self._sync_grads(self.optimizer_G)
+            if self._clear_state is not None:
+                self._clear_state(self.optimizer_G, self.step)
+            lr = self.schedule(self.step)
+            for group in self.optimizer_G.param_groups:
+                group["lr"] = lr
+            self.optimizer_G.step()
+            self.step += 1
+        with annotate("train.logs"):
+            return self._read_logs(logs)
+
+    def _losses(self, fake_h, gt, masks, mask_bin):
+        """({name: loss tensor}, the weighted total) of a training step, in
+        JAX's order."""
         logs = {}
         total = logs["l_pix"] = self.l_pix_w * self.cri_pix(fake_h, gt)
         for name, fn in (("depth", self.depth_loss_fn),
@@ -289,18 +313,7 @@ class FModelDepthCond(BaseModel):
             logs.update(l_dynamic=l_dyn, dyn_w=w, dyn_l=raw)
             total = total + l_dyn
         logs["l_all"] = total
-
-        self.optimizer_G.zero_grad(set_to_none=True)
-        total.backward()
-        self._sync_grads(self.optimizer_G)
-        if self._clear_state is not None:
-            self._clear_state(self.optimizer_G, self.step)
-        lr = self.schedule(self.step)
-        for group in self.optimizer_G.param_groups:
-            group["lr"] = lr
-        self.optimizer_G.step()
-        self.step += 1
-        return self._read_logs(logs)
+        return logs, total
 
     def _read_logs(self, logs):
         """{name: loss tensor} → ``self.log_dict`` of floats (with a mesh,
@@ -419,28 +432,32 @@ class FModelDepthCond(BaseModel):
         if "LQ" not in self.batch:
             raise RuntimeError("no batch: call feed_data before test")
         b, dev = self.batch, self.device
-        lq, dep, masks = (b[k].float()
-                          for k in ("LQ", "Depth", "DepthMaskList"))
-        h, w = lq.shape[1], lq.shape[2]
         bucket = self._bucket()
         nsp = self._spatial_shards(bucket)
-        if bucket:
-            hmult = int(np.lcm(bucket, 4 * nsp)) if nsp else bucket
-            hb, wb = -(-h // hmult) * hmult, -(-w // bucket) * bucket
-            pad = (0, 0, 0, wb - w, 0, hb - h)
-            v3h, v3w = ((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2
-            pm = pool_mask_np(self._host_masks(), (v3h, v3w),
-                              (hb // 4, wb // 4))
+        with annotate("serve.inputs"):
+            x = [b[k].float() for k in ("LQ", "Depth", "DepthMaskList")]
+            h, w = x[0].shape[1], x[0].shape[2]
+            if bucket:
+                hmult = int(np.lcm(bucket, 4 * nsp)) if nsp else bucket
+                hb, wb = -(-h // hmult) * hmult, -(-w // bucket) * bucket
+                pad = (0, 0, 0, wb - w, 0, hb - h)
+                v3h, v3w = ((h + 1) // 2 + 1) // 2, ((w + 1) // 2 + 1) // 2
+                pm = pool_mask_np(self._host_masks(), (v3h, v3w),
+                                  (hb // 4, wb // 4))
+                x = [F.pad(t, pad) for t in x]
+            if not nsp:
+                # the spatial path hands each rank its slab itself
+                x = [t.to(dev) for t in x]
+                if bucket:
+                    pm = torch.from_numpy(pm).to(dev)
+        with annotate("serve.forward"):
             if nsp:
-                sr = sharded_masked_forward(
-                    self.netG, F.pad(lq, pad), F.pad(dep, pad),
-                    F.pad(masks, pad), (h, w), pm, self.mesh)
+                sr = sharded_masked_forward(self.netG, *x, (h, w), pm,
+                                            self.mesh)
+            elif bucket:
+                sr = self.netG(*x, valid_hw=(h, w), pool_mask=pm)
             else:
-                sr = self.netG(F.pad(lq, pad).to(dev), F.pad(dep, pad).to(dev),
-                               F.pad(masks, pad).to(dev), valid_hw=(h, w),
-                               pool_mask=torch.from_numpy(pm).to(dev))
-        else:
-            sr = self._fwd(lq.to(dev), dep.to(dev), masks.to(dev))
+                sr = self._fwd(*x)
         s = int(self.opt["scale"])
         self.fake_SR = self.fake_H = sr[:, :h * s, :w * s, :]
         return self.fake_SR

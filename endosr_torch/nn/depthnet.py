@@ -101,6 +101,7 @@ from endosr_torch.nn.layers import (
 )
 from endosr_torch.nn.sean import (
     SEAN,
+    branch_weights,
     hoisted_blended_mods,
     hoisted_o_branch,
     hoisted_style_branch,
@@ -117,6 +118,7 @@ from endosr_torch.ops.resize import interpolate_bilinear, interpolate_nearest
 from endosr_torch.parallel.spatial import active as spatial_active
 from endosr_torch.parallel.spatial import suspended
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["DepthNet", "Encoder", "EncoderNoDepthMatrix",
            "region_wise_avg_pooling", "DepthResidualBlock",
@@ -127,7 +129,18 @@ def _fold_wb(w, b, r):
     """Fold an fp32 (HWIO kernel, bias) through a pending pixel_shuffle(r)."""
     if r == 1:
         return w, b
-    return fold_kernel_through_pixel_shuffle(w, r), b.repeat_interleave(r * r)
+    with annotate("net.prepare"):
+        return (fold_kernel_through_pixel_shuffle(w, r),
+                b.repeat_interleave(r * r))
+
+
+def _packed_wb(w, b, s_in, s_out, in_interleaved=False):
+    """A 3×3 SAME conv's fp32 (HWIO kernel, bias) phase-packed for the ×8
+    packed tail (:func:`~endosr_torch.nn.layers.packed_stage_kernel`, the
+    bias once per phase group; None for a bias of None)."""
+    with annotate("net.prepare"):
+        return (packed_stage_kernel(w, s_in, s_out, in_interleaved),
+                None if b is None else b.repeat(4))
 
 
 def _phase_channels(fs: int) -> np.ndarray:
@@ -627,13 +640,14 @@ class DepthNet(nn.Module):
                              "standard DepthNet paths only, not the ablations "
                              "or the fused epilogue")
         vr = _ValidRegion(x, valid_hw)
-        if self.ablate_depth_matrix:
-            feat, depth_vec = self.encoder(x, dt)
-        else:
-            feat, depth_vec = self.encoder(x, depth_mask, dt, valid_hw,
-                                           pool_mask)
-        fea = vr.zero(leaky_relu(self.head["0"](feat, dt)))
-        fea_bef = vr.zero(leaky_relu(self.head["2"](fea, dt)))
+        with annotate("net.encoder"):
+            if self.ablate_depth_matrix:
+                feat, depth_vec = self.encoder(x, dt)
+            else:
+                feat, depth_vec = self.encoder(x, depth_mask, dt, valid_hw,
+                                               pool_mask)
+            fea = vr.zero(leaky_relu(self.head["0"](feat, dt)))
+            fea_bef = vr.zero(leaky_relu(self.head["2"](fea, dt)))
         fea_in = fea_bef
         depth = (depth_map, depth_mask, depth_vec)
 
@@ -650,82 +664,91 @@ class DepthNet(nn.Module):
         lazy = bool(hoist and self.lazy_branches and not can_fuse
                     and not self.pallas_obranch)
         style_groups, hoist_groups, slot = {}, {}, {}
-        if hoist:
-            size = (feat.shape[1], feat.shape[2])
-            dmap = interpolate_nearest(depth_map, size)
-            dmask = interpolate_nearest(depth_mask, size) if want_style else None
-
-            def by(g):
-                return {grp[0]: grp for grp in (
-                    trunk_depth[j:j + g] for j in range(0, len(trunk_depth), g))}
         o_groups, actv = {}, {}
-        if lazy:
-            norms = [n for i in trunk_depth
-                     for n in (self.block(i).norm1, self.block(i).norm2)]
-            o_w = [n.depth_branch_weights() for n in norms]
-            slot = {i: k for k, i in enumerate(trunk_depth)}
-            if self.lazy_o_chunk > 0:
-                o_groups = by(self.lazy_o_chunk)
-            else:
-                actv = dict(enumerate(precompute_o_actv(
-                    o_w, dmap, mdt, vr.mask_for(dmap), self.obranch_body)))
-            if want_style:
-                s_w = [n.style_branch_weights() for n in norms]
-                shifted = shifted_mask_stack(dmask, mdt)
-                v_chunks = precompute_style_v(s_w, depth_vec, mdt)
-                style_groups = by(self.style_chunk)
-        elif hoist:
-            hoist_groups = by(self.hoist_chunk if self.hoist_chunk > 0
-                              else len(trunk_depth))
+
+        def by(g):
+            return {grp[0]: grp for grp in (
+                trunk_depth[j:j + g] for j in range(0, len(trunk_depth), g))}
+
+        with annotate("net.branches"):
+            if hoist:
+                size = (feat.shape[1], feat.shape[2])
+                dmap = interpolate_nearest(depth_map, size)
+                dmask = (interpolate_nearest(depth_mask, size) if want_style
+                         else None)
+            if lazy:
+                norms = [n for i in trunk_depth
+                         for n in (self.block(i).norm1, self.block(i).norm2)]
+                o_w, s_w = branch_weights(norms, want_style)
+                slot = {i: k for k, i in enumerate(trunk_depth)}
+                if self.lazy_o_chunk > 0:
+                    o_groups = by(self.lazy_o_chunk)
+                else:
+                    actv = dict(enumerate(precompute_o_actv(
+                        o_w, dmap, mdt, vr.mask_for(dmap), self.obranch_body)))
+                if want_style:
+                    shifted = shifted_mask_stack(dmask, mdt)
+                    v_chunks = precompute_style_v(s_w, depth_vec, mdt)
+                    style_groups = by(self.style_chunk)
+            elif hoist:
+                hoist_groups = by(self.hoist_chunk if self.hoist_chunk > 0
+                                  else len(trunk_depth))
         mods = {}
         blend = self.blend_fold and want_style
 
-        for i in range(nb - 3):
-            if i in o_groups:
-                # the group's slice of the shared first conv (its output
-                # channels), made right before its blocks
-                ks = [2 * slot[j] + half for j in o_groups[i] for half in (0, 1)]
-                actv.update(zip(ks, precompute_o_actv(
-                    [o_w[k] for k in ks], dmap, mdt, vr.mask_for(dmap),
-                    self.obranch_body)))
-            if i in hoist_groups:
-                mods.update(self._hoist_group(hoist_groups[i], dmap, dmask,
-                                              depth_vec, vr, can_fuse,
-                                              want_style))
-            if i in style_groups:
-                mods.update(self._group_mods(style_groups[i], slot, actv, o_w,
-                                             s_w, v_chunks, shifted, vr.on,
-                                             blend))
-            kw = mods.pop(i, {})
-            if i in slot and "mod" not in kw:
-                # lazy without the blend kernel: conv2 runs per block
-                ks = [2 * slot[i] + half for half in (0, 1)]
-                if blend:
-                    # blend fold: (1−α)-scaled conv2 + the α-scaled style
-                    # half with the blended bias
-                    obs = [o_branch_from_actv(actv.pop(k), o_w[k], mdt, al)
-                           for k, al in zip(ks, self._alphas(i))]
-                    kw["mod"] = tuple((o[0] + sb[0], o[1] + sb[1])
-                                      for o, sb in zip(obs, kw.pop("sb")))
-                else:
-                    kw["ob"] = tuple(o_branch_from_actv(actv.pop(k), o_w[k],
-                                                        mdt) for k in ks)
-            fea_in = self._run_block(i, fea_in, depth, vr, **kw)
-        feat_add1 = fea_in + fea_bef                         # global skip
+        with annotate("net.trunk"):
+            for i in range(nb - 3):
+                if i in o_groups or i in hoist_groups or i in style_groups:
+                    with annotate("net.branches"):
+                        if i in o_groups:
+                            # the group's slice of the shared first conv (its
+                            # output channels), made right before its blocks
+                            ks = [2 * slot[j] + half for j in o_groups[i]
+                                  for half in (0, 1)]
+                            actv.update(zip(ks, precompute_o_actv(
+                                [o_w[k] for k in ks], dmap, mdt,
+                                vr.mask_for(dmap), self.obranch_body)))
+                        if i in hoist_groups:
+                            mods.update(self._hoist_group(
+                                hoist_groups[i], dmap, dmask, depth_vec, vr,
+                                can_fuse, want_style))
+                        if i in style_groups:
+                            mods.update(self._group_mods(
+                                style_groups[i], slot, actv, o_w, s_w,
+                                v_chunks, shifted, vr.on, blend))
+                kw = mods.pop(i, {})
+                if i in slot and "mod" not in kw:
+                    # lazy without the blend kernel: conv2 runs per block
+                    ks = [2 * slot[i] + half for half in (0, 1)]
+                    if blend:
+                        # blend fold: (1−α)-scaled conv2 + the α-scaled
+                        # style half with the blended bias
+                        obs = [o_branch_from_actv(actv.pop(k), o_w[k], mdt, al)
+                               for k, al in zip(ks, self._alphas(i))]
+                        kw["mod"] = tuple((o[0] + sb[0], o[1] + sb[1])
+                                          for o, sb in zip(obs, kw.pop("sb")))
+                    else:
+                        kw["ob"] = tuple(o_branch_from_actv(
+                            actv.pop(k), o_w[k], mdt) for k in ks)
+                fea_in = self._run_block(i, fea_in, depth, vr, **kw)
+            feat_add1 = fea_in + fea_bef                     # global skip
 
-        if (self.scale == 8 and self.fold_tail and self.fold_output_conv
-                and (nb - 2) not in self.which and (nb - 1) not in self.which):
-            packed = self.packed_tail and not vr.on and not self.tail_cc
-            if packed and self.packed_up1:
-                # the whole packed tail reaches 4 LR rows: h_pre[Y−2..Y+2]
-                # make up1's g4 row Y, and a head row reads 3 fine rows
-                return _slab_rows(self.upscale1["0"](feat_add1, self.dtype),
-                                  4, self._packed_from_h_pre, 8)
-            z = self._dense_fold1(feat_add1, vr)
-            if packed:
-                return _slab_rows(z, 3, self._packed_tail, 4)
-            return self._dense_fold2_tail(z, vr)
-        return self._tail(feat_add1, depth, vr)
+        with annotate("net.tail"):
+            if (self.scale == 8 and self.fold_tail and self.fold_output_conv
+                    and (nb - 2) not in self.which
+                    and (nb - 1) not in self.which):
+                packed = self.packed_tail and not vr.on and not self.tail_cc
+                if packed and self.packed_up1:
+                    # the whole packed tail reaches 4 LR rows: h_pre[Y−2..Y+2]
+                    # make up1's g4 row Y, and a head row reads 3 fine rows
+                    return _slab_rows(
+                        self.upscale1["0"](feat_add1, self.dtype), 4,
+                        self._packed_from_h_pre, 8)
+                z = self._dense_fold1(feat_add1, vr)
+                if packed:
+                    return _slab_rows(z, 3, self._packed_tail, 4)
+                return self._dense_fold2_tail(z, vr)
+            return self._tail(feat_add1, depth, vr)
 
     def _alphas(self, i):
         """Block ``i``'s two SEANs' (α_γ, α_β)."""
@@ -758,8 +781,7 @@ class DepthNet(nn.Module):
         dt = self.mod_dtype
         norms = [n for i in ids
                  for n in (self.block(i).norm1, self.block(i).norm2)]
-        o_w = [n.depth_branch_weights() for n in norms]
-        s_w = [n.style_branch_weights() for n in norms] if want_style else []
+        o_w, s_w = branch_weights(norms, want_style)
 
         def per_block(pairs):
             return [(pairs[2 * k], pairs[2 * k + 1]) for k in range(len(ids))]
@@ -843,6 +865,15 @@ class DepthNet(nn.Module):
         return pixel_shuffle(clip(pre, self.clamp_min, self.clamp_max),
                              r).float()
 
+    def _head_wb(self, r, perm=None):
+        """The 9×9 head's fp32 (HWIO kernel, bias) folded through PS(r)
+        (r ≥ 2), its input channels in ``perm``'s order when given."""
+        with annotate("net.prepare"):
+            w = fold_kernel_through_pixel_shuffle(
+                hwio(self.conv_output.weight).float(), r)
+            b = self.conv_output.bias.float().repeat_interleave(r * r)
+            return (w if perm is None else w[:, :, perm, :]), b
+
     def _folded_classic(self, blk, z, r, vr):
         """A classic block on a PS(r)-pending tensor: both convs folded."""
         (w0, b0), (w2, b2) = blk.effective_weights()
@@ -909,8 +940,7 @@ class DepthNet(nn.Module):
         h = self._tconv(z, *wn_effective_kernel(self.upscale3["0"]))
         if self.fold_output_conv:
             # only the head is folded through the final shuffle
-            wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
-                              self.conv_output.bias.float(), fs)
+            wh, bh = self._head_wb(fs)
             out = pixel_shuffle(self._tconv(vr.zero(leaky_relu(h)), wh, bh), fs)
         else:
             out = self.conv_output(vr.zero(leaky_relu(pixel_shuffle(h, fs))), dt)
@@ -930,7 +960,8 @@ class DepthNet(nn.Module):
         perm = device_constant(compose_pixel_shuffle_perm,
                                (r, fs, 32 * fs * fs * r * r), torch.int64,
                                w30.device)
-        w30, b30 = w30[..., perm], b30[perm]
+        with annotate("net.prepare"):
+            w30, b30 = w30[..., perm], b30[perm]
         if r == 2 and not self.tail_cc:
             return self._phase_split_head(_mul(z, vmask), w30, b30, vmask)
         # JAX's folded head takes ``bool(centered_convs)`` as its pass count
@@ -938,8 +969,7 @@ class DepthNet(nn.Module):
         passes = min(self.tail_cc, 1)
         z = self._tconv(_mul(z, vmask), w30, b30, passes)
         rt = r * fs
-        wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
-                          self.conv_output.bias.float(), rt)
+        wh, bh = self._head_wb(rt)
         return self._emit(
             self._tconv(_mul(leaky_relu(z), vmask), wh, bh, passes), rt)
 
@@ -960,40 +990,43 @@ class DepthNet(nn.Module):
         if vmask is None and spatial_active() is not None:
             return _slab_rows(z, 2, lambda zz: self._phase_split_head(
                 zz, w30, b30, None), rt)
-        wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
-                          self.conv_output.bias.float(), rt)
+        wh, bh = self._head_wb(rt)
         phases = [(a, b) for a in (0, 1) for b in (0, 1)]
-        idxs = device_constant(_phase_channels, (fs,), torch.int64, z.device)
+        idxs = list(device_constant(_phase_channels, (fs,), torch.int64,
+                                    z.device))
         m_per = 32 * fs * fs
         v3 = (self.pallas_output and vmask is None and rt == 4
               and self.out_nc == 3)
-
-        def head_w(idx):
-            w_ab = wh[:, :, idx, :]
-            return embed_head_channels(w_ab, bh)[0] if v3 else w_ab
+        with annotate("net.prepare"):
+            # each phase's upscale3_0 taps and bias, and its head kernel
+            w_ph = [w30[a:a + 2, b:b + 2][..., idx]
+                    for (a, b), idx in zip(phases, idxs)]
+            b_ph = [b30[idx] for idx in idxs]
+            heads = [wh[:, :, idx, :] for idx in idxs]
+            if v3:
+                heads = [embed_head_channels(w_ab, bh)[0] for w_ab in heads]
+                b64 = embed_head_channels(wh[:, :, idxs[0], :], bh)[1]
+            if vmask is None:
+                w_all, b_all = torch.cat(w_ph, dim=-1), torch.cat(b_ph)
 
         pre = None
         if vmask is None:
-            w_all = torch.cat([w30[a:a + 2, b:b + 2][..., idx]
-                               for (a, b), idx in zip(phases, idxs)], dim=-1)
-            b_all = torch.cat([b30[idx] for idx in idxs])
             big = leaky_relu(conv2d_nhwc(z, w_all, 1, dt) + b_all.to(dt))
             bsz, hb, wb, _ = big.shape
             gate = device_constant(_phase_gate, (hb - 1, wb - 1), dt, z.device)
             big = (big.reshape(bsz, hb, wb, 4, m_per) * gate).reshape(big.shape)
-            for k, ((a, b), idx) in enumerate(zip(phases, idxs)):
+            for k, ((a, b), w_h) in enumerate(zip(phases, heads)):
                 h_ab = conv2d_nhwc(big[..., m_per * k:m_per * (k + 1)],
-                                   head_w(idx), ((1 - a, a), (1 - b, b)), dt)
+                                   w_h, ((1 - a, a), (1 - b, b)), dt)
                 pre = h_ab if pre is None else pre + h_ab
         else:
-            for (a, b), idx in zip(phases, idxs):
-                zp = conv2d_nhwc(z, w30[a:a + 2, b:b + 2][..., idx],
-                                 ((1 - a, a), (1 - b, b)), dt) + b30[idx].to(dt)
-                h_ab = conv2d_nhwc(_mul(leaky_relu(zp), vmask), head_w(idx),
-                                   1, dt)
+            for (a, b), w_p, b_p, w_h in zip(phases, w_ph, b_ph, heads):
+                zp = conv2d_nhwc(z, w_p, ((1 - a, a), (1 - b, b)),
+                                 dt) + b_p.to(dt)
+                h_ab = conv2d_nhwc(_mul(leaky_relu(zp), vmask), w_h, 1, dt)
                 pre = h_ab if pre is None else pre + h_ab
         if v3:
-            pre = pre + embed_head_channels(wh[:, :, idxs[0], :], bh)[1].to(dt)
+            pre = pre + b64.to(dt)
             flat = output_stage_x8(pre, self.clamp_min, self.clamp_max)
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
         return self._emit(pre + bh.to(dt), rt)
@@ -1019,17 +1052,17 @@ class DepthNet(nn.Module):
         off: the stages as plain convs and gates, stage 4 activated
         here."""
         dt, nb = self.dtype, self.nb
-        psk = packed_stage_kernel
         w13, b13 = wn_effective_kernel(self.upscale1["3"])
         (w50, b50), (w52, b52) = self.block(nb - 2).effective_weights()
         w20, b20 = wn_effective_kernel(self.upscale2["0"])
         chain = packed_g123 if self.pallas_packed_chain else packed_g123_plain
         g3 = chain(
             h_pre.permute(1, 2, 0, 3),
-            psk(w13, 0, 1, in_interleaved=True), b13.repeat(4),
-            psk(w50, 1, 0), b50.repeat(4), psk(w52, 0, 1), b52.repeat(4),
+            *_packed_wb(w13, b13, 0, 1, in_interleaved=True),
+            *_packed_wb(w50, b50, 1, 0), *_packed_wb(w52, b52, 0, 1),
             pre_act=True).permute(2, 0, 1, 3)
-        g4 = conv2d_nhwc(g3, psk(w20, 1, 0), ((0, 1), (0, 1)), dt)
+        g4 = conv2d_nhwc(g3, _packed_wb(w20, None, 1, 0)[0], ((0, 1), (0, 1)),
+                         dt)
         if self.pallas_packed_chain:
             return g4, b20
         return leaky_relu(g4 + b20.repeat(4).to(dt)), None
@@ -1044,7 +1077,6 @@ class DepthNet(nn.Module):
         (``pallas_tail``), ``head_dot`` + ``output_stage_x8``
         (``pallas_head``), or a plain conv and :meth:`_emit`."""
         dt = self.dtype
-        psk = packed_stage_kernel
         lo, hi = self.clamp_min, self.clamp_max
         fs, rt = 2, 4
         w23, b23 = wn_effective_kernel(self.upscale2["3"])
@@ -1054,31 +1086,34 @@ class DepthNet(nn.Module):
         chain = packed_g123 if self.pallas_packed_chain else packed_g123_plain
         g3 = chain(
             src.to(dt).permute(1, 2, 0, 3),
-            psk(w23, 0, 1, in_interleaved=True), b23.repeat(4),
-            psk(wc0, 1, 0), bc0.repeat(4), psk(wc2, 0, 1), bc2.repeat(4),
+            *_packed_wb(w23, b23, 0, 1, in_interleaved=True),
+            *_packed_wb(wc0, bc0, 1, 0), *_packed_wb(wc2, bc2, 0, 1),
             pre_act=pre_bias is not None,
             pre_bias=None if pre_bias is None else pre_bias.to(dt),
             phases=z_g4 is not None).permute(2, 0, 1, 3)
         w30, b30 = wn_effective_kernel(self.upscale3["0"])
-        g4 = conv2d_nhwc(g3, psk(w30, 1, 0), ((0, 1), (0, 1)), dt)
+        k30, pb = _packed_wb(w30, b30, 1, 0)
+        g4 = conv2d_nhwc(g3, k30, ((0, 1), (0, 1)), dt)
         # head folded by rt, input channels permuted from canonical PS(rt)
         # order to g4's group-major packed order
-        wh, bh = _fold_wb(hwio(self.conv_output.weight).float(),
-                          self.conv_output.bias.float(), rt)
         perm = device_constant(_phase_channels, (fs,), torch.int64,
-                               wh.device).reshape(-1)
-        wh = wh[:, :, perm, :]
+                               g3.device).reshape(-1)
+        wh, bh = self._head_wb(rt, perm)
         rgb = self.out_nc == 3
         # fused_tail and head_dot take g4 raw: its bias + leaky_relu and the
         # s=0 gate run inside the kernel while it loads
-        pb = b30.repeat(4).to(dt)
+        pb = pb.to(dt)
         if self.pallas_tail and rgb:
-            flat = fused_tail(g4.permute(1, 2, 0, 3), wh.to(dt), bh, lo, hi,
-                              "hwbc", nw, pb)
+            with annotate("net.prepare"):
+                wt = wh.to(dt)
+            flat = fused_tail(g4.permute(1, 2, 0, 3), wt, bh, lo, hi, "hwbc",
+                              nw, pb)
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
         if self.pallas_head and rgb:
-            w64, b64 = embed_head_channels(wh, bh)
-            pre64 = head_dot(g4.permute(1, 2, 0, 3), w64.to(dt), b64, nw,
+            with annotate("net.prepare"):
+                w64, b64 = embed_head_channels(wh, bh)
+                w64 = w64.to(dt)
+            pre64 = head_dot(g4.permute(1, 2, 0, 3), w64, b64, nw,
                              pb)                                 # [H, B, W, 64]
             flat = output_stage_x8(pre64, lo, hi, order="hbwc")
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)
@@ -1087,7 +1122,8 @@ class DepthNet(nn.Module):
                                g4.device)
         g4 = leaky_relu(g4 + pb) * gate
         if self.pallas_output and rgb:
-            w64, b64 = embed_head_channels(wh, bh)
+            with annotate("net.prepare"):
+                w64, b64 = embed_head_channels(wh, bh)
             pre64 = conv2d_nhwc(g4, w64, ((1, 0), (1, 0)), dt) + b64.to(dt)
             flat = output_stage_x8(pre64, lo, hi)
             return flat.reshape(flat.shape[0], flat.shape[1], -1, self.out_nc)

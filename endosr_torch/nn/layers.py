@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from endosr_torch.parallel.spatial import active as spatial_active
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = [
     "Conv", "WNConv", "ConvTranspose", "WNConvTranspose", "Dense",
@@ -342,12 +343,18 @@ def init_leaves_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     return module
 
 
-def wn_effective_kernel(m: WNConv):
-    """fp32 effective HWIO kernel g·v/‖v‖ and bias of a :class:`WNConv`."""
+def _wn_weight(m):
+    """fp32 g·v/‖v‖ of a weight-normalized conv, in ``weight_v``'s layout
+    (the norm over all but the first axis)."""
     v32 = m.weight_v.float()
     norm = v32.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
-    w = v32 * (m.weight_g.float() / norm)
-    return hwio(w), m.bias.float()
+    return v32 * (m.weight_g.float() / norm)
+
+
+def wn_effective_kernel(m: WNConv):
+    """fp32 effective HWIO kernel g·v/‖v‖ and bias of a :class:`WNConv`."""
+    with annotate("net.prepare"):
+        return hwio(_wn_weight(m)), m.bias.float()
 
 
 def _conv_transpose_nhwc(x, w_iokk, b, stride, padding, dtype):
@@ -411,12 +418,14 @@ class WNConvTranspose(nn.Module):
             self.weight_g.copy_(_norm_on_host(self.weight_v))
         torch_conv_init_(self.bias, fan_in, gen)
 
+    def effective_weight(self):
+        """fp32 effective (I, O, kh, kw) weight g·v/‖v‖."""
+        with annotate("net.prepare"):
+            return _wn_weight(self)
+
     def forward(self, x, dtype):
-        v32 = self.weight_v.float()
-        norm = v32.square().sum(dim=(1, 2, 3), keepdim=True).sqrt()
-        w = v32 * (self.weight_g.float() / norm)
-        return _conv_transpose_nhwc(x, w, self.bias, self.stride,
-                                    self.padding, dtype)
+        return _conv_transpose_nhwc(x, self.effective_weight(), self.bias,
+                                    self.stride, self.padding, dtype)
 
 
 def image_sums(x, stats: str = "default"):

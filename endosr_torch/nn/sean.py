@@ -43,7 +43,8 @@ and resized whole and cut to this rank's rows.
 Weights travel as plain tuples of HWIO fp32 tensors:
 ``depth_branch_weights()`` → (w_mask, b_mask, w_ob, b_ob) with w_ob the
 γ‖β-concatenated [3,3,2C,2C] kernel; ``style_branch_weights()`` →
-(a_w [K_in, K_out], a_b, w_gs, b_gs, w_bs, b_bs).
+(a_w [K_in, K_out], a_b, w_gs, b_gs, w_bs, b_bs); ``branch_weights``
+gathers both for a list of SEANs.
 """
 
 from __future__ import annotations
@@ -64,11 +65,21 @@ from endosr_torch.ops.resize import interpolate_nearest
 from endosr_torch.parallel.spatial import active as spatial_active
 from endosr_torch.parallel.spatial import suspended
 from endosr_torch.utils.device import device_constant
+from endosr_torch.utils.prof import annotate
 
 __all__ = ["SEAN", "precompute_o_actv", "alpha_vec", "o_branch_raw_hwnc",
            "o_branch_from_actv", "style_blend_chunk", "style_chunk_dot",
            "precompute_style_v", "shifted_mask_stack", "hoisted_o_branch",
-           "hoisted_style_branch", "pallas_o_branch", "hoisted_blended_mods"]
+           "hoisted_style_branch", "pallas_o_branch", "hoisted_blended_mods",
+           "branch_weights"]
+
+
+def branch_weights(seans, style=True):
+    """([each SEAN's ``depth_branch_weights()``], [its
+    ``style_branch_weights()``] with ``style``, else [])."""
+    with annotate("net.prepare"):
+        return ([n.depth_branch_weights() for n in seans],
+                [n.style_branch_weights() for n in seans] if style else [])
 
 
 def _split_channels(x, n, c):
@@ -440,11 +451,10 @@ class SEAN(nn.Module):
         if self.ablate_depth_block:
             return self._depth_block_ablation(size, depth_map, st, dtype)
         if ob is None:
-            w_mask, b_mask, w_ob, b_ob = self.depth_branch_weights()
+            (ow,), _ = branch_weights([self], style=False)
             d = interpolate_nearest(depth_map, size)
-            actv, = precompute_o_actv([(w_mask, b_mask, w_ob, b_ob)], d, dtype,
-                                      vmask)
-            ob = o_branch_from_actv(actv, (w_mask, b_mask, w_ob, b_ob), dtype)
+            actv, = precompute_o_actv([ow], d, dtype, vmask)
+            ob = o_branch_from_actv(actv, ow, dtype)
         if sb is None and self.ablate_depth_matrix:
             sb = (self.mlp_gamma_s(st, dtype), self.mlp_beta_s(st, dtype))
         elif sb is None:

@@ -37,6 +37,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from endosr_torch.utils.prof import annotate
+
 __all__ = ["Mesh", "maybe_init_distributed", "make_mesh", "get_mesh",
            "shard_batch", "replicate", "is_main_process", "world_size",
            "allreduce_grads", "global_sum", "global_mean", "mean_over_ranks"]
@@ -198,20 +200,22 @@ def allreduce_grads(params, mesh: Mesh | None = None) -> None:
     rank: the ranks run the same program). A no-op without a mesh."""
     if mesh is None:
         return
-    n = mesh.size()
-    buckets: dict = {}
-    for p in params:
-        if p.grad is not None:
-            buckets.setdefault((p.grad.device, p.grad.dtype), []).append(p.grad)
-    for grads in buckets.values():
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=mesh.get_group())
-        if n > 1:
-            flat.div_(n)
-        i = 0
-        for g in grads:
-            g.copy_(flat[i:i + g.numel()].view_as(g))
-            i += g.numel()
+    with annotate("dp.allreduce_grads"):
+        n = mesh.size()
+        buckets: dict = {}
+        for p in params:
+            if p.grad is not None:
+                buckets.setdefault((p.grad.device, p.grad.dtype),
+                                   []).append(p.grad)
+        for grads in buckets.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=mesh.get_group())
+            if n > 1:
+                flat.div_(n)
+            i = 0
+            for g in grads:
+                g.copy_(flat[i:i + g.numel()].view_as(g))
+                i += g.numel()
 
 
 def global_sum(x, mesh: Mesh | None = None):
@@ -220,13 +224,14 @@ def global_sum(x, mesh: Mesh | None = None):
     .all_reduce``). ``x`` itself without a mesh."""
     if mesh is None:
         return x
-    if not x.requires_grad:
-        x = x.clone()
-        dist.all_reduce(x, group=mesh.get_group())
-        return x
-    from torch.distributed.nn.functional import all_reduce
+    with annotate("dp.global_sum"):
+        if not x.requires_grad:
+            x = x.clone()
+            dist.all_reduce(x, group=mesh.get_group())
+            return x
+        from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x, group=mesh.get_group())
+        return all_reduce(x, group=mesh.get_group())
 
 
 def global_mean(x, mesh: Mesh | None = None):
@@ -244,4 +249,5 @@ def mean_over_ranks(x, mesh: Mesh | None = None):
     the global program's, replicated); ``x`` itself without a mesh."""
     if mesh is None:
         return x
-    return global_sum(x.detach(), mesh) / mesh.size()
+    with annotate("dp.mean_over_ranks"):
+        return global_sum(x.detach(), mesh) / mesh.size()

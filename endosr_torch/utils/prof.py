@@ -3,8 +3,16 @@
 ``trace(logdir)`` records ``torch.profiler`` events (CPU, and CUDA kernels
 on a card) over a block and writes them as a Chrome trace (open it in
 Perfetto or ``chrome://tracing``); ``annotate(name)`` names a region in
-that timeline (and, on a card, an NVTX range); ``timed`` is the median
-wall time of a call, synchronised by reading its first output.
+that timeline; ``timed`` is the median wall time of a call, synchronised
+by reading its first output.
+
+The port's layers open ``annotate`` spans at their boundaries, named by
+layer: ``serve.*`` (``models/f_depthcond.py::test``), ``train.*`` (its
+``optimize_parameters``), ``net.*`` (``nn/depthnet.py``'s stages and
+every weight preparation, ``net.prepare``), ``kernel.<wrapper>`` (each
+``kernels/*.py`` wrapper that launches a ``csrc`` kernel, and its
+``*_vjp``) and ``dp.*`` (``parallel/mesh.py``'s collectives). Outside a
+``torch.profiler`` session a span is one flag check.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import time
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
 
 __all__ = ["trace", "timed", "annotate"]
 
@@ -37,19 +46,17 @@ def trace(logdir: str, name: str = "trace", cuda: bool | None = None):
         prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region in the profiler's timeline (``record_function``);
-    on a card also an NVTX range."""
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+    """A named region in the profiler's timeline: a ``record_function``
+    while a ``torch.profiler`` session runs (on the clock of the device's
+    operations), otherwise a shared no-op context, after one check of the
+    profiler's flag."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _wait(out) -> None:

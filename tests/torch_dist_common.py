@@ -226,6 +226,24 @@ def sr_pipeline_spatial(payload):
             for argv, out in payload["runs"]]
 
 
+@job
+def traced_step(payload):
+    """One ``FModelDepthCond`` step on this rank's shard under
+    ``torch.profiler``: the names of the spans it opened, in start order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from endosr_torch.models.f_depthcond import FModelDepthCond
+    from endosr_torch.parallel.mesh import get_mesh, shard_batch
+
+    model = FModelDepthCond(payload["opt"], device="cpu")
+    model.feed_data(shard_batch(payload["batch"], get_mesh()))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.optimize_parameters(1)
+    return [e.name() for e in sorted(prof.profiler.kineto_results.events(),
+                                     key=lambda e: e.start_ns())
+            if e.is_user_annotation()]
+
+
 def main(argv):
     import torch.distributed as dist
 
