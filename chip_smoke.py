@@ -486,6 +486,22 @@ exits non-zero):
    LR 512² peak with ``lazy_o_chunk`` 0 and 7. ``python3 chip_smoke.py --p16-nccl N`` (a
    call on N cards, not run without arguments) checks (a) with one rank a
    card over NCCL.
+17. Graph replay (``models/serve_graph.py``; ≈ 1 min): the ×8 bf16
+   batch-32 (LR 128²), ×2 bf16c3 batch-1 (LR 512²) and ×4 bf16
+   fused-epilogue batch-8 paths, unbucketed, seeded weights, host
+   requests: a key's first ``test()`` runs eager, its second captures; the
+   replayed SR ``torch.equal``s the eager one (the forward as written, in
+   the same process) on the capture call and 4 more requests, so does
+   ``test_x8`` (its second call, all 8 views replayed), a second shape
+   (its own graph), other weights loaded in place (the same graphs) and
+   weights moved to new storage (the graphs dropped, captured again); 5
+   replays count 5 × one eager forward's
+   launches and routes. Logs ``memory_reserved`` before and after the
+   capture and the median request ms eager and replayed, in turns. All
+   with ``cudnn.deterministic``: without it the ×2 transposed conv's
+   cuDNN algorithm sums in a varying order, and two eager forwards of one
+   request differ (logged as ``eager_bit_reproducible``).
+   ``python3 chip_smoke.py --p17`` runs it alone.
 
 Phase 3 also holds the two kernel options no path passes against their
 plain versions, at the flagship's shapes: ``packed_g123[k4]`` (the up1
@@ -7970,6 +7986,204 @@ def p16_multi(torch, world):
     return numbers
 
 
+
+P17_SEED = 17
+P17_REPLAYS = 4                # replayed requests held to eager, a case
+P17_COUNTED = 5                # replays whose launch counts are read
+P17_TIMED = 8                  # requests timed eager and replayed, in turns
+
+
+def _p17_cases():
+    """Phase 17's serving paths: (options, LR, batch, a second LR)."""
+    import yaml
+
+    x2 = yaml.safe_load((Path(__file__).resolve().parent / X2_YAML)
+                        .read_text())["network_G"]
+    x2.pop("remat_blocks", None)
+    return {
+        "x8 bf16 b32": (dict(flagship_opt("bf16"), serve_batch_chunk=32),
+                        (128, 128), 32, (96, 128)),
+        "x2 bf16c3 b1": (_x2_opt("bf16c3", x2), (512, 512), 1, (256, 384)),
+        "x4 bf16 fused epilogue b8": (
+            flagship_opt("bf16", scale=4, net_kw={"fused_epilogue": True,
+                                                  "in_stats": "kernel"}),
+            (128, 128), 8, (64, 128)),
+    }
+
+
+@contextlib.contextmanager
+def _eager():
+    """``FModelDepthCond.test`` runs its forward as written in the block
+    (no CUDA graph)."""
+    import endosr_torch.models.f_depthcond as fd
+
+    orig = fd.engaged
+    fd.engaged = lambda *a: False
+    try:
+        yield
+    finally:
+        fd.engaged = orig
+
+
+def _p17_counts(counters):
+    return {c.__name__: (c.launches, dict(c.routes)) for c in counters}
+
+
+def p17_case(torch, counters, label, opt, lr, b, lr2):
+    """One path (:func:`_p17_checks`) with cuDNN's deterministic
+    algorithms: the ×2 network's transposed conv takes an algorithm whose
+    sums run in a varying order otherwise, so that two eager forwards of
+    one request differ, and replay against eager could not be held bit for
+    bit. Then whether two eager forwards agree with cuDNN free to choose.
+    Returns the readings."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out, serve_eager = _p17_checks(torch, counters, label, opt, lr, b,
+                                       lr2)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["eager_bit_reproducible"] = torch.equal(serve_eager(), serve_eager())
+    log(f"[phase 17] {label}: bit-equal; {json.dumps(out)}")
+    return out
+
+
+def _p17_checks(torch, counters, label, opt, lr, b, lr2):
+    """The replayed SR against the eager one (``torch.equal``) on the
+    capture call and ``P17_REPLAYS`` more requests, ``test_x8``, a second
+    shape, other weights loaded in place, weights moved to new storage; the
+    launch counts of ``P17_COUNTED`` replays against as many eager
+    forwards'; ``memory_reserved`` around the capture; request ms eager and
+    replayed. Returns (the readings, a function serving one request
+    eager)."""
+    model = _p16_model(torch, opt, P17_SEED)
+    st = model.graph_stats
+    bad = []
+
+    def request(seed, hw=lr):
+        lq, dep, m = _p16_inputs(hw, b, seed)
+        return {"LQ": lq, "Depth": dep, "DepthMaskList": m}
+
+    def serve(req, eager=False):
+        model.feed_data(req)
+        with _eager() if eager else contextlib.nullcontext():
+            out = model.test()
+        torch.cuda.synchronize()
+        return out
+
+    def run(seed, hw=lr, eager=False):
+        return serve(request(seed, hw), eager)
+
+    def same(what, seed, hw=lr):
+        got = run(seed, hw)
+        want = run(seed, hw, eager=True)
+        if not torch.equal(got, want):
+            bad.append(f"{what}: max |Δ| "
+                       f"{float((got - want).abs().max()):.3g}")
+        return got
+
+    def expect(**want):
+        got = {k: st[k] for k in want}
+        if got != want:
+            raise AssertionError(f"[phase 17] {label}: graph_stats {st}, "
+                                 f"want {want}")
+
+    zero_counts(counters)
+    first = run(1)
+    one = _p17_counts(counters)
+    expect(eager=1, captures=0, replays=0)
+    inside = float(((first > 0) & (first < 1)).float().mean())
+    torch.cuda.synchronize()
+    reserved = [torch.cuda.memory_reserved()]
+    same("capture call", 2)
+    reserved.append(torch.cuda.memory_reserved())
+    expect(captures=1, replays=0)
+    for i in range(P17_REPLAYS):
+        same(f"replay {i + 1}", 3 + i)
+    expect(captures=1, replays=P17_REPLAYS)
+    zero_counts(counters)
+    for i in range(P17_COUNTED):
+        run(10 + i)
+    got = _p17_counts(counters)
+    want = {k: (P17_COUNTED * n, {r: P17_COUNTED * v for r, v in rt.items()})
+            for k, (n, rt) in one.items()}
+    if got != want:
+        raise AssertionError(f"[phase 17] {label}: {P17_COUNTED} replays "
+                             f"counted {got}, want {want}")
+    # test_x8: its views' keys (the flips' strides and the transposes'
+    # shape may differ from the fed batch's) made by a first call
+    lq, dep, m = _p16_inputs(lr, b, 20)
+    model.feed_data({"LQ": lq, "Depth": dep, "DepthMaskList": m})
+    model.test_x8()
+    n = st["replays"]
+    ens = model.test_x8()
+    if st["replays"] != n + 8:
+        raise AssertionError(f"[phase 17] {label}: test_x8 replayed "
+                             f"{st['replays'] - n} views, want 8")
+    with _eager():
+        ens_eager = model.test_x8()
+    if not torch.equal(ens, ens_eager):
+        bad.append("test_x8")
+    # a second shape: eager, then its own graph
+    run(30, lr2)
+    caps = st["captures"]
+    same("second shape, capture", 31, lr2)
+    same("second shape, replay", 32, lr2)
+    expect(captures=caps + 1)
+    # other weights, loaded in place: the same graphs see them
+    old = run(40, eager=True)
+    other = _p16_model(torch, opt, P17_SEED + 1)
+    with torch.no_grad():
+        model.netG.load_state_dict(other.netG.state_dict())
+    del other
+    n, caps = st["replays"], st["captures"]
+    new = same("other weights", 40)
+    expect(replays=n + 1, captures=caps)
+    if torch.equal(new, old):
+        bad.append("other weights: the SR did not change")
+    # weights moved to new storage: every graph dropped
+    with torch.no_grad():
+        for prm in model.netG.parameters():
+            prm.data = prm.data.clone()
+    e = st["eager"]
+    run(41)
+    same("moved weights, capture", 42)
+    expect(eager=e + 2, captures=caps + 1)
+    # request ms (host clock, feed_data to the synchronise), in turns
+    times = {"eager": [], "replay": []}
+    for i in range(P17_TIMED):
+        req = request(50 + i)
+        for mode in ("eager", "replay"):
+            t = time.perf_counter()
+            serve(req, eager=mode == "eager")
+            times[mode].append((time.perf_counter() - t) * 1e3)
+    ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    if bad:
+        raise AssertionError(f"[phase 17] {label}: replay differs from "
+                             f"eager: {bad}")
+    out = {"graph_stats": dict(st), "memory_reserved_gib": [
+        r / 2 ** 30 for r in reserved], "request_ms": ms,
+           "sr_inside_0_1": inside,
+           "launches": {k: n for k, (n, _) in one.items() if n}}
+    req = request(60)
+    return out, lambda: serve(req, eager=True)
+
+
+def phase17(torch, counters):
+    """Phase 17: the unbucketed serving forward replayed from CUDA graphs
+    (``models/serve_graph.py``), held bit-equal to the eager forward on
+    the ×8 bf16 batch-32, ×2 bf16c3 batch-1 and ×4 fused-epilogue paths
+    (:func:`p17_case`). Returns the readings."""
+    t0 = time.perf_counter()
+    numbers = {}
+    for label, case in _p17_cases().items():
+        numbers[label] = p17_case(torch, counters, label, *case)
+        torch.cuda.empty_cache()
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"[phase 17] took {numbers['seconds']:.1f} s; {gpu_line()}")
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -7984,6 +8198,13 @@ def main() -> int:
         return 0
     from endosr_torch.kernels import _build
 
+    if sys.argv[1:2] == ["--p17"]:               # phase 17 alone
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"device: {gpu_line()}; built {_build.build_all()}")
+        print(json.dumps(phase17(torch, _kernel_counters())))
+        print(gpu_line())
+        return 0
     if sys.argv[1:2] in (["--p14-nccl"], ["--p16-nccl"]):   # several cards
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -8102,6 +8323,7 @@ def main() -> int:
             have = rows[kname]["max_abs_err"]
             have[dts] = max(have[dts], err)
     log(f"[phase 16] summary: {json.dumps(numbers, default=str)}")
+    log(f"[phase 17] summary: {json.dumps(phase17(torch, counters))}")
 
     out = []
     for kname, (src, repl) in SOURCES.items():

@@ -48,8 +48,10 @@
 // (pallas_call at :284). For one group of SEAN instances:
 //   out[h, w, b, m] = (dot[b,h,w,m] + conv_{m/c2}[h, w, b, m mod c2]) + bias[m]
 // with the dot rounded to T before the adds, as the twin does. The N conv
-// outputs are read in place through a device table of pointers, so no
-// concatenated copy of them is ever made. Bound on the H100: bytes. At the
+// outputs are read in place through a table of their pointers, passed by
+// value as a kernel parameter (ConvTable, __grid_constant__), so no
+// concatenated copy of them is ever made and a launch reads no host memory
+// (a CUDA graph can capture it). Bound on the H100: bytes. At the
 // flagship M = 1792 group it moves ~0.96 GB (the convs in, the blended maps
 // out, shifted once), ≈0.29 ms at 3.35 TB/s. Two kernels, picked by shape in
 // endosr_torch/kernels/style_dot.py:
@@ -76,13 +78,19 @@
 #define SD_BM 64
 #define SD_BN 64
 #define SD_BK 16
+#define SD_MAX_CONVS 32
+
+// The blend's conv pointers, by value: a kernel parameter of 256 bytes
+struct ConvTable {
+  i64 p[SD_MAX_CONVS];
+};
 
 // BLEND: add the conv slice and the bias in the epilogue (style_blend_dot);
 // otherwise store the rounded dot (style_dot_hwbm; convs and bias unused).
 template <typename T, bool BLEND>
 __global__ void __launch_bounds__(256)
 style_dot_kernel(const T* __restrict__ sh, i64 sb, i64 sp, const T* __restrict__ v,
-                   const i64* __restrict__ convs, i64 ch, i64 cw, i64 cb,
+                   const __grid_constant__ ConvTable convs, i64 ch, i64 cw, i64 cb,
                    int c2, const float* __restrict__ bias, T* __restrict__ out,
                    i64 oh, i64 ow, i64 ob, int H, int W, int J, int M) {
   __shared__ float As[SD_BK][SD_BM + 4];
@@ -146,7 +154,7 @@ style_dot_kernel(const T* __restrict__ sh, i64 sb, i64 sp, const T* __restrict__
       float y = acc[i][j];
       if (BLEND) {
         int ci = m / c2, cm = m - ci * c2;
-        const T* cp = reinterpret_cast<const T*>(convs[ci]);
+        const T* cp = reinterpret_cast<const T*>(convs.p[ci]);
         y = rnd<T>(y);
         y = rnd<T>(y + to_f<T>(cp[hh * ch + ww * cw + b * cb + cm]));
         y = y + rnd<T>(bias[m]);
@@ -314,7 +322,7 @@ struct StoreDot {
 // piece lies in one conv), issued before the product; 16 bytes a store.
 struct BlendEpi {
   typedef uint4 Pre;
-  const i64* convs;     // device table of the N conv pointers
+  const i64* convs;     // the N conv pointers: the kernel's ConvTable parameter
   i64 ch, cw, cb;       // their element strides
   int c2, W, b;
   const float* bias;    // [M] fp32
@@ -322,7 +330,7 @@ struct BlendEpi {
   int M;
   __device__ __forceinline__ Pre load(int p, int m) const {
     const int ci = m / c2, hh = p / W;
-    const bf16* cp = reinterpret_cast<const bf16*>(__ldg(convs + ci));
+    const bf16* cp = reinterpret_cast<const bf16*>(convs[ci]);
     return *reinterpret_cast<const uint4*>(cp + hh * ch + (p - hh * W) * cw + b * cb +
                                            (m - ci * c2));
   }
@@ -355,38 +363,50 @@ style_dot_tc_kernel(const bf16* __restrict__ shifted, const bf16* __restrict__ v
 __global__ void __launch_bounds__(256, 2)
 style_blend_tc_kernel(const bf16* __restrict__ shifted, i64 sb, i64 sp,
                       const bf16* __restrict__ v,
-                      const i64* __restrict__ convs, i64 ch, i64 cw, i64 cb, int c2,
-                      const float* __restrict__ bias, bf16* __restrict__ out, int W, int HW,
-                      int J, int M) {
+                      const __grid_constant__ ConvTable convs, i64 ch, i64 cw, i64 cb,
+                      int c2, const float* __restrict__ bias, bf16* __restrict__ out, int W,
+                      int HW, int J, int M) {
   extern __shared__ __align__(16) unsigned char st_smem[];
   const int b = blockIdx.y;
   style_dot_tc_block(shifted + (i64)b * sb, sp, v + (i64)b * J * M, HW, J, M,
                      blockIdx.x * ST_PX, st_smem,
-                     BlendEpi{convs, ch, cw, cb, c2, W, b, bias, out + (i64)b * HW * M, M});
+                     BlendEpi{convs.p, ch, cw, cb, c2, W, b, bias, out + (i64)b * HW * M, M});
+}
+
+// The N = M / c2 host pointers at `convs` as a ConvTable; false if N is out of range
+static bool conv_table(const void* convs, int M, int c2, ConvTable* t) {
+  const int n = c2 > 0 ? M / c2 : 0;
+  if (n < 1 || n > SD_MAX_CONVS || n * c2 != M) return false;
+  *t = ConvTable{};
+  for (int i = 0; i < n; ++i) t->p[i] = static_cast<const i64*>(convs)[i];
+  return true;
 }
 
 extern "C" {
 
 // shifted: pixel rows of J (channel stride 1), images sb and pixels (h·W + w)
 // sp elements apart: a contiguous [B, H, W, J] (sb = H·W·J, sp = J) or
-// [H, W, B, J] (sb = J, sp = B·J); v: contiguous [B, J, M]; convs: device
-// array of N pointers to [H, W, B, c2] tensors sharing the element strides
-// ch, cw, cb (channel stride 1), N·c2 = M; bias fp32 [M]; out [H, W, B, M]
+// [H, W, B, J] (sb = J, sp = B·J); v: contiguous [B, J, M]; convs: host
+// array of N ≤ SD_MAX_CONVS pointers to [H, W, B, c2] tensors sharing the
+// element strides ch, cw, cb (channel stride 1), N·c2 = M, read before the
+// launch returns; bias fp32 [M]; out [H, W, B, M]
 // with strides oh, ow, ob. dtype: 0 float32, 1 bfloat16.
 int style_blend_dot(int dtype, const void* shifted, i64 sb, i64 sp, const void* v,
                     const void* convs, i64 ch, i64 cw, i64 cb, int c2,
                     const void* bias, void* out, i64 oh, i64 ow, i64 ob,
                     int B, int H, int W, int J, int M, void* stream) {
+  ConvTable table;
+  if (!conv_table(convs, M, c2, &table)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((H * W + SD_BM - 1) / SD_BM, (M + SD_BN - 1) / SD_BN, B);
   if (dtype == 0)
     style_dot_kernel<float, true><<<grid, 256, 0, s>>>(
-        (const float*)shifted, sb, sp, (const float*)v, (const i64*)convs, ch, cw, cb,
+        (const float*)shifted, sb, sp, (const float*)v, table, ch, cw, cb,
         c2, (const float*)bias, (float*)out, oh, ow, ob, H, W, J, M);
   else
     style_dot_kernel<__nv_bfloat16, true><<<grid, 256, 0, s>>>(
         (const __nv_bfloat16*)shifted, sb, sp, (const __nv_bfloat16*)v,
-        (const i64*)convs, ch, cw, cb, c2, (const float*)bias,
+        table, ch, cw, cb, c2, (const float*)bias,
         (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
   return (int)cudaGetLastError();
 }
@@ -400,12 +420,12 @@ int style_dot_hwbm(int dtype, const void* shifted, const void* v, void* out,
   dim3 grid((H * W + SD_BM - 1) / SD_BM, (M + SD_BN - 1) / SD_BN, B);
   if (dtype == 0)
     style_dot_kernel<float, false><<<grid, 256, 0, s>>>(
-        (const float*)shifted, (i64)H * W * J, J, (const float*)v, nullptr, 0, 0, 0, 1, nullptr,
-        (float*)out, oh, ow, ob, H, W, J, M);
+        (const float*)shifted, (i64)H * W * J, J, (const float*)v, ConvTable{}, 0, 0, 0, 1,
+        nullptr, (float*)out, oh, ow, ob, H, W, J, M);
   else
     style_dot_kernel<__nv_bfloat16, false><<<grid, 256, 0, s>>>(
-        (const __nv_bfloat16*)shifted, (i64)H * W * J, J, (const __nv_bfloat16*)v, nullptr, 0, 0,
-        0, 1, nullptr, (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
+        (const __nv_bfloat16*)shifted, (i64)H * W * J, J, (const __nv_bfloat16*)v, ConvTable{},
+        0, 0, 0, 1, nullptr, (__nv_bfloat16*)out, oh, ow, ob, H, W, J, M);
   return (int)cudaGetLastError();
 }
 
@@ -427,22 +447,24 @@ int style_dot_tc(const void* shifted, const void* v, void* out, int B, int HW,
 // The tensor-core route of style_blend_dot, bf16 only: shifted rows of J
 // with the strides sb, sp of style_blend_dot (both even; 4-byte aligned, J
 // even and ≤ 96), v contiguous [B, J, M]
-// (16-byte aligned, M a multiple of 8); convs: device array of N pointers to
-// [H, W, B, c2] tensors (16-byte aligned) sharing the element strides ch, cw,
-// cb (multiples of 8, channel stride 1), c2 a multiple of 8, N·c2 = M; bias
+// (16-byte aligned, M a multiple of 8); convs: host array of N ≤ SD_MAX_CONVS
+// pointers to [H, W, B, c2] tensors (16-byte aligned) sharing the element
+// strides ch, cw, cb (multiples of 8, channel stride 1), c2 a multiple of 8,
+// N·c2 = M, read before the launch returns; bias
 // fp32 [M] (16-byte aligned); out contiguous [B, H, W, M] (16-byte aligned).
 int style_blend_tc(const void* shifted, i64 sb, i64 sp, const void* v, const void* convs,
                    i64 ch, i64 cw, i64 cb, int c2, const void* bias, void* out, int B, int H,
                    int W, int J, int M, void* stream) {
+  ConvTable table;
   if (J > ST_KP || J % 2 != 0 || M % 8 != 0 || c2 % 8 != 0 || (ch | cw | cb) % 8 != 0 ||
-      (sb | sp) % 2 != 0)
+      (sb | sp) % 2 != 0 || !conv_table(convs, M, c2, &table))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       style_blend_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((H * W + ST_PX - 1) / ST_PX, B);
   style_blend_tc_kernel<<<grid, 256, ST_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)shifted, sb, sp, (const bf16*)v, (const i64*)convs, ch, cw, cb, c2,
+      (const bf16*)shifted, sb, sp, (const bf16*)v, table, ch, cw, cb, c2,
       (const float*)bias, (bf16*)out, W, H * W, J, M);
   return (int)cudaGetLastError();
 }

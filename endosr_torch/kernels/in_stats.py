@@ -30,6 +30,7 @@ import torch
 
 from endosr_torch.kernels import _build
 from endosr_torch.kernels._autograd import refuse_grad
+from endosr_torch.utils.device import hold
 from endosr_torch.utils.prof import annotate
 
 __all__ = ["in_stats", "in_stats_plain", "in_stats_route", "stats_plan",
@@ -74,7 +75,7 @@ def tickets(device: torch.device, b: int) -> torch.Tensor:
                                f"with B = {b} first)")
         t = torch.zeros(max(b, 8), dtype=torch.int32, device=device)
         _TICKETS[device] = t
-    return t
+    return hold(t)
 
 
 def in_stats_route(dtype, c, strides, ptr):

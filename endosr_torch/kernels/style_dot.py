@@ -27,9 +27,11 @@ counts them per route.
 
     out[h,w,b,m] = (Σ_j shifted[b,h,w,j]·v[b,j,m]) + concat(convs)[h,w,b,m] + bias[m]
 
-with the dot rounded to the storage type before the adds. The N conv
-outputs are read in place through a device table of pointers, so no
-concatenated copy (≈470 MB per flagship launch) is made. It is bound by
+with the dot rounded to the storage type before the adds. The N ≤ 32
+conv outputs are read in place through a table of their pointers that the
+launch passes by value as a kernel parameter, so no concatenated copy
+(≈470 MB per flagship launch) is made, and a launch reads no host memory
+later (a CUDA graph can capture it). It is bound by
 memory (≈0.96 GB per M=1792 launch, ≈0.29 ms at 3.35 TB/s). Two kernels,
 picked by :func:`style_blend_route`:
 
@@ -51,6 +53,8 @@ and the result is exactly the [B,H,W,J] one's. Its launches count as routes
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -88,9 +92,13 @@ def style_blend_route(dtype, j, m, c2, strides, aligned):
     return "cuda_core"
 
 
+# the most convs one blend reads (``SD_MAX_CONVS`` of ``csrc/style_dot.cu``)
+MAX_CONVS = 32
+
+
 def _blend_operands(shifted, v, convs, bias, hwbc=False):
     """Checked, contiguous operands: (shifted, its image and pixel
-    strides, v, the convs' device pointer table, their strides, c2, fp32
+    strides, v, the convs' host pointer table, their strides, c2, fp32
     bias, the [B,H,W,M] output buffer). ``hwbc``: shifted is [H,W,B,J]."""
     h, w, b, j = shifted.shape if hwbc else (
         shifted.shape[1], shifted.shape[2], shifted.shape[0], shifted.shape[3])
@@ -100,6 +108,9 @@ def _blend_operands(shifted, v, convs, bias, hwbc=False):
     if n * c2 != m or any(c.shape != (h, w, b, c2) for c in convs):
         raise ValueError(f"convs must be {n} × [{h},{w},{b},{c2}] with "
                          f"{n}·{c2} = M = {m}")
+    if n > MAX_CONVS:
+        raise ValueError(f"style_blend_dot takes at most {MAX_CONVS} convs, "
+                         f"got {n}")
     st = convs[0].stride()
     if st[3] != 1 or any(c.stride() != st for c in convs):
         raise ValueError("convs must share strides with contiguous channels")
@@ -111,9 +122,8 @@ def _blend_operands(shifted, v, convs, bias, hwbc=False):
     vv = vv.clone() if vv.data_ptr() % 16 else vv
     bias32 = bias.float().contiguous()
     bias32 = bias32.clone() if bias32.data_ptr() % 16 else bias32
-    # pinned + non_blocking: the host does not wait for the device's queue
-    table = torch.tensor([c.data_ptr() for c in convs],
-                         dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    # the launch copies it into its parameters
+    table = (ctypes.c_int64 * n)(*(c.data_ptr() for c in convs))
     out = torch.empty((b, h, w, m), dtype=dt, device=dev)
     ssb, ssp = (j, b * j) if hwbc else (h * w * j, j)
     return sh, (ssb, ssp), vv, table, st, c2, bias32, out
@@ -127,7 +137,7 @@ def launch_blend_cuda_core(shifted, v, convs, bias, hwbc=False):
         shifted, v, convs, bias, hwbc)
     b, h, w, m = out.shape
     code = fn(_build.dtype_code(shifted.dtype), sh.data_ptr(), ssb, ssp,
-              vv.data_ptr(), table.data_ptr(), st[0], st[1], st[2], c2,
+              vv.data_ptr(), table, st[0], st[1], st[2], c2,
               bias32.data_ptr(), out.data_ptr(), out.stride(1), out.stride(2),
               out.stride(0), b, h, w, shifted.shape[3], m,
               _build.stream_ptr(shifted.device))
@@ -142,7 +152,7 @@ def launch_blend_tc(shifted, v, convs, bias, hwbc=False):
     sh, (ssb, ssp), vv, table, st, c2, bias32, out = _blend_operands(
         shifted, v, convs, bias, hwbc)
     b, h, w, m = out.shape
-    code = fn(sh.data_ptr(), ssb, ssp, vv.data_ptr(), table.data_ptr(), st[0],
+    code = fn(sh.data_ptr(), ssb, ssp, vv.data_ptr(), table, st[0],
               st[1], st[2], c2, bias32.data_ptr(), out.data_ptr(), b, h, w,
               shifted.shape[3], m, _build.stream_ptr(shifted.device))
     _build.check("style_dot", code, "style_blend_tc")

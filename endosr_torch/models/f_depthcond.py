@@ -16,6 +16,9 @@ JAX) serves unpadded, splitting batches larger than ``serve_batch_chunk``
 (default 8) into chunk-sized forwards. ``precision`` is read as in JAX:
 ``fp32`` (unset), ``bf16``, ``mixed`` (fp32 net, bf16 SEAN branches),
 ``bf16c`` and ``bf16c3`` (``mixed`` with 1- / 3-pass centered bf16 convs).
+On CUDA, in a model without an optimizer, the unbucketed forward replays a
+CUDA graph captured once per input signature (``models/serve_graph.py``;
+``graph_stats`` counts the calls).
 
 A training step (the JAX train step, ``f_depthcond.py:257-330``) runs the
 forward with ``pallas_output`` on, every loss ``opt["train"]`` turns on,
@@ -65,6 +68,7 @@ from endosr_torch.losses.perceptual import VGGDepthLoss
 from endosr_torch.losses.ssim import ssim_value
 from endosr_torch.models.base import BaseModel
 from endosr_torch.models.lr_schedule import clear_state_at
+from endosr_torch.models.serve_graph import ServingGraphs, engaged
 from endosr_torch.nn.networks import define_G
 from endosr_torch.ops.masks import pool_mask_np
 from endosr_torch.parallel.mesh import mean_over_ranks
@@ -163,8 +167,9 @@ class FModelDepthCond(BaseModel):
             seeded_init(self.netG, seed)
         self.netG.eval()
         chunk = opt.get("serve_batch_chunk")
-        self._fwd = chunked_serving_fn(self.netG,
-                                       8 if chunk is None else int(chunk))
+        chunk = 8 if chunk is None else int(chunk)
+        self._fwd = chunked_serving_fn(self.netG, chunk)
+        self._graphs = ServingGraphs(self.netG, self._fwd, chunk, self.device)
         self._warned_bucket_fallback = False
         self._warned_spatial_fallback = False
         self.batch = {}
@@ -174,6 +179,13 @@ class FModelDepthCond(BaseModel):
         self.depth_loss_fn = self.vgg_loss_fn = None
         if self.is_train:
             self._init_training(opt["train"])
+
+    @property
+    def graph_stats(self) -> dict:
+        """{"eager", "captures", "replays"}: :meth:`test` calls that ran
+        the forward as written, that captured its CUDA graph, and that
+        replayed it (``models/serve_graph.py``)."""
+        return self._graphs.stats
 
     def _init_training(self, t):
         """Losses, the dynamic loss's K-vector and the optimizer from the
@@ -428,12 +440,16 @@ class FModelDepthCond(BaseModel):
         :meth:`_host_masks`. With ``spatial_shard: N`` (every rank of the
         mesh calls it on the same batch) the padded height is a multiple of
         lcm(bucket, 4·N), each rank computes its slab of rows and every rank
-        gets the whole SR (``parallel/spatial.py``)."""
+        gets the whole SR (``parallel/spatial.py``). Unbucketed and
+        unsharded on CUDA, in a model without an optimizer, the forward
+        replays a CUDA graph of its inputs' shapes (``models/serve_graph.py``)
+        and the SR is a copy of the graph's output."""
         if "LQ" not in self.batch:
             raise RuntimeError("no batch: call feed_data before test")
         b, dev = self.batch, self.device
         bucket = self._bucket()
         nsp = self._spatial_shards(bucket)
+        graph = None
         with annotate("serve.inputs"):
             x = [b[k].float() for k in ("LQ", "Depth", "DepthMaskList")]
             h, w = x[0].shape[1], x[0].shape[2]
@@ -445,7 +461,11 @@ class FModelDepthCond(BaseModel):
                 pm = pool_mask_np(self._host_masks(), (v3h, v3w),
                                   (hb // 4, wb // 4))
                 x = [F.pad(t, pad) for t in x]
-            if not nsp:
+            if engaged(dev, bucket, nsp, self.optimizer_G):
+                graph = self._graphs.fill(x)
+            if graph is not None:
+                x = graph.inputs
+            elif not nsp:
                 # the spatial path hands each rank its slab itself
                 x = [t.to(dev) for t in x]
                 if bucket:
@@ -456,8 +476,12 @@ class FModelDepthCond(BaseModel):
                                             self.mesh)
             elif bucket:
                 sr = self.netG(*x, valid_hw=(h, w), pool_mask=pm)
+            elif graph is not None:
+                sr = self._graphs.run(graph)
             else:
                 sr = self._fwd(*x)
+        if graph is None:
+            self._graphs.stats["eager"] += 1
         s = int(self.opt["scale"])
         self.fake_SR = self.fake_H = sr[:, :h * s, :w * s, :]
         return self.fake_SR

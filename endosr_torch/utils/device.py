@@ -2,15 +2,45 @@
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 
 import torch
 
-__all__ = ["resolve_device", "local_device", "device_constant", "true_fp32"]
+__all__ = ["resolve_device", "local_device", "device_constant", "true_fp32",
+           "held", "hold"]
+
+# lists that collect the long-lived tensors handed out while they are open
+_HOLDERS: list = []
+
+
+@contextlib.contextmanager
+def held():
+    """Yields a list of every tensor :func:`hold` sees in the block: a CUDA
+    graph captured there keeps them, so that a constant dropped from its
+    cache (or a buffer replaced) is not freed while the graph reads it."""
+    got = []
+    _HOLDERS.append(got)
+    try:
+        yield got
+    finally:
+        _HOLDERS.remove(got)
+
+
+def hold(t: torch.Tensor) -> torch.Tensor:
+    """``t``, kept by every open :func:`held` block."""
+    for h in _HOLDERS:
+        h.append(t)
+    return t
 
 
 @functools.lru_cache(maxsize=512)
+def _constant(build, args, dtype, device):
+    with torch.inference_mode(False):
+        return torch.as_tensor(build(*args), dtype=dtype, device=device)
+
+
 def device_constant(build, args, dtype, device):
     """``torch.as_tensor(build(*args))`` on ``device``, made once per
     (build, args, dtype, device). A constant made inside a forward would
@@ -19,8 +49,10 @@ def device_constant(build, args, dtype, device):
     write to the returned tensor. It is made outside inference mode, so a
     constant first made by a serving call can still be saved for the
     backward of a training step."""
-    with torch.inference_mode(False):
-        return torch.as_tensor(build(*args), dtype=dtype, device=device)
+    return hold(_constant(build, args, dtype, device))
+
+
+device_constant.cache_clear = _constant.cache_clear
 
 
 def resolve_device(device=None) -> torch.device:
